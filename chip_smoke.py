@@ -1,0 +1,666 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port once on one NVIDIA card and check it.
+
+Run from the repository root with no arguments (``--seed`` picks the data):
+
+    python3 chip_smoke.py
+
+Phases, each raising on failure (the script then exits non-zero and prints
+no result line):
+
+1. build the CUDA kernels from ``spacedrive_tpu_torch/csrc/`` with nvcc;
+2. hold every kernel against its plain PyTorch version on the card, exactly
+   (the outputs are integers and bits), at the main path's shapes (cas
+   messages, a full batch of chunk ids, every Gear plane tier the tree
+   fills), and BLAKE3 digests against the pure-Python oracle;
+3. time each kernel and its plain version with CUDA events at the main
+   path's shapes, beside the least time the card could take, and count the
+   SASS instructions per block of the BLAKE3 chunk kernel (cuobjdump);
+4. the main path: write a seeded tree of 16,384 files shaped like BASELINE
+   config 2 (mixed media), boot ``Node`` on the card with chunk manifests on,
+   ``create_location`` → ``scan_location`` → ``wait_idle``, check cas_ids and
+   a sample of manifests against the oracles, and show through the launch
+   counters that the scan went through every kernel and never through a
+   plain version; then scan the tree again under torch.profiler for the
+   device's busy share;
+5. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import random
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "chip_smoke"
+
+#: HBM rate of the H100 SXM (NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+#: u32 operations per BLAKE3 compression (ops/roofline.py's model: 7 rounds
+#: x 8 G x 14 + 8 feed-forward xors, ~800 per 64-byte block)
+OPS_PER_COMPRESSION = 800
+#: u32 operations per Gear position as the function needs them, the
+#: recurrence h = (h << 1) + GEAR[b] run by segments: shift, add, table
+#: lookup, mask test, length test (the kernel's 32-term windowed sum spends
+#: ~67; that is its own cost, not the function's)
+OPS_PER_GEAR_POSITION = 5
+#: BLAKE3 rotates per compression (7 rounds x 8 G x 4), used to find how many
+#: compressions the compiler put in one pass of the chunk loop
+ROTATES_PER_COMPRESSION = 224
+
+EDGE_LENGTHS = (0, 1, 63, 64, 65, 1023, 1024, 1025, 2048, 2049, 57352, 102408)
+
+#: BASELINE config 2 (mixed media) has 100,000 files; the smoke test cuts
+#: the count to stay well inside its time limit, keeping the size mix
+N_SMALL, N_MEDIUM, N_LARGE, N_EMPTY, N_COPIES, N_DIRS = 4096, 11264, 1024, 64, 512, 64
+EXTS = ("jpg", "png", "mp4", "mov", "mp3", "pdf", "txt", "zip", "bin", "json")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def nvidia_smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean milliseconds per call over ``reps`` back-to-back calls, between
+    two CUDA events after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(nbytes: float, ops: float, int32_ops_per_s: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / int32_ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_chunk_loop() -> dict | None:
+    """SASS instructions per 64-byte block in ``blake3_chunk_cvs``'s chunk
+    loop, read with cuobjdump from the built library: the largest backward
+    branch of the kernel bounds the loop, and its rotates (SHF + PRMT) say how
+    many compressions one pass holds. None where cuobjdump is missing or the
+    loop cannot be found."""
+    import collections
+    import re
+
+    from spacedrive_tpu_torch.ops import _kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    dump = subprocess.run([tool, "-sass", str(_kernels._target("blake3"))],
+                          capture_output=True, text=True)
+    if dump.returncode != 0:
+        return None
+    body = next((part for part in dump.stdout.split("Function : ")[1:]
+                 if "chunk_cvs_kernel" in part.splitlines()[0]), None)
+    if body is None:
+        return None
+    instrs, labels, pending = [], {}, []
+    for line in body.splitlines():
+        line = line.strip()
+        label = re.match(r"^(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        ins = re.match(r"^/\*([0-9a-f]+)\*/\s+(.*?)\s*;", line)
+        if not ins:
+            continue
+        addr = int(ins.group(1), 16)
+        labels.update((name, addr) for name in pending)
+        pending = []
+        words = [w for w in ins.group(2).split() if not w.startswith("@")]
+        # a branch names its target by label or by address, as versions differ
+        target = re.search(r"\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\s*$", ins.group(2))
+        if target and target.group(2):
+            target = int(target.group(2), 16)
+        elif target:
+            target = labels.get(target.group(1))
+        instrs.append((addr, words[0], target))
+    loops = [(t, a) for a, op, t in instrs
+             if op.startswith("BRA") and t is not None and t < a]
+    if not loops:
+        return None
+    start, end = max(loops, key=lambda span: span[1] - span[0])
+    ops = collections.Counter(op.split(".")[0] for a, op, _ in instrs
+                              if start <= a <= end and op != "NOP")
+    compressions = round((ops["SHF"] + ops["PRMT"]) / ROTATES_PER_COMPRESSION)
+    if compressions < 1:
+        return None
+    return {"per_block": sum(ops.values()) / compressions,
+            "imad_per_block": ops["IMAD"] / compressions, "compressions": compressions,
+            "by_opcode": dict(ops.most_common())}
+
+
+# --------------------------------------------------------------------------
+# phase 2: parity on the card
+# --------------------------------------------------------------------------
+
+
+def blake3_inputs(messages: list[bytes], cap: int):
+    import torch
+
+    from spacedrive_tpu_torch.ops import blake3 as b3
+
+    rows, lengths = b3.pack_rows(messages, cap)
+    return torch.from_numpy(rows).cuda(), torch.from_numpy(lengths).cuda()
+
+
+def chunk_id_messages(rng: random.Random) -> list[bytes]:
+    """A full batch of chunk-id messages as the manifest stage sends them:
+    4096 CDC chunks (mostly 2 KiB plus a geometric tail, capped at 64 KiB;
+    one in ten a short final chunk of a file), with the edge lengths pinned."""
+    lens = [2048, 2049, 4096, 65535, 65536, 1]
+    while len(lens) < 4096:
+        lens.append(rng.randint(1, 2047) if rng.random() < 0.1
+                    else min(65536, 2048 + int(rng.expovariate(1 / 6144))))
+    return [rng.randbytes(n) for n in lens]
+
+
+def check_blake3(rows, lengths, name: str) -> int:
+    """Kernel vs plain version on the card, both phases; returns the max
+    absolute difference of the u32 words (0 or raise)."""
+    import torch
+
+    from spacedrive_tpu_torch.ops import blake3 as b3
+
+    kc = b3.chunk_cvs(rows, lengths)
+    pc = b3.chunk_cvs_plain(rows, lengths)
+    km = b3.merge(kc, lengths)
+    pm = b3.merge_plain(pc, lengths)
+    torch.cuda.synchronize()
+    err = max(int((b3.u32(kc) - pc).abs().max()), int((b3.u32(km) - pm).abs().max()))
+    if err:
+        fail(f"blake3 kernels disagree with the plain version on {name} (max err {err})")
+    return err
+
+
+def parity_phase(rng: random.Random) -> dict:
+    import torch
+
+    from spacedrive_tpu_torch.objects.blake3_ref import blake3 as oracle
+    from spacedrive_tpu_torch.objects.cas import SAMPLED_MESSAGE_LEN
+    from spacedrive_tpu_torch.ops import blake3 as b3
+    from spacedrive_tpu_torch.ops import cdc
+
+    # edge geometry in the 101-chunk bucket (a non-power-of-two chunk count)
+    edge = [rng.randbytes(n) for n in EDGE_LENGTHS]
+    rows, lengths = blake3_inputs(edge + [b""] * (8 - len(edge) % 8), 101)
+    err_edge = check_blake3(rows, lengths, "edge lengths")
+    got = b3.digests_to_hex(b3.blake3_batch_rows(rows, lengths))[: len(edge)]
+    if got != [oracle(m).hex() for m in edge]:
+        fail("blake3 kernel digests differ from the Python oracle at the edge lengths")
+    log(f"parity: blake3 edge lengths {list(EDGE_LENGTHS)} match plain and oracle "
+        "exactly (tolerance 0)")
+
+    # a full device batch of sampled messages in the 64-chunk bucket
+    sampled = [rng.randbytes(SAMPLED_MESSAGE_LEN) for _ in range(1024)]
+    rows, lengths = blake3_inputs(sampled, 64)
+    err_sampled = check_blake3(rows, lengths, "1024 sampled messages")
+    got = b3.digests_to_hex(b3.blake3_batch_rows(rows, lengths))
+    for i in (0, 511, 1023):
+        if got[i] != oracle(sampled[i]).hex():
+            fail(f"blake3 digest {i} of the sampled batch differs from the oracle")
+    log("parity: blake3 on 1024 x 57,352-byte sampled messages (64-chunk bucket) "
+        "matches plain exactly (tolerance 0); 3 digests match the oracle")
+
+    # the chunk-id job: 4096 CDC chunks of mixed lengths in 64-chunk rows
+    chunks = chunk_id_messages(rng)
+    rows, lengths = blake3_inputs(chunks, 64)
+    err_ids = check_blake3(rows, lengths, "4096 chunk-id messages")
+    got = b3.digests_to_hex(b3.blake3_batch_rows(rows, lengths))
+    for i in (0, 4, 5, 6, 4095):
+        if got[i] != oracle(chunks[i]).hex():
+            fail(f"blake3 digest {i} ({len(chunks[i])} B) of the chunk-id batch differs "
+                 "from the oracle")
+    log(f"parity: blake3 on {len(chunks)} chunk-id messages of 1 B-64 KiB "
+        f"({sum(map(len, chunks)) / 1e6:.1f} MB, rows {tuple(rows.shape)}) matches plain "
+        "exactly (tolerance 0); 5 digests match the oracle")
+
+    # Gear candidate bitmaps at the main path's shapes
+    gear_err = 0
+    for tier, n_files in ((4 << 20, 2), (512 << 10, 16), (256 << 10, 32)):
+        datas = [rng.randbytes(rng.randint(tier // 2 + 1, tier)) for _ in range(n_files)]
+        plane, lens = cdc._plane(datas, torch.device("cuda"))
+        kb = cdc.gear_candidates(plane, lens, cdc.DEFAULT_PARAMS.mask)
+        pb = cdc.gear_candidates_plain(plane, lens, cdc.DEFAULT_PARAMS.mask)
+        torch.cuda.synchronize()
+        gear_err = max(gear_err, int((kb.int() - pb.int()).abs().max()))
+        if gear_err:
+            fail(f"gear_candidates disagrees with the plain version at {tuple(plane.shape)}")
+        log(f"parity: gear_candidates {tuple(plane.shape)} ({n_files} files) matches plain "
+            f"exactly (tolerance 0), "
+            f"{int(kb.sum())} candidates")
+    err_b3 = max(err_edge, err_sampled, err_ids)
+    return {"blake3_chunk_cvs": err_b3, "blake3_merge": err_b3, "gear_candidates": gear_err}
+
+
+# --------------------------------------------------------------------------
+# phase 3: times on the card
+# --------------------------------------------------------------------------
+
+
+def timing_phase(rng: random.Random, int32_ops_per_s: float) -> dict:
+    import torch
+
+    from spacedrive_tpu_torch.objects.cas import SAMPLED_MESSAGE_LEN
+    from spacedrive_tpu_torch.ops import blake3 as b3
+    from spacedrive_tpu_torch.ops import cdc
+
+    out = {}
+    jobs = (("", [rng.randbytes(SAMPLED_MESSAGE_LEN) for _ in range(1024)],
+             f"{SAMPLED_MESSAGE_LEN}-byte messages"),
+            ("@chunk-ids", chunk_id_messages(rng), "chunk-id messages of 1 B-64 KiB"))
+    for suffix, messages, what in jobs:
+        rows, lengths = blake3_inputs(messages, 64)
+        B, C = rows.shape[0], rows.shape[1] // 256
+        lens = [len(m) for m in messages]
+        n_chunks = [max(1, -(-n // 1024)) for n in lens]
+        blocks = sum(max(1, -(-min(n - c * 1024, 1024) // 64))
+                     for n, k in zip(lens, n_chunks) for c in range(k))
+        cvs = b3.chunk_cvs(rows, lengths)
+        pcvs = b3.chunk_cvs_plain(rows, lengths)
+        nbytes = blocks * 64 + B * 4 + B * C * 32
+        out["blake3_chunk_cvs" + suffix] = {
+            "ms": time_ms(lambda: b3.chunk_cvs(rows, lengths), 50),
+            "plain_ms": time_ms(lambda: b3.chunk_cvs_plain(rows, lengths), 3, warmup=1),
+            "bound": bound_ms(nbytes, blocks * OPS_PER_COMPRESSION, int32_ops_per_s),
+            "blocks": blocks, "shape": f"rows ({B}, {C}*256) u32, {what}"}
+        parents = sum(k - 1 for k in n_chunks)
+        nbytes = sum(n_chunks) * 32 + B * 4 + B * 32
+        out["blake3_merge" + suffix] = {
+            "ms": time_ms(lambda: b3.merge(cvs, lengths), 50),
+            "plain_ms": time_ms(lambda: b3.merge_plain(pcvs, lengths), 3, warmup=1),
+            "bound": bound_ms(nbytes, parents * OPS_PER_COMPRESSION, int32_ops_per_s),
+            "shape": f"cvs ({B}, {C}, 8) u32, {what}"}
+    for tier, n_files in ((4 << 20, 2), (512 << 10, 16), (256 << 10, 32)):
+        datas = [rng.randbytes(rng.randint(tier // 2 + 1, tier)) for _ in range(n_files)]
+        plane, plens = cdc._plane(datas, torch.device("cuda"))
+        mask = cdc.DEFAULT_PARAMS.mask
+        Bp, L = plane.shape
+        positions = sum(len(d) for d in datas)
+        out[f"gear_candidates@{tier >> 10}KiB"] = {
+            "ms": time_ms(lambda: cdc.gear_candidates(plane, plens, mask), 50),
+            "plain_ms": time_ms(lambda: cdc.gear_candidates_plain(plane, plens, mask), 3,
+                                warmup=1),
+            "bound": bound_ms(2 * Bp * L + Bp * 4, positions * OPS_PER_GEAR_POSITION,
+                              int32_ops_per_s),
+            "shape": f"plane ({Bp}, {L}) u8, {n_files} files"}
+    for name, t in out.items():
+        b, by = t["bound"]
+        log(f"time: {name} [{t['shape']}]: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"bound {b:.4f} ms ({by}), kernel at {100 * b / t['ms']:.1f}% of bound")
+
+    # the bound above prices ops/roofline.py's 800 operations per block; the
+    # compiler fuses some of them (three-input adds), so also price the
+    # instructions it emitted, at the same 64 per SM per clock
+    sass = sass_chunk_loop()
+    for name in ("blake3_chunk_cvs", "blake3_chunk_cvs@chunk-ids"):
+        t = out[name]
+        t["sass"] = None if sass is None else {
+            "per_block": sass["per_block"],
+            "bound_ms": t["blocks"] * sass["per_block"] / int32_ops_per_s * 1e3}
+    if sass is None:
+        log("sass: instructions per block of blake3_chunk_cvs not measured "
+            "(no cuobjdump, or its chunk loop not found)")
+    else:
+        t = out["blake3_chunk_cvs"]
+        # IMAD issues on the FMA pipe, beside the integer ALU pipe
+        alu_ms = (t["blocks"] * (sass["per_block"] - sass["imad_per_block"])
+                  / int32_ops_per_s * 1e3)
+        log(f"sass: blake3_chunk_cvs issues {sass['per_block']:.1f} instructions per 64-byte "
+            f"block ({sass['compressions']} compression(s) per pass of its chunk loop; "
+            f"{sass['by_opcode']}); at 64 per SM per clock that bounds the sampled batch at "
+            f"{t['sass']['bound_ms']:.4f} ms, kernel at "
+            f"{100 * t['sass']['bound_ms'] / t['ms']:.1f}% of it; without the "
+            f"{sass['imad_per_block']:.0f} IMADs per block {alu_ms:.4f} ms, kernel at "
+            f"{100 * alu_ms / t['ms']:.1f}%")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 4: the main path
+# --------------------------------------------------------------------------
+
+
+class RandomBytes:
+    """Seeded random bytes made in bulk on the card and consumed in order."""
+
+    def __init__(self, seed: int, block: int = 256 << 20) -> None:
+        import torch
+
+        self.gen = torch.Generator(device="cuda")
+        self.gen.manual_seed(seed)
+        self.block = block
+        self.buf = b""
+        self.pos = 0
+
+    def take(self, n: int) -> bytes:
+        import torch
+
+        if self.pos + n > len(self.buf):
+            size = max(self.block, n)
+            self.buf = self.buf[self.pos:] + torch.randint(
+                0, 256, (size,), dtype=torch.uint8, device="cuda",
+                generator=self.gen).cpu().numpy().tobytes()
+            self.pos = 0
+        out = self.buf[self.pos : self.pos + n]
+        self.pos += n
+        return out
+
+
+def write_tree(root: Path, seed: int) -> dict:
+    """The BASELINE config 2 shape at 16,384 files in 64 directories: small
+    files 1 B-100 KiB log-uniform (64 empty), medium 100 KiB+1-512 KiB fully
+    random, large 16-256 MiB sparse (only the header, the four sample regions
+    and the footer written), and 512 byte-identical copies planted among the
+    small and medium files."""
+    from spacedrive_tpu_torch.objects.cas import sample_offsets
+
+    rng = random.Random(seed)
+    sizes = [0] * N_EMPTY + [max(1, int(math.exp(rng.uniform(0, math.log(100 << 10)))))
+                             for _ in range(N_SMALL - N_EMPTY)]
+    sizes += [rng.randint((100 << 10) + 1, 512 << 10) for _ in range(N_MEDIUM)]
+    n_sm = len(sizes)
+    sizes += [rng.randint(16 << 20, 256 << 20) for _ in range(N_LARGE)]
+    picks = rng.sample(range(N_EMPTY, n_sm), 2 * N_COPIES)
+    copy_of = dict(zip(picks[N_COPIES:], picks[:N_COPIES]))  # copy -> original
+    for dst, src in copy_of.items():
+        sizes[dst] = sizes[src]
+    paths = [root / f"d{i % N_DIRS:02d}" / f"f{i:05d}.{EXTS[i % len(EXTS)]}"
+             for i in range(len(sizes))]
+    for d in range(N_DIRS):
+        (root / f"d{d:02d}").mkdir(parents=True)
+    data = RandomBytes(seed)
+    originals = set(copy_of.values())
+    content: dict[int, bytes] = {}
+    written = 0
+    for i in range(n_sm):
+        if i in copy_of:
+            continue
+        blob = data.take(sizes[i])
+        paths[i].write_bytes(blob)
+        written += len(blob)
+        if i in originals:
+            content[i] = blob
+    for dst, src in copy_of.items():
+        paths[dst].write_bytes(content[src])
+        written += sizes[dst]
+    for i in range(n_sm, len(sizes)):
+        with open(paths[i], "wb") as fh:
+            fh.truncate(sizes[i])
+            for off, ln in sample_offsets(sizes[i]):
+                fh.seek(off)
+                fh.write(data.take(ln))
+                written += ln
+    return {"paths": paths, "sizes": sizes, "copy_of": copy_of, "bytes_written": written}
+
+
+def profiled_scan(node, tree_dir: Path) -> None:
+    """Scan the tree again into a second library under torch.profiler
+    (CUDA activity only) and print the device's busy share of the scan and
+    its time by kernel. The end-to-end numbers come from the unprofiled scan
+    before it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+
+    lib = node.libraries.create("chip-smoke-profiled")
+    loc = create_location(lib, tree_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scan_location(lib, loc["id"])
+        if not node.jobs.wait_idle(900):
+            fail("profiled scan did not finish within 900 s")
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                 if e.self_device_time_total > 0}
+    busy_s = sum(device_us.values()) / 1e6
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
+    log(f"main path (profiled rescan into a second library): wall {wall_s:.2f} s, device busy "
+        f"{busy_s:.3f} s = {100 * busy_s / wall_s:.2f}% (idle {100 - 100 * busy_s / wall_s:.2f}%); "
+        "device time by activity: " + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top))
+
+
+def check_manifests(db, tree: dict, row_of, seed: int, n_files: int = 16) -> int:
+    """Hold the scan's manifests of ``n_files`` seeded files against the
+    oracles: cuts from the per-byte Gear recurrence, ids from the pure-Python
+    BLAKE3 of each chunk's bytes. Returns the number of chunks checked."""
+    from spacedrive_tpu_torch.objects.blake3_ref import blake3 as oracle
+    from spacedrive_tpu_torch.objects.manifest import MAX_PAYLOAD_BYTES
+    from spacedrive_tpu_torch.ops.cdc import CHUNK_ID_HEX, chunk_boundaries_ref, cuts_to_chunks
+
+    rng = random.Random(seed + 2)
+    chunkable = [i for i, s in enumerate(tree["sizes"]) if 0 < s <= MAX_PAYLOAD_BYTES]
+    checked = 0
+    for i in rng.sample(chunkable, n_files):
+        path = tree["paths"][i]
+        data = path.read_bytes()
+        want = [(oracle(data[off : off + ln]).hex()[:CHUNK_ID_HEX], ln)
+                for off, ln in cuts_to_chunks(chunk_boundaries_ref(data))]
+        got = [(r["chunk_hash"], r["length"]) for r in db.query(
+            "SELECT chunk_hash, length FROM chunk_manifest WHERE object_id = ? ORDER BY seq",
+            [row_of(path)["object_id"]])]
+        if got != want:
+            fail(f"manifest of {path} ({len(data)} B) differs from the oracles: "
+                 f"{len(got)} rows, oracle {len(want)} chunks")
+        checked += len(want)
+    return checked
+
+
+def main_path_phase(seed: int, card: str) -> dict:
+    import torch
+
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects.cas import (MINIMUM_FILE_SIZE, SAMPLED_MESSAGE_LEN,
+                                                  generate_cas_id)
+    from spacedrive_tpu_torch.objects.manifest import MAX_PAYLOAD_BYTES
+    from spacedrive_tpu_torch.ops import _kernels
+
+    tree_dir, data_dir = WORK / "tree", WORK / "data"
+    t0 = time.perf_counter()
+    tree = write_tree(tree_dir, seed)
+    n = len(tree["sizes"])
+    log(f"main path: wrote {n} files ({tree['bytes_written'] / 1e9:.3f} GB of content) "
+        f"in {time.perf_counter() - t0:.1f} s; reduced from BASELINE config 2's 100,000 files "
+        f"to {n} to stay inside the time limit")
+
+    os.environ["SD_CHUNK_MANIFESTS"] = "1"
+    node = Node(data_dir)
+    try:
+        lib = node.libraries.create("chip-smoke")
+        loc = create_location(lib, tree_dir)
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        scan_location(lib, loc["id"])
+        if not node.jobs.wait_idle(900):
+            fail("scan did not finish within 900 s")
+        scan_s = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        plain_on_card = dict(_kernels.PLAIN_ON_CUDA)
+        db = lib.db
+        jobs = {r["name"]: r for r in db.query("SELECT * FROM job")}
+        for name in ("indexer", "file_identifier"):
+            job = jobs.get(name)
+            if job is None or job["status"] != JobStatus.COMPLETED:
+                fail(f"{name} job ended {dict(job) if job else 'missing'}")
+        ident = jobs["file_identifier"]
+        meta = json.loads(ident["metadata"])
+        from datetime import datetime
+
+        ident_s = (datetime.fromisoformat(ident["date_completed"])
+                   - datetime.fromisoformat(ident["date_started"])).total_seconds()
+
+        rows = {(r["materialized_path"], r["name"], r["extension"]): dict(r) for r in db.query(
+            "SELECT materialized_path, name, extension, size_in_bytes, cas_id, object_id "
+            "FROM file_path WHERE is_dir = 0")}
+        if len(rows) != n:
+            fail(f"indexed {len(rows)} files, wrote {n}")
+
+        def row_of(path: Path) -> dict:
+            rel = path.relative_to(tree_dir)
+            return rows[(f"/{rel.parent}/", path.stem, path.suffix.lstrip("."))]
+
+        missing = [k for k, r in rows.items() if r["size_in_bytes"] > 0 and not r["cas_id"]]
+        if missing:
+            fail(f"{len(missing)} non-empty files have no cas_id, e.g. {missing[0]}")
+        rng = random.Random(seed + 1)
+        for i in rng.sample(range(n), 64):
+            path = tree["paths"][i]
+            want = generate_cas_id(path) if tree["sizes"][i] else None
+            if row_of(path)["cas_id"] != want:
+                fail(f"cas_id of {path} is {row_of(path)['cas_id']}, oracle says {want}")
+        for dst, src in tree["copy_of"].items():
+            a, b = row_of(tree["paths"][dst]), row_of(tree["paths"][src])
+            if a["object_id"] is None or a["object_id"] != b["object_id"]:
+                fail(f"planted copy {tree['paths'][dst]} does not share its original's object")
+        n_objects = db.query("SELECT COUNT(*) AS c FROM object")[0]["c"]
+        n_cas = db.query("SELECT COUNT(DISTINCT cas_id) AS c FROM file_path "
+                         "WHERE cas_id IS NOT NULL")[0]["c"]
+        n_empty = sum(1 for s in tree["sizes"] if s == 0)
+        if n_objects != n_cas + n_empty:
+            fail(f"{n_objects} objects != {n_cas} distinct cas_ids + {n_empty} empty files")
+        bad = db.query(
+            "SELECT fp.name, fp.size_in_bytes AS s, (SELECT SUM(cm.length) FROM chunk_manifest cm "
+            "WHERE cm.object_id = fp.object_id) AS t FROM file_path fp WHERE fp.is_dir = 0 "
+            "AND fp.size_in_bytes > 0 AND fp.size_in_bytes <= ?", [MAX_PAYLOAD_BYTES])
+        bad = [dict(r) for r in bad if r["t"] != r["s"]]
+        if bad:
+            fail(f"{len(bad)} files <= 4 MiB lack a manifest summing to their size, e.g. {bad[0]}")
+        t0 = time.perf_counter()
+        oracle_chunks = check_manifests(db, tree, row_of, seed)
+        log(f"main path: manifests of 16 seeded files ({oracle_chunks} chunks) equal the "
+            f"per-byte Gear cuts and the pure-Python BLAKE3 ids "
+            f"({time.perf_counter() - t0:.1f} s)")
+        for kernel in ("blake3_chunk_cvs", "blake3_merge", "gear_candidates"):
+            if launches.get(kernel, 0) <= 0:
+                fail(f"the scan never launched {kernel}")
+        if any(plain_on_card.values()):
+            fail(f"the scan called plain versions on the card: {plain_on_card}")
+        n_chunks = db.query("SELECT COUNT(*) AS c FROM chunk_manifest")[0]["c"]
+        profiled_scan(node, tree_dir)
+    finally:
+        node.shutdown()
+
+    hashable = [s for s in tree["sizes"] if s > 0]
+    cas_bytes = sum(SAMPLED_MESSAGE_LEN if s > MINIMUM_FILE_SIZE else s + 8 for s in hashable)
+    cdc_bytes = sum(s for s in hashable if s <= MAX_PAYLOAD_BYTES)
+    pages = -(-n // 1024)
+    log(f"main path on {card}: scan {scan_s:.2f} s; identify job {ident_s:.2f} s for "
+        f"{meta['total_orphan_paths']} "
+        f"files = {meta['total_orphan_paths'] / ident_s:.1f} files/s, cas messages "
+        f"{cas_bytes / 1e9:.3f} GB = {cas_bytes / ident_s / 1e9:.3f} GB/s, CDC payload "
+        f"{cdc_bytes / 1e9:.3f} GB = {cdc_bytes / ident_s / 1e9:.3f} GB/s; device hash+chunk "
+        f"stage {meta['hash_time']:.2f} s, gather {meta['gather_s']:.2f} s")
+    log(f"main path: {n_objects} objects, {n_cas} distinct cas_ids, {n_empty} empty files, "
+        f"{len(tree['copy_of'])} planted copies share their originals' objects, "
+        f"{meta['chunked_files']} manifests / {n_chunks} chunks; launches {launches} "
+        f"over {pages} pages; plain versions on the card: {sum(plain_on_card.values())}")
+    return {"launches": launches, "pages": pages}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0, help="seed of all generated data")
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a CUDA card")
+    if not (ROOT / "spacedrive_tpu_torch" / "csrc").is_dir():
+        fail(f"the port's package is not beside {Path(__file__).name}; run it from a checkout")
+    sys.path.insert(0, str(ROOT))
+    from spacedrive_tpu_torch.ops import _kernels
+
+    card = nvidia_smi("name,power.limit")
+    clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int32_ops_per_s = sms * 64 * clock_mhz * 1e6
+    log(f"card: {card}; {sms} SMs, max SM clock {clock_mhz:.0f} MHz, INT32 issue "
+        f"{int32_ops_per_s / 1e12:.2f}e12 ops/s; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    seconds = _kernels.build()
+    log(f"build: {json.dumps(seconds)}; {time.perf_counter() - t0:.2f} s wall (nvcc in parallel)")
+    for name, text in _kernels.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "Used" in line or "spill" in line:
+                log(f"build: {name}.cu: {line.strip()}")
+
+    rng = random.Random(args.seed)
+    shutil.rmtree(WORK, ignore_errors=True)
+    try:
+        errs = parity_phase(rng)
+        times = timing_phase(rng, int32_ops_per_s)
+        main = main_path_phase(args.seed, card)
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+
+    timed = {"blake3_chunk_cvs": "blake3_chunk_cvs", "blake3_merge": "blake3_merge",
+             "gear_candidates": "gear_candidates@256KiB"}
+    replaces = {"blake3_chunk_cvs": "spacedrive_tpu/ops/blake3_pallas.py:84",
+                "blake3_merge": "spacedrive_tpu/ops/blake3_pallas.py:84",
+                "gear_candidates": "spacedrive_tpu/ops/cdc.py:236"}
+    sources = {"blake3_chunk_cvs": "spacedrive_tpu_torch/csrc/blake3.cu",
+               "blake3_merge": "spacedrive_tpu_torch/csrc/blake3.cu",
+               "gear_candidates": "spacedrive_tpu_torch/csrc/cdc.cu"}
+    kernels = []
+    for name, key in timed.items():
+        t = times[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name],
+            "replaces": replaces[name], "launches": main["launches"].get(name, 0),
+            "launches_per_page": main["launches"].get(name, 0) / main["pages"],
+            "max_abs_err": errs[name], "parity": errs[name] == 0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": None, "shape": t["shape"]})
+        if "sass" in t:
+            sass = t["sass"] or {}
+            kernels[-1]["sass_instructions_per_block"] = sass.get("per_block")
+            kernels[-1]["sass_bound_ms"] = sass.get("bound_ms")
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,11 @@
+"""Library database: the trimmed model layer and the scan's tables."""
+
+from .base import Database, Field, Model, utc_now
+from .schema import (ALL_MODELS, ChunkManifest, FilePath, IndexerRule,
+                     IndexerRulesInLocation, JobRow, Location, Object)
+
+__all__ = [
+    "ALL_MODELS", "ChunkManifest", "Database", "Field", "FilePath",
+    "IndexerRule", "IndexerRulesInLocation", "JobRow", "Location", "Model",
+    "Object", "utc_now",
+]

@@ -1,0 +1,59 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests import torch and the port only (no jax), so they run on a
+machine with a CUDA card: ``python -m pytest tests/test_torch_on_card.py``.
+Without a card each test skips. Outputs are integers and bits, so every
+comparison is exact (tolerance zero).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spacedrive_tpu_torch.objects.blake3_ref import blake3
+from spacedrive_tpu_torch.ops import _kernels
+from spacedrive_tpu_torch.ops import blake3 as b3
+from spacedrive_tpu_torch.ops import cdc
+
+EDGE_LENGTHS = (0, 1, 63, 64, 65, 1023, 1024, 1025, 2048, 2049, 57352, 102408)
+
+
+def blob(seed: int, n: int) -> bytes:
+    return np.random.default_rng(seed).integers(0, 256, size=n, dtype=np.uint8).tobytes()
+
+
+@pytest.fixture()
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def test_blake3_kernels_match_plain_and_oracle(card):
+    msgs = [blob(i, n) for i, n in enumerate(EDGE_LENGTHS)]
+    rows, lengths = b3.pack_rows(msgs + [b""] * 4, 101)
+    r, n = torch.from_numpy(rows).to(card), torch.from_numpy(lengths).to(card)
+    before = dict(_kernels.LAUNCHES)
+    cvs = b3.chunk_cvs(r, n)
+    assert torch.equal(b3.u32(cvs), b3.chunk_cvs_plain(r, n))
+    assert torch.equal(b3.u32(b3.merge(cvs, n)), b3.merge_plain(b3.chunk_cvs_plain(r, n), n))
+    assert _kernels.LAUNCHES["blake3_chunk_cvs"] == before.get("blake3_chunk_cvs", 0) + 1
+    assert b3.blake3_batch_hex(msgs, max_chunks=101) == [blake3(m).hex() for m in msgs]
+
+
+def test_gear_kernel_matches_plain(card):
+    datas = [b"", b"a", blob(7, 255), blob(9, 4096), blob(10, 70_000), b"\x00" * 4096]
+    params = cdc.ChunkParams(64, 256, 1024)
+    plane, lengths = cdc._plane(datas, card)
+    assert torch.equal(cdc.gear_candidates(plane, lengths, params.mask),
+                       cdc.gear_candidates_plain(plane, lengths, params.mask))
+    assert cdc.chunk_batch(datas, params) == cdc.chunk_batch(datas, params, device="cpu")
+
+
+def test_kernel_wrappers_reject_bad_inputs(card):
+    rows = torch.zeros((8, 256), dtype=torch.int64, device=card)
+    with pytest.raises(TypeError):
+        b3.chunk_cvs(rows, torch.zeros(8, dtype=torch.int32, device=card))
+    plane = torch.zeros((2, 16), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        cdc.gear_candidates(plane, torch.zeros(2, dtype=torch.int32, device=card), 255)
