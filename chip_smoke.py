@@ -10,20 +10,30 @@ no result line):
 
 1. build the CUDA kernels from ``spacedrive_tpu_torch/csrc/`` with nvcc;
 2. hold every kernel against its plain PyTorch version on the card, exactly
-   (the outputs are integers and bits), at the main path's shapes (cas
+   (the outputs are integers and bits), at the main paths' shapes (cas
    messages, a full batch of chunk ids, every Gear plane tier the tree
-   fills), and BLAKE3 digests against the pure-Python oracle;
-3. time each kernel and its plain version with CUDA events at the main
-   path's shapes, beside the least time the card could take, and count the
-   SASS instructions per block of the BLAKE3 chunk kernel (cuobjdump);
-4. the main path: write a seeded tree of 16,384 files shaped like BASELINE
-   config 2 (mixed media), boot ``Node`` on the card with chunk manifests on,
-   ``create_location`` → ``scan_location`` → ``wait_idle``, check cas_ids and
-   a sample of manifests against the oracles, and show through the launch
-   counters that the scan went through every kernel and never through a
-   plain version; then scan the tree again under torch.profiler for the
-   device's busy share;
-5. print the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}`` line.
+   fills, the 1,000,000-row search index's name, path, extension and date
+   columns) and at edge cases, and BLAKE3 digests against the pure-Python
+   oracle;
+3. time each kernel and its plain version with CUDA events at those shapes,
+   beside the least time the card could take, and count the SASS
+   instructions per block of the BLAKE3 chunk kernel (cuobjdump);
+4. the scan path: write a seeded tree of 16,384 files shaped like BASELINE
+   config 2 (mixed media), boot ``Node`` on the card with chunk manifests and
+   the search engine on, ``create_location`` → ``scan_location`` →
+   ``wait_idle``, check cas_ids and a sample of manifests against the
+   oracles, and show through the launch counters that the scan went through
+   every scan kernel and never through a plain version; then scan the tree
+   again under torch.profiler for the device's busy share;
+5. the search path: serve ``search.paths`` / ``search.pathsCount`` from the
+   device index of the scanned library and of a 1,000,000-row library built
+   with the search benchmark's corpus recipe (plus 1,024 files of 2-64 GiB),
+   byte-identical to the SQL path for every query; time engine and SQLite;
+   rename and add 1,000 rows each and show the refresh patched the index
+   incrementally; show through the launch counters that the search went
+   through all three search kernels and never through a plain version;
+6. print the card, the ``{"kernels": [...]}`` line, then the
+   ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -63,6 +73,39 @@ EDGE_LENGTHS = (0, 1, 63, 64, 65, 1023, 1024, 1025, 2048, 2049, 57352, 102408)
 N_SMALL, N_MEDIUM, N_LARGE, N_EMPTY, N_COPIES, N_DIRS = 4096, 11264, 1024, 64, 512, 64
 EXTS = ("jpg", "png", "mp4", "mov", "mp3", "pdf", "txt", "zip", "bin", "json")
 
+#: the search library: the search benchmark's corpus (bench.py bench_search,
+#: BENCH_search.json corpus_rows), the size large Spacedrive libraries reach
+N_SEARCH_ROWS = 1_000_000
+#: files of 2-64 GiB (disk images, raw video) appended to it, so sizes past
+#: 2**31 are scored on the card
+N_BIG_ROWS = 1024
+SEARCH_WORDS = ["report", "photo", "invoice", "backup", "video", "track", "draft", "final",
+                "holiday", "scan", "render", "notes", "meeting", "budget", "design", "export",
+                "raw", "edit"]
+SEARCH_EXTS = ["pdf", "jpg", "png", "mov", "mp4", "txt", "doc", "zip", "flac", "dng", None]
+SEARCH_DIRS = ["/"] + [f"/{a}/{b}/" for a in SEARCH_WORDS[:8] for b in SEARCH_WORDS[8:]]
+BIG_EXTS = ["iso", "dmg", "img", "mov", "mxf", "r3d"]
+
+#: the search benchmark's ten queries (bench.py bench_search) and two past
+#: 2**31 bytes: (label, procedure, arg)
+SEARCH_MATRIX = [
+    ("substring_rare", "search.paths", {"search": "holiday-budget-00", "take": 100}),
+    ("substring_word", "search.pathsCount", {"search": "invoice"}),
+    ("substring_cold", "search.paths", {"search": "zq-never-written", "take": 100}),
+    ("prefix_dir", "search.paths",
+     {"materialized_path": SEARCH_DIRS[3], "search": "design", "take": 200}),
+    ("extension", "search.pathsCount", {"extensions": ["flac", ".DNG"]}),
+    ("filters_kind_fav", "search.pathsCount", {"kinds": [2, 3], "favorite": True}),
+    ("date_range", "search.pathsCount",
+     {"date_range": ["2026-06-01T00:00:00+00:00", "2026-06-30T23:59:59+00:00"],
+      "search": "render"}),
+    ("size_range", "search.pathsCount", {"size_range": [1 << 28, None], "search": "raw-"}),
+    ("paginate_cursor", "search.paths", {"search": "photo-track", "take": 50}),
+    ("paginate_offset", "search.paths", {"search": "meeting", "take": 50, "skip": 100}),
+    ("size_2gib", "search.paths", {"size_range": [2 ** 31, None], "take": 100}),
+    ("size_8_32gib", "search.paths", {"size_range": [2 ** 33, 2 ** 35], "take": 100}),
+]
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -101,6 +144,10 @@ def bound_ms(nbytes: float, ops: float, int32_ops_per_s: float) -> tuple[float, 
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / int32_ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def canon(value) -> str:
+    return json.dumps(value, sort_keys=True, default=str)
 
 
 def sass_chunk_loop() -> dict | None:
@@ -204,7 +251,7 @@ def check_blake3(rows, lengths, name: str) -> int:
     return err
 
 
-def parity_phase(rng: random.Random) -> dict:
+def parity_phase(rng: random.Random, cols: dict) -> dict:
     import torch
 
     from spacedrive_tpu_torch.objects.blake3_ref import blake3 as oracle
@@ -261,7 +308,209 @@ def parity_phase(rng: random.Random) -> dict:
             f"exactly (tolerance 0), "
             f"{int(kb.sum())} candidates")
     err_b3 = max(err_edge, err_sampled, err_ids)
-    return {"blake3_chunk_cvs": err_b3, "blake3_merge": err_b3, "gear_candidates": gear_err}
+    return {"blake3_chunk_cvs": err_b3, "blake3_merge": err_b3, "gear_candidates": gear_err,
+            **search_parity(cols)}
+
+
+def search_corpus() -> list[tuple]:
+    """The search benchmark's corpus recipe (bench.py bench_search:
+    random.Random(15), the same words, extensions and 81 directories, 1% of
+    rows sharing objects with kind/favorite, sizes 1 B-1 GiB, ISO dates),
+    then N_BIG_ROWS files of 2-64 GiB. A row is (pub_id, materialized_path,
+    name, extension, hidden, size, object slot or None, date_created)."""
+    rng = random.Random(15)
+    n_objects = max(1, N_SEARCH_ROWS // 100)
+    rows = []
+    for i in range(N_SEARCH_ROWS):
+        name = (f"{rng.choice(SEARCH_WORDS)}-{rng.choice(SEARCH_WORDS)}"
+                f"-{i:07d}.{rng.choice(SEARCH_EXTS[:-1])}")
+        rows.append((f"fp-{i:07d}", rng.choice(SEARCH_DIRS), name, rng.choice(SEARCH_EXTS),
+                     rng.choice((None, 0, 0, 0, 1)), rng.randrange(1, 1 << 30),
+                     i % n_objects if i % 2 else None,
+                     f"2026-{1 + i % 12:02d}-{1 + i % 28:02d}T"
+                     f"{i % 24:02d}:{i % 60:02d}:00+00:00"))
+    big = random.Random(16)
+    for i in range(N_BIG_ROWS):
+        ext = big.choice(BIG_EXTS)
+        rows.append((f"fp-big-{i:04d}", big.choice(SEARCH_DIRS),
+                     f"{big.choice(SEARCH_WORDS)}-image-{i:04d}.{ext}", ext, 0,
+                     big.randrange(2 << 30, (64 << 30) + 1), None,
+                     f"2026-{1 + i % 12:02d}-{1 + i % 28:02d}T12:00:00+00:00"))
+    return rows
+
+
+def corpus_columns(corpus: list[tuple]) -> dict:
+    """The index's byte columns of the corpus as the device mirror holds
+    them: row-major (CAP, W) u8 on the card, zero-padded, names folded."""
+    import numpy as np
+    import torch
+
+    from spacedrive_tpu_torch.search.kernels import fold, pad_cap
+
+    cap = pad_cap(len(corpus))
+
+    def rows(values: list[bytes], width: int):
+        out = np.zeros((cap, width), dtype=np.uint8)
+        out[: len(values)] = np.array(values, dtype=f"S{width}").view(np.uint8).reshape(
+            len(values), width)
+        return torch.from_numpy(out).cuda()
+
+    return {"name": rows([fold(r[2].encode()) for r in corpus], 64),
+            "path": rows([r[1].encode() for r in corpus], 96),
+            "ext": rows([(r[3] or "").encode() for r in corpus], 12),
+            "date": rows([r[7].encode() for r in corpus], 40)}
+
+
+def edge_rows(seed: int, width: int, n: int = 4096 + 77):
+    """Rows over a small alphabet (many partial matches), empty rows, and
+    every seventh row exactly W bytes long, on the card."""
+    import numpy as np
+    import torch
+
+    g = np.random.default_rng(seed)
+    rows = g.choice(np.frombuffer(b"abc.-\xc3", dtype=np.uint8), size=(n, width))
+    lens = g.integers(0, width + 1, size=n)
+    lens[::7] = width
+    rows[np.arange(width)[None, :] >= lens[:, None]] = 0
+    return torch.from_numpy(rows).cuda()
+
+
+def search_parity(cols: dict) -> dict:
+    """Each search kernel against its plain version on the card, exactly, at
+    the 1,000,000-row index's shapes and at edge cases. Returns the max
+    absolute difference per kernel (0 or raise)."""
+    import torch
+
+    from spacedrive_tpu_torch.search import kernels as K
+
+    pairs = {"search_substring": (K.substring, K.substring_plain),
+             "search_exact": (K.exact, K.exact_plain),
+             "search_lex": (K.lex_cmp, K.lex_cmp_plain)}
+    cases = [("search_substring", cols["name"], nd)
+             for nd in (b"e", b"inv", b"holiday-budget-00", b"zq-never-written", b"holiday-" * 6)]
+    cases += [("search_exact", cols["path"], nd) for nd in (SEARCH_DIRS[3].encode(), b"/", b"")]
+    cases += [("search_exact", cols["ext"], nd) for nd in (b"flac", b"dng", b"")]
+    cases += [("search_lex", cols["date"], nd)
+              for nd in (b"2026-06-01T00:00:00+00:00", b"2026-06-30T23:59:59+00:00", b"",
+                         b"2026-06", b"2026-12-28T23:59:00+00:00" + b"Z" * 20)]
+    # edge cases: L = 1, 17, 48 with the needle planted at the last offset
+    # of a W-length row; W-length rows against W-length, empty, short and
+    # longer-than-W needles and bounds
+    names = edge_rows(1, 64)
+    for length in (1, 17, 48):
+        needle = bytes(names[3, 64 - length:].tolist()) if length > 1 else b"a"
+        names[5, 64 - length:] = torch.tensor(list(needle), dtype=torch.uint8)
+        cases.append(("search_substring", names.clone(), needle))
+    for width in (96, 12):
+        rows = edge_rows(width, width)
+        cases += [("search_exact", rows, nd)
+                  for nd in (bytes(rows[7].tolist()), b"", b"a", b"x" * (width + 1))]
+    dates = edge_rows(40, 40)
+    cases += [("search_lex", dates, nd)
+              for nd in (b"", b"b", b"abc", bytes(dates[7].tolist()), b"c" * 41)]
+    errs = {name: 0 for name in pairs}
+    for name, rows, needle in cases:
+        kernel, plain = pairs[name]
+        got, want = kernel(rows, needle), plain(rows, needle)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+        if err:
+            fail(f"{name} disagrees with its plain version on rows {tuple(rows.shape)}, "
+                 f"needle {needle!r} (max err {err})")
+        errs[name] = max(errs[name], err)
+    log(f"parity: search kernels on {len(cases)} cases (the 1,000,000-row index's name "
+        f"{tuple(cols['name'].shape)}, path, extension and date columns; L = 1, 17, 48 at the "
+        "last offset; W-length rows; empty, short and over-long needles and bounds) match "
+        "plain exactly (tolerance 0)")
+    return errs
+
+
+def search_work(rows, needle: bytes, substring: bool) -> tuple[int, int]:
+    """(bytes read, byte compares) the function needs on these rows, its
+    flag per row written included in the bytes. Substring compares, at each
+    offset j <= W-L, until the first mismatch, so it reads positions 0..W-L
+    and the ones a partial match reaches; exact and lex read each row up to
+    its first byte that differs from the needle."""
+    import torch
+
+    cap, width = rows.shape
+    if substring:
+        offsets = width - len(needle) + 1
+        touched = torch.zeros_like(rows, dtype=torch.bool)
+        touched[:, :offsets] = True
+        compares = cap * offsets
+        live = rows[:, :offsets] == needle[0]
+        for k in range(1, len(needle)):
+            compares += int(live.sum())
+            touched[:, k : k + offsets] |= live
+            live &= rows[:, k : k + offsets] == needle[k]
+        return int(touched.sum()) + cap, compares
+    padded = torch.zeros(width, dtype=torch.uint8, device=rows.device)
+    clipped = needle[:width]
+    padded[: len(clipped)] = torch.tensor(list(clipped), dtype=torch.uint8)
+    differs = rows != padded
+    first = torch.where(differs.any(1), differs.to(torch.uint8).argmax(1) + 1,
+                        torch.full((cap,), width, device=rows.device))
+    compares = int(first.sum())
+    return compares + cap, compares
+
+
+#: the CUDA function of each search kernel, as the profiler names it
+SEARCH_SYMBOLS = {"search_substring": "::substring_kernel<", "search_exact": "::exact_kernel<",
+                  "search_lex": "::lex_kernel<"}
+
+
+def device_ms(fn, kernel: str, reps: int = 50) -> float:
+    """Mean device time per launch of the CUDA kernel whose name contains
+    ``kernel`` over ``reps`` calls of ``fn``, from torch.profiler: the
+    kernel alone, without the host's time to issue the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    if not events or sum(e.count for e in events) != reps:
+        fail(f"the profiler saw {sum(e.count for e in events)} launches of {kernel}, not {reps}")
+    return sum(e.self_device_time_total for e in events) / reps / 1e3
+
+
+def search_timing(cols: dict, int32_ops_per_s: float) -> dict:
+    """Each search kernel on the 1,000,000-row index's columns: its device
+    time per launch (profiler), the time of a call of its wrapper and of its
+    plain version (CUDA events over back-to-back calls; a call costs the
+    host ~15 us to issue, more than some of these kernels take, and the
+    lex wrapper maps the codes to int8 in five more launches). The bound counts the bytes this data
+    needs read (see search_work) and each flag written once, and each byte
+    compare it needs as one INT32 operation; ``full_row_bound_ms`` reads
+    every row's W bytes."""
+    from spacedrive_tpu_torch.search import kernels as K
+
+    jobs = (("search_substring@L3", K.substring, K.substring_plain, cols["name"], b"inv"),
+            ("search_substring@L17", K.substring, K.substring_plain, cols["name"],
+             b"holiday-budget-00"),
+            ("search_exact@path", K.exact, K.exact_plain, cols["path"],
+             SEARCH_DIRS[3].encode()),
+            ("search_exact@ext", K.exact, K.exact_plain, cols["ext"], b"flac"),
+            ("search_lex@date", K.lex_cmp, K.lex_cmp_plain, cols["date"],
+             b"2026-06-01T00:00:00+00:00"))
+    out = {}
+    for name, kernel, plain, rows, needle in jobs:
+        cap, width = rows.shape
+        nbytes, ops = search_work(rows, needle, kernel is K.substring)
+        out[name] = {
+            "ms": device_ms(lambda: kernel(rows, needle), SEARCH_SYMBOLS[name.split("@")[0]]),
+            "call_ms": time_ms(lambda: kernel(rows, needle), 50),
+            "plain_ms": time_ms(lambda: plain(rows, needle), 3, warmup=1),
+            "bound": bound_ms(nbytes, ops, int32_ops_per_s),
+            "full_row_bound_ms": cap * (width + 1) / HBM_BYTES_PER_S * 1e3,
+            "shape": f"rows ({cap}, {width}) u8, needle {len(needle)} B, "
+                     f"{nbytes / cap:.1f} B and {ops / cap:.1f} compares per row needed"}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -269,7 +518,7 @@ def parity_phase(rng: random.Random) -> dict:
 # --------------------------------------------------------------------------
 
 
-def timing_phase(rng: random.Random, int32_ops_per_s: float) -> dict:
+def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict:
     import torch
 
     from spacedrive_tpu_torch.objects.cas import SAMPLED_MESSAGE_LEN
@@ -315,10 +564,15 @@ def timing_phase(rng: random.Random, int32_ops_per_s: float) -> dict:
             "bound": bound_ms(2 * Bp * L + Bp * 4, positions * OPS_PER_GEAR_POSITION,
                               int32_ops_per_s),
             "shape": f"plane ({Bp}, {L}) u8, {n_files} files"}
+    out.update(search_timing(cols, int32_ops_per_s))
     for name, t in out.items():
         b, by = t["bound"]
-        log(f"time: {name} [{t['shape']}]: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-            f"bound {b:.4f} ms ({by}), kernel at {100 * b / t['ms']:.1f}% of bound")
+        full = t.get("full_row_bound_ms")
+        call = "" if "call_ms" not in t else f" (device time; a wrapper call {t['call_ms']:.4f} ms)"
+        log(f"time: {name} [{t['shape']}]: kernel {t['ms']:.4f} ms{call}, plain {t['plain_ms']:.4f} ms, "
+            f"bound {b:.4f} ms ({by}), kernel at {100 * b / t['ms']:.1f}% of bound"
+            + ("" if full is None else f"; reading every row whole {full:.4f} ms, kernel at "
+               f"{100 * full / t['ms']:.1f}% of that"))
 
     # the bound above prices ops/roofline.py's 800 operations per block; the
     # compiler fuses some of them (three-input adds), so also price the
@@ -480,7 +734,7 @@ def check_manifests(db, tree: dict, row_of, seed: int, n_files: int = 16) -> int
     return checked
 
 
-def main_path_phase(seed: int, card: str) -> dict:
+def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
     import torch
 
     from spacedrive_tpu_torch.jobs import JobStatus
@@ -500,10 +754,15 @@ def main_path_phase(seed: int, card: str) -> dict:
         f"to {n} to stay inside the time limit")
 
     os.environ["SD_CHUNK_MANIFESTS"] = "1"
+    os.environ["SD_SEARCH_ENGINE"] = "device"
     node = Node(data_dir)
     try:
         lib = node.libraries.create("chip-smoke")
         loc = create_location(lib, tree_dir)
+        # the search index of this library exists before the scan, so the
+        # commits of the scan's job steps and exits must move its watermark
+        node.search_engine.refresh_now(lib)
+        pending0 = node.search_engine.status()["libraries"][lib.id]["pending"]
         torch.cuda.synchronize()
         _kernels.reset_counts()
         t0 = time.perf_counter()
@@ -573,7 +832,12 @@ def main_path_phase(seed: int, card: str) -> dict:
         if any(plain_on_card.values()):
             fail(f"the scan called plain versions on the card: {plain_on_card}")
         n_chunks = db.query("SELECT COUNT(*) AS c FROM chunk_manifest")[0]["c"]
+        pending = node.search_engine.status()["libraries"][lib.id]["pending"]
+        if pending < pending0 + 2:
+            fail(f"the scan's job commits did not move the search watermark "
+                 f"({pending0} -> {pending})")
         profiled_scan(node, tree_dir)
+        search = search_phase(node, lib, corpus, card)
     finally:
         node.shutdown()
 
@@ -591,7 +855,227 @@ def main_path_phase(seed: int, card: str) -> dict:
         f"{len(tree['copy_of'])} planted copies share their originals' objects, "
         f"{meta['chunked_files']} manifests / {n_chunks} chunks; launches {launches} "
         f"over {pages} pages; plain versions on the card: {sum(plain_on_card.values())}")
-    return {"launches": launches, "pages": pages}
+    return {"launches": launches, "pages": pages, "search": search}
+
+
+# --------------------------------------------------------------------------
+# phase 5: the search path
+# --------------------------------------------------------------------------
+
+
+def serve_queries(node, lib, matrix: list, repeats: int = 0) -> dict:
+    """Serve every (label, procedure, arg) through both search procedures
+    with the engine on and off, and fail unless the JSON is byte-identical
+    (for a paths answer with a cursor, the next page too), or unless the
+    engine served every engine-on call whose filters it can answer (a stale
+    index would hand them all to SQL and the comparison would test nothing).
+    With ``repeats``, time the named procedure that many times on each side;
+    returns label -> p50 ms of the engine and of SQLite, and the count."""
+    import statistics
+
+    from spacedrive_tpu_torch.api.routers.search import paths, paths_count
+    from spacedrive_tpu_torch.search.columnar import parse_predicate
+
+    engine = node.search_engine
+    procs = {"search.paths": paths, "search.pathsCount": paths_count}
+    out = {}
+    served0, eligible = engine.status()["served"], 0
+    for label, proc, arg in matrix:
+        args = [arg]
+        for page in range(2):
+            got = {}
+            for enabled in (True, False):
+                engine.set_enabled(enabled)
+                got[enabled] = [canon(fn(node, lib, args[page])) for fn in procs.values()]
+            if parse_predicate(args[page])[0] is not None:
+                eligible += len(procs)
+            if got[True] != got[False]:
+                fail(f"search {label} (page {page + 1}): engine and SQL answers differ for "
+                     f"{args[page]}")
+            cursor = json.loads(got[False][0])["cursor"]
+            if cursor is None or arg.get("dirs_first"):
+                break  # dirs_first pages by offset only
+            args.append({**{k: v for k, v in arg.items() if k != "skip"}, "cursor": cursor})
+        row = {"count": json.loads(got[False][1])}
+        for enabled in (True, False) if repeats else ():
+            engine.set_enabled(enabled)
+            lat = []
+            for _ in range(repeats):
+                t0 = time.perf_counter()
+                procs[proc](node, lib, arg)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            row["engine_ms" if enabled else "sqlite_ms"] = statistics.median(lat)
+            if enabled and parse_predicate(arg)[0] is not None:
+                eligible += repeats
+        out[label] = row
+    engine.set_enabled(True)
+    served = engine.status()["served"] - served0
+    if served < eligible:
+        fail(f"the engine served {served} of {eligible} engine-on calls it can answer")
+    return out
+
+
+def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
+    """The search path on the scanned library and on the 1,000,000-row
+    library, with the launch counters zeroed before it and read after."""
+    import torch
+
+    from spacedrive_tpu_torch.models import FilePath, Location
+    from spacedrive_tpu_torch.ops import _kernels
+
+    engine = node.search_engine
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    t_phase = time.perf_counter()
+
+    # the scanned library: stale after the scan, fresh after refresh_now
+    engine.refresh_now(scan_lib)
+    state = engine.status()["libraries"][scan_lib.id]
+    n_fp = scan_lib.db.query("SELECT COUNT(*) AS c FROM file_path")[0]["c"]
+    if not state["fresh"] or state["rows"] != n_fp:
+        fail(f"the scanned library's index is not fresh after refresh_now: {state}, "
+             f"{n_fp} file_path rows")
+    dates = [r["d"] for r in scan_lib.db.query(
+        "SELECT date_created AS d FROM file_path WHERE is_dir = 0 ORDER BY d")]
+    scan_matrix = [
+        ("scan_name", "search.paths", {"search": "f0012", "take": 50}),
+        ("scan_name_by_size", "search.paths",
+         {"search": "F00", "take": 20, "order_by": "size_in_bytes", "order_desc": True}),
+        ("scan_extension", "search.pathsCount", {"extensions": ["MP4", ".json"]}),
+        ("scan_dir", "search.paths", {"materialized_path": "/d07/", "dirs_first": True}),
+        ("scan_large", "search.paths", {"size_range": [16 << 20, None], "take": 100}),
+        ("scan_dates", "search.pathsCount",
+         {"date_range": [dates[len(dates) // 8], dates[len(dates) // 2]], "search": "f0"}),
+        ("scan_offset", "search.paths", {"search": "f01", "skip": 10, "take": 5}),
+    ] + SEARCH_MATRIX
+    served0 = engine.status()["served"]
+    scan_counts = serve_queries(node, scan_lib, scan_matrix)
+    served_scan = engine.status()["served"] - served0
+    log(f"search (scanned library, {n_fp} rows): {len(scan_matrix)} queries x 2 procedures "
+        f"byte-identical to SQL, {served_scan} served by the engine; counts "
+        + ", ".join(f"{k} {v['count']}" for k, v in scan_counts.items()))
+
+    # the realistic library
+    lib = node.libraries.create("chip-smoke-search")
+    db = lib.db
+    loc_id = db.insert(Location, {"pub_id": "loc-search", "name": "search", "path": "/search"})
+    t0 = time.perf_counter()
+    n_objects = max(1, N_SEARCH_ROWS // 100)
+    db.executemany("INSERT INTO object (pub_id, kind, favorite) VALUES (?, ?, ?)",
+                   [(f"ob-{i}", i % 8, int(i % 5 == 0)) for i in range(n_objects)])
+    first_obj = db.query("SELECT MIN(id) m FROM object")[0]["m"]
+    db.executemany(
+        "INSERT INTO file_path (pub_id, location_id, materialized_path, name, extension, "
+        "is_dir, hidden, size_in_bytes, object_id, date_created) VALUES (?,?,?,?,?,?,?,?,?,?)",
+        [(r[0], loc_id, r[1], r[2], r[3], 0, r[4], r[5],
+          None if r[6] is None else first_obj + r[6], r[7]) for r in corpus])
+    corpus_s = time.perf_counter() - t0
+    node.emit("db.commit", None, lib.id)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.refresh_now(lib)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    state = engine.status()["libraries"][lib.id]
+    if not state["fresh"] or state["rows"] != len(corpus) or state["mirror_uploads"] != 1:
+        fail(f"the 1,000,000-row index is not built: {state}")
+    mirror_bytes, cap = state["mirror_bytes"], state["mirror_cap"]
+    log(f"search: library of {len(corpus)} rows ({N_SEARCH_ROWS} corpus + {N_BIG_ROWS} of "
+        f"2-64 GiB) inserted in {corpus_s:.1f} s, index built and mirrored in {build_s:.2f} s; "
+        f"device mirror {mirror_bytes / 1e6:.1f} MB at CAP {cap} "
+        f"({mirror_bytes / cap:.0f} B/row); torch.cuda.memory_allocated "
+        f"{torch.cuda.memory_allocated() / 1e6:.1f} MB; "
+        f"{state['overflow_rows']} overflow rows")
+    served0 = engine.status()["served"]
+    times = serve_queries(node, lib, SEARCH_MATRIX, repeats=5)
+    # one more engine pass of the matrix under torch.profiler: its launches
+    # and the device's busy share of its wall time
+    from torch.profiler import ProfilerActivity, profile
+
+    from spacedrive_tpu_torch.api.routers.search import paths, paths_count
+
+    before = dict(_kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _label, proc, arg in SEARCH_MATRIX:
+            (paths if proc == "search.paths" else paths_count)(node, lib, arg)
+        torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    per_pass = {k: v - before.get(k, 0) for k, v in _kernels.LAUNCHES.items()
+                if k.startswith("search_")}
+    device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                 if e.self_device_time_total > 0}
+    busy_s = sum(device_us.values()) / 1e6
+    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+    served = engine.status()["served"] - served0
+    for label, t in times.items():
+        log(f"search: {label}: count {t['count']}, p50 engine {t['engine_ms']:.3f} ms, "
+            f"p50 SQLite {t['sqlite_ms']:.3f} ms (5 repeats each) on {card}")
+    if times["size_2gib"]["count"] != N_BIG_ROWS or times["size_8_32gib"]["count"] <= 0:
+        fail(f"size queries past 2**31 counted {times['size_2gib']['count']} and "
+             f"{times['size_8_32gib']['count']} rows")
+    p50 = {side: sorted(t[side] for t in times.values())[len(times) // 2]
+           for side in ("engine_ms", "sqlite_ms")}
+    log(f"search: matrix of {len(SEARCH_MATRIX)} queries byte-identical to SQL (both procedures, "
+        f"next pages too), {served} engine serves; p50 over the matrix's p50s: engine "
+        f"{p50['engine_ms']:.3f} ms, SQLite {p50['sqlite_ms']:.3f} ms; launches per matrix "
+        f"pass {per_pass}")
+    log(f"search: one engine pass of the matrix (profiled): wall {pass_s * 1e3:.1f} ms, device "
+        f"busy {busy_s * 1e3:.3f} ms = {100 * busy_s / pass_s:.2f}% (idle "
+        f"{100 - 100 * busy_s / pass_s:.2f}%); device time by activity: "
+        + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+
+    # the incremental path: 1,000 renames through db.update (noted in the
+    # row journal) and 1,000 inserts through insert_many (the append scan)
+    rng = random.Random(17)
+    renamed = sorted(rng.sample(range(1, N_SEARCH_ROWS + 1), 1000))
+    before = engine.status()  # the refresher may catch up before refresh_now
+    t0 = time.perf_counter()
+    for k, row_id in enumerate(renamed):
+        db.update(FilePath, {"id": row_id}, {"name": f"renamed-{k:04d}.txt"})
+    db.insert_many(FilePath, [{
+        "pub_id": f"fp-new-{k:04d}", "location_id": loc_id, "materialized_path": "/new/",
+        "name": f"added-{k:04d}.txt", "extension": "txt", "is_dir": 0, "hidden": 0,
+        "size_in_bytes": (3 << 30) + k, "date_created": "2026-07-01T00:00:00+00:00"}
+        for k in range(1000)])
+    write_s = time.perf_counter() - t0
+    node.emit("db.commit", None, lib.id)
+    t0 = time.perf_counter()
+    engine.refresh_now(lib)
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t0
+    after = engine.status()
+    st0, st1 = before["libraries"][lib.id], after["libraries"][lib.id]
+    if (after["refreshes"]["full"] != before["refreshes"]["full"]
+            or after["refreshes"]["incremental"] <= before["refreshes"]["incremental"]
+            or st1["mirror_uploads"] != st0["mirror_uploads"]
+            or st1["mirror_patches"] <= st0["mirror_patches"]
+            or st1["rows"] != len(corpus) + 1000 or not st1["fresh"]):
+        fail(f"the refresh after 1,000 renames and 1,000 inserts was not incremental: "
+             f"{before} -> {after}")
+    inc = serve_queries(node, lib, [
+        ("renamed", "search.paths", {"search": "renamed-0", "take": 200, "include_hidden": True}),
+        ("added", "search.pathsCount", {"search": "added-", "include_hidden": True}),
+        ("size_2gib_after", "search.paths", {"size_range": [2 ** 31, None], "take": 100})])
+    if (inc["renamed"]["count"] != 1000 or inc["added"]["count"] != 1000
+            or inc["size_2gib_after"]["count"] != N_BIG_ROWS + 1000):
+        fail(f"after the incremental refresh: {inc}")
+    log(f"search: 1,000 renames + 1,000 inserts written in {write_s:.2f} s, incremental refresh "
+        f"{refresh_s * 1e3:.1f} ms (mirror patched in place: uploads {st1['mirror_uploads']}, "
+        f"patches {st0['mirror_patches']} -> {st1['mirror_patches']}); 3 queries "
+        "byte-identical to SQL after it")
+
+    launches = {k: v for k, v in _kernels.LAUNCHES.items() if k.startswith("search_")}
+    plain_on_card = {k: v for k, v in _kernels.PLAIN_ON_CUDA.items() if v}
+    for kernel in ("search_substring", "search_exact", "search_lex"):
+        if launches.get(kernel, 0) <= 0:
+            fail(f"the search path never launched {kernel}")
+    if plain_on_card:
+        fail(f"the search path called plain versions on the card: {plain_on_card}")
+    log(f"search path: {time.perf_counter() - t_phase:.1f} s; launches {launches}; plain "
+        f"versions on the card: 0")
+    return {"launches": launches, "per_pass": per_pass}
 
 
 def main() -> int:
@@ -626,30 +1110,57 @@ def main() -> int:
     rng = random.Random(args.seed)
     shutil.rmtree(WORK, ignore_errors=True)
     try:
-        errs = parity_phase(rng)
-        times = timing_phase(rng, int32_ops_per_s)
-        main = main_path_phase(args.seed, card)
+        t0 = time.perf_counter()
+        corpus = search_corpus()
+        cols = corpus_columns(corpus)
+        log(f"search corpus: {len(corpus)} rows made in {time.perf_counter() - t0:.1f} s")
+        errs = parity_phase(rng, cols)
+        times = timing_phase(rng, int32_ops_per_s, cols)
+        del cols
+        torch.cuda.empty_cache()
+        main = main_path_phase(args.seed, card, corpus)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
     timed = {"blake3_chunk_cvs": "blake3_chunk_cvs", "blake3_merge": "blake3_merge",
-             "gear_candidates": "gear_candidates@256KiB"}
+             "gear_candidates": "gear_candidates@256KiB",
+             "search_substring": "search_substring@L17", "search_exact": "search_exact@path",
+             "search_lex": "search_lex@date"}
     replaces = {"blake3_chunk_cvs": "spacedrive_tpu/ops/blake3_pallas.py:84",
                 "blake3_merge": "spacedrive_tpu/ops/blake3_pallas.py:84",
-                "gear_candidates": "spacedrive_tpu/ops/cdc.py:236"}
+                "gear_candidates": "spacedrive_tpu/ops/cdc.py:236",
+                "search_substring": "spacedrive_tpu/search/kernels.py:233",
+                "search_exact": "spacedrive_tpu/search/kernels.py:274",
+                "search_lex": "spacedrive_tpu/search/kernels.py:308"}
     sources = {"blake3_chunk_cvs": "spacedrive_tpu_torch/csrc/blake3.cu",
                "blake3_merge": "spacedrive_tpu_torch/csrc/blake3.cu",
-               "gear_candidates": "spacedrive_tpu_torch/csrc/cdc.cu"}
+               "gear_candidates": "spacedrive_tpu_torch/csrc/cdc.cu",
+               "search_substring": "spacedrive_tpu_torch/csrc/search.cu",
+               "search_exact": "spacedrive_tpu_torch/csrc/search.cu",
+               "search_lex": "spacedrive_tpu_torch/csrc/search.cu"}
     kernels = []
     for name, key in timed.items():
         t = times[key]
+        search = name.startswith("search_")
+        launches = (main["search"]["launches"] if search else main["launches"]).get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": main["launches"].get(name, 0),
-            "launches_per_page": main["launches"].get(name, 0) / main["pages"],
+            "replaces": replaces[name], "launches": launches,
             "max_abs_err": errs[name], "parity": errs[name] == 0,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": None, "shape": t["shape"]})
+        if search:
+            kernels[-1]["full_row_bound_ms"] = t["full_row_bound_ms"]
+            kernels[-1]["call_ms"] = t["call_ms"]
+            kernels[-1]["launches_per_matrix_pass"] = main["search"]["per_pass"].get(name, 0)
+            kernels[-1]["other_shapes"] = {
+                k: {"ms": v["ms"], "call_ms": v["call_ms"], "plain_ms": v["plain_ms"],
+                    "bound_ms": v["bound"][0],
+                    "bound_by": v["bound"][1], "full_row_bound_ms": v["full_row_bound_ms"],
+                    "shape": v["shape"]}
+                for k, v in times.items() if k.startswith(name + "@") and k != key}
+        else:
+            kernels[-1]["launches_per_page"] = launches / main["pages"]
         if "sass" in t:
             sass = t["sass"] or {}
             kernels[-1]["sass_instructions_per_block"] = sass.get("per_block")

@@ -6,7 +6,9 @@ manager.py spawn :67 / wait_idle :213, report.py, error.py): a job is
 → ``finalize()``; steps may append steps; per-step soft errors accumulate
 into CompletedWithErrors; :class:`EarlyFinish` is a clean skip; an exception
 fails the job and cancels the rest of its chain. Every job keeps a report row
-in the library's ``job`` table.
+in the library's ``job`` table. Every committed step and every job exit
+emits a post-commit ``db.commit`` on the node's bus, which moves the search
+index's watermark.
 
 One worker thread per node runs the spawned chains one at a time (the
 library database has one writer). Pause/resume, cold resume and
@@ -152,6 +154,7 @@ def _run(job: StatefulJob, ctx: JobContext) -> tuple[dict[str, Any] | None, list
     except EarlyFinish as e:
         logger.info("job %s early finish: %s", job.NAME, e)
         return job.finalize(ctx, {}, {}), []
+    _emit_commit(ctx.library, "job.init", job.NAME)
     steps = list(steps)
     meta = dict(meta)
     errors: list[str] = []
@@ -162,6 +165,7 @@ def _run(job: StatefulJob, ctx: JobContext) -> tuple[dict[str, Any] | None, list
             result = job.execute_step(ctx, data, steps[n], n)
         except EarlyFinish:
             break
+        _emit_commit(ctx.library, "job.step", job.NAME)
         if result.more_steps:
             steps.extend(result.more_steps)
             ctx.progress(task_count=len(steps))
@@ -170,6 +174,16 @@ def _run(job: StatefulJob, ctx: JobContext) -> tuple[dict[str, Any] | None, list
         n += 1
         ctx.progress(completed_task_count=n)
     return job.finalize(ctx, data, meta), errors
+
+
+def _emit_commit(library: "Library", source: str, job_name: str) -> None:
+    """A post-commit ``db.commit`` after a job's init, after each of its
+    steps and at its exit (the JAX worker's ``job_progress`` and job-exit
+    ``db.commit``, jobs/worker.py:145-150, :225). The database runs in
+    autocommit mode with explicit transactions, so the writes are committed
+    by now: the search index's watermark moves past them and a query falls
+    back to SQL until the index has refreshed."""
+    library.emit("db.commit", {"source": source, "job": job_name})
 
 
 class Jobs:
@@ -238,6 +252,7 @@ class Jobs:
                 for _job, child in chain[i + 1:]:
                     child.status = JobStatus.CANCELED
                     child.upsert(library.db)
+                _emit_commit(library, "job.exit", report.name)
                 return
             report.metadata = metadata
             report.status = (JobStatus.COMPLETED_WITH_ERRORS if errors
@@ -246,6 +261,7 @@ class Jobs:
             report.date_completed = utc_now()
             report.upsert(library.db)
             logger.info("job %s -> %s", report.name, JobStatus.NAMES[report.status])
+            _emit_commit(library, "job.exit", report.name)
 
     def wait_idle(self, timeout: float | None = None) -> bool:
         """Block until every spawned chain has finished; False on timeout."""

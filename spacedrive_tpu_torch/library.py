@@ -1,10 +1,10 @@
 """Libraries: one SQLite database per library under ``<data_dir>/libraries/``.
 
 Counterpart of ``spacedrive_tpu/library.py`` (``Libraries.create`` :288),
-trimmed to what a scan needs: the ``<uuid>.sdlibrary`` JSON sidecar with the
-name, and the ``<uuid>.db`` database with the port's tables. Sync, instance
-identities, event subscribers and the boot-time repair ladder are not
-ported.
+trimmed to what a scan and a search need: the ``<uuid>.sdlibrary`` JSON
+sidecar with the name, the ``<uuid>.db`` database with the port's tables, and
+``Library.emit`` onto the node's event bus. Sync, instance identities and the
+boot-time repair ladder are not ported.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import json
 import threading
 import uuid
 from pathlib import Path
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Any
 
 from .models import ALL_MODELS, Database
 
@@ -27,6 +27,10 @@ class Library:
         self.name = name
         self.db = db
         self.node = node
+
+    def emit(self, kind: str, payload: Any = None) -> None:
+        """An event scoped to this library on the node's bus."""
+        self.node.events.emit_kind(kind, payload, library_id=self.id)
 
     def close(self) -> None:
         self.db.close()
@@ -53,6 +57,11 @@ class Libraries:
         with self._lock:
             self._libraries[lib_id] = library
         return library
+
+    def get(self, lib_id: str) -> Library:
+        """The open library ``lib_id``; KeyError when there is none."""
+        with self._lock:
+            return self._libraries[lib_id]
 
     def create(self, name: str, description: str = "") -> Library:
         name = name.strip()

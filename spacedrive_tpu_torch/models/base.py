@@ -4,9 +4,11 @@ Counterpart of ``spacedrive_tpu/models/base.py``: models declare their
 fields once, and the declaration drives the CREATE TABLE DDL and value
 encoding. The port keeps the single-writer ``Database`` with the row API the
 scan uses (``query``, ``find``/``find_one``, ``insert``, ``insert_many``,
-``update``, ``executemany``, ``delete``, ``transaction``); the row-change
-journal, the reader connection, sync annotations and retry seams are not
-ported — the scan runs its jobs one at a time on one connection.
+``update``, ``executemany``, ``delete``, ``transaction``) and the row-change
+journal the search engine refreshes from (:class:`RowJournal`, attached with
+:meth:`Database.attach_row_journal`). The reader connection, sync
+annotations and retry seams are not ported: every statement runs on one
+connection under one lock.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 import datetime as _dt
 import json
+import re
 import sqlite3
 import threading
 from pathlib import Path
@@ -115,6 +118,107 @@ def utc_now() -> _dt.datetime:
     return _dt.datetime.now(_dt.timezone.utc)
 
 
+# --------------------------------------------------------------------------
+# row-change journal (the search engine's incremental-refresh feed)
+# --------------------------------------------------------------------------
+
+
+class RowJournal:
+    """Per-table changed-row accounting on a Database (counterpart of
+    ``spacedrive_tpu/models/base.py`` :202).
+
+    The search engine (``search/engine.py``) refreshes its columnar index
+    incrementally: appends ride an ``id > max_id`` scan, everything else
+    needs to know WHICH rows changed. Every model-helper write (insert /
+    update / delete) notes the touched row's ``id`` or ``pub_id`` here; raw
+    SQL writes that bypass the helpers are caught by a table-name sniff in
+    :meth:`Database.execute` / :meth:`Database.executemany` and degrade that
+    table to a **flood** (the consumer does a full rebuild) — over-noting is
+    always safe, silent under-noting would serve stale rows.
+
+    Notes made inside an open transaction are buffered per thread and
+    published when the outermost transaction closes: the consumer reads the
+    last COMMITTED state, so a note must never be drainable before its rows
+    are visible (a drained-then-invisible note would be lost to the next
+    refresh). Publishing on rollback too is deliberate — a re-select of an
+    unchanged row is idempotent.
+
+    Bounded: past ``CAP`` noted rows per table the journal floods that table
+    instead of growing.
+    """
+
+    CAP = 8192
+    _WRITE_VERB = re.compile(r"^\s*(insert|update|delete|replace)\b", re.I)
+
+    def __init__(self, tables: Iterable[str],
+                 flood_on_delete: Iterable[str] = ()) -> None:
+        self.tables = frozenset(tables)
+        #: tables whose DELETEs flood instead of noting the row: an FK
+        #: cascade (``ON DELETE SET NULL`` on file_path.object_id) mutates
+        #: OTHER tracked rows the statement never names
+        self.flood_on_delete = frozenset(flood_on_delete)
+        self._lock = threading.Lock()
+        self._ids: dict[str, set[int]] = {t: set() for t in self.tables}
+        self._pub_ids: dict[str, set[str]] = {t: set() for t in self.tables}
+        self._flood: set[str] = set()
+        #: thread ident -> notes buffered inside that thread's open txn
+        self._pending: dict[int, list[tuple[str, str, Any]]] = {}
+
+    def _apply_locked(self, table: str, key: str, value: Any) -> None:
+        if key == "flood" or value is None:
+            self._flood.add(table)
+        elif key == "id":
+            bucket = self._ids[table]
+            bucket.add(int(value))
+            if len(bucket) > self.CAP:
+                self._flood.add(table)
+        elif key == "pub_id":
+            bucket = self._pub_ids[table]
+            bucket.add(str(value))
+            if len(bucket) > self.CAP:
+                self._flood.add(table)
+
+    def publish_one(self, table: str, key: str, value: Any) -> None:
+        with self._lock:
+            self._apply_locked(table, key, value)
+
+    def buffer(self, ident: int, table: str, key: str, value: Any) -> None:
+        with self._lock:
+            self._pending.setdefault(ident, []).append((table, key, value))
+
+    def publish_thread(self, ident: int) -> None:
+        """Outermost-transaction close: the thread's buffered notes become
+        drainable (the rows are now committed — or rolled back, which a
+        re-select absorbs)."""
+        with self._lock:
+            for table, key, value in self._pending.pop(ident, ()):
+                self._apply_locked(table, key, value)
+
+    def sniff(self, sql: str) -> str | None:
+        """Raw-write detection: the tracked table a bypassing write names,
+        or None."""
+        if not self._WRITE_VERB.match(sql):
+            return None
+        head = sql[:256].lower()
+        for table in self.tables:
+            if re.search(rf"\b{table}\b", head):
+                return table
+        return None
+
+    def drain(self) -> dict[str, Any]:
+        """Atomically take the published notes (buffered ones stay)."""
+        with self._lock:
+            out = {
+                "ids": {t: s for t, s in self._ids.items() if s},
+                "pub_ids": {t: s for t, s in self._pub_ids.items() if s},
+                "flood": set(self._flood),
+            }
+            self._ids = {t: set() for t in self.tables}
+            self._pub_ids = {t: set() for t in self.tables}
+            self._flood = set()
+        return out
+
+
 class Database:
     """One SQLite library database behind one connection and one lock
     (SQLite's WAL single-writer discipline, as in the JAX package)."""
@@ -126,6 +230,11 @@ class Database:
         self.models = list(models)
         self._lock = threading.RLock()
         self._txn_depth = 0
+        #: thread that owns the open transaction (its notes are buffered)
+        self._txn_thread: int | None = None
+        #: row-change journal (attached by the search engine; None = the
+        #: write path pays nothing)
+        self._journal: RowJournal | None = None
         # autocommit mode; transactions are explicit (see transaction())
         self._conn = sqlite3.connect(self.path, check_same_thread=False,
                                      isolation_level=None)
@@ -142,17 +251,70 @@ class Database:
         with self._lock:
             self._conn.close()
 
-    def execute(self, sql: str, params: tuple | list = ()) -> sqlite3.Cursor:
-        with self._lock:
-            return self._conn.execute(sql, params)
+    # -- row-change journal (search-engine refresh feed) ---------------------
+    def attach_row_journal(self, tables: Iterable[str],
+                           flood_on_delete: Iterable[str] = ()) -> RowJournal:
+        """Idempotent per table set; the single consumer drains it."""
+        journal = self._journal
+        if journal is None or journal.tables != frozenset(tables):
+            journal = RowJournal(tables, flood_on_delete=flood_on_delete)
+            self._journal = journal
+        return journal
 
-    def executemany(self, sql: str, seq: list[tuple]) -> None:
+    def _journal_note(self, table: str, key: str, value: Any) -> None:
+        """Txn-aware note routing: inside an open transaction the note is
+        buffered until the OUTERMOST close publishes it — a drainable note
+        must never precede its rows' visibility."""
+        journal = self._journal
+        if journal is None or table not in journal.tables:
+            return
+        if self._txn_depth and self._txn_thread == threading.get_ident():
+            journal.buffer(threading.get_ident(), table, key, value)
+        else:
+            journal.publish_one(table, key, value)
+
+    def _journal_sniff(self, sql: str) -> None:
+        journal = self._journal
+        if journal is not None:
+            table = journal.sniff(sql)
+            if table is not None:
+                self._journal_note(table, "flood", None)
+
+    def _journal_where(self, table: str, where: dict[str, Any]) -> None:
+        """Note an update/delete by its where-key: a unique row key notes
+        that row exactly; anything else floods the table."""
+        if self._journal is None or table not in self._journal.tables:
+            return
+        if where.get("id") is not None:
+            self._journal_note(table, "id", where["id"])
+        elif where.get("pub_id") is not None:
+            self._journal_note(table, "pub_id", where["pub_id"])
+        else:
+            self._journal_note(table, "flood", None)
+
+    def execute(self, sql: str, params: tuple | list = (), *,
+                _noted: bool = False) -> sqlite3.Cursor:
+        with self._lock:
+            cur = self._conn.execute(sql, params)
+            if not _noted:
+                # after the statement: an autocommit write is visible now,
+                # and a write inside a transaction buffers until it closes
+                self._journal_sniff(sql)
+        return cur
+
+    def executemany(self, sql: str, seq: list[tuple], *, _noted: bool = False) -> None:
         with self.transaction():  # joins an open transaction
             self._conn.executemany(sql, seq)
+            if not _noted:
+                self._journal_sniff(sql)
 
     def query(self, sql: str, params: tuple | list = ()) -> list[sqlite3.Row]:
         with self._lock:
-            return self._conn.execute(sql, params).fetchall()
+            rows = self._conn.execute(sql, params).fetchall()
+            # a write routed through query() is sniffed like execute()'s,
+            # or the row journal would under-note it
+            self._journal_sniff(sql)
+        return rows
 
     def transaction(self) -> "_Txn":
         """Atomic multi-statement write; nested uses join the outer one."""
@@ -181,7 +343,9 @@ class Database:
     def insert(self, model: type[Model], row: dict[str, Any], or_ignore: bool = False) -> int:
         cols = [c for c in row if c in model.FIELDS]
         cur = self.execute(self._insert_sql(model, cols, or_ignore),
-                           [model.encode(c, row[c]) for c in cols])
+                           [model.encode(c, row[c]) for c in cols], _noted=True)
+        if cur.rowcount > 0:
+            self._journal_note(model.TABLE, "id", cur.lastrowid)
         return cur.lastrowid
 
     def insert_many(self, model: type[Model], rows: list[dict[str, Any]],
@@ -190,7 +354,13 @@ class Database:
             return 0
         cols = [c for c in rows[0] if c in model.FIELDS]
         self.executemany(self._insert_sql(model, cols, or_ignore),
-                         [tuple(model.encode(c, r.get(c)) for c in cols) for r in rows])
+                         [tuple(model.encode(c, r.get(c)) for c in cols) for r in rows],
+                         _noted=True)
+        # fresh AUTOINCREMENT ids ride the consumer's id > max_id append
+        # scan; only explicit-id rows need notes
+        if "id" in cols:
+            for r in rows:
+                self._journal_note(model.TABLE, "id", r.get("id"))
         return len(rows)
 
     def update(self, model: type[Model], where: dict[str, Any],
@@ -200,12 +370,23 @@ class Database:
         set_sql = ", ".join(f'"{c}" = ?' for c in values)
         where_sql, where_params = self._where_sql(model, where)
         params = [model.encode(c, v) for c, v in values.items()] + where_params
-        return self.execute(f"UPDATE {model.TABLE} SET {set_sql} WHERE {where_sql}",
-                            params).rowcount
+        with self._lock:
+            cur = self.execute(f"UPDATE {model.TABLE} SET {set_sql} WHERE {where_sql}",
+                               params, _noted=True)
+            self._journal_where(model.TABLE, where)
+        return cur.rowcount
 
     def delete(self, model: type[Model], where: dict[str, Any]) -> int:
         where_sql, params = self._where_sql(model, where)
-        return self.execute(f"DELETE FROM {model.TABLE} WHERE {where_sql}", params).rowcount
+        with self._lock:
+            cur = self.execute(f"DELETE FROM {model.TABLE} WHERE {where_sql}", params,
+                               _noted=True)
+            journal = self._journal
+            if journal is not None and model.TABLE in journal.flood_on_delete:
+                self._journal_note(model.TABLE, "flood", None)
+            else:
+                self._journal_where(model.TABLE, where)
+        return cur.rowcount
 
     def find(self, model: type[Model], where: dict[str, Any] | None = None,
              order_by: str | None = None, limit: int | None = None) -> list[dict[str, Any]]:
@@ -239,6 +420,7 @@ class _Txn:
         try:
             if self.db._txn_depth == 0:
                 self.db._conn.execute("BEGIN IMMEDIATE")
+                self.db._txn_thread = threading.get_ident()
             self.db._txn_depth += 1
         except BaseException:
             self.db._lock.release()
@@ -249,6 +431,15 @@ class _Txn:
         try:
             self.db._txn_depth -= 1
             if self.db._txn_depth == 0:
-                self.db._conn.execute("COMMIT" if exc_type is None else "ROLLBACK")
+                self.db._txn_thread = None
+                try:
+                    self.db._conn.execute("COMMIT" if exc_type is None else "ROLLBACK")
+                finally:
+                    # buffered row-journal notes become drainable only now
+                    # (commit OR rollback: the rows are visible or unchanged
+                    # — either way a re-select is truthful)
+                    journal = self.db._journal
+                    if journal is not None:
+                        journal.publish_thread(threading.get_ident())
         finally:
             self.db._lock.release()

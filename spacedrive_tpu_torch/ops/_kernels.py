@@ -44,6 +44,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
                "blake3_merge": [_P, _P, _P, _I, _I, _I, _P]},
     # (plane, lengths, gear, mask, out, B, L, device, stream)
     "cdc": {"gear_candidates": [_P, _P, _P, _U, _P, _I, _I, _I, _P]},
+    # (rows, W, n, needle bytes on the host, needle length, out, device, stream)
+    "search": {name: [_P, _I, _I, _P, _I, _P, _I, _P]
+               for name in ("search_substring", "search_exact", "search_lex")},
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

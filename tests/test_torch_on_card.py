@@ -14,6 +14,7 @@ from spacedrive_tpu_torch.objects.blake3_ref import blake3
 from spacedrive_tpu_torch.ops import _kernels
 from spacedrive_tpu_torch.ops import blake3 as b3
 from spacedrive_tpu_torch.ops import cdc
+from spacedrive_tpu_torch.search import kernels as search_kernels
 
 EDGE_LENGTHS = (0, 1, 63, 64, 65, 1023, 1024, 1025, 2048, 2049, 57352, 102408)
 
@@ -57,3 +58,48 @@ def test_kernel_wrappers_reject_bad_inputs(card):
     plane = torch.zeros((2, 16), dtype=torch.int32, device=card)
     with pytest.raises(TypeError):
         cdc.gear_candidates(plane, torch.zeros(2, dtype=torch.int32, device=card), 255)
+    with pytest.raises(ValueError):
+        search_kernels.exact(torch.zeros((8, 20), dtype=torch.uint8, device=card), b"a")
+    with pytest.raises(ValueError):
+        search_kernels.substring(torch.zeros((8, 128), dtype=torch.uint8, device=card)[:, :64], b"a")
+
+
+def search_rows(seed: int, n: int, width: int) -> torch.Tensor:
+    """(n, W) rows over a small alphabet (many partial matches), with empty
+    rows and rows of exactly W bytes."""
+    rng = np.random.default_rng(seed)
+    rows = rng.choice(np.frombuffer(b"abc.-\xc3", dtype=np.uint8), size=(n, width))
+    lens = rng.integers(0, width + 1, size=n)
+    lens[::7] = width
+    rows[np.arange(width)[None, :] >= lens[:, None]] = 0
+    return torch.from_numpy(rows)
+
+
+@pytest.mark.parametrize("length", [1, 2, 17, 48])
+def test_search_substring_kernel_matches_plain(card, length):
+    rows = search_rows(length, 8192 + 77, 64)
+    needle = bytes(rows[3, 64 - length:].tolist()) if length > 1 else b"a"
+    rows[5, 64 - length:] = torch.tensor(list(needle), dtype=torch.uint8)  # last offset
+    rows = rows.to(card)
+    got = search_kernels.substring(rows, needle)
+    assert torch.equal(got, search_kernels.substring_plain(rows, needle))
+    assert bool(got[5])
+
+
+@pytest.mark.parametrize("width", [12, 96])
+def test_search_exact_kernel_matches_plain(card, width):
+    rows = search_rows(width, 8192 + 5, width).to(card)
+    for needle in (bytes(rows[0].tolist()).rstrip(b"\0"), bytes(rows[7].tolist()), b"", b"a",
+                   b"x" * width):
+        assert torch.equal(search_kernels.exact(rows, needle),
+                           search_kernels.exact_plain(rows, needle)), needle
+
+
+def test_search_lex_kernel_matches_plain(card):
+    rows = search_rows(40, 8192 + 3, 40).to(card)
+    for bound in (b"", b"b", b"abc", b"\xc3", bytes(rows[7].tolist()), b"c" * 41):
+        assert torch.equal(search_kernels.lex_cmp(rows, bound),
+                           search_kernels.lex_cmp_plain(rows, bound)), bound
+    before = _kernels.LAUNCHES["search_lex"]
+    search_kernels.lex_cmp(rows, b"b")
+    assert _kernels.LAUNCHES["search_lex"] == before + 1
