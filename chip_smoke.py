@@ -5,6 +5,12 @@ Run from the repository root with no arguments (``--seed`` picks the data):
 
     python3 chip_smoke.py
 
+``--kernels`` runs phases 1-3 only and prints the card and the
+``{"kernels": [...]}`` line (launches null: no main path ran), never the
+``{"ok": true, ...}`` line; it also times the Gear kernel built with a copy
+of its table per shared-memory bank beside the shipped one-table build. Use it to iterate on a kernel; run with
+no flags to prove the port.
+
 Phases, each raising on failure (the script then exits non-zero and prints
 no result line):
 
@@ -15,9 +21,11 @@ no result line):
    fills, the 1,000,000-row search index's name, path, extension and date
    columns) and at edge cases, and BLAKE3 digests against the pure-Python
    oracle;
-3. time each kernel and its plain version with CUDA events at those shapes,
-   beside the least time the card could take, and count the SASS
-   instructions per block of the BLAKE3 chunk kernel (cuobjdump);
+3. time each kernel and its plain version at those shapes (CUDA events, or
+   the profiler's device time where a wrapper call takes longer to issue
+   than the kernel runs), beside the least time the card could take, and
+   count the SASS instructions per block of the BLAKE3 chunk kernel
+   (cuobjdump);
 4. the scan path: write a seeded tree of 16,384 files shaped like BASELINE
    config 2 (mixed media), boot ``Node`` on the card with chunk manifests and
    the search engine on, ``create_location`` → ``scan_location`` →
@@ -54,14 +62,35 @@ WORK = ROOT / "build" / "chip_smoke"
 
 #: HBM rate of the H100 SXM (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+#: bytes written between timed calls to clear the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
 #: u32 operations per BLAKE3 compression (ops/roofline.py's model: 7 rounds
 #: x 8 G x 14 + 8 feed-forward xors, ~800 per 64-byte block)
 OPS_PER_COMPRESSION = 800
 #: u32 operations per Gear position as the function needs them, the
-#: recurrence h = (h << 1) + GEAR[b] run by segments: shift, add, table
-#: lookup, mask test, length test (the kernel's 32-term windowed sum spends
-#: ~67; that is its own cost, not the function's)
+#: recurrence h = (h << 1) + GEAR[b]: shift, add, table lookup, mask test,
+#: length test
 OPS_PER_GEAR_POSITION = 5
+#: Gear planes (length tier, files) as the scan fills them: small files by
+#: octave (about half of them 256 B or less, in batch tier 128; 15 an octave
+#: above, in tier 32), 100-128 KiB files 48 to a (128, 128 KiB) plane, 32 to
+#: a (32, 256 KiB) plane, 16 to a (32, 512 KiB) plane; and 4 MiB, the
+#: largest file a manifest takes
+GEAR_TIERS = ((256, 120), (4 << 10, 15), (128 << 10, 48), (256 << 10, 32), (512 << 10, 16),
+              (4 << 20, 2))
+#: lengths at the Gear kernel's edges: its 16-position lanes, 32-byte halo
+#: and 512-position units (L - 1 and L added per plane)
+GEAR_EDGES = (0, 1, 15, 16, 17, 30, 31, 32, 33, 511, 512, 513, 1023, 1024, 1025)
+#: plane widths for the edges: a row shorter than a unit, two unit-crossing
+#: tiers, and a width that is not a multiple of 16 (the byte path)
+GEAR_EDGE_WIDTHS = (256, 4096, 128 << 10, 1000)
+#: every mask reads a different reach of the window (8191 is the default);
+#: 0 flags every position
+GEAR_MASKS = (0, 255, 8191, 0xFF000000)
+#: timings some kernels add beside "ms": the wrapper call's time where "ms"
+#: is device time, every row read whole (search), the device time with the
+#: L2 cleared before each call (Gear)
+EXTRA_TIMES = ("call_ms", "full_row_bound_ms", "cold_ms")
 #: BLAKE3 rotates per compression (7 rounds x 8 G x 4), used to find how many
 #: compressions the compiler put in one pass of the chunk loop
 ROTATES_PER_COMPRESSION = 224
@@ -293,23 +322,67 @@ def parity_phase(rng: random.Random, cols: dict) -> dict:
         f"({sum(map(len, chunks)) / 1e6:.1f} MB, rows {tuple(rows.shape)}) matches plain "
         "exactly (tolerance 0); 5 digests match the oracle")
 
-    # Gear candidate bitmaps at the main path's shapes
-    gear_err = 0
-    for tier, n_files in ((4 << 20, 2), (512 << 10, 16), (256 << 10, 32)):
+    # Gear candidate bitmaps at every plane tier the scan fills, and at the
+    # kernel's edges with random bytes past every length and in the padding
+    shapes = []
+    for tier, n_files in GEAR_TIERS:
         datas = [rng.randbytes(rng.randint(tier // 2 + 1, tier)) for _ in range(n_files)]
         plane, lens = cdc._plane(datas, torch.device("cuda"))
-        kb = cdc.gear_candidates(plane, lens, cdc.DEFAULT_PARAMS.mask)
-        pb = cdc.gear_candidates_plain(plane, lens, cdc.DEFAULT_PARAMS.mask)
-        torch.cuda.synchronize()
-        gear_err = max(gear_err, int((kb.int() - pb.int()).abs().max()))
-        if gear_err:
-            fail(f"gear_candidates disagrees with the plain version at {tuple(plane.shape)}")
-        log(f"parity: gear_candidates {tuple(plane.shape)} ({n_files} files) matches plain "
-            f"exactly (tolerance 0), "
-            f"{int(kb.sum())} candidates")
+        found = check_gear(plane, lens, cdc.DEFAULT_PARAMS.mask, f"{n_files} files")
+        shapes.append(f"{tuple(plane.shape)} {n_files} files {found} candidates")
+    log(f"parity: gear_candidates matches plain exactly (tolerance 0) at {'; '.join(shapes)}")
+    for width in GEAR_EDGE_WIDTHS:
+        plane, lens = gear_edge_plane(width, rng.randrange(1 << 30))
+        for mask in GEAR_MASKS:
+            check_gear(plane, lens, mask, f"edge lengths, mask {mask:#x}")
+    # a plane that starts one byte into its buffer takes the byte path
+    buf = torch.empty(plane.numel() + 1, dtype=torch.uint8, device="cuda")
+    shifted = buf[1:].view(plane.shape)
+    shifted.copy_(plane)
+    check_gear(shifted, lens, cdc.DEFAULT_PARAMS.mask, "a plane 1 byte off alignment")
+    log(f"parity: gear_candidates matches plain exactly (tolerance 0) at lengths "
+        f"{list(GEAR_EDGES)} + L-1, L in planes of widths {list(GEAR_EDGE_WIDTHS)} padded to "
+        f"their batch tier, masks {[hex(m) for m in GEAR_MASKS]}, and on a "
+        "plane off 16-byte alignment")
     err_b3 = max(err_edge, err_sampled, err_ids)
-    return {"blake3_chunk_cvs": err_b3, "blake3_merge": err_b3, "gear_candidates": gear_err,
+    return {"blake3_chunk_cvs": err_b3, "blake3_merge": err_b3, "gear_candidates": 0,
             **search_parity(cols)}
+
+
+def gear_edge_plane(width: int, seed: int):
+    """A (batch tier, width) plane on the card with one row per edge length
+    (those <= width, plus width - 1 and width) and rows of length 0 to the
+    batch tier; every byte is random, past the lengths and in padding rows
+    too, and one row starts with 600 equal bytes."""
+    import numpy as np
+    import torch
+
+    from spacedrive_tpu_torch.ops import cdc
+
+    lens = sorted({n for n in GEAR_EDGES + (width - 1, width) if n <= width})
+    g = np.random.default_rng(seed)
+    plane = g.integers(0, 256, size=(cdc._batch_tier(len(lens)), width), dtype=np.uint8)
+    plane[1, :600] = 0
+    lengths = np.zeros(plane.shape[0], np.int32)
+    lengths[: len(lens)] = lens
+    return torch.from_numpy(plane).cuda(), torch.from_numpy(lengths).cuda()
+
+
+def check_gear(plane, lens, mask: int, what: str) -> int:
+    """The Gear kernel against its plain version on the card, exactly;
+    returns the number of candidates."""
+    import torch
+
+    from spacedrive_tpu_torch.ops import cdc
+
+    kb = cdc.gear_candidates(plane, lens, mask)
+    pb = cdc.gear_candidates_plain(plane, lens, mask)
+    torch.cuda.synchronize()
+    err = int((kb.int() - pb.int()).abs().max())
+    if err:
+        fail(f"gear_candidates disagrees with the plain version at {tuple(plane.shape)}, "
+             f"{what} (max err {err})")
+    return int(kb.sum())
 
 
 def search_corpus() -> list[tuple]:
@@ -460,23 +533,27 @@ SEARCH_SYMBOLS = {"search_substring": "::substring_kernel<", "search_exact": "::
                   "search_lex": "::lex_kernel<"}
 
 
-def device_ms(fn, kernel: str, reps: int = 50) -> float:
+def device_ms(fn, kernel: str, reps: int = 50, between=None) -> float:
     """Mean device time per launch of the CUDA kernel whose name contains
     ``kernel`` over ``reps`` calls of ``fn``, from torch.profiler: the
-    kernel alone, without the host's time to issue the call."""
+    kernel alone, without the host's time to issue the call. ``between``,
+    if given, runs before each call and is not timed."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    if not events or sum(e.count for e in events) != reps:
-        fail(f"the profiler saw {sum(e.count for e in events)} launches of {kernel}, not {reps}")
-    return sum(e.self_device_time_total for e in events) / reps / 1e3
+    for _attempt in range(3):  # the profiler now and then returns no events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if between is not None:
+                    between()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel in e.key]
+        if sum(e.count for e in events) == reps:
+            return sum(e.self_device_time_total for e in events) / reps / 1e3
+    fail(f"the profiler saw {sum(e.count for e in events)} launches of {kernel}, not {reps}")
 
 
 def search_timing(cols: dict, int32_ops_per_s: float) -> dict:
@@ -551,26 +628,39 @@ def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict
             "plain_ms": time_ms(lambda: b3.merge_plain(pcvs, lengths), 3, warmup=1),
             "bound": bound_ms(nbytes, parents * OPS_PER_COMPRESSION, int32_ops_per_s),
             "shape": f"cvs ({B}, {C}, 8) u32, {what}"}
-    for tier, n_files in ((4 << 20, 2), (512 << 10, 16), (256 << 10, 32)):
+    # back-to-back calls on one plane find it and their output in the 50 MB
+    # L2, which the HBM-priced bound does not; writing this between calls
+    # evicts both
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for tier, n_files in GEAR_TIERS[1:]:
         datas = [rng.randbytes(rng.randint(tier // 2 + 1, tier)) for _ in range(n_files)]
         plane, plens = cdc._plane(datas, torch.device("cuda"))
         mask = cdc.DEFAULT_PARAMS.mask
         Bp, L = plane.shape
         positions = sum(len(d) for d in datas)
+        # the bytes the function needs: the files' bytes and the lengths
+        # read, the table read once, the whole plane of flags written
+        nbytes = positions + Bp * 4 + 256 * 4 + Bp * L
         out[f"gear_candidates@{tier >> 10}KiB"] = {
-            "ms": time_ms(lambda: cdc.gear_candidates(plane, plens, mask), 50),
+            "ms": device_ms(lambda: cdc.gear_candidates(plane, plens, mask),
+                            "gear_candidates_kernel"),
+            "cold_ms": device_ms(lambda: cdc.gear_candidates(plane, plens, mask),
+                                 "gear_candidates_kernel", between=flush.zero_),
+            "call_ms": time_ms(lambda: cdc.gear_candidates(plane, plens, mask), 50),
             "plain_ms": time_ms(lambda: cdc.gear_candidates_plain(plane, plens, mask), 3,
                                 warmup=1),
-            "bound": bound_ms(2 * Bp * L + Bp * 4, positions * OPS_PER_GEAR_POSITION,
-                              int32_ops_per_s),
-            "shape": f"plane ({Bp}, {L}) u8, {n_files} files"}
+            "bound": bound_ms(nbytes, positions * OPS_PER_GEAR_POSITION, int32_ops_per_s),
+            "shape": f"plane ({Bp}, {L}) u8, {n_files} files, {positions} B"}
     out.update(search_timing(cols, int32_ops_per_s))
     for name, t in out.items():
         b, by = t["bound"]
         full = t.get("full_row_bound_ms")
         call = "" if "call_ms" not in t else f" (device time; a wrapper call {t['call_ms']:.4f} ms)"
-        log(f"time: {name} [{t['shape']}]: kernel {t['ms']:.4f} ms{call}, plain {t['plain_ms']:.4f} ms, "
-            f"bound {b:.4f} ms ({by}), kernel at {100 * b / t['ms']:.1f}% of bound"
+        cold = ("" if "cold_ms" not in t else f"; with the L2 cleared before each call "
+                f"{t['cold_ms']:.4f} ms, {100 * b / t['cold_ms']:.1f}% of bound")
+        log(f"time: {name} [{t['shape']}]: kernel {t['ms']:.4f} ms{call}, "
+            f"plain {t['plain_ms']:.4f} ms, bound {b:.4f} ms ({by}), kernel at "
+            f"{100 * b / t['ms']:.1f}% of bound{cold}"
             + ("" if full is None else f"; reading every row whole {full:.4f} ms, kernel at "
                f"{100 * full / t['ms']:.1f}% of that"))
 
@@ -771,6 +861,7 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
             fail("scan did not finish within 900 s")
         scan_s = time.perf_counter() - t0
         launches = dict(_kernels.LAUNCHES)
+        by_shape = shape_counts(_kernels.LAUNCHES_BY_SHAPE)
         plain_on_card = dict(_kernels.PLAIN_ON_CUDA)
         db = lib.db
         jobs = {r["name"]: r for r in db.query("SELECT * FROM job")}
@@ -855,7 +946,18 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
         f"{len(tree['copy_of'])} planted copies share their originals' objects, "
         f"{meta['chunked_files']} manifests / {n_chunks} chunks; launches {launches} "
         f"over {pages} pages; plain versions on the card: {sum(plain_on_card.values())}")
-    return {"launches": launches, "pages": pages, "search": search}
+    for kernel, shapes in by_shape.items():
+        log(f"main path: {kernel} launches by shape: {shapes}")
+    return {"launches": launches, "by_shape": by_shape, "pages": pages, "search": search}
+
+
+def shape_counts(counter) -> dict:
+    """``LAUNCHES_BY_SHAPE`` as kernel -> {"tag (d0, d1)": launches}, most
+    launched first."""
+    out: dict = {}
+    for (kernel, tag, shape), n in sorted(counter.items(), key=lambda kv: -kv[1]):
+        out.setdefault(kernel, {})[f"{tag + ' ' if tag else ''}{shape}"] = n
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1081,6 +1183,8 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of all generated data")
+    parser.add_argument("--kernels", action="store_true",
+                        help="build, parity and timing only; no main path, no ok line")
     args = parser.parse_args()
 
     import torch
@@ -1118,7 +1222,7 @@ def main() -> int:
         times = timing_phase(rng, int32_ops_per_s, cols)
         del cols
         torch.cuda.empty_cache()
-        main = main_path_phase(args.seed, card, corpus)
+        main = None if args.kernels else main_path_phase(args.seed, card, corpus)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1142,31 +1246,33 @@ def main() -> int:
     for name, key in timed.items():
         t = times[key]
         search = name.startswith("search_")
-        launches = (main["search"]["launches"] if search else main["launches"]).get(name, 0)
+        launches = None if main is None else (
+            main["search"]["launches"] if search else main["launches"]).get(name, 0)
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],
             "replaces": replaces[name], "launches": launches,
             "max_abs_err": errs[name], "parity": errs[name] == 0,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": None, "shape": t["shape"]})
-        if search:
-            kernels[-1]["full_row_bound_ms"] = t["full_row_bound_ms"]
-            kernels[-1]["call_ms"] = t["call_ms"]
+        kernels[-1].update({f: t[f] for f in EXTRA_TIMES if f in t})
+        kernels[-1]["other_shapes"] = {
+            k: {"ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
+                "bound_by": v["bound"][1], "shape": v["shape"],
+                **{f: v[f] for f in EXTRA_TIMES if f in v}}
+            for k, v in times.items() if k.startswith(name + "@") and k != key}
+        if main is not None and search:
             kernels[-1]["launches_per_matrix_pass"] = main["search"]["per_pass"].get(name, 0)
-            kernels[-1]["other_shapes"] = {
-                k: {"ms": v["ms"], "call_ms": v["call_ms"], "plain_ms": v["plain_ms"],
-                    "bound_ms": v["bound"][0],
-                    "bound_by": v["bound"][1], "full_row_bound_ms": v["full_row_bound_ms"],
-                    "shape": v["shape"]}
-                for k, v in times.items() if k.startswith(name + "@") and k != key}
-        else:
+        elif main is not None:
             kernels[-1]["launches_per_page"] = launches / main["pages"]
+            kernels[-1]["launches_by_shape"] = main["by_shape"].get(name, {})
         if "sass" in t:
             sass = t["sass"] or {}
             kernels[-1]["sass_instructions_per_block"] = sass.get("per_block")
             kernels[-1]["sass_bound_ms"] = sass.get("bound_ms")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    if args.kernels:
+        return 0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,8 @@
-"""PyTorch/CUDA port of spacedrive_tpu's location scan.
+"""PyTorch/CUDA port of spacedrive_tpu's location scan and search serving.
 
 The package runs the indexer → file-identifier chain (cas_ids, objects and
-chunk manifests) with its device work in hand-written CUDA kernels for
+chunk manifests) and serves ``search.paths`` / ``search.pathsCount`` from a
+device-resident index, with its device work in hand-written CUDA kernels for
 Hopper (``csrc/``), built with nvcc at first use. It imports torch and never
 jax, and nothing of the ``spacedrive_tpu`` package: what it shares with it
 (the BLAKE3 oracle, the gear table, the schema) is kept here as its own copy.

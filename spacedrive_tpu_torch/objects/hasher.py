@@ -16,6 +16,7 @@ from typing import Callable
 
 import torch
 
+from ..ops import _kernels
 from ..ops.blake3 import blake3_batch_hex
 from .cas import read_sampled_batch
 
@@ -49,7 +50,8 @@ class DeviceHasher:
         self.device = device
 
     def _hash_bucket(self, msgs: list[bytes], cap: int) -> list[str]:
-        return blake3_batch_hex(msgs, max_chunks=cap, device=self.device)
+        with _kernels.tagged("cas"):
+            return blake3_batch_hex(msgs, max_chunks=cap, device=self.device)
 
     def hash_gathered(self, messages: list[bytes | Exception]) -> list[str | Exception]:
         """Pre-gathered cas messages → cas_ids; Exception entries (gather

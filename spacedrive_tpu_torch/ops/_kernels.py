@@ -8,14 +8,18 @@ returning ``cudaGetLastError()`` after its launch. Nothing falls back: a
 missing nvcc, a failed compile or a refused launch raises.
 
 ``LAUNCHES`` counts kernel launches by kernel name (one per :func:`launch`);
-``PLAIN_ON_CUDA`` counts calls of a kernel's plain PyTorch version on CUDA
-tensors. A run that must prove it went through the kernels resets both with
-:func:`reset_counts` and reads them afterwards.
+``LAUNCHES_BY_SHAPE`` counts the same launches by (kernel, caller's tag,
+shape), the tag set by :func:`tagged` (the BLAKE3 kernels hash cas messages
+and chunk ids at the same shapes); ``PLAIN_ON_CUDA`` counts calls of a
+kernel's plain PyTorch version on CUDA tensors. A run that must prove it went
+through the kernels resets them with :func:`reset_counts` and reads them
+afterwards.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -50,6 +54,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
+LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 PLAIN_ON_CUDA: collections.Counter = collections.Counter()
 
 #: ptxas report (registers, spills, shared memory) of each source's last build
@@ -57,6 +62,7 @@ BUILD_LOG: dict[str, str] = {}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_tag = threading.local()
 
 
 class KernelCompileError(RuntimeError):
@@ -69,7 +75,19 @@ class KernelLaunchError(RuntimeError):
 
 def reset_counts() -> None:
     LAUNCHES.clear()
+    LAUNCHES_BY_SHAPE.clear()
     PLAIN_ON_CUDA.clear()
+
+
+@contextlib.contextmanager
+def tagged(tag: str):
+    """Tag this thread's launches in ``LAUNCHES_BY_SHAPE`` with ``tag``."""
+    outer = getattr(_tag, "value", None)
+    _tag.value = tag
+    try:
+        yield
+    finally:
+        _tag.value = outer
 
 
 def nvcc() -> str:
@@ -136,12 +154,14 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(source: str, kernel: str, *args) -> None:
-    """Call one C launcher, count the launch, raise if CUDA refused it."""
+def launch(source: str, kernel: str, *args, shape: tuple[int, ...] = ()) -> None:
+    """Call one C launcher, count the launch (by kernel, and by tag and
+    ``shape``), raise if CUDA refused it."""
     rc = getattr(library(source), kernel)(*args)
     if rc != 0:
         raise KernelLaunchError(f"{kernel} launch failed: cudaError {rc}")
     LAUNCHES[kernel] += 1
+    LAUNCHES_BY_SHAPE[(kernel, getattr(_tag, "value", None), shape)] += 1
 
 
 def stream_of(device) -> int:

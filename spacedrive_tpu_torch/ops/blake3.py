@@ -220,7 +220,7 @@ def chunk_cvs(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, C, 8), dtype=torch.int32, device=rows.device)
     _kernels.launch("blake3", "blake3_chunk_cvs", rows.data_ptr(),
                     lengths.data_ptr(), out.data_ptr(), B, C,
-                    rows.device.index or 0, _kernels.stream_of(rows.device))
+                    rows.device.index or 0, _kernels.stream_of(rows.device), shape=(B, C))
     return out
 
 
@@ -234,7 +234,7 @@ def merge(cvs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     out = torch.empty((8, B), dtype=torch.int32, device=cvs.device)
     _kernels.launch("blake3", "blake3_merge", cvs.data_ptr(),
                     lengths.data_ptr(), out.data_ptr(), B, C,
-                    cvs.device.index or 0, _kernels.stream_of(cvs.device))
+                    cvs.device.index or 0, _kernels.stream_of(cvs.device), shape=(B, C))
     return out
 
 

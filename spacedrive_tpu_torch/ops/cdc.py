@@ -181,13 +181,11 @@ def gear_candidates(plane: torch.Tensor, lengths: torch.Tensor,
     if lengths.device != plane.device:
         raise ValueError("plane and lengths must share a device")
     B, L = plane.shape
-    if B > 65535:
-        raise ValueError("at most 65535 rows per launch")
     out = torch.empty_like(plane)
     _kernels.launch("cdc", "gear_candidates", plane.data_ptr(),
                     lengths.data_ptr(), _device_gear(plane.device).data_ptr(),
                     mask, out.data_ptr(), B, L, plane.device.index or 0,
-                    _kernels.stream_of(plane.device))
+                    _kernels.stream_of(plane.device), shape=(B, L))
     return out
 
 
@@ -283,8 +281,9 @@ def chunk_ids(datas: list[bytes], chunk_lists: list[list[tuple[int, int]]],
         spans.append(len(chunks))
         for off, ln in chunks:
             msgs.append(data[off : off + ln])
-    hexes = blake3_batch_hex(msgs, max_chunks=_b3_max_chunks(params.max_size),
-                             device=device)
+    with _kernels.tagged("chunk-ids"):
+        hexes = blake3_batch_hex(msgs, max_chunks=_b3_max_chunks(params.max_size),
+                                 device=device)
     out: list[list[str]] = []
     pos = 0
     for n in spans:

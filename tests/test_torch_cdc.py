@@ -13,6 +13,7 @@ import torch
 
 from spacedrive_tpu.ops import cdc as jax_cdc
 from spacedrive_tpu_torch.ops import cdc
+from tests.torch_gear_edges import edge_plane
 
 SMALL = (64, 256, 1024)
 GEOMETRIES = [SMALL, (256, 1024, 4096)]
@@ -104,3 +105,98 @@ def test_positions_before_the_file_start_contribute_zero(bits):
     got = cdc.gear_candidates(torch.from_numpy(plane), torch.from_numpy(lengths), mask)
     want = jax_cdc._candidates_numpy(plane, lengths, mask)
     assert np.array_equal(got.numpy().astype(bool), want)
+
+
+# --------------------------------------------------------------------------
+# the CUDA kernel's index arithmetic (csrc/cdc.cu), emulated with numpy
+# --------------------------------------------------------------------------
+
+LANES, SEG = 32, 16  # csrc/cdc.cu kLanes, kSeg
+UNIT = LANES * SEG   # positions per warp unit
+
+
+def emulate_gear_kernel(plane: np.ndarray, lengths: np.ndarray, mask: int) -> np.ndarray:
+    """``gear_candidates_kernel`` step by step in wrapping uint32 numpy: warp
+    units of 512 positions, 16 per lane read only where the lane starts
+    before the length (0 bytes otherwise, and past L), each lane's sum
+    E = sum_i G[b_i] << (15 - i), the unit's 32-byte halo (0 at the row
+    start), the hash before each lane as E_{l-1} + (E_{l-2} << 16) by
+    shuffles, 16 recurrence steps, the length cut, and nothing stored past L.
+    Units at or past the length store zeros."""
+    B, L = plane.shape
+    units = -(-L // UNIT)
+    gear = cdc.GEAR.numpy().astype(np.uint32)
+    lens = np.clip(lengths.astype(np.int64), 0, L)
+    flat = np.zeros((B, units * UNIT), np.uint8)
+    flat[:, :L] = plane
+    lane_start = np.arange(units * LANES).reshape(units, LANES) * SEG  # (U, 32)
+    read = lane_start[None] < lens[:, None, None]                      # (B, U, 32)
+    g = gear[np.where(read[..., None], flat.reshape(B, units, LANES, SEG), 0)]
+    e = np.zeros((B, units, LANES), np.uint32)
+    for i in range(SEG):
+        e = (e << np.uint32(1)) + g[..., i]
+    # halo bytes p0-32 .. p0-1 of every unit but the first of a row
+    halo_pos = (np.arange(units) * UNIT)[:, None] - 32 + np.arange(32)[None, :]  # (U, 32)
+    hb = gear[flat[:, np.maximum(halo_pos, 0)]]                                   # (B, U, 32)
+    hb[:, 0] = 0
+    shifts = np.uint32(15) - (np.arange(32) % 16).astype(np.uint32)
+    terms = hb << shifts
+    e_m2 = terms[..., :16].sum(-1, dtype=np.uint32)
+    e_m1 = terms[..., 16:].sum(-1, dtype=np.uint32)
+    e1 = np.concatenate([e_m1[..., None], e[..., :-1]], axis=-1)
+    e2 = np.concatenate([e_m2[..., None], e_m1[..., None], e[..., :-2]], axis=-1)
+    h = e1 + (e2 << np.uint32(16))
+    flags = np.zeros((B, units, LANES, SEG), bool)
+    for i in range(SEG):
+        h = (h << np.uint32(1)) + g[..., i]
+        flags[..., i] = (h & np.uint32(mask)) == 0
+    pos = np.arange(units * UNIT).reshape(units, LANES, SEG)
+    flags &= pos[None] < lens[:, None, None, None]
+    return flags.reshape(B, units * UNIT)[:, :L]
+
+
+@pytest.mark.parametrize("mask", [0, 255, 8191, 0xFF000000])
+@pytest.mark.parametrize("L", [256, 4096, 1000])
+def test_kernel_arithmetic_matches_plain_and_jax(L, mask):
+    """L = 256 is a row shorter than a unit, 4096 crosses seven unit
+    boundaries, 1000 is not a multiple of 16 (the kernel's byte path). A
+    mask of low bits reads only the last bytes of the window; 0xFF000000
+    reads the bytes 24-31 back, which lanes 0-1 take from the halo and the
+    others from E_{l-2}. Tolerance zero."""
+    plane, lengths = edge_plane(L, L + mask)
+    got = emulate_gear_kernel(plane, lengths, mask)
+    plain = cdc.gear_candidates(torch.from_numpy(plane), torch.from_numpy(lengths), mask)
+    assert np.array_equal(got, plain.numpy().astype(bool))
+    assert np.array_equal(got, jax_cdc._candidates_numpy(plane, lengths, mask))
+    if mask == 0:  # every position below the length is a candidate
+        assert np.array_equal(got.sum(1), lengths)
+
+
+def test_launches_count_by_tag_and_shape(monkeypatch):
+    """``_kernels.launch`` counts each launch by kernel and by (kernel, the
+    thread's tag, shape); tags nest, and another thread's launches stay
+    untagged. The C library is replaced by a stub that reports success."""
+    import threading
+    import types
+
+    from spacedrive_tpu_torch.ops import _kernels
+
+    monkeypatch.setattr(_kernels, "library",
+                        lambda source: types.SimpleNamespace(gear_candidates=lambda *a: 0))
+    _kernels.reset_counts()
+    with _kernels.tagged("chunk-ids"):
+        _kernels.launch("cdc", "gear_candidates", shape=(32, 4096))
+        with _kernels.tagged("cas"):
+            _kernels.launch("cdc", "gear_candidates", shape=(32, 4096))
+        worker = threading.Thread(
+            target=lambda: _kernels.launch("cdc", "gear_candidates", shape=(8, 256)))
+        worker.start()
+        worker.join()
+        _kernels.launch("cdc", "gear_candidates", shape=(32, 4096))
+    assert _kernels.LAUNCHES["gear_candidates"] == 4
+    assert dict(_kernels.LAUNCHES_BY_SHAPE) == {
+        ("gear_candidates", "chunk-ids", (32, 4096)): 2,
+        ("gear_candidates", "cas", (32, 4096)): 1,
+        ("gear_candidates", None, (8, 256)): 1}
+    _kernels.reset_counts()
+    assert not _kernels.LAUNCHES and not _kernels.LAUNCHES_BY_SHAPE

@@ -15,6 +15,7 @@ from spacedrive_tpu_torch.ops import _kernels
 from spacedrive_tpu_torch.ops import blake3 as b3
 from spacedrive_tpu_torch.ops import cdc
 from spacedrive_tpu_torch.search import kernels as search_kernels
+from tests.torch_gear_edges import edge_plane
 
 EDGE_LENGTHS = (0, 1, 63, 64, 65, 1023, 1024, 1025, 2048, 2049, 57352, 102408)
 
@@ -49,6 +50,39 @@ def test_gear_kernel_matches_plain(card):
     assert torch.equal(cdc.gear_candidates(plane, lengths, params.mask),
                        cdc.gear_candidates_plain(plane, lengths, params.mask))
     assert cdc.chunk_batch(datas, params) == cdc.chunk_batch(datas, params, device="cpu")
+
+
+@pytest.mark.parametrize("width", [256, 4096, 128 << 10, 1000])
+def test_gear_kernel_edges_match_plain(card, width):
+    """Edge lengths in a padded plane; 1000 is not a multiple of 16 (the
+    kernel's byte path). Masks of low bits (8191 is the default) and
+    0xFF000000, which reads the window's oldest bytes; mask 0 flags every
+    position."""
+    plane, lengths = (torch.from_numpy(t).to(card) for t in edge_plane(width, width))
+    for mask in (0, 255, 8191, 0xFF000000):
+        got = cdc.gear_candidates(plane, lengths, mask)
+        assert torch.equal(got, cdc.gear_candidates_plain(plane, lengths, mask)), mask
+    assert torch.equal(cdc.gear_candidates(plane, lengths, 0).sum(1, dtype=torch.int32), lengths)
+
+
+def test_gear_kernel_off_alignment_and_tiers_match_plain(card):
+    plane, lengths = (torch.from_numpy(t).to(card) for t in edge_plane(4096, 5))
+    buf = torch.empty(plane.numel() + 1, dtype=torch.uint8, device=card)
+    shifted = buf[1:].view(plane.shape)  # contiguous, 1 byte off 16-byte alignment
+    shifted.copy_(plane)
+    mask = cdc.DEFAULT_PARAMS.mask
+    assert torch.equal(cdc.gear_candidates(shifted, lengths, mask),
+                       cdc.gear_candidates_plain(plane, lengths, mask))
+    rng = np.random.default_rng(6)
+    for tier, n_files in ((256, 120), (4 << 10, 15), (128 << 10, 48), (512 << 10, 16)):
+        datas = [blob(int(rng.integers(1 << 30)), int(rng.integers(tier // 2 + 1, tier + 1)))
+                 for _ in range(n_files)]
+        plane, lengths = cdc._plane(datas, card)
+        before = _kernels.LAUNCHES_BY_SHAPE[("gear_candidates", None, tuple(plane.shape))]
+        assert torch.equal(cdc.gear_candidates(plane, lengths, mask),
+                           cdc.gear_candidates_plain(plane, lengths, mask)), tier
+        assert _kernels.LAUNCHES_BY_SHAPE[
+            ("gear_candidates", None, tuple(plane.shape))] == before + 1
 
 
 def test_kernel_wrappers_reject_bad_inputs(card):
