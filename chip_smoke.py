@@ -89,8 +89,9 @@ GEAR_EDGE_WIDTHS = (256, 4096, 128 << 10, 1000)
 GEAR_MASKS = (0, 255, 8191, 0xFF000000)
 #: timings some kernels add beside "ms": the wrapper call's time where "ms"
 #: is device time, every row read whole (search), the device time with the
-#: L2 cleared before each call (Gear)
-EXTRA_TIMES = ("call_ms", "full_row_bound_ms", "cold_ms")
+#: L2 cleared before each call (BLAKE3, Gear), the merge's levels times one
+#: level's device time
+EXTRA_TIMES = ("call_ms", "full_row_bound_ms", "cold_ms", "latency_floor_ms")
 #: BLAKE3 rotates per compression (7 rounds x 8 G x 4), used to find how many
 #: compressions the compiler put in one pass of the chunk loop
 ROTATES_PER_COMPRESSION = 224
@@ -181,10 +182,10 @@ def canon(value) -> str:
 
 def sass_chunk_loop() -> dict | None:
     """SASS instructions per 64-byte block in ``blake3_chunk_cvs``'s chunk
-    loop, read with cuobjdump from the built library: the largest backward
-    branch of the kernel bounds the loop, and its rotates (SHF + PRMT) say how
-    many compressions one pass holds. None where cuobjdump is missing or the
-    loop cannot be found."""
+    loop, read with cuobjdump from the built library: the shortest backward
+    branch of the kernel whose span holds a compression bounds the loop, and
+    its rotates (SHF + PRMT) say how many compressions one pass holds. None
+    where cuobjdump is missing or the loop cannot be found."""
     import collections
     import re
 
@@ -224,14 +225,21 @@ def sass_chunk_loop() -> dict | None:
         instrs.append((addr, words[0], target))
     loops = [(t, a) for a, op, t in instrs
              if op.startswith("BRA") and t is not None and t < a]
+
+    def opcodes(span):
+        return collections.Counter(op.split(".")[0] for a, op, _ in instrs
+                                   if span[0] <= a <= span[1] and op != "NOP")
+
+    def compressions_in(ops):
+        return round((ops["SHF"] + ops["PRMT"]) / ROTATES_PER_COMPRESSION)
+
+    # the chunk loop is the innermost loop that holds a compression (a loop
+    # around it, over lanes, holds one too and more besides)
+    loops = [span for span in loops if compressions_in(opcodes(span)) >= 1]
     if not loops:
         return None
-    start, end = max(loops, key=lambda span: span[1] - span[0])
-    ops = collections.Counter(op.split(".")[0] for a, op, _ in instrs
-                              if start <= a <= end and op != "NOP")
-    compressions = round((ops["SHF"] + ops["PRMT"]) / ROTATES_PER_COMPRESSION)
-    if compressions < 1:
-        return None
+    ops = opcodes(min(loops, key=lambda span: span[1] - span[0]))
+    compressions = compressions_in(ops)
     return {"per_block": sum(ops.values()) / compressions,
             "imad_per_block": ops["IMAD"] / compressions, "compressions": compressions,
             "by_opcode": dict(ops.most_common())}
@@ -251,15 +259,32 @@ def blake3_inputs(messages: list[bytes], cap: int):
     return torch.from_numpy(rows).cuda(), torch.from_numpy(lengths).cuda()
 
 
-def chunk_id_messages(rng: random.Random) -> list[bytes]:
-    """A full batch of chunk-id messages as the manifest stage sends them:
-    4096 CDC chunks (mostly 2 KiB plus a geometric tail, capped at 64 KiB;
-    one in ten a short final chunk of a file), with the edge lengths pinned."""
+def chunk_id_messages(rng: random.Random, n: int = 4096) -> list[bytes]:
+    """A batch of chunk-id messages as the manifest stage sends them (4096
+    is a full batch): CDC chunks (mostly 2 KiB plus a geometric tail, capped
+    at 64 KiB; one in ten a short final chunk of a file), with the edge
+    lengths pinned."""
     lens = [2048, 2049, 4096, 65535, 65536, 1]
-    while len(lens) < 4096:
+    while len(lens) < n:
         lens.append(rng.randint(1, 2047) if rng.random() < 0.1
                     else min(65536, 2048 + int(rng.expovariate(1 / 6144))))
     return [rng.randbytes(n) for n in lens]
+
+
+def blake3_edge_batches(rng: random.Random) -> list[tuple[str, list[bytes], int]]:
+    """(name, messages, C) of batches at the BLAKE3 kernels' edges: 512
+    messages of 0-1024 B in 1-chunk rows (the hasher's smallest bucket),
+    8193 messages of 0-4 KiB in 4-chunk rows (two chunk-kernel launches, merge
+    groups of 31), and 4096 messages in 101-chunk rows where one of every 15
+    (the merge group at this size) is 102,408 B and the rest one chunk or
+    empty."""
+    small = [rng.randbytes(rng.randint(0, 1024)) for _ in range(512)]
+    slices = [rng.randbytes(rng.randint(0, 4096)) for _ in range(8193)]
+    mixed = [rng.randbytes(102408 if i % 15 == 7 else rng.choice((0, 1, 1024, rng.randint(2, 1023))))
+             for i in range(4096)]
+    return [("512 messages of 0-1024 B, C = 1", small, 1),
+            ("8193 messages of 0-4 KiB, C = 4", slices, 4),
+            ("4096 messages, one 101-chunk message per merge group, C = 101", mixed, 101)]
 
 
 def check_blake3(rows, lengths, name: str) -> int:
@@ -322,6 +347,22 @@ def parity_phase(rng: random.Random, cols: dict) -> dict:
         f"({sum(map(len, chunks)) / 1e6:.1f} MB, rows {tuple(rows.shape)}) matches plain "
         "exactly (tolerance 0); 5 digests match the oracle")
 
+    # the new edges of the lane map and the merge groups: C = 1 (no merge
+    # level), B past the chunk kernel's 8192 messages a launch, and at
+    # C = 101 a 101-chunk message in every merge group beside one-chunk ones
+    errs = []
+    for name, msgs, C in blake3_edge_batches(rng):
+        rows, lengths = blake3_inputs(msgs, C)
+        errs.append(check_blake3(rows, lengths, name))
+        got = b3.digests_to_hex(b3.blake3_batch_rows(rows, lengths))
+        for i in (0, 7, len(msgs) - 1):
+            if got[i] != oracle(msgs[i]).hex():
+                fail(f"blake3 digest {i} ({len(msgs[i])} B) of the {name} batch differs from "
+                     "the oracle")
+        log(f"parity: blake3 on {name} (rows {tuple(rows.shape)}) matches plain exactly "
+            "(tolerance 0); 3 digests match the oracle")
+    err_groups = max(errs)
+
     # Gear candidate bitmaps at every plane tier the scan fills, and at the
     # kernel's edges with random bytes past every length and in the padding
     shapes = []
@@ -344,7 +385,7 @@ def parity_phase(rng: random.Random, cols: dict) -> dict:
         f"{list(GEAR_EDGES)} + L-1, L in planes of widths {list(GEAR_EDGE_WIDTHS)} padded to "
         f"their batch tier, masks {[hex(m) for m in GEAR_MASKS]}, and on a "
         "plane off 16-byte alignment")
-    err_b3 = max(err_edge, err_sampled, err_ids)
+    err_b3 = max(err_edge, err_sampled, err_ids, err_groups)
     return {"blake3_chunk_cvs": err_b3, "blake3_merge": err_b3, "gear_candidates": 0,
             **search_parity(cols)}
 
@@ -567,10 +608,13 @@ def search_timing(cols: dict, int32_ops_per_s: float) -> dict:
     every row's W bytes."""
     from spacedrive_tpu_torch.search import kernels as K
 
-    jobs = (("search_substring@L3", K.substring, K.substring_plain, cols["name"], b"inv"),
-            ("search_substring@L17", K.substring, K.substring_plain, cols["name"],
-             b"holiday-budget-00"),
-            ("search_exact@path", K.exact, K.exact_plain, cols["path"],
+    # every needle of the search matrix (folded, as the engine sends it),
+    # so the launches counted by needle length each have a time
+    needles = sorted({K.fold(arg["search"].encode()) for _l, _p, arg in SEARCH_MATRIX
+                      if "search" in arg} | {b"inv"}, key=lambda nd: (len(nd), nd))
+    jobs = tuple((f"search_substring@L{len(nd)}" + ("" if len(nd) in (3, 17) else f"-{nd.decode()}"),
+                  K.substring, K.substring_plain, cols["name"], nd) for nd in needles)
+    jobs += (("search_exact@path", K.exact, K.exact_plain, cols["path"],
              SEARCH_DIRS[3].encode()),
             ("search_exact@ext", K.exact, K.exact_plain, cols["ext"], b"flac"),
             ("search_lex@date", K.lex_cmp, K.lex_cmp_plain, cols["date"],
@@ -595,17 +639,43 @@ def search_timing(cols: dict, int32_ops_per_s: float) -> dict:
 # --------------------------------------------------------------------------
 
 
-def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict:
+def merge_level_ms(b3) -> float:
+    """Device time of one level of ``blake3_merge``: a single message of 64
+    chunks (6 levels) against one of 2 chunks (1 level), each alone in a
+    launch, so the difference is five levels of one compression's dependent
+    chain plus the level's shared-memory round trip and barriers."""
     import torch
 
+    t = {}
+    for n in (2, 64):
+        rows, lengths = blake3_inputs([bytes(n * 1024)], 64)
+        cvs = b3.chunk_cvs(rows, lengths)
+        t[n] = device_ms(lambda: b3.merge(cvs, lengths), "merge_kernel")
+    del rows, lengths, cvs
+    torch.cuda.empty_cache()
+    level_ms = (t[64] - t[2]) / 5
+    log(f"time: blake3_merge of one message alone: 2 chunks (1 level) {t[2]:.4f} ms, 64 chunks "
+        f"(6 levels) {t[64]:.4f} ms; one level {level_ms:.5f} ms (device time)")
+    return level_ms
+
+
+def blake3_timing(rng: random.Random, int32_ops_per_s: float, flush) -> dict:
+    """Both BLAKE3 kernels at the shapes the scan launches them: 1024
+    sampled cas messages and full (4096) and half (2048) batches of chunk ids,
+    all in 64-chunk rows. Device time per launch (profiler), L2-warm and with
+    the L2 cleared before each call, beside the wrapper call's time; the
+    merge also against its latency floor, the batch's levels times one
+    level's device time (``merge_level_ms``)."""
     from spacedrive_tpu_torch.objects.cas import SAMPLED_MESSAGE_LEN
     from spacedrive_tpu_torch.ops import blake3 as b3
-    from spacedrive_tpu_torch.ops import cdc
 
+    level_ms = merge_level_ms(b3)
     out = {}
     jobs = (("", [rng.randbytes(SAMPLED_MESSAGE_LEN) for _ in range(1024)],
              f"{SAMPLED_MESSAGE_LEN}-byte messages"),
-            ("@chunk-ids", chunk_id_messages(rng), "chunk-id messages of 1 B-64 KiB"))
+            ("@chunk-ids", chunk_id_messages(rng), "chunk-id messages of 1 B-64 KiB"),
+            ("@chunk-ids-2048", chunk_id_messages(rng, 2048),
+             "2048 chunk-id messages of 1 B-64 KiB"))
     for suffix, messages, what in jobs:
         rows, lengths = blake3_inputs(messages, 64)
         B, C = rows.shape[0], rows.shape[1] // 256
@@ -617,21 +687,39 @@ def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict
         pcvs = b3.chunk_cvs_plain(rows, lengths)
         nbytes = blocks * 64 + B * 4 + B * C * 32
         out["blake3_chunk_cvs" + suffix] = {
-            "ms": time_ms(lambda: b3.chunk_cvs(rows, lengths), 50),
+            "ms": device_ms(lambda: b3.chunk_cvs(rows, lengths), "chunk_cvs_kernel"),
+            "cold_ms": device_ms(lambda: b3.chunk_cvs(rows, lengths), "chunk_cvs_kernel",
+                                 between=flush.zero_),
+            "call_ms": time_ms(lambda: b3.chunk_cvs(rows, lengths), 50),
             "plain_ms": time_ms(lambda: b3.chunk_cvs_plain(rows, lengths), 3, warmup=1),
             "bound": bound_ms(nbytes, blocks * OPS_PER_COMPRESSION, int32_ops_per_s),
-            "blocks": blocks, "shape": f"rows ({B}, {C}*256) u32, {what}"}
+            "blocks": blocks,
+            "shape": f"rows ({B}, {C}*256) u32, {what}, {sum(n_chunks)} chunks"}
         parents = sum(k - 1 for k in n_chunks)
+        levels = (max(n_chunks) - 1).bit_length()
         nbytes = sum(n_chunks) * 32 + B * 4 + B * 32
         out["blake3_merge" + suffix] = {
-            "ms": time_ms(lambda: b3.merge(cvs, lengths), 50),
+            "ms": device_ms(lambda: b3.merge(cvs, lengths), "merge_kernel"),
+            "cold_ms": device_ms(lambda: b3.merge(cvs, lengths), "merge_kernel",
+                                 between=flush.zero_),
+            "call_ms": time_ms(lambda: b3.merge(cvs, lengths), 50),
             "plain_ms": time_ms(lambda: b3.merge_plain(pcvs, lengths), 3, warmup=1),
             "bound": bound_ms(nbytes, parents * OPS_PER_COMPRESSION, int32_ops_per_s),
-            "shape": f"cvs ({B}, {C}, 8) u32, {what}"}
-    # back-to-back calls on one plane find it and their output in the 50 MB
+            "latency_floor_ms": levels * level_ms,
+            "shape": f"cvs ({B}, {C}, 8) u32, {what}, {parents} parents, {levels} levels"}
+    return out
+
+
+def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict:
+    import torch
+
+    from spacedrive_tpu_torch.ops import cdc
+
+    # back-to-back calls on one input find it and their output in the 50 MB
     # L2, which the HBM-priced bound does not; writing this between calls
     # evicts both
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    out = blake3_timing(rng, int32_ops_per_s, flush)
     for tier, n_files in GEAR_TIERS[1:]:
         datas = [rng.randbytes(rng.randint(tier // 2 + 1, tier)) for _ in range(n_files)]
         plane, plens = cdc._plane(datas, torch.device("cuda"))
@@ -658,9 +746,12 @@ def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict
         call = "" if "call_ms" not in t else f" (device time; a wrapper call {t['call_ms']:.4f} ms)"
         cold = ("" if "cold_ms" not in t else f"; with the L2 cleared before each call "
                 f"{t['cold_ms']:.4f} ms, {100 * b / t['cold_ms']:.1f}% of bound")
+        floor = t.get("latency_floor_ms")
+        floor = "" if floor is None else (f"; latency floor {floor:.4f} ms, kernel at "
+                                          f"{100 * floor / t['ms']:.1f}% of it")
         log(f"time: {name} [{t['shape']}]: kernel {t['ms']:.4f} ms{call}, "
             f"plain {t['plain_ms']:.4f} ms, bound {b:.4f} ms ({by}), kernel at "
-            f"{100 * b / t['ms']:.1f}% of bound{cold}"
+            f"{100 * b / t['ms']:.1f}% of bound{cold}{floor}"
             + ("" if full is None else f"; reading every row whole {full:.4f} ms, kernel at "
                f"{100 * full / t['ms']:.1f}% of that"))
 
@@ -668,7 +759,8 @@ def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict
     # compiler fuses some of them (three-input adds), so also price the
     # instructions it emitted, at the same 64 per SM per clock
     sass = sass_chunk_loop()
-    for name in ("blake3_chunk_cvs", "blake3_chunk_cvs@chunk-ids"):
+    for name in ("blake3_chunk_cvs", "blake3_chunk_cvs@chunk-ids",
+                 "blake3_chunk_cvs@chunk-ids-2048"):
         t = out[name]
         t["sass"] = None if sass is None else {
             "per_block": sass["per_block"],
@@ -769,6 +861,10 @@ def write_tree(root: Path, seed: int) -> dict:
     return {"paths": paths, "sizes": sizes, "copy_of": copy_of, "bytes_written": written}
 
 
+#: the CUDA functions of the scan's kernels, as the profiler names them
+SCAN_KERNEL_SYMBOLS = ("::chunk_cvs_kernel(", "::merge_kernel(", "::gear_candidates_kernel<")
+
+
 def profiled_scan(node, tree_dir: Path) -> None:
     """Scan the tree again into a second library under torch.profiler
     (CUDA activity only) and print the device's busy share of the scan and
@@ -792,7 +888,10 @@ def profiled_scan(node, tree_dir: Path) -> None:
     device_us = {e.key: e.self_device_time_total for e in prof.key_averages()
                  if e.self_device_time_total > 0}
     busy_s = sum(device_us.values()) / 1e6
-    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:8]
+    ranked = sorted(device_us.items(), key=lambda kv: -kv[1])
+    # the eight largest, and the port's scan kernels wherever they rank
+    top = [kv for i, kv in enumerate(ranked)
+           if i < 8 or any(k in kv[0] for k in SCAN_KERNEL_SYMBOLS)]
     log(f"main path (profiled rescan into a second library): wall {wall_s:.2f} s, device busy "
         f"{busy_s:.3f} s = {100 * busy_s / wall_s:.2f}% (idle {100 - 100 * busy_s / wall_s:.2f}%); "
         "device time by activity: " + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top))
@@ -1175,9 +1274,13 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
             fail(f"the search path never launched {kernel}")
     if plain_on_card:
         fail(f"the search path called plain versions on the card: {plain_on_card}")
+    by_shape = shape_counts(_kernels.LAUNCHES_BY_SHAPE)
     log(f"search path: {time.perf_counter() - t_phase:.1f} s; launches {launches}; plain "
         f"versions on the card: 0")
-    return {"launches": launches, "per_pass": per_pass}
+    for kernel in ("search_substring", "search_exact", "search_lex"):
+        log(f"search path: {kernel} launches by (rows, width, needle length): "
+            f"{by_shape.get(kernel, {})}")
+    return {"launches": launches, "per_pass": per_pass, "by_shape": by_shape}
 
 
 def main() -> int:
@@ -1262,6 +1365,7 @@ def main() -> int:
             for k, v in times.items() if k.startswith(name + "@") and k != key}
         if main is not None and search:
             kernels[-1]["launches_per_matrix_pass"] = main["search"]["per_pass"].get(name, 0)
+            kernels[-1]["launches_by_shape"] = main["search"]["by_shape"].get(name, {})
         elif main is not None:
             kernels[-1]["launches_per_page"] = launches / main["pages"]
             kernels[-1]["launches_by_shape"] = main["by_shape"].get(name, {})

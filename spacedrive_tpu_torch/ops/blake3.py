@@ -12,9 +12,12 @@ the JAX signatures and layouts:
   :func:`blake3_batch_hex` as in the JAX module.
 
 On a CUDA tensor the hash is two kernel launches (``csrc/blake3.cu``):
-``blake3_chunk_cvs`` (one thread per chunk lane, all 16 blocks in registers,
-ROOT on the final block of one-chunk messages) then ``blake3_merge`` (one
-block per message, level-wise adjacent pairing in shared memory). On a CPU
+``blake3_chunk_cvs`` (one thread per real chunk: lanes numbered over the
+batch's chunks through a prefix of the per-message chunk counts built on the
+card, all 16 blocks in registers, ROOT on the final block of one-chunk
+messages, zeros past each message's chunk count) then ``blake3_merge`` (one
+block per group of messages; at each level the pairs of all the group's
+messages form one list, merged in place in shared memory). On a CPU
 tensor the same two phases run as the plain PyTorch version below: the
 ``compress`` function and the two-phase orchestration of
 ``_blake3_batch_impl``/``_single_chunk_root``. u32 words are kept in int64
@@ -39,8 +42,9 @@ BLOCKS_PER_CHUNK = CHUNK_LEN // BLOCK_LEN
 WORDS_PER_CHUNK = CHUNK_LEN // 4
 MASK = 0xFFFFFFFF
 
-#: the merge kernel keeps two levels of C chaining values in shared memory
-#: (64 bytes per chunk); above this the block would exceed 227 KB
+#: chunks per message row the kernels take: the merge kernel keeps a
+#: message's C chaining values in shared memory (32 bytes a chunk, merged in
+#: place), 112 KiB at this bound, under the 227 KB a block may take
 MAX_CHUNKS = 3584
 
 
@@ -231,6 +235,9 @@ def merge(cvs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     B, C, _ = cvs.shape
     if cvs.dtype != torch.int32 or not cvs.is_contiguous() or C > MAX_CHUNKS:
         raise ValueError("merge kernel takes contiguous int32 (B, C<=3584, 8) CVs")
+    if (lengths.dtype != torch.int32 or not lengths.is_contiguous()
+            or lengths.shape != (B,) or lengths.device != cvs.device):
+        raise ValueError("merge kernel takes contiguous int32 (B,) lengths on the CVs' device")
     out = torch.empty((8, B), dtype=torch.int32, device=cvs.device)
     _kernels.launch("blake3", "blake3_merge", cvs.data_ptr(),
                     lengths.data_ptr(), out.data_ptr(), B, C,

@@ -136,7 +136,8 @@ def _launch(kernel: str, rows: torch.Tensor, raw: bytes) -> torch.Tensor:
         raise ValueError("at most 2**31 - 1 rows per launch")
     out = torch.empty(cap, dtype=torch.uint8, device=rows.device)
     _kernels.launch("search", kernel, rows.data_ptr(), width, cap, raw, len(raw),
-                    out.data_ptr(), rows.device.index or 0, _kernels.stream_of(rows.device))
+                    out.data_ptr(), rows.device.index or 0, _kernels.stream_of(rows.device),
+                    shape=(cap, width, len(raw)))
     return out
 
 

@@ -43,6 +43,79 @@ def test_blake3_kernels_match_plain_and_oracle(card):
     assert b3.blake3_batch_hex(msgs, max_chunks=101) == [blake3(m).hex() for m in msgs]
 
 
+def hold_blake3_to_plain(card, msgs: list[bytes], C: int, lengths=None) -> None:
+    """Both BLAKE3 kernels against their plain versions on one batch, one
+    launch each; ``lengths`` may replace the packed lengths."""
+    rows, packed = b3.pack_rows(msgs, C)
+    r = torch.from_numpy(rows).to(card)
+    n = torch.from_numpy(packed if lengths is None else np.asarray(lengths, np.int32)).to(card)
+    before = dict(_kernels.LAUNCHES)
+    cvs = b3.chunk_cvs(r, n)
+    plain = b3.chunk_cvs_plain(r, n)
+    assert torch.equal(b3.u32(cvs), plain)
+    assert torch.equal(b3.u32(b3.merge(cvs, n)), b3.merge_plain(plain, n))
+    for kernel in ("blake3_chunk_cvs", "blake3_merge"):
+        assert _kernels.LAUNCHES[kernel] == before.get(kernel, 0) + 1
+
+
+def chunk_id_lengths(seed: int, n: int) -> list[int]:
+    """CDC chunk lengths as the manifest stage sends them: mostly 2 KiB plus
+    a geometric tail capped at 64 KiB, one in ten a short final chunk."""
+    rng = np.random.default_rng(seed)
+    return [int(rng.integers(1, 2048)) if rng.random() < 0.1
+            else min(65536, 2048 + int(rng.exponential(6144))) for _ in range(n)]
+
+
+@pytest.mark.parametrize("n", [4096, 2048, 45])
+def test_blake3_kernels_on_chunk_id_batches(card, n):
+    """Chunk-id batches (lanes numbered over real chunks; 45 messages is not
+    a multiple of any merge group)."""
+    lens = [2048, 2049, 4096, 65535, 65536, 1] + chunk_id_lengths(n, n - 6)
+    hold_blake3_to_plain(card, [blob(i, k) for i, k in enumerate(lens)], 64)
+
+
+def test_blake3_kernels_on_the_sampled_cas_batch(card):
+    from spacedrive_tpu_torch.objects.cas import SAMPLED_MESSAGE_LEN
+
+    hold_blake3_to_plain(card, [blob(i, SAMPLED_MESSAGE_LEN) for i in range(1024)], 64)
+
+
+@pytest.mark.parametrize("C", [1, 4, 101])
+def test_blake3_kernels_at_chunk_counts_and_tier_padding(card, C):
+    """C = 1 (no merge level), 4 and 101 (not a power of two), each batch
+    padded with empty messages to a tier; at C = 101 a 101-chunk message
+    shares its merge group with one-chunk ones."""
+    rng = np.random.default_rng(C)
+    lens = [C * 1024, 0, 1, 1023, min(1025, C * 1024)] + [
+        int(x) for x in rng.integers(0, C * 1024 + 1, 40)]
+    msgs = [blob(i, k) for i, k in enumerate(lens)]
+    hold_blake3_to_plain(card, msgs + [b""] * (b3._pad_to_tier(len(msgs)) - len(msgs)), C)
+
+
+@pytest.mark.parametrize("B", [8191, 8192, 8193, 9000])
+def test_blake3_kernels_across_merge_groups_and_launch_slices(card, B):
+    """Batch sizes around the chunk kernel's 8192 messages a launch (the
+    launcher slices larger batches) and the merge's groups of 31 and 32."""
+    lens = [int(x) for x in np.random.default_rng(B).integers(0, 4 * 1024 + 1, B)]
+    hold_blake3_to_plain(card, [blob(i, k) for i, k in enumerate(lens)], 4)
+
+
+def test_blake3_kernels_near_max_chunks(card):
+    """One message of MAX_CHUNKS - 1 chunks plus a byte (a merge group of
+    one message taking 112 KiB of shared memory) beside short ones."""
+    C = b3.MAX_CHUNKS
+    msgs = [blob(1, (C - 1) * 1024 + 1), blob(2, 5), b"", blob(3, 70_000)] + [b""] * 4
+    hold_blake3_to_plain(card, msgs, C)
+    assert b3.blake3_batch_hex(msgs[:2], max_chunks=C) == [blake3(m).hex() for m in msgs[:2]]
+
+
+def test_blake3_kernels_clamp_lengths_past_the_row(card):
+    """Lengths past the row (and negative ones) clamp as in the plain
+    version: nothing is read or merged out of bounds."""
+    msgs = [blob(i, 2048) for i in range(8)]
+    hold_blake3_to_plain(card, msgs, 2, lengths=[10_000, -5, 2048, 2047, 4096, 0, 1 << 30, 3])
+
+
 def test_gear_kernel_matches_plain(card):
     datas = [b"", b"a", blob(7, 255), blob(9, 4096), blob(10, 70_000), b"\x00" * 4096]
     params = cdc.ChunkParams(64, 256, 1024)
