@@ -19,8 +19,11 @@ no result line):
    (the outputs are integers and bits), at the main paths' shapes (cas
    messages, a full batch of chunk ids, every Gear plane tier the tree
    fills, the 1,000,000-row search index's name, path, extension and date
-   columns) and at edge cases, and BLAKE3 digests against the pure-Python
-   oracle;
+   columns, the last two exact-match columns with their key columns) and at
+   edge cases (for the search kernels: needle lengths 1-5 and 48, a common
+   first gram with no match, matches only at offset 0 or W-L, rows where
+   every offset is a candidate, bytes >= 0x80, two different rows with one
+   key), and BLAKE3 digests against the pure-Python oracle;
 3. time each kernel and its plain version at those shapes (CUDA events, or
    the profiler's device time where a wrapper call takes longer to issue
    than the kernel runs), beside the least time the card could take, and
@@ -36,10 +39,12 @@ no result line):
 5. the search path: serve ``search.paths`` / ``search.pathsCount`` from the
    device index of the scanned library and of a 1,000,000-row library built
    with the search benchmark's corpus recipe (plus 1,024 files of 2-64 GiB),
-   byte-identical to the SQL path for every query; time engine and SQLite;
-   rename and add 1,000 rows each and show the refresh patched the index
-   incrementally; show through the launch counters that the search went
-   through all three search kernels and never through a plain version;
+   byte-identical to the SQL path for every query; time engine and SQLite,
+   and the key columns' host build, upload and patch; rename and add 1,000
+   rows each and show the refresh patched the index incrementally; show
+   through the launch counters that the search went through all three
+   search kernels and never through a plain version; then hold the exact
+   kernel against its plain version on the patched path column;
 6. print the card, the ``{"kernels": [...]}`` line, then the
    ``{"ok": true, ...}`` line.
 """
@@ -135,6 +140,12 @@ SEARCH_MATRIX = [
     ("size_2gib", "search.paths", {"size_range": [2 ** 31, None], "take": 100}),
     ("size_8_32gib", "search.paths", {"size_range": [2 ** 33, 2 ** 35], "take": 100}),
 ]
+#: the queries served after 1,000 renames and 1,000 inserts
+AFTER_REFRESH = [
+    ("renamed", "search.paths", {"search": "renamed-0", "take": 200, "include_hidden": True}),
+    ("added", "search.pathsCount", {"search": "added-", "include_hidden": True}),
+    ("size_2gib_after", "search.paths", {"size_range": [2 ** 31, None], "take": 100}),
+]
 
 
 def log(msg: str) -> None:
@@ -180,26 +191,20 @@ def canon(value) -> str:
     return json.dumps(value, sort_keys=True, default=str)
 
 
-def sass_chunk_loop() -> dict | None:
-    """SASS instructions per 64-byte block in ``blake3_chunk_cvs``'s chunk
-    loop, read with cuobjdump from the built library: the shortest backward
-    branch of the kernel whose span holds a compression bounds the loop, and
-    its rotates (SHF + PRMT) say how many compressions one pass holds. None
-    where cuobjdump is missing or the loop cannot be found."""
-    import collections
+def sass_instructions(library: Path, function: str) -> list | None:
+    """(address, opcode, branch target or None) of each SASS instruction of
+    the first function in ``library`` whose name contains ``function``,
+    read with cuobjdump; None where cuobjdump or the function is missing."""
     import re
-
-    from spacedrive_tpu_torch.ops import _kernels
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
-    dump = subprocess.run([tool, "-sass", str(_kernels._target("blake3"))],
-                          capture_output=True, text=True)
+    dump = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True)
     if dump.returncode != 0:
         return None
     body = next((part for part in dump.stdout.split("Function : ")[1:]
-                 if "chunk_cvs_kernel" in part.splitlines()[0]), None)
+                 if function in part.splitlines()[0]), None)
     if body is None:
         return None
     instrs, labels, pending = [], {}, []
@@ -223,6 +228,33 @@ def sass_chunk_loop() -> dict | None:
         elif target:
             target = labels.get(target.group(1))
         instrs.append((addr, words[0], target))
+    return instrs
+
+
+def sass_opcodes(library: Path, function: str) -> dict | None:
+    """Opcode counts of one function's SASS (static: each instruction once)."""
+    import collections
+
+    instrs = sass_instructions(library, function)
+    if instrs is None:
+        return None
+    ops = collections.Counter(op.split(".")[0] for _a, op, _t in instrs if op != "NOP")
+    return dict(ops.most_common())
+
+
+def sass_chunk_loop() -> dict | None:
+    """SASS instructions per 64-byte block in ``blake3_chunk_cvs``'s chunk
+    loop, read with cuobjdump from the built library: the shortest backward
+    branch of the kernel whose span holds a compression bounds the loop, and
+    its rotates (SHF + PRMT) say how many compressions one pass holds. None
+    where cuobjdump is missing or the loop cannot be found."""
+    import collections
+
+    from spacedrive_tpu_torch.ops import _kernels
+
+    instrs = sass_instructions(_kernels._target("blake3"), "chunk_cvs_kernel")
+    if instrs is None:
+        return None
     loops = [(t, a) for a, op, t in instrs
              if op.startswith("BRA") and t is not None and t < a]
 
@@ -455,11 +487,12 @@ def search_corpus() -> list[tuple]:
 
 def corpus_columns(corpus: list[tuple]) -> dict:
     """The index's byte columns of the corpus as the device mirror holds
-    them: row-major (CAP, W) u8 on the card, zero-padded, names folded."""
+    them: row-major (CAP, W) u8 on the card, zero-padded, names folded; and
+    the key columns of the path and extension rows."""
     import numpy as np
     import torch
 
-    from spacedrive_tpu_torch.search.kernels import fold, pad_cap
+    from spacedrive_tpu_torch.search.kernels import fold, pad_cap, row_keys
 
     cap = pad_cap(len(corpus))
 
@@ -467,12 +500,14 @@ def corpus_columns(corpus: list[tuple]) -> dict:
         out = np.zeros((cap, width), dtype=np.uint8)
         out[: len(values)] = np.array(values, dtype=f"S{width}").view(np.uint8).reshape(
             len(values), width)
-        return torch.from_numpy(out).cuda()
+        return out
 
-    return {"name": rows([fold(r[2].encode()) for r in corpus], 64),
-            "path": rows([r[1].encode() for r in corpus], 96),
-            "ext": rows([(r[3] or "").encode() for r in corpus], 12),
-            "date": rows([r[7].encode() for r in corpus], 40)}
+    path = rows([r[1].encode() for r in corpus], 96)
+    ext = rows([(r[3] or "").encode() for r in corpus], 12)
+    cols = {"name": rows([fold(r[2].encode()) for r in corpus], 64), "path": path, "ext": ext,
+            "date": rows([r[7].encode() for r in corpus], 40),
+            "path_key": row_keys(path), "ext_key": row_keys(ext)}
+    return {k: torch.from_numpy(v).cuda() for k, v in cols.items()}
 
 
 def edge_rows(seed: int, width: int, n: int = 4096 + 77):
@@ -489,6 +524,15 @@ def edge_rows(seed: int, width: int, n: int = 4096 + 77):
     return torch.from_numpy(rows).cuda()
 
 
+def keys_of(rows):
+    """The key column of (CAP, W) rows on the card (kernels.row_keys)."""
+    import torch
+
+    from spacedrive_tpu_torch.search.kernels import row_keys
+
+    return torch.from_numpy(row_keys(rows.cpu().numpy())).to(rows.device)
+
+
 def search_parity(cols: dict) -> dict:
     """Each search kernel against its plain version on the card, exactly, at
     the 1,000,000-row index's shapes and at edge cases. Returns the max
@@ -496,15 +540,20 @@ def search_parity(cols: dict) -> dict:
     import torch
 
     from spacedrive_tpu_torch.search import kernels as K
+    from tests.torch_search_cases import birthday_pair, substring_cases
 
     pairs = {"search_substring": (K.substring, K.substring_plain),
              "search_exact": (K.exact, K.exact_plain),
              "search_lex": (K.lex_cmp, K.lex_cmp_plain)}
-    cases = [("search_substring", cols["name"], nd)
-             for nd in (b"e", b"inv", b"holiday-budget-00", b"zq-never-written", b"holiday-" * 6)]
-    cases += [("search_exact", cols["path"], nd) for nd in (SEARCH_DIRS[3].encode(), b"/", b"")]
-    cases += [("search_exact", cols["ext"], nd) for nd in (b"flac", b"dng", b"")]
-    cases += [("search_lex", cols["date"], nd)
+    # on the index's names: L = 1-5 and 48, a first gram common in the names
+    # ("phot") with no match, bytes >= 0x80
+    cases = [("search_substring", cols["name"], nd, None)
+             for nd in (b"e", b"in", b"inv", b"invo", b"invoi", b"holiday-budget-00",
+                        b"zq-never-written", b"holiday-" * 6, b"photo-zz", b"\xc3\xa9t\xc3")]
+    cases += [("search_exact", cols["path"], nd, cols["path_key"])
+              for nd in (SEARCH_DIRS[3].encode(), b"/", b"")]
+    cases += [("search_exact", cols["ext"], nd, cols["ext_key"]) for nd in (b"flac", b"dng", b"")]
+    cases += [("search_lex", cols["date"], nd, None)
               for nd in (b"2026-06-01T00:00:00+00:00", b"2026-06-30T23:59:59+00:00", b"",
                          b"2026-06", b"2026-12-28T23:59:00+00:00" + b"Z" * 20)]
     # edge cases: L = 1, 17, 48 with the needle planted at the last offset
@@ -514,18 +563,35 @@ def search_parity(cols: dict) -> dict:
     for length in (1, 17, 48):
         needle = bytes(names[3, 64 - length:].tolist()) if length > 1 else b"a"
         names[5, 64 - length:] = torch.tensor(list(needle), dtype=torch.uint8)
-        cases.append(("search_substring", names.clone(), needle))
+        cases.append(("search_substring", names.clone(), needle, None))
+    # the gram filter's and the verify's edges (tests/torch_search_cases.py):
+    # L = 1-5 and 48, a common first gram with no match, matches only at
+    # offset 0 and W-L, rows where every offset is a candidate, bytes >=
+    # 0x80, NULs in the needle, 779 rows
+    cases += [("search_substring", torch.from_numpy(rows).cuda(), nd, None)
+              for _label, rows, nd in substring_cases()]
     for width in (96, 12):
         rows = edge_rows(width, width)
-        cases += [("search_exact", rows, nd)
+        cases += [("search_exact", rows, nd, keys_of(rows))
                   for nd in (bytes(rows[7].tolist()), b"", b"a", b"x" * (width + 1))]
+        # two different rows with one key: one planted in the column, the
+        # other beside it and used as the needle
+        a, b = birthday_pair(width, width)
+        for where in (rows.clone(), cols["path" if width == 96 else "ext"].clone()):
+            where[17] = torch.from_numpy(a).cuda()
+            where[len(where) // 2] = torch.from_numpy(b).cuda()
+            keys = keys_of(where)
+            if int(keys[17]) != int(keys[len(where) // 2]):
+                fail(f"the planted rows of width {width} do not share a key")
+            cases.append(("search_exact", where, bytes(b.tolist()), keys))
     dates = edge_rows(40, 40)
-    cases += [("search_lex", dates, nd)
+    cases += [("search_lex", dates, nd, None)
               for nd in (b"", b"b", b"abc", bytes(dates[7].tolist()), b"c" * 41)]
     errs = {name: 0 for name in pairs}
-    for name, rows, needle in cases:
+    for name, rows, needle, keys in cases:
         kernel, plain = pairs[name]
-        got, want = kernel(rows, needle), plain(rows, needle)
+        got = kernel(rows, needle) if keys is None else kernel(rows, needle, keys)
+        want = plain(rows, needle)
         torch.cuda.synchronize()
         err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
         if err:
@@ -533,9 +599,11 @@ def search_parity(cols: dict) -> dict:
                  f"needle {needle!r} (max err {err})")
         errs[name] = max(errs[name], err)
     log(f"parity: search kernels on {len(cases)} cases (the 1,000,000-row index's name "
-        f"{tuple(cols['name'].shape)}, path, extension and date columns; L = 1, 17, 48 at the "
-        "last offset; W-length rows; empty, short and over-long needles and bounds) match "
-        "plain exactly (tolerance 0)")
+        f"{tuple(cols['name'].shape)}, path, extension and date columns, path and extension "
+        "keyed; substring L = 1-5, 17, 48, a common first gram with no match, matches only at "
+        "offset 0 and W-L, every offset a candidate, bytes >= 0x80, NULs; exact with two "
+        "different rows of one key planted; W-length rows; empty, short and over-long needles "
+        "and bounds) match plain exactly (tolerance 0)")
     return errs
 
 
@@ -602,30 +670,34 @@ def search_timing(cols: dict, int32_ops_per_s: float) -> dict:
     time per launch (profiler), the time of a call of its wrapper and of its
     plain version (CUDA events over back-to-back calls; a call costs the
     host ~15 us to issue, more than some of these kernels take, and the
-    lex wrapper maps the codes to int8 in five more launches). The bound counts the bytes this data
+    lex wrapper maps the codes to int8 in five more launches). The exact
+    kernel is given the key columns. The bound counts the bytes this data
     needs read (see search_work) and each flag written once, and each byte
     compare it needs as one INT32 operation; ``full_row_bound_ms`` reads
     every row's W bytes."""
     from spacedrive_tpu_torch.search import kernels as K
 
-    # every needle of the search matrix (folded, as the engine sends it),
-    # so the launches counted by needle length each have a time
-    needles = sorted({K.fold(arg["search"].encode()) for _l, _p, arg in SEARCH_MATRIX
+    # every needle the search phase sends to the large library (folded, as
+    # the engine sends it), so the launches counted by needle length each
+    # have a time
+    needles = sorted({K.fold(arg["search"].encode()) for _l, _p, arg in SEARCH_MATRIX + AFTER_REFRESH
                       if "search" in arg} | {b"inv"}, key=lambda nd: (len(nd), nd))
     jobs = tuple((f"search_substring@L{len(nd)}" + ("" if len(nd) in (3, 17) else f"-{nd.decode()}"),
-                  K.substring, K.substring_plain, cols["name"], nd) for nd in needles)
+                  K.substring, K.substring_plain, cols["name"], nd, ()) for nd in needles)
     jobs += (("search_exact@path", K.exact, K.exact_plain, cols["path"],
-             SEARCH_DIRS[3].encode()),
-            ("search_exact@ext", K.exact, K.exact_plain, cols["ext"], b"flac"),
-            ("search_lex@date", K.lex_cmp, K.lex_cmp_plain, cols["date"],
-             b"2026-06-01T00:00:00+00:00"))
+              SEARCH_DIRS[3].encode(), (cols["path_key"],)),
+             ("search_exact@ext", K.exact, K.exact_plain, cols["ext"], b"flac",
+              (cols["ext_key"],)),
+             ("search_lex@date", K.lex_cmp, K.lex_cmp_plain, cols["date"],
+              b"2026-06-01T00:00:00+00:00", ()))
     out = {}
-    for name, kernel, plain, rows, needle in jobs:
+    for name, kernel, plain, rows, needle, keys in jobs:
         cap, width = rows.shape
         nbytes, ops = search_work(rows, needle, kernel is K.substring)
         out[name] = {
-            "ms": device_ms(lambda: kernel(rows, needle), SEARCH_SYMBOLS[name.split("@")[0]]),
-            "call_ms": time_ms(lambda: kernel(rows, needle), 50),
+            "ms": device_ms(lambda: kernel(rows, needle, *keys),
+                            SEARCH_SYMBOLS[name.split("@")[0]]),
+            "call_ms": time_ms(lambda: kernel(rows, needle, *keys), 50),
             "plain_ms": time_ms(lambda: plain(rows, needle), 3, warmup=1),
             "bound": bound_ms(nbytes, ops, int32_ops_per_s),
             "full_row_bound_ms": cap * (width + 1) / HBM_BYTES_PER_S * 1e3,
@@ -713,7 +785,7 @@ def blake3_timing(rng: random.Random, int32_ops_per_s: float, flush) -> dict:
 def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict:
     import torch
 
-    from spacedrive_tpu_torch.ops import cdc
+    from spacedrive_tpu_torch.ops import _kernels, cdc
 
     # back-to-back calls on one input find it and their output in the 50 MB
     # L2, which the HBM-priced bound does not; writing this between calls
@@ -780,6 +852,12 @@ def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict
             f"{100 * t['sass']['bound_ms'] / t['ms']:.1f}% of it; without the "
             f"{sass['imad_per_block']:.0f} IMADs per block {alu_ms:.4f} ms, kernel at "
             f"{100 * alu_ms / t['ms']:.1f}%")
+    # the substring kernel, unrolled over its 64 offsets: its static SASS
+    # is about what a row issues (the filter) plus the verify's loops
+    ops = sass_opcodes(_kernels._target("search"), "substring_kernel")
+    log("sass: search_substring: " + ("not measured (no cuobjdump, or the kernel not found)"
+                                      if ops is None else
+                                      f"{sum(ops.values())} instructions (static) {ops}"))
     return out
 
 
@@ -902,11 +980,11 @@ def check_manifests(db, tree: dict, row_of, seed: int, n_files: int = 16) -> int
     oracles: cuts from the per-byte Gear recurrence, ids from the pure-Python
     BLAKE3 of each chunk's bytes. Returns the number of chunks checked."""
     from spacedrive_tpu_torch.objects.blake3_ref import blake3 as oracle
-    from spacedrive_tpu_torch.objects.manifest import MAX_PAYLOAD_BYTES
+    from spacedrive_tpu_torch.objects.manifest import payload_cap
     from spacedrive_tpu_torch.ops.cdc import CHUNK_ID_HEX, chunk_boundaries_ref, cuts_to_chunks
 
     rng = random.Random(seed + 2)
-    chunkable = [i for i, s in enumerate(tree["sizes"]) if 0 < s <= MAX_PAYLOAD_BYTES]
+    chunkable = [i for i, s in enumerate(tree["sizes"]) if 0 < s <= payload_cap()]
     checked = 0
     for i in rng.sample(chunkable, n_files):
         path = tree["paths"][i]
@@ -931,7 +1009,7 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
     from spacedrive_tpu_torch.node import Node
     from spacedrive_tpu_torch.objects.cas import (MINIMUM_FILE_SIZE, SAMPLED_MESSAGE_LEN,
                                                   generate_cas_id)
-    from spacedrive_tpu_torch.objects.manifest import MAX_PAYLOAD_BYTES
+    from spacedrive_tpu_torch.objects.manifest import payload_cap
     from spacedrive_tpu_torch.ops import _kernels
 
     tree_dir, data_dir = WORK / "tree", WORK / "data"
@@ -1007,10 +1085,10 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
         bad = db.query(
             "SELECT fp.name, fp.size_in_bytes AS s, (SELECT SUM(cm.length) FROM chunk_manifest cm "
             "WHERE cm.object_id = fp.object_id) AS t FROM file_path fp WHERE fp.is_dir = 0 "
-            "AND fp.size_in_bytes > 0 AND fp.size_in_bytes <= ?", [MAX_PAYLOAD_BYTES])
+            "AND fp.size_in_bytes > 0 AND fp.size_in_bytes <= ?", [payload_cap()])
         bad = [dict(r) for r in bad if r["t"] != r["s"]]
         if bad:
-            fail(f"{len(bad)} files <= 4 MiB lack a manifest summing to their size, e.g. {bad[0]}")
+            fail(f"{len(bad)} files <= {payload_cap()} B lack a manifest summing to their size, e.g. {bad[0]}")
         t0 = time.perf_counter()
         oracle_chunks = check_manifests(db, tree, row_of, seed)
         log(f"main path: manifests of 16 seeded files ({oracle_chunks} chunks) equal the "
@@ -1033,7 +1111,7 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
 
     hashable = [s for s in tree["sizes"] if s > 0]
     cas_bytes = sum(SAMPLED_MESSAGE_LEN if s > MINIMUM_FILE_SIZE else s + 8 for s in hashable)
-    cdc_bytes = sum(s for s in hashable if s <= MAX_PAYLOAD_BYTES)
+    cdc_bytes = sum(s for s in hashable if s <= payload_cap())
     pages = -(-n // 1024)
     log(f"main path on {card}: scan {scan_s:.2f} s; identify job {ident_s:.2f} s for "
         f"{meta['total_orphan_paths']} "
@@ -1116,6 +1194,77 @@ def serve_queries(node, lib, matrix: list, repeats: int = 0) -> dict:
     return out
 
 
+def key_build_times(state) -> dict:
+    """Seconds the index's key columns take to build on the host (row_keys
+    over every path and extension row, as ``ColumnarIndex.build`` does) and
+    to upload (as the mirror's first sync does), and their bytes."""
+    import torch
+
+    from spacedrive_tpu_torch.search.kernels import row_keys
+
+    idx, dev = state.index, state.mirror.device
+    t0 = time.perf_counter()
+    keys = [row_keys(getattr(idx, attr)[: idx.n]) for attr in idx.KEYS.values()]
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in keys:
+        torch.from_numpy(k).to(dev)
+    torch.cuda.synchronize()
+    return {"host_s": host_s, "h2d_s": time.perf_counter() - t0,
+            "bytes": sum(k.nbytes for k in keys)}
+
+
+def key_patch_times(state, slots: list[int]) -> dict:
+    """Seconds the key columns' share of an incremental refresh takes for
+    ``slots``: one vectorized pass on the host (``refresh_keys``, as the
+    mirror's delta feed runs it after upserts), then one ``index_copy_`` per
+    key column on the card (as the mirror's patch does). It rewrites the
+    values they already hold."""
+    import numpy as np
+    import torch
+
+    with state.lock:
+        idx, mirror = state.index, state.mirror
+        t0 = time.perf_counter()
+        idx._stale_keys.extend(slots)
+        idx.refresh_keys()
+        host_s = time.perf_counter() - t0
+        at_np = np.unique(np.asarray(slots, dtype=np.int64))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        at = torch.from_numpy(at_np).to(mirror.device)
+        for key in idx.KEYS:
+            mirror.arrays[key].index_copy_(0, at, torch.from_numpy(getattr(idx, key)[at_np])
+                                           .to(mirror.device))
+        torch.cuda.synchronize()
+        return {"host_s": host_s, "patch_s": time.perf_counter() - t0, "slots": len(at_np)}
+
+
+def check_patched_path_column(state) -> int:
+    """The exact kernel against its plain version on the mirror's path
+    column after the incremental refresh, with its patched key column, which
+    must equal row_keys of the mirrored rows. Returns the cases checked."""
+    import torch
+
+    from spacedrive_tpu_torch.search import kernels as K
+
+    with state.lock:
+        rows, keys = state.mirror.arrays["path"], state.mirror.arrays["path_key"]
+        if not torch.equal(keys, keys_of(rows)):
+            fail("the mirror's path keys differ from row_keys of its rows after the patch")
+        needles = (b"/new/", SEARCH_DIRS[3].encode(), b"/")
+        for needle in needles:
+            got, want = K.exact(rows, needle, keys), K.exact_plain(rows, needle)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"search_exact disagrees with its plain version on the patched path "
+                     f"column, needle {needle!r}")
+        if int(K.exact(rows, b"/new/", keys).sum()) != 1000:
+            fail("the patched path column does not hold the 1,000 inserted rows")
+    return len(needles)
+
+
 def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
     """The search path on the scanned library and on the 1,000,000-row
     library, with the launch counters zeroed before it and read after."""
@@ -1187,6 +1336,11 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
         f"({mirror_bytes / cap:.0f} B/row); torch.cuda.memory_allocated "
         f"{torch.cuda.memory_allocated() / 1e6:.1f} MB; "
         f"{state['overflow_rows']} overflow rows")
+    keys = key_build_times(engine._states[lib.id])
+    log(f"search: key columns (path, extension): {keys['bytes'] / 1e6:.3f} MB "
+        f"({keys['bytes'] / len(corpus):.0f} B/row) of the mirror; host build "
+        f"{keys['host_s'] * 1e3:.1f} ms, upload {keys['h2d_s'] * 1e3:.2f} ms, inside the index "
+        f"build above")
     served0 = engine.status()["served"]
     times = serve_queries(node, lib, SEARCH_MATRIX, repeats=5)
     # one more engine pass of the matrix under torch.profiler: its launches
@@ -1255,10 +1409,10 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
             or st1["rows"] != len(corpus) + 1000 or not st1["fresh"]):
         fail(f"the refresh after 1,000 renames and 1,000 inserts was not incremental: "
              f"{before} -> {after}")
-    inc = serve_queries(node, lib, [
-        ("renamed", "search.paths", {"search": "renamed-0", "take": 200, "include_hidden": True}),
-        ("added", "search.pathsCount", {"search": "added-", "include_hidden": True}),
-        ("size_2gib_after", "search.paths", {"size_range": [2 ** 31, None], "take": 100})])
+    lib_state = engine._states[lib.id]
+    patch = key_patch_times(lib_state, [lib_state.index.slot_of(i) for i in renamed]
+                            + list(range(lib_state.index.n - 1000, lib_state.index.n)))
+    inc = serve_queries(node, lib, AFTER_REFRESH)
     if (inc["renamed"]["count"] != 1000 or inc["added"]["count"] != 1000
             or inc["size_2gib_after"]["count"] != N_BIG_ROWS + 1000):
         fail(f"after the incremental refresh: {inc}")
@@ -1266,6 +1420,9 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
         f"{refresh_s * 1e3:.1f} ms (mirror patched in place: uploads {st1['mirror_uploads']}, "
         f"patches {st0['mirror_patches']} -> {st1['mirror_patches']}); 3 queries "
         "byte-identical to SQL after it")
+    log(f"search: the key columns' share of that refresh, {patch['slots']} slots: host "
+        f"{patch['host_s'] * 1e3:.2f} ms, patch on the card "
+        f"{patch['patch_s'] * 1e3:.2f} ms")
 
     launches = {k: v for k, v in _kernels.LAUNCHES.items() if k.startswith("search_")}
     plain_on_card = {k: v for k, v in _kernels.PLAIN_ON_CUDA.items() if v}
@@ -1280,6 +1437,11 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
     for kernel in ("search_substring", "search_exact", "search_lex"):
         log(f"search path: {kernel} launches by (rows, width, needle length): "
             f"{by_shape.get(kernel, {})}")
+    # after the counts are read: these launches compare a kernel with its
+    # plain version
+    checked = check_patched_path_column(lib_state)
+    log(f"parity: search_exact on the path column after 1,000 renames and 1,000 inserts (keys "
+        f"patched, equal to row_keys of the rows) matches plain exactly on {checked} needles")
     return {"launches": launches, "per_pass": per_pass, "by_shape": by_shape}
 
 

@@ -18,6 +18,7 @@ import struct
 from pathlib import Path
 from typing import BinaryIO
 
+from ..retry import RetryPolicy, retry_call
 from .blake3_ref import blake3
 
 SAMPLE_COUNT = 4
@@ -71,16 +72,29 @@ def generate_cas_id(path: str | Path, size: int | None = None) -> str:
     return blake3(message).hex()[:16]
 
 
+#: per-file gather retry: EINTR/EIO-class read errors are transient (flaky
+#: media, interrupted syscalls), so a file is read up to 3 times before it
+#: quarantines; a vanished, refused or truncated file raises at once
+GATHER_RETRY = RetryPolicy(attempts=3, base_s=0.01, max_s=0.1, budget_s=1.0)
+
+
+def _read_one_sampled(path: str | Path, size: int) -> bytes:
+    with open(path, "rb", buffering=0) as fh:
+        return cas_message_from_file(fh, size)
+
+
 def read_sampled_batch(paths: list[str | Path],
                        sizes: list[int]) -> list[bytes | Exception]:
-    """Gather stage: one cas message per file, in order. A per-file read
-    error (file deleted or shrunk mid-scan) comes back in place as the
-    exception, so the caller quarantines that file and keeps the batch."""
+    """Gather stage: one cas message per file, in order. Transient read
+    errors retry under ``GATHER_RETRY``; any other per-file read error (file
+    deleted or shrunk mid-scan), or a transient one that outlasts the retry,
+    comes back in place as the exception, so the caller quarantines that
+    file and keeps the batch."""
     out: list[bytes | Exception] = []
     for path, size in zip(paths, sizes):
         try:
-            with open(path, "rb", buffering=0) as fh:
-                out.append(cas_message_from_file(fh, size))
+            out.append(retry_call(lambda p=path, s=size: _read_one_sampled(p, s),
+                                  policy=GATHER_RETRY))
         except (OSError, EOFError) as e:
             out.append(e)
     return out

@@ -2,7 +2,9 @@
 
 Counterpart of ``spacedrive_tpu/objects/manifest.py``: the page gather
 attaches each file's whole-content payload (small files reuse the cas message
-body, larger ones are read once, files over 4 MiB are skipped), the process
+body, larger ones are read, with transient read errors retried; files over
+:func:`payload_cap`, 4 MiB unless ``SD_CHUNK_MAX_BYTES`` says otherwise, are
+skipped), the process
 stage chunks the page on the node's device with :mod:`..ops.cdc` (the Gear
 kernel, then the BLAKE3 kernels for the chunk ids), and the commit stage
 writes ``chunk_manifest`` rows inside the identifier's transaction.
@@ -19,9 +21,14 @@ import torch
 
 from ..models import ChunkManifest
 from ..ops import cdc
+from ..retry import RetryPolicy, retry_call
 
-#: files above this whole-payload size skip manifests
+#: the whole-payload cap when ``SD_CHUNK_MAX_BYTES`` is unset: larger files
+#: skip manifests
 MAX_PAYLOAD_BYTES = 4 * 1024 * 1024
+
+#: transient payload-read retries (the same shape as cas.GATHER_RETRY)
+PAYLOAD_RETRY = RetryPolicy(attempts=3, base_s=0.01, max_s=0.1, budget_s=1.0)
 
 #: the cas message is size_le_8 ‖ content for files at or under this
 #: (cas.MINIMUM_FILE_SIZE) — their payload is the message body, free
@@ -33,6 +40,18 @@ def manifests_enabled() -> bool:
         "1", "true", "on", "yes")
 
 
+def payload_cap() -> int:
+    """The whole-payload cap: ``SD_CHUNK_MAX_BYTES`` where it parses as an
+    integer (at least 1), else :data:`MAX_PAYLOAD_BYTES`."""
+    raw = os.environ.get("SD_CHUNK_MAX_BYTES", "").strip()
+    if raw:
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            pass
+    return MAX_PAYLOAD_BYTES
+
+
 def _read_payload(path: str, msg: bytes, size: int) -> bytes:
     if size <= _SMALL:
         return bytes(msg[8:])
@@ -42,16 +61,20 @@ def _read_payload(path: str, msg: bytes, size: int) -> bytes:
 
 def pipeline_chunk_gather(paths: list[str], rows: list[dict], messages: list) -> None:
     """Attach ``row['_chunk_payload']`` to every hashable row: the payload
-    bytes, ``None`` (cas gather failed, or over the cap: skipped), or the
-    read's exception (the file's manifest is quarantined at commit)."""
+    bytes, ``None`` (cas gather failed, or over :func:`payload_cap`:
+    skipped, not quarantined), or the read's exception once transient errors
+    have outlasted ``PAYLOAD_RETRY`` (the file's manifest is quarantined at
+    commit)."""
+    cap = payload_cap()
     for path, row, msg in zip(paths, rows, messages):
         size = row["size_in_bytes"] or 0
-        if isinstance(msg, Exception) or size > MAX_PAYLOAD_BYTES:
+        if isinstance(msg, Exception) or size > cap:
             row["_chunk_payload"] = None
             continue
         try:
-            row["_chunk_payload"] = _read_payload(path, msg, size)
-        except OSError as e:
+            row["_chunk_payload"] = retry_call(
+                lambda p=path, m=msg, s=size: _read_payload(p, m, s), policy=PAYLOAD_RETRY)
+        except Exception as e:  # noqa: BLE001 — per-file quarantine
             row["_chunk_payload"] = e
 
 

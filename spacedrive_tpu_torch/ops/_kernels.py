@@ -49,8 +49,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
     # (plane, lengths, gear, mask, out, B, L, device, stream)
     "cdc": {"gear_candidates": [_P, _P, _P, _U, _P, _I, _I, _I, _P]},
     # (rows, W, n, needle bytes on the host, needle length, out, device, stream)
-    "search": {name: [_P, _I, _I, _P, _I, _P, _I, _P]
-               for name in ("search_substring", "search_exact", "search_lex")},
+    "search": {"search_substring": [_P, _I, _I, _P, _I, _P, _I, _P],
+               # (rows, keys, W, n, needle, needle length, needle key, out, device, stream)
+               "search_exact": [_P, _P, _I, _I, _P, _I, _I, _P, _I, _P],
+               "search_lex": [_P, _I, _I, _P, _I, _P, _I, _P]},
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

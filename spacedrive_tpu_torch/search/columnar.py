@@ -10,6 +10,11 @@ fixed-width columnar record, on the host (numpy):
   ``materialized_path`` (W=96) and ``extension`` (W=12) for SQL ``=``/``IN``
   byte equality, and ``date_created`` (W=40) for BINARY-collation range
   compares;
+- **key columns** (``(cap,) int32``) beside the path and extension rows:
+  :func:`.kernels.row_keys` of each zero-padded row, which the exact-match
+  kernel compares before it reads a row (rows an upsert wrote get their
+  keys in one pass at :meth:`ColumnarIndex.refresh_keys`, which the
+  mirror's delta feed runs);
 - **filter columns**: ``location_id`` (i64), ``kind`` (i32), ``hidden`` /
   ``favorite`` (i8), ``size_in_bytes`` (i64), each with −1 for NULL;
 - an **overflow sidecar**: the few rows whose value truncated at a plane
@@ -226,6 +231,9 @@ class ColumnarIndex:
                "ext_len": 0, "date_len": 0, "location": 0, "hidden": 0,
                "kind": 0, "favorite": 0, "size": 0}
     PLANES = ("name_planes", "path_planes", "ext_planes", "date_planes")
+    #: key column -> the byte rows it keys (kernels.row_keys of each row; a
+    #: zero row's key is 0, the fill of an empty slot)
+    KEYS = {"path_key": "path_planes", "ext_key": "ext_planes"}
 
     def __init__(self) -> None:
         self.n = 0
@@ -245,12 +253,16 @@ class ColumnarIndex:
         self.kind = np.empty(0, dtype=np.int32)
         self.favorite = np.empty(0, dtype=np.int8)
         self.size = np.empty(0, dtype=np.int64)
+        self.path_key = np.empty(0, dtype=np.int32)
+        self.ext_key = np.empty(0, dtype=np.int32)
         #: id -> full decoded fields for rows a fixed width truncated
         self.overflow: dict[int, dict[str, Any]] = {}
         #: bumped on every mutation — the DeviceMirror resyncs
         #: (incrementally) when its generation falls behind
         self.generation = 0
         self._delta_slots: list[int] | None = []
+        #: slots whose rows an upsert wrote since the last refresh_keys
+        self._stale_keys: list[int] = []
 
     # -- capacity ------------------------------------------------------------
     def _ensure_cap(self, extra: int) -> None:
@@ -260,7 +272,7 @@ class ColumnarIndex:
         new_cap = max(_GROW, self.cap * 2)
         while new_cap < need:
             new_cap *= 2
-        for name, fill in self.COLUMNS.items():
+        for name, fill in (*self.COLUMNS.items(), *((key, 0) for key in self.KEYS)):
             old = getattr(self, name)
             out = np.full(new_cap, fill, dtype=old.dtype)
             out[: self.n] = old[: self.n]
@@ -328,6 +340,18 @@ class ColumnarIndex:
         else:
             self.overflow.pop(row_id, None)
 
+    def _write_keys(self, slots) -> None:
+        """The key columns at ``slots`` (a slice or an index array) from
+        their rows, one vectorized pass per column."""
+        for key, attr in self.KEYS.items():
+            getattr(self, key)[slots] = kernels.row_keys(getattr(self, attr)[slots])
+
+    def refresh_keys(self) -> None:
+        """Bring the key columns up to date with the rows upserts wrote."""
+        if self._stale_keys:
+            self._write_keys(np.unique(np.asarray(self._stale_keys, dtype=np.int64)))
+            self._stale_keys = []
+
     def _note_delta(self, slot: int) -> None:
         self.generation += 1
         if self._delta_slots is not None:
@@ -345,6 +369,8 @@ class ColumnarIndex:
         for i, row in enumerate(rows):
             self._write_row(i, row)
         self.n = len(rows)
+        self._write_keys(slice(0, self.n))
+        self._stale_keys = []
         self.generation += 1
         self._delta_slots = None
 
@@ -376,6 +402,7 @@ class ColumnarIndex:
             slot = self.n
             self.n += 1
         self._write_row(slot, row)
+        self._stale_keys.append(slot)
         self._note_delta(slot)
         return True
 
@@ -390,11 +417,13 @@ class ColumnarIndex:
     @property
     def nbytes(self) -> int:
         return sum(getattr(self, name).nbytes
-                   for name in (*self.COLUMNS, *self.PLANES))
+                   for name in (*self.COLUMNS, *self.PLANES, *self.KEYS))
 
     def consume_delta(self) -> list[int] | None:
         """Changed slots since the last call (None = resync everything);
-        the DeviceMirror's incremental-update feed."""
+        the DeviceMirror's incremental-update feed. The key columns are
+        current when it returns."""
+        self.refresh_keys()
         delta = self._delta_slots
         self._delta_slots = []
         return delta
@@ -404,14 +433,17 @@ def index_from_jax(idx: Any) -> ColumnarIndex:
     """The port's index holding the columns of a JAX-package
     ``ColumnarIndex`` (duck-typed: its numpy arrays are read, nothing of that
     package is imported). Its plane-major ``(W, CAP)`` byte planes become
-    the port's row-major ``(CAP, W)`` rows; the presence bitmap is not
-    carried."""
+    the port's row-major ``(CAP, W)`` rows, and the key columns are computed
+    from them; the presence bitmap is not carried."""
     out = ColumnarIndex()
     out.n, out.cap = idx.n, idx.cap
     for name in ColumnarIndex.COLUMNS:
         setattr(out, name, np.array(getattr(idx, name), copy=True))
     for name in ColumnarIndex.PLANES:
         setattr(out, name, np.ascontiguousarray(np.asarray(getattr(idx, name)).T))
+    for key in ColumnarIndex.KEYS:
+        setattr(out, key, np.zeros(out.cap, dtype=np.int32))
+    out._write_keys(slice(0, out.n))
     out.overflow = {k: dict(v) for k, v in idx.overflow.items()}
     out.generation = 1
     out._delta_slots = None
@@ -422,8 +454,8 @@ class DeviceMirror:
     """Torch copies of the scored columns, resident on ``device`` and
     patched incrementally (``index_copy_`` of the changed slots) from the
     master's delta feed — queries never pay a host→device copy of the index.
-    Byte columns are row-major ``(CAP, W)`` u8; ``location`` and ``size``
-    stay int64."""
+    Byte columns are row-major ``(CAP, W)`` u8 with their int32 key columns
+    beside them; ``location`` and ``size`` stay int64."""
 
     #: mirror key -> master byte rows ``(CAP, W)``
     ROWS = {"name": "name_planes", "path": "path_planes", "ext": "ext_planes",
@@ -431,7 +463,9 @@ class DeviceMirror:
     #: master columns the masks read, with the fill past ``n``
     COLUMNS = {"path_len": NULL_I, "ext_len": NULL_I, "date_len": NULL_I,
                "location": NULL_I, "hidden": NULL_I, "kind": NULL_I,
-               "favorite": NULL_I, "size": NULL_I, "alive": False}
+               "favorite": NULL_I, "size": NULL_I, "alive": False,
+               # the key of a zero row: padding rows keep keys that match
+               "path_key": 0, "ext_key": 0}
 
     def __init__(self, device: str | torch.device) -> None:
         self.device = torch.device(device)
@@ -521,11 +555,11 @@ def eval_mask_device(idx: ColumnarIndex, mirror: DeviceMirror,
     if pred.exts is not None:
         ext_m = torch.zeros_like(m)
         for needle in pred.exts:
-            ext_m |= (kernels.exact(arr["ext"], needle)
+            ext_m |= (kernels.exact(arr["ext"], needle, arr["ext_key"])
                       & (arr["ext_len"] == len(needle)))
         m &= ext_m
     if pred.path is not None:
-        m &= (kernels.exact(arr["path"], pred.path)
+        m &= (kernels.exact(arr["path"], pred.path, arr["path_key"])
               & (arr["path_len"] == len(pred.path)))
     if pred.date_lo is not None or pred.date_hi is not None:
         valid = arr["date_len"] >= 0

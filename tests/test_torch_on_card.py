@@ -16,6 +16,7 @@ from spacedrive_tpu_torch.ops import blake3 as b3
 from spacedrive_tpu_torch.ops import cdc
 from spacedrive_tpu_torch.search import kernels as search_kernels
 from tests.torch_gear_edges import edge_plane
+from tests.torch_search_cases import birthday_pair, substring_cases
 
 EDGE_LENGTHS = (0, 1, 63, 64, 65, 1023, 1024, 1025, 2048, 2049, 57352, 102408)
 
@@ -193,13 +194,56 @@ def test_search_substring_kernel_matches_plain(card, length):
     assert bool(got[5])
 
 
+@pytest.mark.parametrize("case", substring_cases(), ids=lambda c: c[0])
+def test_search_substring_kernel_edge_cases(card, case):
+    """L = 1-5 and 48, a common first gram with no match, matches only at
+    offset 0 and W-L, rows where every offset is a candidate, bytes >= 0x80
+    and NULs in the needle, over a row count that is not a multiple of 32."""
+    _label, rows, needle = case
+    rows = torch.from_numpy(rows).to(card)
+    assert torch.equal(search_kernels.substring(rows, needle),
+                       search_kernels.substring_plain(rows, needle))
+
+
+def key_column(rows: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(search_kernels.row_keys(rows.cpu().numpy())).to(rows.device)
+
+
 @pytest.mark.parametrize("width", [12, 96])
 def test_search_exact_kernel_matches_plain(card, width):
     rows = search_rows(width, 8192 + 5, width).to(card)
+    keys = key_column(rows)
     for needle in (bytes(rows[0].tolist()).rstrip(b"\0"), bytes(rows[7].tolist()), b"", b"a",
                    b"x" * width):
-        assert torch.equal(search_kernels.exact(rows, needle),
+        assert torch.equal(search_kernels.exact(rows, needle, keys),
                            search_kernels.exact_plain(rows, needle)), needle
+
+
+@pytest.mark.parametrize("width", [12, 96])
+def test_search_exact_kernel_with_a_key_collision(card, width):
+    """Two different rows with one key: the needle is one of them, the other
+    is planted in the column beside it, and only the equal row matches."""
+    a, b = birthday_pair(width, width)
+    rows = search_rows(width + 1, 4096 + 3, width)
+    rows[17], rows[4000] = torch.from_numpy(a), torch.from_numpy(b)
+    rows = rows.to(card)
+    needle = bytes(b.tolist()).rstrip(b"\0")
+    keys = key_column(rows)
+    assert int(keys[17]) == int(keys[4000]) == search_kernels.needle_key(needle, width)
+    got = search_kernels.exact(rows, needle, keys)
+    assert torch.equal(got, search_kernels.exact_plain(rows, needle))
+    assert bool(got[4000]) and not bool(got[17])
+
+
+def test_search_exact_kernel_needs_its_key_column(card):
+    rows = search_rows(96, 4096, 96).to(card)
+    keys = key_column(rows)
+    for bad in (None, keys[:-4], keys.to(torch.int64), keys.cpu()):
+        with pytest.raises(ValueError):
+            search_kernels.exact(rows, b"a", bad)
+    before = _kernels.LAUNCHES["search_exact"]
+    search_kernels.exact(rows, b"a", keys)
+    assert _kernels.LAUNCHES["search_exact"] == before + 1
 
 
 def test_search_lex_kernel_matches_plain(card):

@@ -40,6 +40,7 @@ from spacedrive_tpu_torch.models.base import RowJournal
 from spacedrive_tpu_torch.node import Node
 from spacedrive_tpu_torch.search import columnar, kernels
 from spacedrive_tpu_torch.search.engine import SearchEngine
+from tests.torch_search_cases import seeded_values, value_rows
 
 MATRIX = [
     {"search": "file000", "take": 50},
@@ -66,27 +67,6 @@ def canon(value) -> str:
 
 
 # -- kernels -----------------------------------------------------------------
-
-
-def value_rows(values: list[bytes], width: int) -> np.ndarray:
-    """(N, W) zero-padded rows, each value clipped at W."""
-    rows = np.zeros((len(values), width), dtype=np.uint8)
-    for i, raw in enumerate(values):
-        clip = raw[:width]
-        rows[i, : len(clip)] = np.frombuffer(clip, dtype=np.uint8)
-    return rows
-
-
-def seeded_values(width: int, seed: int, n: int = 300) -> list[bytes]:
-    """Names over a small alphabet (many partial matches), with non-ASCII
-    bytes, values of exactly W bytes, longer ones, and empty ones."""
-    rng = np.random.default_rng(seed)
-    alphabet = np.frombuffer(b"abc.-\xc3\xbc", dtype=np.uint8)
-    out = []
-    for i in range(n):
-        length = [0, width, width + 7][i % 3] if i % 10 == 0 else int(rng.integers(1, width))
-        out.append(rng.choice(alphabet, size=length).tobytes())
-    return out
 
 
 NEEDLES = [b"a", b"ab", b"c.-", "ü".encode(), b"abcab" * 9 + b"abc",  # L = 48
