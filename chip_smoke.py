@@ -7,9 +7,11 @@ Run from the repository root with no arguments (``--seed`` picks the data):
 
 ``--kernels`` runs phases 1-3 only and prints the card and the
 ``{"kernels": [...]}`` line (launches null: no main path ran), never the
-``{"ok": true, ...}`` line; it also times the Gear kernel built with a copy
-of its table per shared-memory bank beside the shipped one-table build. Use it to iterate on a kernel; run with
-no flags to prove the port.
+``{"ok": true, ...}`` line. Use it to iterate on a kernel; run with no flags
+to prove the port. ``--parent DIR`` (with ``--kernels``) also builds the
+``search_lex`` kernel of the tree at DIR in its earlier form (no prefix
+column, u8 codes mapped to int8 by its wrapper) and times it and this tree's
+in turns, L2-warm and L2-cleared, with both kernels' SASS opcode counts.
 
 Phases, each raising on failure (the script then exits non-zero and prints
 no result line):
@@ -19,11 +21,13 @@ no result line):
    (the outputs are integers and bits), at the main paths' shapes (cas
    messages, a full batch of chunk ids, every Gear plane tier the tree
    fills, the 1,000,000-row search index's name, path, extension and date
-   columns, the last two exact-match columns with their key columns) and at
-   edge cases (for the search kernels: needle lengths 1-5 and 48, a common
-   first gram with no match, matches only at offset 0 or W-L, rows where
-   every offset is a candidate, bytes >= 0x80, two different rows with one
-   key), and BLAKE3 digests against the pure-Python oracle;
+   columns, the exact-match columns with their key columns and the date
+   column with its prefix column) and at edge cases (for the search
+   kernels: needle lengths 1-5 and 48, a common first gram with no match,
+   matches only at offset 0 or W-L, rows where every offset is a candidate,
+   bytes >= 0x80, two different rows with one key; date rows that tie with
+   the bound's 8-byte prefix, first bytes >= 0x80, bounds of 0-41 bytes),
+   and BLAKE3 digests against the pure-Python oracle;
 3. time each kernel and its plain version at those shapes (CUDA events, or
    the profiler's device time where a wrapper call takes longer to issue
    than the kernel runs), beside the least time the card could take, and
@@ -40,11 +44,12 @@ no result line):
    device index of the scanned library and of a 1,000,000-row library built
    with the search benchmark's corpus recipe (plus 1,024 files of 2-64 GiB),
    byte-identical to the SQL path for every query; time engine and SQLite,
-   and the key columns' host build, upload and patch; rename and add 1,000
+   and each key column's host build, upload and patch; rename and add 1,000
    rows each and show the refresh patched the index incrementally; show
    through the launch counters that the search went through all three
    search kernels and never through a plain version; then hold the exact
-   kernel against its plain version on the patched path column;
+   and range kernels against their plain versions on the patched path and
+   date columns;
 6. print the card, the ``{"kernels": [...]}`` line, then the
    ``{"ok": true, ...}`` line.
 """
@@ -488,11 +493,12 @@ def search_corpus() -> list[tuple]:
 def corpus_columns(corpus: list[tuple]) -> dict:
     """The index's byte columns of the corpus as the device mirror holds
     them: row-major (CAP, W) u8 on the card, zero-padded, names folded; and
-    the key columns of the path and extension rows."""
+    the key columns of the path and extension rows and the prefix column of
+    the date rows."""
     import numpy as np
     import torch
 
-    from spacedrive_tpu_torch.search.kernels import fold, pad_cap, row_keys
+    from spacedrive_tpu_torch.search.kernels import date_prefix_of, fold, pad_cap, row_keys
 
     cap = pad_cap(len(corpus))
 
@@ -504,9 +510,10 @@ def corpus_columns(corpus: list[tuple]) -> dict:
 
     path = rows([r[1].encode() for r in corpus], 96)
     ext = rows([(r[3] or "").encode() for r in corpus], 12)
+    date = rows([r[7].encode() for r in corpus], 40)
     cols = {"name": rows([fold(r[2].encode()) for r in corpus], 64), "path": path, "ext": ext,
-            "date": rows([r[7].encode() for r in corpus], 40),
-            "path_key": row_keys(path), "ext_key": row_keys(ext)}
+            "date": date, "path_key": row_keys(path), "ext_key": row_keys(ext),
+            "date_prefix": date_prefix_of(date)}
     return {k: torch.from_numpy(v).cuda() for k, v in cols.items()}
 
 
@@ -533,6 +540,16 @@ def keys_of(rows):
     return torch.from_numpy(row_keys(rows.cpu().numpy())).to(rows.device)
 
 
+def prefix_of(rows):
+    """The prefix column of (CAP, 40) date rows on the card
+    (kernels.date_prefix_of)."""
+    import torch
+
+    from spacedrive_tpu_torch.search.kernels import date_prefix_of
+
+    return torch.from_numpy(date_prefix_of(rows.cpu().numpy())).to(rows.device)
+
+
 def search_parity(cols: dict) -> dict:
     """Each search kernel against its plain version on the card, exactly, at
     the 1,000,000-row index's shapes and at edge cases. Returns the max
@@ -540,7 +557,8 @@ def search_parity(cols: dict) -> dict:
     import torch
 
     from spacedrive_tpu_torch.search import kernels as K
-    from tests.torch_search_cases import birthday_pair, substring_cases
+    from tests.torch_search_cases import (LEX_BOUND, LEX_BOUNDS, birthday_pair, lex_rows,
+                                          substring_cases)
 
     pairs = {"search_substring": (K.substring, K.substring_plain),
              "search_exact": (K.exact, K.exact_plain),
@@ -553,9 +571,22 @@ def search_parity(cols: dict) -> dict:
     cases += [("search_exact", cols["path"], nd, cols["path_key"])
               for nd in (SEARCH_DIRS[3].encode(), b"/", b"")]
     cases += [("search_exact", cols["ext"], nd, cols["ext_key"]) for nd in (b"flac", b"dng", b"")]
-    cases += [("search_lex", cols["date"], nd, None)
-              for nd in (b"2026-06-01T00:00:00+00:00", b"2026-06-30T23:59:59+00:00", b"",
-                         b"2026-06", b"2026-12-28T23:59:00+00:00" + b"Z" * 20)]
+    # the date column with its prefixes: bounds of 0, 7, 8, 9, 25 and 45
+    # bytes (the last clipped to 40)
+    cases += [("search_lex", cols["date"], nd, cols["date_prefix"])
+              for nd in (LEX_BOUND, b"2026-06-30T23:59:59+00:00", b"", LEX_BOUND[:7],
+                         LEX_BOUND[:8], LEX_BOUND[:9], b"2026-12-28T23:59:00+00:00" + b"Z" * 20)]
+    # and with tests/torch_search_cases.py's date rows planted through it:
+    # rows that tie with the bound's prefix and differ at byte 8, 9 or 39 or
+    # nowhere, first bytes >= 0x80, zero rows
+    planted = cols["date"].clone()
+    edge = torch.from_numpy(lex_rows(0)).cuda()
+    planted[torch.arange(len(edge), device=planted.device) * (len(planted) // len(edge))] = edge
+    planted_prefix = prefix_of(planted)
+    cases += [("search_lex", planted, nd, planted_prefix) for nd in LEX_BOUNDS]
+    for nd in LEX_BOUNDS:
+        rows = torch.from_numpy(lex_rows(len(nd))).cuda()
+        cases.append(("search_lex", rows, nd, prefix_of(rows)))
     # edge cases: L = 1, 17, 48 with the needle planted at the last offset
     # of a W-length row; W-length rows against W-length, empty, short and
     # longer-than-W needles and bounds
@@ -585,8 +616,10 @@ def search_parity(cols: dict) -> dict:
                 fail(f"the planted rows of width {width} do not share a key")
             cases.append(("search_exact", where, bytes(b.tolist()), keys))
     dates = edge_rows(40, 40)
-    cases += [("search_lex", dates, nd, None)
-              for nd in (b"", b"b", b"abc", bytes(dates[7].tolist()), b"c" * 41)]
+    row7 = bytes(dates[7].tolist())
+    cases += [("search_lex", dates, nd, prefix_of(dates))
+              for nd in (b"", b"b", b"abc", b"\xc3", row7, row7[:7], row7[:8], row7[:9],
+                         b"c" * 41)]
     errs = {name: 0 for name in pairs}
     for name, rows, needle, keys in cases:
         kernel, plain = pairs[name]
@@ -602,8 +635,9 @@ def search_parity(cols: dict) -> dict:
         f"{tuple(cols['name'].shape)}, path, extension and date columns, path and extension "
         "keyed; substring L = 1-5, 17, 48, a common first gram with no match, matches only at "
         "offset 0 and W-L, every offset a candidate, bytes >= 0x80, NULs; exact with two "
-        "different rows of one key planted; W-length rows; empty, short and over-long needles "
-        "and bounds) match plain exactly (tolerance 0)")
+        "different rows of one key planted; lex with its prefix column, rows tied with the "
+        "bound's 8-byte prefix, first bytes >= 0x80, bounds of 0-41 bytes; W-length rows; "
+        "empty, short and over-long needles and bounds) match plain exactly (tolerance 0)")
     return errs
 
 
@@ -665,16 +699,17 @@ def device_ms(fn, kernel: str, reps: int = 50, between=None) -> float:
     fail(f"the profiler saw {sum(e.count for e in events)} launches of {kernel}, not {reps}")
 
 
-def search_timing(cols: dict, int32_ops_per_s: float) -> dict:
+def search_timing(cols: dict, int32_ops_per_s: float, flush) -> dict:
     """Each search kernel on the 1,000,000-row index's columns: its device
-    time per launch (profiler), the time of a call of its wrapper and of its
-    plain version (CUDA events over back-to-back calls; a call costs the
-    host ~15 us to issue, more than some of these kernels take, and the
-    lex wrapper maps the codes to int8 in five more launches). The exact
-    kernel is given the key columns. The bound counts the bytes this data
-    needs read (see search_work) and each flag written once, and each byte
-    compare it needs as one INT32 operation; ``full_row_bound_ms`` reads
-    every row's W bytes."""
+    time per launch (profiler), L2-warm and with ``flush`` written before
+    each launch to clear the L2, the time of a call of its wrapper and of
+    its plain version (CUDA events over back-to-back calls; a call costs the
+    host ~15 us to issue, more than some of these kernels take). The exact
+    kernel is given the key columns, the range kernel the prefix column. The
+    bound counts the bytes this data needs read (see search_work) and each
+    result written once, and each byte compare it needs as one INT32
+    operation, whatever columns the kernel reads; ``full_row_bound_ms``
+    reads every row's W bytes."""
     from spacedrive_tpu_torch.search import kernels as K
 
     # every needle the search phase sends to the large library (folded, as
@@ -689,14 +724,16 @@ def search_timing(cols: dict, int32_ops_per_s: float) -> dict:
              ("search_exact@ext", K.exact, K.exact_plain, cols["ext"], b"flac",
               (cols["ext_key"],)),
              ("search_lex@date", K.lex_cmp, K.lex_cmp_plain, cols["date"],
-              b"2026-06-01T00:00:00+00:00", ()))
+              b"2026-06-01T00:00:00+00:00", (cols["date_prefix"],)))
     out = {}
     for name, kernel, plain, rows, needle, keys in jobs:
         cap, width = rows.shape
         nbytes, ops = search_work(rows, needle, kernel is K.substring)
+        symbol = SEARCH_SYMBOLS[name.split("@")[0]]
         out[name] = {
-            "ms": device_ms(lambda: kernel(rows, needle, *keys),
-                            SEARCH_SYMBOLS[name.split("@")[0]]),
+            "ms": device_ms(lambda: kernel(rows, needle, *keys), symbol),
+            "cold_ms": device_ms(lambda: kernel(rows, needle, *keys), symbol,
+                                 between=flush.zero_),
             "call_ms": time_ms(lambda: kernel(rows, needle, *keys), 50),
             "plain_ms": time_ms(lambda: plain(rows, needle), 3, warmup=1),
             "bound": bound_ms(nbytes, ops, int32_ops_per_s),
@@ -704,6 +741,64 @@ def search_timing(cols: dict, int32_ops_per_s: float) -> dict:
             "shape": f"rows ({cap}, {width}) u8, needle {len(needle)} B, "
                      f"{nbytes / cap:.1f} B and {ops / cap:.1f} compares per row needed"}
     return out
+
+
+def parent_lex_ab(parent: Path, cols: dict) -> None:
+    """``search_lex`` of the tree at ``parent`` in its earlier form (C
+    launcher ``(rows, W, n, bound, len, out, device, stream)``, u8 codes 0 =
+    eq, 1 = gt, 2 = lt, mapped to int8 by its wrapper in five more launches)
+    against this tree's, at the search benchmark's bound on the 1,000,000-row
+    date column: the two verdicts must agree; then device time L2-warm and
+    L2-cleared and wrapper call time, in turns new, parent, new, parent; and
+    both kernels' SASS opcode counts."""
+    import ctypes
+
+    import torch
+
+    from spacedrive_tpu_torch.ops import _kernels
+    from spacedrive_tpu_torch.search import kernels as K
+
+    source = parent / "spacedrive_tpu_torch" / "csrc" / "search.cu"
+    library = _kernels.BUILD_DIR / "libsearch-parent.so"
+    done = subprocess.run([_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-o", str(library),
+                           str(source)], capture_output=True, text=True)
+    if done.returncode != 0:
+        fail(f"the parent's search.cu did not build:\n{done.stdout}{done.stderr}")
+    lib = ctypes.CDLL(str(library))
+    lib.search_lex.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                               ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    rows, prefix = cols["date"], cols["date_prefix"]
+    cap, width = rows.shape
+    bound = b"2026-06-01T00:00:00+00:00"
+    code = torch.empty(cap, dtype=torch.uint8, device=rows.device)
+    stream = _kernels.stream_of(rows.device)
+
+    def parent_kernel():
+        if lib.search_lex(rows.data_ptr(), width, cap, bound, len(bound), code.data_ptr(),
+                          0, stream):
+            fail("the parent's search_lex launch failed")
+
+    def parent_call():
+        parent_kernel()
+        return (code == 1).to(torch.int8) - (code == 2).to(torch.int8)
+
+    def new_call():
+        return K.lex_cmp(rows, bound, prefix)
+
+    if not torch.equal(parent_call(), new_call()):
+        fail("the parent's search_lex and this tree's disagree at the bench bound")
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    symbol = SEARCH_SYMBOLS["search_lex"]
+    for side, kernel, call in (("new", new_call, new_call), ("parent", parent_kernel, parent_call),
+                               ("new", new_call, new_call), ("parent", parent_kernel, parent_call)):
+        log(f"lex A/B: {side}: kernel {device_ms(kernel, symbol):.4f} ms L2-warm, "
+            f"{device_ms(kernel, symbol, between=flush.zero_):.4f} ms L2-cleared; a wrapper "
+            f"call {time_ms(call, 50):.4f} ms (rows ({cap}, {width}), bound {bound.decode()})")
+    for side, path in (("new", _kernels._target("search")), ("parent", library)):
+        ops = sass_opcodes(path, "lex_kernel")
+        log(f"lex A/B: {side}: SASS " + ("not measured (no cuobjdump, or the kernel not found)"
+                                        if ops is None else
+                                        f"{sum(ops.values())} instructions (static) {ops}"))
 
 
 # --------------------------------------------------------------------------
@@ -811,7 +906,7 @@ def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict
                                 warmup=1),
             "bound": bound_ms(nbytes, positions * OPS_PER_GEAR_POSITION, int32_ops_per_s),
             "shape": f"plane ({Bp}, {L}) u8, {n_files} files, {positions} B"}
-    out.update(search_timing(cols, int32_ops_per_s))
+    out.update(search_timing(cols, int32_ops_per_s, flush))
     for name, t in out.items():
         b, by = t["bound"]
         full = t.get("full_row_bound_ms")
@@ -854,10 +949,11 @@ def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict
             f"{100 * alu_ms / t['ms']:.1f}%")
     # the substring kernel, unrolled over its 64 offsets: its static SASS
     # is about what a row issues (the filter) plus the verify's loops
-    ops = sass_opcodes(_kernels._target("search"), "substring_kernel")
-    log("sass: search_substring: " + ("not measured (no cuobjdump, or the kernel not found)"
-                                      if ops is None else
-                                      f"{sum(ops.values())} instructions (static) {ops}"))
+    for kernel in ("substring_kernel", "lex_kernel"):
+        ops = sass_opcodes(_kernels._target("search"), kernel)
+        log(f"sass: {kernel}: " + ("not measured (no cuobjdump, or the kernel not found)"
+                                   if ops is None else
+                                   f"{sum(ops.values())} instructions (static) {ops}"))
     return out
 
 
@@ -1195,56 +1291,57 @@ def serve_queries(node, lib, matrix: list, repeats: int = 0) -> dict:
 
 
 def key_build_times(state) -> dict:
-    """Seconds the index's key columns take to build on the host (row_keys
-    over every path and extension row, as ``ColumnarIndex.build`` does) and
-    to upload (as the mirror's first sync does), and their bytes."""
+    """Per key column (path and extension keys, the date prefix): seconds
+    it takes to build on the host from its rows (as ``ColumnarIndex.build``
+    does) and to upload (as the mirror's first sync does), and its bytes."""
     import torch
 
-    from spacedrive_tpu_torch.search.kernels import row_keys
-
     idx, dev = state.index, state.mirror.device
-    t0 = time.perf_counter()
-    keys = [row_keys(getattr(idx, attr)[: idx.n]) for attr in idx.KEYS.values()]
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for k in keys:
-        torch.from_numpy(k).to(dev)
-    torch.cuda.synchronize()
-    return {"host_s": host_s, "h2d_s": time.perf_counter() - t0,
-            "bytes": sum(k.nbytes for k in keys)}
+    out = {}
+    for key, (attr, build) in idx.KEYS.items():
+        t0 = time.perf_counter()
+        col = build(getattr(idx, attr)[: idx.n])
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(col).to(dev)
+        torch.cuda.synchronize()
+        out[key] = {"host_s": host_s, "h2d_s": time.perf_counter() - t0, "bytes": col.nbytes}
+    return out
 
 
 def key_patch_times(state, slots: list[int]) -> dict:
-    """Seconds the key columns' share of an incremental refresh takes for
-    ``slots``: one vectorized pass on the host (``refresh_keys``, as the
-    mirror's delta feed runs it after upserts), then one ``index_copy_`` per
-    key column on the card (as the mirror's patch does). It rewrites the
-    values they already hold."""
+    """Per key column: seconds its share of an incremental refresh takes for
+    ``slots``, one vectorized pass on the host (as ``refresh_keys``, which
+    the mirror's delta feed runs after upserts, builds it) and one
+    ``index_copy_`` on the card (as the mirror's patch does). It rewrites the
+    values the columns already hold."""
     import numpy as np
     import torch
 
     with state.lock:
         idx, mirror = state.index, state.mirror
-        t0 = time.perf_counter()
-        idx._stale_keys.extend(slots)
-        idx.refresh_keys()
-        host_s = time.perf_counter() - t0
         at_np = np.unique(np.asarray(slots, dtype=np.int64))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         at = torch.from_numpy(at_np).to(mirror.device)
-        for key in idx.KEYS:
+        out = {}
+        for key, (attr, build) in idx.KEYS.items():
+            t0 = time.perf_counter()
+            getattr(idx, key)[at_np] = build(getattr(idx, attr)[at_np])
+            host_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             mirror.arrays[key].index_copy_(0, at, torch.from_numpy(getattr(idx, key)[at_np])
                                            .to(mirror.device))
-        torch.cuda.synchronize()
-        return {"host_s": host_s, "patch_s": time.perf_counter() - t0, "slots": len(at_np)}
+            torch.cuda.synchronize()
+            out[key] = {"host_s": host_s, "patch_s": time.perf_counter() - t0}
+        return {"slots": len(at_np), "columns": out}
 
 
-def check_patched_path_column(state) -> int:
-    """The exact kernel against its plain version on the mirror's path
-    column after the incremental refresh, with its patched key column, which
-    must equal row_keys of the mirrored rows. Returns the cases checked."""
+def check_patched_columns(state) -> int:
+    """The exact and range kernels against their plain versions on the
+    mirror's path and date columns after the incremental refresh, with their
+    patched key and prefix columns, which must equal row_keys and
+    date_prefix_of of the mirrored rows. Returns the cases checked."""
     import torch
 
     from spacedrive_tpu_torch.search import kernels as K
@@ -1262,7 +1359,20 @@ def check_patched_path_column(state) -> int:
                      f"column, needle {needle!r}")
         if int(K.exact(rows, b"/new/", keys).sum()) != 1000:
             fail("the patched path column does not hold the 1,000 inserted rows")
-    return len(needles)
+        dates, prefix = state.mirror.arrays["date"], state.mirror.arrays["date_prefix"]
+        if not torch.equal(prefix, prefix_of(dates)):
+            fail("the mirror's date prefixes differ from date_prefix_of its rows after the patch")
+        added = b"2026-07-01T00:00:00+00:00"  # the inserted rows' date, no corpus row's
+        bounds = (added, b"2026-06-01T00:00:00+00:00", added[:7], added[:8])
+        for bound in bounds:
+            got, want = K.lex_cmp(dates, bound, prefix), K.lex_cmp_plain(dates, bound)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"search_lex disagrees with its plain version on the patched date "
+                     f"column, bound {bound!r}")
+        if int((K.lex_cmp(dates, added, prefix) == 0).sum()) != 1000:
+            fail("the patched date column does not hold the 1,000 inserted rows")
+    return len(needles) + len(bounds)
 
 
 def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
@@ -1336,11 +1446,11 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
         f"({mirror_bytes / cap:.0f} B/row); torch.cuda.memory_allocated "
         f"{torch.cuda.memory_allocated() / 1e6:.1f} MB; "
         f"{state['overflow_rows']} overflow rows")
-    keys = key_build_times(engine._states[lib.id])
-    log(f"search: key columns (path, extension): {keys['bytes'] / 1e6:.3f} MB "
-        f"({keys['bytes'] / len(corpus):.0f} B/row) of the mirror; host build "
-        f"{keys['host_s'] * 1e3:.1f} ms, upload {keys['h2d_s'] * 1e3:.2f} ms, inside the index "
-        f"build above")
+    for key, t in key_build_times(engine._states[lib.id]).items():
+        log(f"search: key column {key}: {t['bytes'] / 1e6:.3f} MB "
+            f"({t['bytes'] / len(corpus):.0f} B/row) of the mirror; host build "
+            f"{t['host_s'] * 1e3:.1f} ms, upload {t['h2d_s'] * 1e3:.2f} ms, inside the index "
+            f"build above")
     served0 = engine.status()["served"]
     times = serve_queries(node, lib, SEARCH_MATRIX, repeats=5)
     # one more engine pass of the matrix under torch.profiler: its launches
@@ -1363,6 +1473,8 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
                  if e.self_device_time_total > 0}
     busy_s = sum(device_us.values()) / 1e6
     top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+    kernel_ms = {kernel: sum(us for key, us in device_us.items() if symbol in key) / 1e3
+                 for kernel, symbol in SEARCH_SYMBOLS.items()}
     served = engine.status()["served"] - served0
     for label, t in times.items():
         log(f"search: {label}: count {t['count']}, p50 engine {t['engine_ms']:.3f} ms, "
@@ -1379,7 +1491,8 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
     log(f"search: one engine pass of the matrix (profiled): wall {pass_s * 1e3:.1f} ms, device "
         f"busy {busy_s * 1e3:.3f} ms = {100 * busy_s / pass_s:.2f}% (idle "
         f"{100 - 100 * busy_s / pass_s:.2f}%); device time by activity: "
-        + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top))
+        + "; ".join(f"{k[:60]} {v / 1e3:.3f} ms" for k, v in top)
+        + f"; search kernels {json.dumps(kernel_ms)} ms; {len(device_us)} device activities")
 
     # the incremental path: 1,000 renames through db.update (noted in the
     # row journal) and 1,000 inserts through insert_many (the append scan)
@@ -1420,9 +1533,9 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
         f"{refresh_s * 1e3:.1f} ms (mirror patched in place: uploads {st1['mirror_uploads']}, "
         f"patches {st0['mirror_patches']} -> {st1['mirror_patches']}); 3 queries "
         "byte-identical to SQL after it")
-    log(f"search: the key columns' share of that refresh, {patch['slots']} slots: host "
-        f"{patch['host_s'] * 1e3:.2f} ms, patch on the card "
-        f"{patch['patch_s'] * 1e3:.2f} ms")
+    for key, t in patch["columns"].items():
+        log(f"search: key column {key}'s share of that refresh, {patch['slots']} slots: host "
+            f"{t['host_s'] * 1e3:.2f} ms, patch on the card {t['patch_s'] * 1e3:.2f} ms")
 
     launches = {k: v for k, v in _kernels.LAUNCHES.items() if k.startswith("search_")}
     plain_on_card = {k: v for k, v in _kernels.PLAIN_ON_CUDA.items() if v}
@@ -1439,9 +1552,10 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
             f"{by_shape.get(kernel, {})}")
     # after the counts are read: these launches compare a kernel with its
     # plain version
-    checked = check_patched_path_column(lib_state)
-    log(f"parity: search_exact on the path column after 1,000 renames and 1,000 inserts (keys "
-        f"patched, equal to row_keys of the rows) matches plain exactly on {checked} needles")
+    checked = check_patched_columns(lib_state)
+    log(f"parity: search_exact on the path column and search_lex on the date column after "
+        f"1,000 renames and 1,000 inserts (keys and prefixes patched, equal to row_keys and "
+        f"date_prefix_of the rows) match plain exactly on {checked} needles and bounds")
     return {"launches": launches, "per_pass": per_pass, "by_shape": by_shape}
 
 
@@ -1450,7 +1564,13 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0, help="seed of all generated data")
     parser.add_argument("--kernels", action="store_true",
                         help="build, parity and timing only; no main path, no ok line")
+    parser.add_argument("--parent", type=Path, default=None,
+                        help="with --kernels: also time the search_lex kernel of the tree at "
+                             "this directory (its form before the prefix column) in turns "
+                             "with this tree's")
     args = parser.parse_args()
+    if args.parent is not None and not args.kernels:
+        parser.error("--parent goes with --kernels")
 
     import torch
 
@@ -1485,6 +1605,8 @@ def main() -> int:
         log(f"search corpus: {len(corpus)} rows made in {time.perf_counter() - t0:.1f} s")
         errs = parity_phase(rng, cols)
         times = timing_phase(rng, int32_ops_per_s, cols)
+        if args.parent is not None:
+            parent_lex_ab(args.parent.resolve(), cols)
         del cols
         torch.cuda.empty_cache()
         main = None if args.kernels else main_path_phase(args.seed, card, corpus)

@@ -10,8 +10,8 @@
 //                        value with the zero-padded needle;
 //   search_lex        <- kernel of _lex_pallas_jit (:308): the memcmp verdict
 //                        of the zero-padded value against a zero-padded bound,
-//                        written as the Pallas kernel writes it (0 = eq,
-//                        1 = gt, 2 = lt).
+//                        written as int8 -1 / 0 / 1 (the Pallas kernel writes
+//                        codes 0 = eq, 1 = gt, 2 = lt, which lex_cmp_jnp maps).
 //
 // Layout. The TPU kernels read plane-major (W, rows/128, 128) tiles, one byte
 // of every row per plane, because its vector unit works on 128-lane rows.
@@ -56,8 +56,21 @@
 // ms against a 0.0015 ms bound, where this one takes 0.0045 ms (H100 80GB
 // HBM3, 700 W; chip_smoke.py).
 //
-// lex walks the row one vector load at a time and stops at the first one
-// that differs; it reads at least one sector per row.
+// lex: an order-preserving prefix column beside the rows. The index keeps
+// the first 8 bytes of each zero-padded row read big-endian (search/kernels.py
+// date_prefix_of, computed on the host), so an unsigned compare of two
+// prefixes is memcmp of those bytes; the bound's prefix rides beside it. A
+// thread reads four rows' prefixes (two 16-byte loads), compares each as
+// uint64 (a row may start with a byte >= 0x80: a signed compare would flip
+// it), reads a row's bytes 8..W-1 only where its prefix ties with the
+// bound's, 8 bytes at a time up to the first word that differs, and writes
+// the four int8 verdicts in one 32-bit store. The kernel's first form read
+// every row from its first byte, a sector a row on dates (at least 40 MB):
+// 0.0119 ms L2-warm, 0.0194 ms with the L2 cleared, against a 0.0024 ms
+// bound. At the search benchmark's bound this one reads the 8 MB prefix
+// column and the 1/12 of rows that tie on a month: 0.0031 ms L2-warm,
+// 0.0095 ms cleared, where a tied row's read waits on its prefix's (H100
+// 80GB HBM3, 700 W; chip_smoke.py --parent).
 
 #include <cstdint>
 #include <cstring>
@@ -207,20 +220,22 @@ __device__ __forceinline__ bool row_equals(const uint8_t* __restrict__ rows, lon
   return true;
 }
 
-constexpr int kExactRows = 4;  // rows a thread: one 16-byte load of keys
+// rows a thread in the keyed kernels: one 16-byte load of int32 keys (exact),
+// two of int64 prefixes (lex), one 32-bit store of their four results
+constexpr int kKeyedRows = 4;
 
 template <int W>
 __global__ void __launch_bounds__(kThreads)
 exact_kernel(const uint8_t* __restrict__ rows, const int32_t* __restrict__ keys, int n,
              Needle nd, int key, uint8_t* __restrict__ out) {
-  const long long r0 = kExactRows * ((long long)blockIdx.x * kThreads + threadIdx.x);
+  const long long r0 = kKeyedRows * ((long long)blockIdx.x * kThreads + threadIdx.x);
   if (r0 >= n) return;
-  if (r0 + kExactRows <= n) {
+  if (r0 + kKeyedRows <= n) {
     const int4 k = __ldg(reinterpret_cast<const int4*>(keys + r0));
-    const int ks[kExactRows] = {k.x, k.y, k.z, k.w};
+    const int ks[kKeyedRows] = {k.x, k.y, k.z, k.w};
     uint32_t flags = 0;
 #pragma unroll
-    for (int i = 0; i < kExactRows; ++i)
+    for (int i = 0; i < kKeyedRows; ++i)
       if (ks[i] == key && row_equals<W>(rows, r0 + i, nd)) flags |= 1u << (8 * i);
     *reinterpret_cast<uint32_t*>(out + r0) = flags;
   } else {
@@ -229,37 +244,58 @@ exact_kernel(const uint8_t* __restrict__ rows, const int32_t* __restrict__ keys,
   }
 }
 
+constexpr int kPrefixWords = 2;  // the prefix column holds a row's words 0 and 1
+using u64 = unsigned long long;  // the prefixes' type, as __ldg and ulonglong2 take it
+
+// memcmp verdict (-1, 0, 1) of row r against the bound, from its prefix p and,
+// where p ties with the bound's, its words kPrefixWords.. up to the first
+// that differs
 template <int W>
-__global__ void __launch_bounds__(kThreads)
-lex_kernel(const uint8_t* __restrict__ rows, int n, Needle nd,
-           uint8_t* __restrict__ out) {
-  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n) return;
-  constexpr int step = vec_bytes<W>() / 4;
+__device__ __forceinline__ int lex_verdict(const uint8_t* __restrict__ rows, long long r,
+                                           u64 p, u64 bound_prefix,
+                                           const Needle& nd) {
+  static_assert(vec_bytes<W>() == 8 && W > 8, "rows past the prefix load 8 bytes at a time");
+  if (p != bound_prefix) return p > bound_prefix ? 1 : -1;
   uint32_t w[W / 4];
-  uint8_t verdict = 0;
 #pragma unroll
-  for (int i = 0; i < W / 4; i += step) {
+  for (int i = kPrefixWords; i < W / 4; i += 2) {
     load_words<W>(rows, r, i, w);
 #pragma unroll
-    for (int j = i; j < i + step; ++j) {
+    for (int j = i; j < i + 2; ++j) {
       if (w[j] != nd.w[j]) {
         // bytes in memory order are little-endian in the word: swap them so
         // an unsigned compare is memcmp over the four bytes
-        const uint32_t a = __byte_perm(w[j], 0, 0x0123);
-        const uint32_t b = __byte_perm(nd.w[j], 0, 0x0123);
-        verdict = a > b ? 1 : 2;
-        break;
+        return __byte_perm(w[j], 0, 0x0123) > __byte_perm(nd.w[j], 0, 0x0123) ? 1 : -1;
       }
     }
-    if (verdict) break;
   }
-  out[r] = verdict;
+  return 0;
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, const void* rows, int n, const Needle& nd, void* out,
-           void* stream) {
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+lex_kernel(const uint8_t* __restrict__ rows, const u64* __restrict__ prefix, int n,
+           Needle nd, u64 bound_prefix, int8_t* __restrict__ out) {
+  const long long r0 = kKeyedRows * ((long long)blockIdx.x * kThreads + threadIdx.x);
+  if (r0 >= n) return;
+  if (r0 + kKeyedRows <= n) {
+    const ulonglong2 a = __ldg(reinterpret_cast<const ulonglong2*>(prefix + r0));
+    const ulonglong2 b = __ldg(reinterpret_cast<const ulonglong2*>(prefix + r0 + 2));
+    const u64 ps[kKeyedRows] = {a.x, a.y, b.x, b.y};
+    uint32_t verdicts = 0;
+#pragma unroll
+    for (int i = 0; i < kKeyedRows; ++i)
+      verdicts |= (uint32_t)(uint8_t)lex_verdict<W>(rows, r0 + i, ps[i], bound_prefix, nd)
+                  << (8 * i);
+    *reinterpret_cast<uint32_t*>(out + r0) = verdicts;
+  } else {
+    for (long long r = r0; r < n; ++r)
+      out[r] = (int8_t)lex_verdict<W>(rows, r, __ldg(prefix + r), bound_prefix, nd);
+  }
+}
+
+int launch_substring(void (*kernel)(const uint8_t*, int, Needle, uint8_t*), const void* rows,
+                     int n, const Needle& nd, void* out, void* stream) {
   if (n <= 0) return 0;
   const unsigned int blocks = (unsigned int)((n + kThreads - 1) / kThreads);
   kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>((const uint8_t*)rows, n, nd,
@@ -267,14 +303,16 @@ int launch(Kernel kernel, const void* rows, int n, const Needle& nd, void* out,
   return (int)cudaGetLastError();
 }
 
-template <int W>
-int launch_exact(const void* rows, const void* keys, int n, const Needle& nd, int key,
-                 void* out, void* stream) {
+// A keyed kernel over n rows: kKeyedRows rows a thread.
+template <typename Col, typename Key, typename Out>
+int launch_keyed(void (*kernel)(const uint8_t*, const Col*, int, Needle, Key, Out*),
+                 const void* rows, const void* col, int n, const Needle& nd, Key key, void* out,
+                 void* stream) {
   if (n <= 0) return 0;
-  const long long threads = (n + kExactRows - 1) / kExactRows;
+  const long long threads = (n + kKeyedRows - 1) / kKeyedRows;
   const unsigned int blocks = (unsigned int)((threads + kThreads - 1) / kThreads);
-  exact_kernel<W><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)rows, (const int32_t*)keys, n, nd, key, (uint8_t*)out);
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>((const uint8_t*)rows, (const Col*)col,
+                                                        n, nd, key, (Out*)out);
   return (int)cudaGetLastError();
 }
 
@@ -290,9 +328,11 @@ bool make_needle(const void* bytes, int len, int max_len, Needle* nd) {
 
 // C launchers (bound with ctypes). rows: (n, W) u8, row-major, 16-byte
 // aligned, W one of the index's columns (substring: names, 64; exact: paths,
-// 96, and extensions, 12; lex: dates, 40); needle: host bytes; out: (n,) u8,
-// 4-byte aligned. exact also takes keys: (n,) int32, 16-byte aligned, the
-// row_keys of the rows, and key, the row_keys of the zero-padded needle.
+// 96, and extensions, 12; lex: dates, 40); needle: host bytes; out: (n,) u8
+// (lex: int8), 4-byte aligned. exact also takes keys: (n,) int32, 16-byte
+// aligned, the row_keys of the rows, and key, the row_keys of the zero-padded
+// needle; lex takes prefix: (n,) int64 holding u64 bits, 16-byte aligned, the
+// date_prefix_of the rows, and bound_prefix, that of the zero-padded bound.
 // Each returns cudaGetLastError() after its launch, or cudaErrorInvalidValue
 // for a width or needle length the kernels do not take.
 
@@ -311,7 +351,7 @@ extern "C" int search_substring(const void* rows, int W, int n, const void* need
           substring_kernel<64>, cudaFuncAttributePreferredSharedMemoryCarveout,
           (int)cudaSharedmemCarveoutMaxShared);
       if (carveout != cudaSuccess) return (int)carveout;
-      return launch(substring_kernel<64>, rows, n, nd, out, stream);
+      return launch_substring(substring_kernel<64>, rows, n, nd, out, stream);
     }
     default: return (int)cudaErrorInvalidValue;
   }
@@ -326,13 +366,14 @@ extern "C" int search_exact(const void* rows, const void* keys, int W, int n,
   if (!make_needle(needle, len, W < kMaxWidth ? W : kMaxWidth, &nd))
     return (int)cudaErrorInvalidValue;
   switch (W) {
-    case 12: return launch_exact<12>(rows, keys, n, nd, key, out, stream);
-    case 96: return launch_exact<96>(rows, keys, n, nd, key, out, stream);
+    case 12: return launch_keyed(exact_kernel<12>, rows, keys, n, nd, key, out, stream);
+    case 96: return launch_keyed(exact_kernel<96>, rows, keys, n, nd, key, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-extern "C" int search_lex(const void* rows, int W, int n, const void* bound, int len,
+extern "C" int search_lex(const void* rows, const void* prefix, int W, int n,
+                          const void* bound, int len, unsigned long long bound_prefix,
                           void* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -340,7 +381,7 @@ extern "C" int search_lex(const void* rows, int W, int n, const void* bound, int
   if (!make_needle(bound, len, W < kMaxWidth ? W : kMaxWidth, &nd))
     return (int)cudaErrorInvalidValue;
   switch (W) {
-    case 40: return launch(lex_kernel<40>, rows, n, nd, out, stream);
+    case 40: return launch_keyed(lex_kernel<40>, rows, prefix, n, nd, bound_prefix, out, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -52,7 +52,8 @@ SIGNATURES: dict[str, dict[str, list]] = {
     "search": {"search_substring": [_P, _I, _I, _P, _I, _P, _I, _P],
                # (rows, keys, W, n, needle, needle length, needle key, out, device, stream)
                "search_exact": [_P, _P, _I, _I, _P, _I, _I, _P, _I, _P],
-               "search_lex": [_P, _I, _I, _P, _I, _P, _I, _P]},
+               # (rows, prefix, W, n, bound, bound length, bound prefix, out, device, stream)
+               "search_lex": [_P, _P, _I, _I, _P, _I, ctypes.c_uint64, _P, _I, _P]},
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -10,11 +10,14 @@ fixed-width columnar record, on the host (numpy):
   ``materialized_path`` (W=96) and ``extension`` (W=12) for SQL ``=``/``IN``
   byte equality, and ``date_created`` (W=40) for BINARY-collation range
   compares;
-- **key columns** (``(cap,) int32``) beside the path and extension rows:
-  :func:`.kernels.row_keys` of each zero-padded row, which the exact-match
-  kernel compares before it reads a row (rows an upsert wrote get their
-  keys in one pass at :meth:`ColumnarIndex.refresh_keys`, which the
-  mirror's delta feed runs);
+- **key columns** beside the byte rows they are built from:
+  ``path_key`` / ``ext_key`` (``(cap,) int32``, :func:`.kernels.row_keys`
+  of each zero-padded row), which the exact-match kernel compares before it
+  reads a row, and ``date_prefix`` (``(cap,) int64``,
+  :func:`.kernels.date_prefix_of`: a date row's first 8 bytes, big-endian),
+  which the range kernel compares before it reads past them (rows an upsert
+  wrote get theirs in one pass at :meth:`ColumnarIndex.refresh_keys`, which
+  the mirror's delta feed runs: a stale key would be a wrong answer);
 - **filter columns**: ``location_id`` (i64), ``kind`` (i32), ``hidden`` /
   ``favorite`` (i8), ``size_in_bytes`` (i64), each with −1 for NULL;
 - an **overflow sidecar**: the few rows whose value truncated at a plane
@@ -231,9 +234,12 @@ class ColumnarIndex:
                "ext_len": 0, "date_len": 0, "location": 0, "hidden": 0,
                "kind": 0, "favorite": 0, "size": 0}
     PLANES = ("name_planes", "path_planes", "ext_planes", "date_planes")
-    #: key column -> the byte rows it keys (kernels.row_keys of each row; a
-    #: zero row's key is 0, the fill of an empty slot)
-    KEYS = {"path_key": "path_planes", "ext_key": "ext_planes"}
+    #: key column -> (the byte rows it is built from, the function that
+    #: builds it from them); each maps a zero row to 0, the fill of an empty
+    #: slot
+    KEYS = {"path_key": ("path_planes", kernels.row_keys),
+            "ext_key": ("ext_planes", kernels.row_keys),
+            "date_prefix": ("date_planes", kernels.date_prefix_of)}
 
     def __init__(self) -> None:
         self.n = 0
@@ -255,6 +261,7 @@ class ColumnarIndex:
         self.size = np.empty(0, dtype=np.int64)
         self.path_key = np.empty(0, dtype=np.int32)
         self.ext_key = np.empty(0, dtype=np.int32)
+        self.date_prefix = np.empty(0, dtype=np.int64)
         #: id -> full decoded fields for rows a fixed width truncated
         self.overflow: dict[int, dict[str, Any]] = {}
         #: bumped on every mutation — the DeviceMirror resyncs
@@ -343,8 +350,8 @@ class ColumnarIndex:
     def _write_keys(self, slots) -> None:
         """The key columns at ``slots`` (a slice or an index array) from
         their rows, one vectorized pass per column."""
-        for key, attr in self.KEYS.items():
-            getattr(self, key)[slots] = kernels.row_keys(getattr(self, attr)[slots])
+        for key, (attr, build) in self.KEYS.items():
+            getattr(self, key)[slots] = build(getattr(self, attr)[slots])
 
     def refresh_keys(self) -> None:
         """Bring the key columns up to date with the rows upserts wrote."""
@@ -433,17 +440,17 @@ def index_from_jax(idx: Any) -> ColumnarIndex:
     """The port's index holding the columns of a JAX-package
     ``ColumnarIndex`` (duck-typed: its numpy arrays are read, nothing of that
     package is imported). Its plane-major ``(W, CAP)`` byte planes become
-    the port's row-major ``(CAP, W)`` rows, and the key columns are computed
-    from them; the presence bitmap is not carried."""
+    the port's row-major ``(CAP, W)`` rows, and the key columns are built
+    from them (zero rows past ``n`` give the fill, 0); the presence bitmap
+    is not carried."""
     out = ColumnarIndex()
     out.n, out.cap = idx.n, idx.cap
     for name in ColumnarIndex.COLUMNS:
         setattr(out, name, np.array(getattr(idx, name), copy=True))
     for name in ColumnarIndex.PLANES:
         setattr(out, name, np.ascontiguousarray(np.asarray(getattr(idx, name)).T))
-    for key in ColumnarIndex.KEYS:
-        setattr(out, key, np.zeros(out.cap, dtype=np.int32))
-    out._write_keys(slice(0, out.n))
+    for key, (attr, build) in ColumnarIndex.KEYS.items():
+        setattr(out, key, build(getattr(out, attr)))
     out.overflow = {k: dict(v) for k, v in idx.overflow.items()}
     out.generation = 1
     out._delta_slots = None
@@ -454,8 +461,8 @@ class DeviceMirror:
     """Torch copies of the scored columns, resident on ``device`` and
     patched incrementally (``index_copy_`` of the changed slots) from the
     master's delta feed — queries never pay a host→device copy of the index.
-    Byte columns are row-major ``(CAP, W)`` u8 with their int32 key columns
-    beside them; ``location`` and ``size`` stay int64."""
+    Byte columns are row-major ``(CAP, W)`` u8 with their key columns beside
+    them; ``location`` and ``size`` stay int64."""
 
     #: mirror key -> master byte rows ``(CAP, W)``
     ROWS = {"name": "name_planes", "path": "path_planes", "ext": "ext_planes",
@@ -465,7 +472,7 @@ class DeviceMirror:
                "location": NULL_I, "hidden": NULL_I, "kind": NULL_I,
                "favorite": NULL_I, "size": NULL_I, "alive": False,
                # the key of a zero row: padding rows keep keys that match
-               "path_key": 0, "ext_key": 0}
+               "path_key": 0, "ext_key": 0, "date_prefix": 0}
 
     def __init__(self, device: str | torch.device) -> None:
         self.device = torch.device(device)
@@ -564,9 +571,9 @@ def eval_mask_device(idx: ColumnarIndex, mirror: DeviceMirror,
     if pred.date_lo is not None or pred.date_hi is not None:
         valid = arr["date_len"] >= 0
         if pred.date_lo is not None:
-            m &= valid & (kernels.lex_cmp(arr["date"], pred.date_lo) >= 0)
+            m &= valid & (kernels.lex_cmp(arr["date"], pred.date_lo, arr["date_prefix"]) >= 0)
         if pred.date_hi is not None:
-            m &= valid & (kernels.lex_cmp(arr["date"], pred.date_hi) <= 0)
+            m &= valid & (kernels.lex_cmp(arr["date"], pred.date_hi, arr["date_prefix"]) <= 0)
     if pred.needle is not None:
         m &= kernels.substring(arr["name"], pred.needle)
     out = m[: idx.n].cpu().numpy()

@@ -14,7 +14,10 @@ capacity; callers slice ``[:n]``:
   beside the path and extension rows: the kernel reads a row only where its
   key equals the needle's;
 - :func:`lex_cmp` — the memcmp verdict (-1 | 0 | 1) of each zero-padded
-  value against the zero-padded bound, ``(CAP,)`` int8.
+  value against the zero-padded bound, ``(CAP,)`` int8. On the card it also
+  takes the column's prefixes, :func:`date_prefix_of` of its rows, which the
+  index keeps beside the date rows: the kernel reads a row past its first 8
+  bytes only where its prefix equals the bound's.
 
 On a CUDA tensor each launches its kernel in ``csrc/search.cu``
 (``search_substring``, ``search_exact``, ``search_lex``) or raises; on a CPU
@@ -81,11 +84,37 @@ def row_keys(rows: np.ndarray) -> np.ndarray:
     return (h >> np.uint64(32)).astype(np.uint32).view(np.int32)
 
 
+def date_prefix_of(rows: np.ndarray) -> np.ndarray:
+    """(N, W) u8 zero-padded rows, W >= 8 → (N,) int64: each row's first 8
+    bytes read big-endian, so that an unsigned compare of two prefixes is
+    memcmp of those bytes. Held as int64 (torch has no uint64 arithmetic on
+    the CPU); the card compares the bits as uint64, which a signed compare
+    would get wrong for a row whose first byte is >= 0x80. A zero row's
+    prefix is 0, so a column's padding and NULL rows need no fill of their
+    own."""
+    rows = np.asarray(rows, dtype=np.uint8)
+    if rows.ndim != 2 or rows.shape[1] < 8:
+        raise ValueError(f"date_prefix_of takes (N, W >= 8) rows, not {rows.shape}")
+    head = np.ascontiguousarray(rows[:, :8]).view(">u8")[:, 0]
+    return head.astype(np.uint64).view(np.int64)
+
+
+def _padded_row(raw: bytes, width: int) -> np.ndarray:
+    """``raw`` zero-padded to a (1, width) u8 row."""
+    padded = np.zeros((1, width), dtype=np.uint8)
+    padded[0, : len(raw)] = np.frombuffer(raw, dtype=np.uint8)
+    return padded
+
+
 def needle_key(needle: bytes, width: int) -> int:
     """The key of ``needle`` zero-padded to ``width`` bytes."""
-    padded = np.zeros((1, width), dtype=np.uint8)
-    padded[0, : len(needle)] = np.frombuffer(needle, dtype=np.uint8)
-    return int(row_keys(padded)[0])
+    return int(row_keys(_padded_row(needle, width))[0])
+
+
+def bound_prefix(bound: bytes, width: int) -> int:
+    """The prefix of ``bound`` clipped and zero-padded to ``width`` bytes,
+    as the unsigned 64-bit integer the kernel compares."""
+    return int(date_prefix_of(_padded_row(bound[:width], width))[0].view(np.uint64))
 
 
 def fold(raw: bytes) -> bytes:
@@ -179,15 +208,14 @@ def _check_rows(kernel: str, rows: torch.Tensor) -> tuple[int, int]:
     return cap, width
 
 
-def _launch(kernel: str, rows: torch.Tensor, raw: bytes) -> torch.Tensor:
-    """Launch the substring or lex scorer over every row; returns its (CAP,)
-    u8 flags."""
-    cap, width = _check_rows(kernel, rows)
-    out = torch.empty(cap, dtype=torch.uint8, device=rows.device)
-    _kernels.launch("search", kernel, rows.data_ptr(), width, cap, raw, len(raw),
-                    out.data_ptr(), rows.device.index or 0, _kernels.stream_of(rows.device),
-                    shape=(cap, width, len(raw)))
-    return out
+def _check_column(kernel: str, col: torch.Tensor | None, dtype: torch.dtype,
+                  rows: torch.Tensor, what: str) -> None:
+    """Raises unless ``col`` is a (CAP,) ``dtype`` column beside ``rows``:
+    contiguous, 16-byte aligned, on the rows' card."""
+    if (col is None or col.dtype != dtype or tuple(col.shape) != (rows.shape[0],)
+            or col.device != rows.device or not col.is_contiguous() or col.data_ptr() % 16):
+        raise ValueError(f"{kernel} takes {what}: (CAP,) {dtype}, contiguous, 16-byte "
+                         "aligned, on the rows' card")
 
 
 def substring(rows: torch.Tensor, needle: bytes) -> torch.Tensor:
@@ -195,9 +223,14 @@ def substring(rows: torch.Tensor, needle: bytes) -> torch.Tensor:
     CUDA tensor, the plain version on CPU."""
     if not rows.is_cuda:
         return substring_plain(rows, needle)
-    if not _substring_ok(rows.shape[1], needle):
-        return torch.zeros(rows.shape[0], dtype=torch.bool, device=rows.device)
-    return _launch("search_substring", rows, needle).view(torch.bool)
+    cap, width = _check_rows("search_substring", rows)
+    if not _substring_ok(width, needle):
+        return torch.zeros(cap, dtype=torch.bool, device=rows.device)
+    out = torch.empty(cap, dtype=torch.uint8, device=rows.device)
+    _kernels.launch("search", "search_substring", rows.data_ptr(), width, cap, needle,
+                    len(needle), out.data_ptr(), rows.device.index or 0,
+                    _kernels.stream_of(rows.device), shape=(cap, width, len(needle)))
+    return out.view(torch.bool)
 
 
 def exact(rows: torch.Tensor, needle: bytes, keys: torch.Tensor | None = None) -> torch.Tensor:
@@ -208,10 +241,7 @@ def exact(rows: torch.Tensor, needle: bytes, keys: torch.Tensor | None = None) -
     if not rows.is_cuda:
         return exact_plain(rows, needle)
     cap, width = _check_rows("search_exact", rows)
-    if (keys is None or keys.dtype != torch.int32 or tuple(keys.shape) != (cap,)
-            or keys.device != rows.device or not keys.is_contiguous() or keys.data_ptr() % 16):
-        raise ValueError("search_exact takes the rows' key column: (CAP,) int32, contiguous, "
-                         "16-byte aligned, on the rows' card")
+    _check_column("search_exact", keys, torch.int32, rows, "the rows' key column")
     if len(needle) > width:
         return torch.zeros(cap, dtype=torch.bool, device=rows.device)
     out = torch.empty(cap, dtype=torch.uint8, device=rows.device)
@@ -222,11 +252,20 @@ def exact(rows: torch.Tensor, needle: bytes, keys: torch.Tensor | None = None) -
     return out.view(torch.bool)
 
 
-def lex_cmp(rows: torch.Tensor, bound: bytes) -> torch.Tensor:
-    """(CAP,) int8 memcmp verdict: the ``search_lex`` kernel (0 = eq, 1 = gt,
-    2 = lt, as the Pallas kernel writes it) mapped to 0 / 1 / -1 on a CUDA
-    tensor, the plain version on CPU."""
+def lex_cmp(rows: torch.Tensor, bound: bytes,
+            prefix: torch.Tensor | None = None) -> torch.Tensor:
+    """(CAP,) int8 memcmp verdict, -1 / 0 / 1: the ``search_lex`` kernel on
+    a CUDA tensor, which needs ``prefix``, the (CAP,) int64
+    :func:`date_prefix_of` of ``rows`` on the same card, and raises without
+    it; the plain version on CPU, where ``prefix`` is not read."""
     if not rows.is_cuda:
         return lex_cmp_plain(rows, bound)
-    code = _launch("search_lex", rows, bound[: rows.shape[1]])
-    return (code == 1).to(torch.int8) - (code == 2).to(torch.int8)
+    cap, width = _check_rows("search_lex", rows)
+    _check_column("search_lex", prefix, torch.int64, rows, "the rows' prefix column")
+    clipped = bound[:width]
+    out = torch.empty(cap, dtype=torch.int8, device=rows.device)
+    _kernels.launch("search", "search_lex", rows.data_ptr(), prefix.data_ptr(), width, cap,
+                    clipped, len(clipped), bound_prefix(clipped, width), out.data_ptr(),
+                    rows.device.index or 0, _kernels.stream_of(rows.device),
+                    shape=(cap, width, len(clipped)))
+    return out

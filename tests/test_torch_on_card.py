@@ -9,6 +9,7 @@ comparison is exact (tolerance zero).
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from spacedrive_tpu_torch.objects.blake3_ref import blake3
 from spacedrive_tpu_torch.ops import _kernels
@@ -16,7 +17,7 @@ from spacedrive_tpu_torch.ops import blake3 as b3
 from spacedrive_tpu_torch.ops import cdc
 from spacedrive_tpu_torch.search import kernels as search_kernels
 from tests.torch_gear_edges import edge_plane
-from tests.torch_search_cases import birthday_pair, substring_cases
+from tests.torch_search_cases import LEX_BOUNDS, birthday_pair, lex_rows, substring_cases
 
 EDGE_LENGTHS = (0, 1, 63, 64, 65, 1023, 1024, 1025, 2048, 2049, 57352, 102408)
 
@@ -246,11 +247,44 @@ def test_search_exact_kernel_needs_its_key_column(card):
     assert _kernels.LAUNCHES["search_exact"] == before + 1
 
 
+def prefix_column(rows: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(search_kernels.date_prefix_of(rows.cpu().numpy())).to(rows.device)
+
+
 def test_search_lex_kernel_matches_plain(card):
-    rows = search_rows(40, 8192 + 3, 40).to(card)
-    for bound in (b"", b"b", b"abc", b"\xc3", bytes(rows[7].tolist()), b"c" * 41):
-        assert torch.equal(search_kernels.lex_cmp(rows, bound),
+    rows = search_rows(40, 8192 + 3, 40)
+    rows[9, 0] = 0xFF  # a first byte >= 0x80: negative as int64
+    rows = rows.to(card)
+    prefix = prefix_column(rows)
+    row7 = bytes(rows[7].tolist())
+    for bound in (b"", b"b", b"abc", b"\xc3", row7, row7[:7], row7[:8], row7[:9], b"c" * 41):
+        assert torch.equal(search_kernels.lex_cmp(rows, bound, prefix),
                            search_kernels.lex_cmp_plain(rows, bound)), bound
-    before = _kernels.LAUNCHES["search_lex"]
-    search_kernels.lex_cmp(rows, b"b")
-    assert _kernels.LAUNCHES["search_lex"] == before + 1
+
+
+@pytest.mark.parametrize("bound", LEX_BOUNDS, ids=lambda b: f"len{len(b)}-{b[:1].hex()}")
+def test_search_lex_kernel_edge_cases(card, bound):
+    """Rows that tie with the bound's 8-byte prefix and differ at byte 8, 9
+    or 39 or nowhere, first bytes >= 0x80, zero rows, bounds of 0-41 bytes,
+    over a row count that is not a multiple of 4."""
+    rows = torch.from_numpy(lex_rows(len(bound))).to(card)
+    assert torch.equal(search_kernels.lex_cmp(rows, bound, prefix_column(rows)),
+                       search_kernels.lex_cmp_plain(rows, bound))
+
+
+def test_search_lex_kernel_needs_its_prefix_column(card):
+    rows = search_rows(40, 4096, 40).to(card)
+    prefix = prefix_column(rows)
+    for bad in (None, prefix[:-4], prefix.to(torch.int32), prefix.cpu()):
+        with pytest.raises(ValueError):
+            search_kernels.lex_cmp(rows, b"b", bad)
+    # one launch a call, and nothing else runs to remap its output
+    before = dict(_kernels.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = search_kernels.lex_cmp(rows, b"b", prefix)
+        torch.cuda.synchronize()
+    assert got.dtype == torch.int8
+    assert _kernels.LAUNCHES["search_lex"] == before.get("search_lex", 0) + 1
+    assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    launched = [e.key for e in prof.key_averages() if e.self_device_time_total > 0]
+    assert launched and all("lex_kernel<" in key for key in launched), launched

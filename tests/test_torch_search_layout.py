@@ -248,10 +248,10 @@ def test_exact_replay_with_forced_collisions(width):
 def assert_keys_current(idx) -> None:
     idx.refresh_keys()
     assert not idx._stale_keys
-    for key, attr in columnar.ColumnarIndex.KEYS.items():
-        got = getattr(idx, key)
-        assert got.dtype == np.int32 and got.shape == (idx.cap,)
-        assert np.array_equal(got, kernels.row_keys(getattr(idx, attr))), key
+    for key, (attr, build) in columnar.ColumnarIndex.KEYS.items():
+        got, want = getattr(idx, key), build(getattr(idx, attr))
+        assert got.dtype == want.dtype and got.shape == (idx.cap,)
+        assert np.array_equal(got, want), key
 
 
 def test_index_keys_follow_build_upsert_delete_and_jax():

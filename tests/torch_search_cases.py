@@ -1,8 +1,9 @@
-"""Search-kernel inputs shared by tests/test_torch_search.py and
-tests/test_torch_search_layout.py (on the CPU, against the JAX package) and
-tests/test_torch_on_card.py (on the card, no jax): seeded value rows, the
-substring kernel's edge cases and a pair of rows with one key. It imports
-numpy and the port only."""
+"""Search-kernel inputs shared by tests/test_torch_search.py,
+tests/test_torch_search_layout.py and tests/test_torch_lex_layout.py (on the
+CPU, against the JAX package) and tests/test_torch_on_card.py (on the card,
+no jax): seeded value rows, the substring kernel's edge cases, a pair of rows
+with one key and the range kernel's date rows and bounds. It imports numpy
+and the port only."""
 
 import numpy as np
 
@@ -81,3 +82,47 @@ def birthday_pair(width: int, seed: int) -> tuple[np.ndarray, np.ndarray]:
     a, b = rows[order[same[0]]], rows[order[same[0] + 1]]
     assert not np.array_equal(a, b)
     return a, b
+
+
+#: the search benchmark's date bound: its first 8 bytes (``2026-06-``)
+#: decide every row outside its month
+LEX_BOUND = b"2026-06-01T00:00:00+00:00"
+#: bounds of 0, 1, 7, 8, 9, 25, 40 and 41 bytes (the last clipped to 40),
+#: and bounds whose first byte is >= 0x80
+LEX_BOUNDS = (b"", LEX_BOUND[:1], LEX_BOUND[:7], LEX_BOUND[:8], LEX_BOUND[:9], LEX_BOUND,
+              LEX_BOUND + b"Z" * 15, LEX_BOUND + b"Z" * 16, b"\xc3", b"\xc3\xa9t\xc3")
+
+
+def lex_rows(seed: int, n: int = 8 * WARP * 3 + 11) -> np.ndarray:
+    """(n, 40) date rows (n is not a multiple of 4): ISO dates of 2026, and
+    planted among them rows equal to LEX_BOUND, rows that tie with its first
+    8 bytes and differ at byte 8 or 9, rows that tie with its 40-byte form
+    (LEX_BOUND + 15 x "Z") up to byte 39, rows whose first byte is >= 0x80,
+    rows of 1-7 bytes of the bound, rows of 40 bytes over a small alphabet,
+    and zero rows."""
+    rng = np.random.default_rng(seed)
+    long_bound = LEX_BOUND + b"Z" * 15
+    values = []
+    for i in range(n):
+        kind = i % 13
+        if kind == 0:
+            value = b""
+        elif kind == 1:
+            value = LEX_BOUND
+        elif kind in (2, 3):  # differs at byte 8 or 9, above or below
+            raw = bytearray(LEX_BOUND)
+            raw[6 + kind] = int(rng.choice(np.frombuffer(b"0123", dtype=np.uint8)))
+            value = bytes(raw)
+        elif kind == 4:  # ties with the 40-byte bound up to byte 39
+            value = long_bound[:39] + bytes([int(rng.choice(np.frombuffer(b"YZ[", np.uint8)))])
+        elif kind == 5:  # a first byte >= 0x80: negative as int64
+            value = bytes([int(rng.integers(0x80, 0x100))]) + LEX_BOUND[1:]
+        elif kind == 6:
+            value = LEX_BOUND[: int(rng.integers(1, 8))]
+        elif kind == 7:
+            value = rng.choice(np.frombuffer(b"2026-\xc3\xff", np.uint8), size=40).tobytes()
+        else:
+            month, day, hour = rng.integers(1, 13), rng.integers(1, 29), rng.integers(0, 24)
+            value = f"2026-{month:02d}-{day:02d}T{hour:02d}:00:00+00:00".encode()
+        values.append(value)
+    return value_rows(values, 40)
