@@ -8,10 +8,7 @@ Run from the repository root with no arguments (``--seed`` picks the data):
 ``--kernels`` runs phases 1-3 only and prints the card and the
 ``{"kernels": [...]}`` line (launches null: no main path ran), never the
 ``{"ok": true, ...}`` line. Use it to iterate on a kernel; run with no flags
-to prove the port. ``--parent DIR`` (with ``--kernels``) also builds the
-``search_lex`` kernel of the tree at DIR in its earlier form (no prefix
-column, u8 codes mapped to int8 by its wrapper) and times it and this tree's
-in turns, L2-warm and L2-cleared, with both kernels' SASS opcode counts.
+to prove the port.
 
 Phases, each raising on failure (the script then exits non-zero and prints
 no result line):
@@ -724,11 +721,19 @@ def search_timing(cols: dict, int32_ops_per_s: float, flush) -> dict:
              ("search_exact@ext", K.exact, K.exact_plain, cols["ext"], b"flac",
               (cols["ext_key"],)),
              ("search_lex@date", K.lex_cmp, K.lex_cmp_plain, cols["date"],
-              b"2026-06-01T00:00:00+00:00", (cols["date_prefix"],)))
+              b"2026-06-01T00:00:00+00:00", (cols["date_prefix"],)),
+             # a bound whose prefix no row shares: no row is read past its
+             # prefix, so beside the bench bound it shows what the tied
+             # rows' reads cost
+             ("search_lex@date-no-tie", K.lex_cmp, K.lex_cmp_plain, cols["date"],
+              b"2027-01-01T00:00:00+00:00", (cols["date_prefix"],)))
     out = {}
     for name, kernel, plain, rows, needle, keys in jobs:
         cap, width = rows.shape
         nbytes, ops = search_work(rows, needle, kernel is K.substring)
+        ties = ("" if kernel is not K.lex_cmp else
+                f", {int((keys[0] == K.bound_prefix(needle, width)).sum())} rows tie on "
+                f"the bound's prefix")
         symbol = SEARCH_SYMBOLS[name.split("@")[0]]
         out[name] = {
             "ms": device_ms(lambda: kernel(rows, needle, *keys), symbol),
@@ -739,66 +744,8 @@ def search_timing(cols: dict, int32_ops_per_s: float, flush) -> dict:
             "bound": bound_ms(nbytes, ops, int32_ops_per_s),
             "full_row_bound_ms": cap * (width + 1) / HBM_BYTES_PER_S * 1e3,
             "shape": f"rows ({cap}, {width}) u8, needle {len(needle)} B, "
-                     f"{nbytes / cap:.1f} B and {ops / cap:.1f} compares per row needed"}
+                     f"{nbytes / cap:.1f} B and {ops / cap:.1f} compares per row needed{ties}"}
     return out
-
-
-def parent_lex_ab(parent: Path, cols: dict) -> None:
-    """``search_lex`` of the tree at ``parent`` in its earlier form (C
-    launcher ``(rows, W, n, bound, len, out, device, stream)``, u8 codes 0 =
-    eq, 1 = gt, 2 = lt, mapped to int8 by its wrapper in five more launches)
-    against this tree's, at the search benchmark's bound on the 1,000,000-row
-    date column: the two verdicts must agree; then device time L2-warm and
-    L2-cleared and wrapper call time, in turns new, parent, new, parent; and
-    both kernels' SASS opcode counts."""
-    import ctypes
-
-    import torch
-
-    from spacedrive_tpu_torch.ops import _kernels
-    from spacedrive_tpu_torch.search import kernels as K
-
-    source = parent / "spacedrive_tpu_torch" / "csrc" / "search.cu"
-    library = _kernels.BUILD_DIR / "libsearch-parent.so"
-    done = subprocess.run([_kernels.nvcc(), *_kernels.NVCC_FLAGS, "-o", str(library),
-                           str(source)], capture_output=True, text=True)
-    if done.returncode != 0:
-        fail(f"the parent's search.cu did not build:\n{done.stdout}{done.stderr}")
-    lib = ctypes.CDLL(str(library))
-    lib.search_lex.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                               ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    rows, prefix = cols["date"], cols["date_prefix"]
-    cap, width = rows.shape
-    bound = b"2026-06-01T00:00:00+00:00"
-    code = torch.empty(cap, dtype=torch.uint8, device=rows.device)
-    stream = _kernels.stream_of(rows.device)
-
-    def parent_kernel():
-        if lib.search_lex(rows.data_ptr(), width, cap, bound, len(bound), code.data_ptr(),
-                          0, stream):
-            fail("the parent's search_lex launch failed")
-
-    def parent_call():
-        parent_kernel()
-        return (code == 1).to(torch.int8) - (code == 2).to(torch.int8)
-
-    def new_call():
-        return K.lex_cmp(rows, bound, prefix)
-
-    if not torch.equal(parent_call(), new_call()):
-        fail("the parent's search_lex and this tree's disagree at the bench bound")
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    symbol = SEARCH_SYMBOLS["search_lex"]
-    for side, kernel, call in (("new", new_call, new_call), ("parent", parent_kernel, parent_call),
-                               ("new", new_call, new_call), ("parent", parent_kernel, parent_call)):
-        log(f"lex A/B: {side}: kernel {device_ms(kernel, symbol):.4f} ms L2-warm, "
-            f"{device_ms(kernel, symbol, between=flush.zero_):.4f} ms L2-cleared; a wrapper "
-            f"call {time_ms(call, 50):.4f} ms (rows ({cap}, {width}), bound {bound.decode()})")
-    for side, path in (("new", _kernels._target("search")), ("parent", library)):
-        ops = sass_opcodes(path, "lex_kernel")
-        log(f"lex A/B: {side}: SASS " + ("not measured (no cuobjdump, or the kernel not found)"
-                                        if ops is None else
-                                        f"{sum(ops.values())} instructions (static) {ops}"))
 
 
 # --------------------------------------------------------------------------
@@ -1311,30 +1258,31 @@ def key_build_times(state) -> dict:
 
 
 def key_patch_times(state, slots: list[int]) -> dict:
-    """Per key column: seconds its share of an incremental refresh takes for
-    ``slots``, one vectorized pass on the host (as ``refresh_keys``, which
-    the mirror's delta feed runs after upserts, builds it) and one
-    ``index_copy_`` on the card (as the mirror's patch does). It rewrites the
-    values the columns already hold."""
+    """Seconds the key columns' share of an incremental refresh takes for
+    ``slots``: one ``refresh_keys`` pass on the host over every key column
+    (as the mirror's delta feed runs it after upserts), then one
+    ``index_copy_`` per key column on the card (as the mirror's patch does),
+    each with its bytes. It rewrites the values they already hold."""
     import numpy as np
     import torch
 
     with state.lock:
         idx, mirror = state.index, state.mirror
+        t0 = time.perf_counter()
+        idx._stale_keys.extend(slots)
+        idx.refresh_keys()
+        host_s = time.perf_counter() - t0
         at_np = np.unique(np.asarray(slots, dtype=np.int64))
         at = torch.from_numpy(at_np).to(mirror.device)
-        out = {}
-        for key, (attr, build) in idx.KEYS.items():
-            t0 = time.perf_counter()
-            getattr(idx, key)[at_np] = build(getattr(idx, attr)[at_np])
-            host_s = time.perf_counter() - t0
+        columns = {}
+        for key in idx.KEYS:
+            values = getattr(idx, key)[at_np]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            mirror.arrays[key].index_copy_(0, at, torch.from_numpy(getattr(idx, key)[at_np])
-                                           .to(mirror.device))
+            mirror.arrays[key].index_copy_(0, at, torch.from_numpy(values).to(mirror.device))
             torch.cuda.synchronize()
-            out[key] = {"host_s": host_s, "patch_s": time.perf_counter() - t0}
-        return {"slots": len(at_np), "columns": out}
+            columns[key] = {"patch_s": time.perf_counter() - t0, "bytes": values.nbytes}
+        return {"host_s": host_s, "slots": len(at_np), "columns": columns}
 
 
 def check_patched_columns(state) -> int:
@@ -1533,9 +1481,11 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
         f"{refresh_s * 1e3:.1f} ms (mirror patched in place: uploads {st1['mirror_uploads']}, "
         f"patches {st0['mirror_patches']} -> {st1['mirror_patches']}); 3 queries "
         "byte-identical to SQL after it")
-    for key, t in patch["columns"].items():
-        log(f"search: key column {key}'s share of that refresh, {patch['slots']} slots: host "
-            f"{t['host_s'] * 1e3:.2f} ms, patch on the card {t['patch_s'] * 1e3:.2f} ms")
+    log(f"search: the key columns' share of that refresh, {patch['slots']} slots: "
+        f"refresh_keys on the host {patch['host_s'] * 1e3:.2f} ms (every key column, one pass); "
+        "patch on the card " + ", ".join(
+            f"{key} {t['patch_s'] * 1e3:.2f} ms ({t['bytes']} B)"
+            for key, t in patch["columns"].items()))
 
     launches = {k: v for k, v in _kernels.LAUNCHES.items() if k.startswith("search_")}
     plain_on_card = {k: v for k, v in _kernels.PLAIN_ON_CUDA.items() if v}
@@ -1564,13 +1514,7 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0, help="seed of all generated data")
     parser.add_argument("--kernels", action="store_true",
                         help="build, parity and timing only; no main path, no ok line")
-    parser.add_argument("--parent", type=Path, default=None,
-                        help="with --kernels: also time the search_lex kernel of the tree at "
-                             "this directory (its form before the prefix column) in turns "
-                             "with this tree's")
     args = parser.parse_args()
-    if args.parent is not None and not args.kernels:
-        parser.error("--parent goes with --kernels")
 
     import torch
 
@@ -1605,8 +1549,6 @@ def main() -> int:
         log(f"search corpus: {len(corpus)} rows made in {time.perf_counter() - t0:.1f} s")
         errs = parity_phase(rng, cols)
         times = timing_phase(rng, int32_ops_per_s, cols)
-        if args.parent is not None:
-            parent_lex_ab(args.parent.resolve(), cols)
         del cols
         torch.cuda.empty_cache()
         main = None if args.kernels else main_path_phase(args.seed, card, corpus)

@@ -66,11 +66,12 @@
 // bound's, 8 bytes at a time up to the first word that differs, and writes
 // the four int8 verdicts in one 32-bit store. The kernel's first form read
 // every row from its first byte, a sector a row on dates (at least 40 MB):
-// 0.0119 ms L2-warm, 0.0194 ms with the L2 cleared, against a 0.0024 ms
-// bound. At the search benchmark's bound this one reads the 8 MB prefix
-// column and the 1/12 of rows that tie on a month: 0.0031 ms L2-warm,
-// 0.0095 ms cleared, where a tied row's read waits on its prefix's (H100
-// 80GB HBM3, 700 W; chip_smoke.py --parent).
+// 0.0119-0.0143 ms L2-warm, 0.0194 ms with the L2 cleared, against a
+// 0.0024 ms bound. At the search benchmark's bound this one reads the 8 MB
+// prefix column and the 1/12 of rows that tie on a month: 0.0031 ms
+// L2-warm, 0.0095 ms cleared; at a bound no row ties, 0.0026 / 0.0059 ms,
+// so a tied row's read, which waits on its prefix's, costs the rest (H100
+// 80GB HBM3, 700 W; chip_smoke.py).
 
 #include <cstdint>
 #include <cstring>
