@@ -27,16 +27,24 @@ no result line):
    and BLAKE3 digests against the pure-Python oracle;
 3. time each kernel and its plain version at those shapes (CUDA events, or
    the profiler's device time where a wrapper call takes longer to issue
-   than the kernel runs), beside the least time the card could take, and
+   than the kernel runs; where the profiler loses launches, CUDA events
+   around each call behind a spin kernel, logged as such, which are also
+   logged beside the profiler's time for the BLAKE3 chunk and search
+   kernels), beside the least time the card could take, and
    count the SASS instructions per block of the BLAKE3 chunk kernel
    (cuobjdump);
 4. the scan path: write a seeded tree of 16,384 files shaped like BASELINE
    config 2 (mixed media), boot ``Node`` on the card with chunk manifests and
    the search engine on, ``create_location`` → ``scan_location`` →
-   ``wait_idle``, check cas_ids and a sample of manifests against the
-   oracles, and show through the launch counters that the scan went through
-   every scan kernel and never through a plain version; then scan the tree
-   again under torch.profiler for the device's busy share;
+   ``wait_idle`` with the identify job on the streaming pipeline at its
+   defaults (sharded gather, group commit, adaptive pages), log its stage
+   busy times, check cas_ids and a sample of manifests against the oracles,
+   and show through the launch counters that the scan went through every
+   scan kernel and never through a plain version; scan the tree into a
+   third library under ``SD_PIPELINE=0`` (the sequential step loop), whose
+   rows must equal the pipelined scan's, and print both identify rates;
+   then scan the tree again, pipelined, under torch.profiler for the
+   device's busy share;
 5. the search path: serve ``search.paths`` / ``search.pathsCount`` from the
    device index of the scanned library and of a 1,000,000-row library built
    with the search benchmark's corpus recipe (plus 1,024 files of 2-64 GiB),
@@ -97,8 +105,9 @@ GEAR_MASKS = (0, 255, 8191, 0xFF000000)
 #: timings some kernels add beside "ms": the wrapper call's time where "ms"
 #: is device time, every row read whole (search), the device time with the
 #: L2 cleared before each call (BLAKE3, Gear), the merge's levels times one
-#: level's device time
-EXTRA_TIMES = ("call_ms", "full_row_bound_ms", "cold_ms", "latency_floor_ms")
+#: level's device time, the device time from CUDA events behind a spin
+#: kernel (``event_ms``, the fallback of ``device_ms``; BLAKE3 chunks, search)
+EXTRA_TIMES = ("call_ms", "full_row_bound_ms", "cold_ms", "latency_floor_ms", "event_ms")
 #: BLAKE3 rotates per compression (7 rounds x 8 G x 4), used to find how many
 #: compressions the compiler put in one pass of the chunk loop
 ROTATES_PER_COMPRESSION = 224
@@ -673,17 +682,53 @@ SEARCH_SYMBOLS = {"search_substring": "::substring_kernel<", "search_exact": "::
                   "search_lex": "::lex_kernel<"}
 
 
+#: cycles of the spin kernel that ``event_ms`` queues before each call:
+#: about 0.5 ms at the H100's clock, far longer than the host takes to
+#: issue the call and its two events
+SPIN_CYCLES = 1_000_000
+
+
+def event_ms(fn, reps: int, between=None) -> float:
+    """Mean device time per call of ``fn`` from two CUDA events around each
+    call, queued behind a spin kernel: the card reaches the first event only
+    after the host has issued the call and the second event, so the
+    interval is the call's device work and not the host's time to issue it.
+    ``between``, if given, runs before each spin and is not timed."""
+    import torch
+
+    pairs = []
+    for _ in range(reps):
+        if between is not None:
+            between()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / reps
+
+
 def device_ms(fn, kernel: str, reps: int = 50, between=None) -> float:
     """Mean device time per launch of the CUDA kernel whose name contains
     ``kernel`` over ``reps`` calls of ``fn``, from torch.profiler: the
     kernel alone, without the host's time to issue the call. ``between``,
-    if given, runs before each call and is not timed."""
+    if given, runs before each call and is not timed.
+
+    The profiler now and then reports fewer launches than were made (none,
+    or 46 of 50), so a window counts only if it saw each launch once. After
+    three windows without one, the time comes from ``event_ms`` and the log
+    says so. More records than launches fail: ``kernel`` then names another
+    kernel too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _attempt in range(3):  # the profiler now and then returns no events
+    seen = []
+    for _attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if between is not None:
@@ -691,9 +736,16 @@ def device_ms(fn, kernel: str, reps: int = 50, between=None) -> float:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if kernel in e.key]
-        if sum(e.count for e in events) == reps:
+        count = sum(e.count for e in events)
+        if count == reps:
             return sum(e.self_device_time_total for e in events) / reps / 1e3
-    fail(f"the profiler saw {sum(e.count for e in events)} launches of {kernel}, not {reps}")
+        if count > reps:
+            fail(f"the profiler saw {count} launches of {kernel}, not {reps}")
+        seen.append(count)
+    ms = event_ms(fn, reps, between)
+    log(f"time: the profiler saw {seen} of {reps} launches of {kernel} in {len(seen)} windows; "
+        f"{ms:.4f} ms per call from CUDA events behind a spin kernel instead")
+    return ms
 
 
 def search_timing(cols: dict, int32_ops_per_s: float, flush) -> dict:
@@ -739,6 +791,7 @@ def search_timing(cols: dict, int32_ops_per_s: float, flush) -> dict:
             "ms": device_ms(lambda: kernel(rows, needle, *keys), symbol),
             "cold_ms": device_ms(lambda: kernel(rows, needle, *keys), symbol,
                                  between=flush.zero_),
+            "event_ms": event_ms(lambda: kernel(rows, needle, *keys), 50),
             "call_ms": time_ms(lambda: kernel(rows, needle, *keys), 50),
             "plain_ms": time_ms(lambda: plain(rows, needle), 3, warmup=1),
             "bound": bound_ms(nbytes, ops, int32_ops_per_s),
@@ -804,6 +857,7 @@ def blake3_timing(rng: random.Random, int32_ops_per_s: float, flush) -> dict:
             "ms": device_ms(lambda: b3.chunk_cvs(rows, lengths), "chunk_cvs_kernel"),
             "cold_ms": device_ms(lambda: b3.chunk_cvs(rows, lengths), "chunk_cvs_kernel",
                                  between=flush.zero_),
+            "event_ms": event_ms(lambda: b3.chunk_cvs(rows, lengths), 50),
             "call_ms": time_ms(lambda: b3.chunk_cvs(rows, lengths), 50),
             "plain_ms": time_ms(lambda: b3.chunk_cvs_plain(rows, lengths), 3, warmup=1),
             "bound": bound_ms(nbytes, blocks * OPS_PER_COMPRESSION, int32_ops_per_s),
@@ -860,12 +914,14 @@ def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict
         call = "" if "call_ms" not in t else f" (device time; a wrapper call {t['call_ms']:.4f} ms)"
         cold = ("" if "cold_ms" not in t else f"; with the L2 cleared before each call "
                 f"{t['cold_ms']:.4f} ms, {100 * b / t['cold_ms']:.1f}% of bound")
+        events = ("" if "event_ms" not in t else
+                  f"; CUDA events behind a spin kernel {t['event_ms']:.4f} ms")
         floor = t.get("latency_floor_ms")
         floor = "" if floor is None else (f"; latency floor {floor:.4f} ms, kernel at "
                                           f"{100 * floor / t['ms']:.1f}% of it")
         log(f"time: {name} [{t['shape']}]: kernel {t['ms']:.4f} ms{call}, "
             f"plain {t['plain_ms']:.4f} ms, bound {b:.4f} ms ({by}), kernel at "
-            f"{100 * b / t['ms']:.1f}% of bound{cold}{floor}"
+            f"{100 * b / t['ms']:.1f}% of bound{cold}{events}{floor}"
             + ("" if full is None else f"; reading every row whole {full:.4f} ms, kernel at "
                f"{100 * full / t['ms']:.1f}% of that"))
 
@@ -940,7 +996,7 @@ def write_tree(root: Path, seed: int) -> dict:
     files 1 B-100 KiB log-uniform (64 empty), medium 100 KiB+1-512 KiB fully
     random, large 16-256 MiB sparse (only the header, the four sample regions
     and the footer written), and 512 byte-identical copies planted among the
-    small and medium files."""
+    small and medium files; synced to disk before it returns."""
     from spacedrive_tpu_torch.objects.cas import sample_offsets
 
     rng = random.Random(seed)
@@ -979,7 +1035,12 @@ def write_tree(root: Path, seed: int) -> dict:
                 fh.seek(off)
                 fh.write(data.take(ln))
                 written += ln
-    return {"paths": paths, "sizes": sizes, "copy_of": copy_of, "bytes_written": written}
+    # the scans that follow read this tree: flush its dirty pages now, so
+    # that the first scan does not share the disk with their writeback
+    t0 = time.perf_counter()
+    os.sync()
+    return {"paths": paths, "sizes": sizes, "copy_of": copy_of, "bytes_written": written,
+            "sync_s": time.perf_counter() - t0}
 
 
 #: the CUDA functions of the scan's kernels, as the profiler names them
@@ -1013,9 +1074,81 @@ def profiled_scan(node, tree_dir: Path) -> None:
     # the eight largest, and the port's scan kernels wherever they rank
     top = [kv for i, kv in enumerate(ranked)
            if i < 8 or any(k in kv[0] for k in SCAN_KERNEL_SYMBOLS)]
-    log(f"main path (profiled rescan into a second library): wall {wall_s:.2f} s, device busy "
-        f"{busy_s:.3f} s = {100 * busy_s / wall_s:.2f}% (idle {100 - 100 * busy_s / wall_s:.2f}%); "
+    _job, meta, _seconds = identify_job(lib.db)
+    log(f"main path (profiled pipelined rescan into a second library): wall {wall_s:.2f} s, "
+        f"device busy {busy_s:.3f} s = {100 * busy_s / wall_s:.2f}% (idle "
+        f"{100 - 100 * busy_s / wall_s:.2f}%); pipeline {pipeline_line(meta)}; "
         "device time by activity: " + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top))
+
+
+def scan_rows(db) -> tuple:
+    """What two scans of one tree must agree on: cas_id per path, the
+    grouping of paths into objects (object ids differ by schedule) and the
+    manifest rows per cas_id."""
+    paths, groups = {}, {}
+    for r in db.query("SELECT materialized_path, name, extension, cas_id, object_id "
+                      "FROM file_path WHERE is_dir = 0"):
+        key = (r["materialized_path"], r["name"], r["extension"])
+        paths[key] = r["cas_id"]
+        if r["object_id"] is not None:
+            groups.setdefault(r["object_id"], []).append(key)
+    manifests: dict = {}
+    for r in db.query("SELECT DISTINCT fp.cas_id, cm.seq, cm.chunk_hash, cm.length "
+                      "FROM chunk_manifest cm JOIN file_path fp ON fp.object_id = cm.object_id "
+                      "ORDER BY fp.cas_id, cm.seq"):
+        manifests.setdefault(r["cas_id"], []).append((r["seq"], r["chunk_hash"], r["length"]))
+    return paths, sorted(sorted(g) for g in groups.values()), manifests
+
+
+def identify_job(db) -> tuple[dict, dict, float]:
+    """(job row, metadata, seconds from start to end) of the identify job."""
+    from datetime import datetime
+
+    row = dict(db.query("SELECT * FROM job WHERE name = 'file_identifier'")[0])
+    meta = json.loads(row["metadata"])
+    seconds = (datetime.fromisoformat(row["date_completed"])
+               - datetime.fromisoformat(row["date_started"])).total_seconds()
+    return row, meta, seconds
+
+
+def pipeline_line(meta: dict) -> str:
+    """The pipeline's stage busy times and their shares of its wall."""
+    wall = meta["pipeline_wall_s"]
+    return (f"page {meta['pipeline_page_s']:.2f} s ({100 * meta['pipeline_page_s'] / wall:.1f}%), "
+            f"hash {meta['pipeline_hash_s']:.2f} s ({100 * meta['pipeline_hash_s'] / wall:.1f}%), "
+            f"commit {meta['pipeline_commit_s']:.2f} s "
+            f"({100 * meta['pipeline_commit_s'] / wall:.1f}%) of wall {wall:.2f} s; "
+            f"{meta['pipeline_batches']} batches in {meta['commit_txns']} transactions, "
+            f"{meta['pipeline_shards']} gather shards; gather {meta['gather_s']:.2f} s")
+
+
+def sequential_scan(node, tree_dir: Path, pipelined: tuple, n: int) -> float:
+    """Scan the tree into a third library with the pipeline off; its rows
+    must equal the pipelined scan's. Returns the identify job's seconds."""
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+
+    lib = node.libraries.create("chip-smoke-sequential")
+    loc = create_location(lib, tree_dir)
+    os.environ["SD_PIPELINE"] = "0"
+    try:
+        scan_location(lib, loc["id"])
+        if not node.jobs.wait_idle(900):
+            fail("sequential scan did not finish within 900 s")
+    finally:
+        del os.environ["SD_PIPELINE"]
+    job, meta, seconds = identify_job(lib.db)
+    if job["status"] != JobStatus.COMPLETED or "pipeline_batches" in meta:
+        fail(f"sequential identify job ended {job['status']} with {meta}")
+    rows = scan_rows(lib.db)
+    for what, a, b in zip(("cas_ids", "object grouping", "manifests"), rows, pipelined):
+        if a != b:
+            fail(f"the sequential scan's {what} differ from the pipelined scan's")
+    log(f"main path: the sequential scan (SD_PIPELINE=0) gives the pipelined scan's rows: "
+        f"cas_ids of {len(rows[0])} paths, {len(rows[1])} objects, {len(rows[2])} manifests equal; "
+        f"identify job {seconds:.2f} s = {n / seconds:.1f} files/s; process stage "
+        f"{meta['hash_time']:.2f} s, gather {meta['gather_s']:.2f} s")
+    return seconds
 
 
 def check_manifests(db, tree: dict, row_of, seed: int, n_files: int = 16) -> int:
@@ -1060,11 +1193,15 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
     tree = write_tree(tree_dir, seed)
     n = len(tree["sizes"])
     log(f"main path: wrote {n} files ({tree['bytes_written'] / 1e9:.3f} GB of content) "
-        f"in {time.perf_counter() - t0:.1f} s; reduced from BASELINE config 2's 100,000 files "
+        f"in {time.perf_counter() - t0:.1f} s ({tree['sync_s']:.1f} s of it syncing); reduced from BASELINE config 2's 100,000 files "
         f"to {n} to stay inside the time limit")
 
     os.environ["SD_CHUNK_MANIFESTS"] = "1"
     os.environ["SD_SEARCH_ENGINE"] = "device"
+    # the identify job at the pipeline's defaults
+    for knob in ("SD_PIPELINE", "SD_PIPELINE_DEPTH", "SD_SCAN_SHARDS", "SD_COMMIT_GROUP",
+                 "SD_SCAN_BATCH", "SD_SCAN_ADAPT"):
+        os.environ.pop(knob, None)
     node = Node(data_dir)
     try:
         lib = node.libraries.create("chip-smoke")
@@ -1089,12 +1226,9 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
             job = jobs.get(name)
             if job is None or job["status"] != JobStatus.COMPLETED:
                 fail(f"{name} job ended {dict(job) if job else 'missing'}")
-        ident = jobs["file_identifier"]
-        meta = json.loads(ident["metadata"])
-        from datetime import datetime
-
-        ident_s = (datetime.fromisoformat(ident["date_completed"])
-                   - datetime.fromisoformat(ident["date_started"])).total_seconds()
+        _ident, meta, ident_s = identify_job(db)
+        if not meta.get("pipeline_batches"):
+            fail(f"the identify job did not run on the pipeline: {meta}")
 
         rows = {(r["materialized_path"], r["name"], r["extension"]): dict(r) for r in db.query(
             "SELECT materialized_path, name, extension, size_in_bytes, cas_id, object_id "
@@ -1147,6 +1281,9 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
         if pending < pending0 + 2:
             fail(f"the scan's job commits did not move the search watermark "
                  f"({pending0} -> {pending})")
+        pipelined_rows = scan_rows(db)
+        seq_s = sequential_scan(node, tree_dir, pipelined_rows, n)
+        del pipelined_rows
         profiled_scan(node, tree_dir)
         search = search_phase(node, lib, corpus, card)
     finally:
@@ -1155,13 +1292,16 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
     hashable = [s for s in tree["sizes"] if s > 0]
     cas_bytes = sum(SAMPLED_MESSAGE_LEN if s > MINIMUM_FILE_SIZE else s + 8 for s in hashable)
     cdc_bytes = sum(s for s in hashable if s <= payload_cap())
-    pages = -(-n // 1024)
+    pages = meta["pipeline_batches"]
     log(f"main path on {card}: scan {scan_s:.2f} s; identify job {ident_s:.2f} s for "
         f"{meta['total_orphan_paths']} "
         f"files = {meta['total_orphan_paths'] / ident_s:.1f} files/s, cas messages "
         f"{cas_bytes / 1e9:.3f} GB = {cas_bytes / ident_s / 1e9:.3f} GB/s, CDC payload "
         f"{cdc_bytes / 1e9:.3f} GB = {cdc_bytes / ident_s / 1e9:.3f} GB/s; device hash+chunk "
         f"stage {meta['hash_time']:.2f} s, gather {meta['gather_s']:.2f} s")
+    log(f"main path: identify pipelined {meta['total_orphan_paths'] / ident_s:.1f} files/s "
+        f"({ident_s:.2f} s), sequential {n / seq_s:.1f} files/s ({seq_s:.2f} s); pipeline "
+        f"{pipeline_line(meta)}")
     log(f"main path: {n_objects} objects, {n_cas} distinct cas_ids, {n_empty} empty files, "
         f"{len(tree['copy_of'])} planted copies share their originals' objects, "
         f"{meta['chunked_files']} manifests / {n_chunks} chunks; launches {launches} "

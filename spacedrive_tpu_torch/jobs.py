@@ -1,18 +1,24 @@
 """Stateful jobs and a one-worker chain runner (condensed).
 
-Counterpart of ``spacedrive_tpu/jobs/`` (job.py:46-160, worker.py,
+Counterpart of ``spacedrive_tpu/jobs/`` (job.py:46-262, worker.py,
 manager.py spawn :67 / wait_idle :213, report.py, error.py): a job is
 ``init()`` → a list of JSON-serializable steps → ``execute_step()`` per step
 → ``finalize()``; steps may append steps; per-step soft errors accumulate
 into CompletedWithErrors; :class:`EarlyFinish` is a clean skip; an exception
-fails the job and cancels the rest of its chain. Every job keeps a report row
-in the library's ``job`` table. Every committed step and every job exit
-emits a post-commit ``db.commit`` on the node's bus, which moves the search
-index's watermark.
+fails the job and cancels the rest of its chain. A job whose
+``pipeline_spec()`` returns a spec runs its steps through
+:class:`.pipeline.PipelineExecutor` (unless ``SD_PIPELINE=0``), then the
+sequential loop runs whatever steps remain, as job.py:229-262 does; both
+advance one :class:`JobState`. A transient stage failure or a full disk
+ends a pipelined job Paused (:class:`JobPaused`) at its last committed
+group, and the jobs after it in the chain stay Queued. Every job keeps a
+report row in the library's ``job`` table. Every committed step (or group
+transaction, when pipelined) and every job exit emits a post-commit
+``db.commit`` on the node's bus, which moves the search index's watermark.
 
 One worker thread per node runs the spawned chains one at a time (the
-library database has one writer). Pause/resume, cold resume and
-cancellation are not ported.
+library database has one writer). Resume, cold resume (the checkpoint
+persist) and the pause/cancel commands are not ported.
 """
 
 from __future__ import annotations
@@ -40,6 +46,17 @@ class JobError(Exception):
 
 class EarlyFinish(Exception):
     """Clean no-op completion."""
+
+
+class JobPaused(Exception):
+    """The job stopped at its last committed step and may be run again
+    later: a transient pipeline stage failure, or a full disk mid-commit.
+    Carries the soft errors so far (the list itself, so errors appended
+    while the pipeline drains still land)."""
+
+    def __init__(self, errors: list[str]) -> None:
+        super().__init__("job paused")
+        self.errors = errors
 
 
 class JobStatus:
@@ -88,6 +105,21 @@ class StatefulJob:
     def finalize(self, ctx: "JobContext", data: dict[str, Any],
                  run_metadata: dict[str, Any]) -> dict[str, Any] | None:
         return run_metadata or None
+
+    def pipeline_spec(self):
+        """A batched job returns a :class:`.pipeline.PipelineSpec` to run
+        its steps on the streaming executor; None keeps the step loop."""
+        return None
+
+
+@dataclasses.dataclass
+class JobState:
+    """What the sequential loop and the pipeline executor both advance."""
+
+    data: dict[str, Any]
+    steps: list[Any]
+    step_number: int = 0
+    run_metadata: dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def merge_metadata(acc: dict[str, Any], update: dict[str, Any]) -> None:
@@ -147,33 +179,42 @@ class JobContext:
             self._report.task_count = task_count
 
 
-def _run(job: StatefulJob, ctx: JobContext) -> tuple[dict[str, Any] | None, list[str]]:
-    """init → steps → finalize; returns (metadata, soft errors)."""
+def _run(job: StatefulJob, ctx: JobContext, state: JobState,
+         errors: list[str]) -> dict[str, Any] | None:
+    """init → steps (pipelined, then sequential) → finalize; returns the
+    metadata. ``state`` and the soft ``errors`` fill in place, so a caller
+    that catches :class:`JobPaused` still sees what was committed."""
     try:
         data, steps, meta = job.init(ctx)
     except EarlyFinish as e:
         logger.info("job %s early finish: %s", job.NAME, e)
-        return job.finalize(ctx, {}, {}), []
+        return job.finalize(ctx, {}, {})
     _emit_commit(ctx.library, "job.init", job.NAME)
-    steps = list(steps)
-    meta = dict(meta)
-    errors: list[str] = []
-    ctx.progress(task_count=len(steps))
-    n = 0
-    while n < len(steps):
+    state.data, state.steps, state.run_metadata = data, list(steps), dict(meta)
+    ctx.progress(task_count=len(state.steps))
+    spec = job.pipeline_spec()
+    if spec is not None:
+        from .pipeline import PipelineExecutor, pipeline_enabled
+
+        if pipeline_enabled():
+            # the streaming path: the same stages, overlapped; commits stay
+            # in page order, so the state it leaves is the sequential one
+            PipelineExecutor(spec, ctx, job, state, errors).run()
+    while state.step_number < len(state.steps):
         try:
-            result = job.execute_step(ctx, data, steps[n], n)
+            result = job.execute_step(ctx, state.data, state.steps[state.step_number],
+                                      state.step_number)
         except EarlyFinish:
             break
         _emit_commit(ctx.library, "job.step", job.NAME)
         if result.more_steps:
-            steps.extend(result.more_steps)
-            ctx.progress(task_count=len(steps))
-        merge_metadata(meta, result.metadata)
+            state.steps.extend(result.more_steps)
+            ctx.progress(task_count=len(state.steps))
+        merge_metadata(state.run_metadata, result.metadata)
         errors.extend(result.errors)
-        n += 1
-        ctx.progress(completed_task_count=n)
-    return job.finalize(ctx, data, meta), errors
+        state.step_number += 1
+        ctx.progress(completed_task_count=state.step_number)
+    return job.finalize(ctx, state.data, state.run_metadata)
 
 
 def _emit_commit(library: "Library", source: str, job_name: str) -> None:
@@ -241,8 +282,19 @@ class Jobs:
             report.status = JobStatus.RUNNING
             report.date_started = utc_now()
             report.upsert(library.db)
+            state = JobState({}, [])
+            errors: list[str] = []
             try:
-                metadata, errors = _run(job, JobContext(library, report))
+                metadata = _run(job, JobContext(library, report), state, errors)
+            except JobPaused as p:
+                # the committed steps stay; the jobs after it stay Queued
+                logger.warning("job %s paused: %s", report.name, p.errors[-1:])
+                report.status = JobStatus.PAUSED
+                report.metadata = state.run_metadata or None
+                report.errors_text = "\n\n".join(p.errors) or None
+                report.upsert(library.db)
+                _emit_commit(library, "job.exit", report.name)
+                return
             except Exception as e:
                 logger.exception("job %s failed", report.name)
                 report.status = JobStatus.FAILED

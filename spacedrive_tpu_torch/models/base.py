@@ -4,11 +4,15 @@ Counterpart of ``spacedrive_tpu/models/base.py``: models declare their
 fields once, and the declaration drives the CREATE TABLE DDL and value
 encoding. The port keeps the single-writer ``Database`` with the row API the
 scan uses (``query``, ``find``/``find_one``, ``insert``, ``insert_many``,
-``update``, ``executemany``, ``delete``, ``transaction``) and the row-change
+``update``, ``executemany``, ``delete``, ``transaction``), the row-change
 journal the search engine refreshes from (:class:`RowJournal`, attached with
-:meth:`Database.attach_row_journal`). The reader connection, sync
-annotations and retry seams are not ported: every statement runs on one
-connection under one lock.
+:meth:`Database.attach_row_journal`) and the WAL reader connection
+(``models/base.py`` :361-367, ``_reader`` :479-497, ``query`` :499-545): a
+``query`` from the thread that owns the open transaction runs on the writer
+and sees its own uncommitted rows; every other thread reads the last
+committed snapshot through a ``PRAGMA query_only=ON`` reader with its own
+lock, so the scan pipeline's prefetch never waits behind a group commit.
+Sync annotations and retry seams are not ported.
 """
 
 from __future__ import annotations
@@ -220,8 +224,10 @@ class RowJournal:
 
 
 class Database:
-    """One SQLite library database behind one connection and one lock
-    (SQLite's WAL single-writer discipline, as in the JAX package)."""
+    """One SQLite library database: one writer connection behind one lock
+    (SQLite's WAL single-writer discipline, as in the JAX package), and a
+    lazily opened read-only connection for the threads that do not own the
+    open transaction."""
 
     def __init__(self, path: str | Path, models: Iterable[type[Model]]) -> None:
         self.path = str(path)
@@ -239,6 +245,12 @@ class Database:
         self._conn = sqlite3.connect(self.path, check_same_thread=False,
                                      isolation_level=None)
         self._conn.row_factory = sqlite3.Row
+        # the WAL reader (lazy): SELECTs from threads outside the write
+        # transaction; ":memory:" gets none, since a second :memory:
+        # connection would be a different database
+        self._read_conn: sqlite3.Connection | None = None
+        self._read_lock = threading.Lock()
+        self._closed = False
         self._conn.execute("PRAGMA journal_mode=WAL")
         self._conn.execute("PRAGMA foreign_keys=ON")
         self._conn.execute("PRAGMA synchronous=NORMAL")
@@ -248,6 +260,11 @@ class Database:
                     self._conn.execute(stmt)
 
     def close(self) -> None:
+        with self._read_lock:
+            self._closed = True
+            if self._read_conn is not None:
+                self._read_conn.close()
+                self._read_conn = None
         with self._lock:
             self._conn.close()
 
@@ -308,11 +325,42 @@ class Database:
             if not _noted:
                 self._journal_sniff(sql)
 
+    def _reader(self) -> sqlite3.Connection | None:
+        """The WAL reader connection (None for :memory:), opened after the
+        DDL ran on the writer. A closed Database raises as the writer
+        would, instead of opening a new connection."""
+        if self._closed:
+            raise sqlite3.ProgrammingError("Cannot operate on a closed database.")
+        if self.path == ":memory:":
+            return None
+        if self._read_conn is None:
+            conn = sqlite3.connect(self.path, check_same_thread=False)
+            conn.row_factory = sqlite3.Row
+            # the reader must never become a second writer
+            conn.execute("PRAGMA query_only=ON")
+            self._read_conn = conn
+        return self._read_conn
+
     def query(self, sql: str, params: tuple | list = ()) -> list[sqlite3.Row]:
+        # the thread that owns the open transaction reads through the
+        # writer and sees its own uncommitted rows; any other thread reads
+        # the last committed snapshot off the reader without waiting on the
+        # writer lock. Only the owner sets _txn_thread to its own id, so an
+        # unlocked peek that races routes a non-owner to the reader, where
+        # it belongs.
+        if self._txn_depth and self._txn_thread == threading.get_ident():
+            with self._lock:
+                rows = self._conn.execute(sql, params).fetchall()
+                # a write routed through query() is sniffed like
+                # execute()'s, or the row journal would under-note it
+                self._journal_sniff(sql)
+            return rows
+        with self._read_lock:
+            reader = self._reader()
+            if reader is not None:
+                return reader.execute(sql, params).fetchall()
         with self._lock:
             rows = self._conn.execute(sql, params).fetchall()
-            # a write routed through query() is sniffed like execute()'s,
-            # or the row journal would under-note it
             self._journal_sniff(sql)
         return rows
 

@@ -1,20 +1,26 @@
 """FileIdentifierJob: assign cas_ids and dedup files into objects.
 
-Counterpart of ``spacedrive_tpu/objects/file_identifier.py`` in its
-sequential step loop (``execute_step`` :199-208): each step pages the next
-``BATCH_SIZE`` orphan file_paths (id > cursor), gathers their sampled cas
-messages, hashes them on the node's device, and commits — cas_id updates,
-links to existing objects sharing a cas_id, one new object per new cas_id
-and per empty file, and (with ``SD_CHUNK_MANIFESTS=1``) chunk manifests —
-in one transaction.
+Counterpart of ``spacedrive_tpu/objects/file_identifier.py``. Each step is
+three stages: ``pipeline_page`` pages the next orphan file_paths (id >
+cursor) and gathers their sampled cas messages (reads only),
+``pipeline_process`` hashes them on the node's device, and
+``pipeline_commit`` writes, in one transaction, the cas_ids, links to
+existing objects sharing a cas_id, one new object per new cas_id and per
+empty file, and (with ``SD_CHUNK_MANIFESTS=1``) chunk manifests. The job
+runs them on the streaming executor (:mod:`..pipeline`: sharded gather,
+group commit, adaptive pages) unless ``SD_PIPELINE=0``, when
+``execute_step`` runs the same three back to back: one implementation, two
+schedules, the same rows.
 
-Unlike the JAX job there is no CPU re-dispatch of a failed hash batch: on
-the card a kernel failure raises and fails the job.
+Unlike the JAX job there is no CPU re-dispatch of a failed hash batch
+(reference :378-397): on the card a kernel failure raises in the dispatch
+stage and fails the job.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 import uuid
 from typing import Any
@@ -30,6 +36,61 @@ logger = logging.getLogger(__name__)
 #: files per step = device batch size
 BATCH_SIZE = 1024
 
+#: adaptive page-size clamps: pages shrink toward finer pipelining when the
+#: hash stage dominates and grow to amortize per-page fixed costs when the
+#: gather or the commit does
+ADAPT_MIN_BATCH = 256
+ADAPT_MAX_BATCH = 4096
+
+
+def _env_batch_pin() -> int | None:
+    """An explicit page size (``SD_SCAN_BATCH``): adaptation off, every
+    page exactly this many files."""
+    raw = os.environ.get("SD_SCAN_BATCH", "").strip()
+    if raw:
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            return None
+    return None
+
+
+def _adaptive_batching() -> bool:
+    """Adaptive page sizing is live only at the stock configuration: a
+    changed ``BATCH_SIZE`` (tests pin page boundaries), ``SD_SCAN_BATCH`` or
+    ``SD_SCAN_ADAPT=0`` all mean fixed pages, whose boundaries then match
+    the sequential schedule's exactly."""
+    if BATCH_SIZE != 1024 or _env_batch_pin() is not None:
+        return False
+    return os.environ.get("SD_SCAN_ADAPT", "1").lower() not in ("0", "false", "off")
+
+
+def _page_limit(scratch: dict) -> int:
+    """Files in the next page. With adaptation live, sized from the
+    executor's measured stage shares (``scratch['stage_shares']``, target:
+    no stage above 60% of the pipeline wall): a dominant hash stage shrinks
+    pages, a dominant gather or commit stage grows them, and a balanced
+    pipeline drifts back toward ``BATCH_SIZE``. Only the prefetch (or
+    split) thread touches ``scratch``."""
+    pin = _env_batch_pin()
+    if pin is not None:
+        return pin
+    if not _adaptive_batching():
+        return BATCH_SIZE
+    cur = int(scratch.get("batch_size") or BATCH_SIZE)
+    shares = scratch.get("stage_shares")
+    if shares:
+        dominant = max(shares, key=shares.get)
+        if shares[dominant] > 0.6:
+            if dominant == "hash":
+                cur = max(cur * 3 // 4, ADAPT_MIN_BATCH)
+            else:
+                cur = min(cur * 3 // 2, ADAPT_MAX_BATCH)
+        else:
+            cur += (BATCH_SIZE - cur) // 4
+    scratch["batch_size"] = cur
+    return cur
+
 
 def _orphan_where(location_id: int, sub_path: str | None) -> tuple[str, list]:
     sql = 'object_id IS NULL AND is_dir = 0 AND location_id = ? AND name != ""'
@@ -38,6 +99,11 @@ def _orphan_where(location_id: int, sub_path: str | None) -> tuple[str, list]:
         sql += " AND materialized_path LIKE ?"
         params.append(f"/{sub_path.strip('/')}/%")
     return sql, params
+
+
+#: the columns a page reads (undecoded: date_created stays an ISO string)
+_PAGE_COLUMNS = ("SELECT id, pub_id, name, extension, materialized_path, is_dir, "
+                 "size_in_bytes, date_created FROM file_path")
 
 
 def abs_path(location_path: str, row: dict) -> str:
@@ -61,7 +127,10 @@ class FileIdentifierJob(StatefulJob):
         if count == 0:
             raise EarlyFinish("Found no orphan file paths to process")
         logger.info("Found %d orphan file paths", count)
-        steps = [{"kind": "identify"} for _ in range(-(-count // BATCH_SIZE))]
+        # steps from the effective page size: an SD_SCAN_BATCH pin below
+        # the default would otherwise run out of steps with orphans left
+        page = _env_batch_pin() or BATCH_SIZE
+        steps = [{"kind": "identify"} for _ in range(-(-count // page))]
         data = {"location_id": location_id, "location_path": location["path"],
                 "cursor": 0, "sub_path": self.init_args.get("sub_path")}
         return data, steps, {"total_orphan_paths": count, "created_objects": 0,
@@ -69,53 +138,127 @@ class FileIdentifierJob(StatefulJob):
                              "quarantined_files": 0, "chunked_files": 0,
                              "chunk_quarantined": 0}
 
+    def pipeline_spec(self):
+        from ..pipeline import PipelineSpec
+
+        return PipelineSpec(page=self.pipeline_page, process=self.pipeline_process,
+                            commit=self.pipeline_commit, split=self.pipeline_page_split,
+                            shard=self.pipeline_page_shard, merge=self.pipeline_page_merge,
+                            adaptive=_adaptive_batching())
+
     def execute_step(self, ctx: JobContext, data: dict, step: dict,
                      step_number: int) -> StepResult:
-        batch = self.page(ctx, data)
+        # the sequential schedule: the pipeline's stages back to back
+        scratch = {"cursor": data["cursor"]}
+        batch = self.pipeline_page(ctx, data, scratch)
         if batch is None:
             return StepResult()
-        return self.commit(ctx, data, self.process(ctx, batch))
+        return self.pipeline_commit(ctx, data, self.pipeline_process(ctx, data, batch))
 
     # -- stage 1: page (DB reads + file I/O only) ----------------------------
-    def page(self, ctx: JobContext, data: dict) -> dict | None:
+    def pipeline_page(self, ctx: JobContext, data: dict, scratch: dict) -> dict | None:
+        """The next page after the speculative cursor in ``scratch``: rows
+        at id <= that cursor are untouched by later commits, so a page read
+        ahead sees exactly the rows the sequential loop would."""
         db = ctx.library.db
+        cursor = scratch.get("cursor", data["cursor"])
         where, params = _orphan_where(data["location_id"], data.get("sub_path"))
         rows = [dict(r) for r in db.query(
-            f"SELECT id, pub_id, name, extension, materialized_path, is_dir, "
-            f"size_in_bytes, date_created FROM file_path "
-            f"WHERE {where} AND id > ? ORDER BY id LIMIT ?",
-            params + [data["cursor"], BATCH_SIZE])]
+            f"{_PAGE_COLUMNS} WHERE {where} AND id > ? ORDER BY id LIMIT ?",
+            params + [cursor, _page_limit(scratch)])]
         if not rows:
             return None
+        scratch["cursor"] = rows[-1]["id"]
+        hashable, empty, messages, gather_s = self._gather_rows(data, rows)
+        return {"cursor": rows[-1]["id"], "hashable": hashable, "empty": empty,
+                "messages": messages, "gather_s": gather_s}
+
+    def _gather_rows(self, data: dict, rows: list[dict]) -> tuple[list, list, list, float]:
+        """A page's (or a page slice's) rows → ``(hashable, empty, messages,
+        gather_s)``: the size split, the cas gather, the manifest payload
+        gather and the magic head. The whole-page and the sharded paths
+        share it, so a merged page equals a sequential one."""
         hashable = [r for r in rows if (r["size_in_bytes"] or 0) > 0]
         empty = [r for r in rows if (r["size_in_bytes"] or 0) <= 0]
-        location_path = data["location_path"]
-        paths = [abs_path(location_path, r) for r in hashable]
+        paths = [abs_path(data["location_path"], r) for r in hashable]
         t0 = time.perf_counter()
         messages = read_sampled_batch(paths, [r["size_in_bytes"] for r in hashable])
         if chunk_manifest.manifests_enabled():
             chunk_manifest.pipeline_chunk_gather(paths, hashable, messages)
+        gather_s = time.perf_counter() - t0
         # the cas message is size_le_8 ‖ header ‖ …: its head is the file's
         # first bytes, so magic-byte kind resolution needs no second read
         for row, msg in zip(hashable, messages):
             row["_kind_head"] = None if isinstance(msg, Exception) else bytes(msg[8:8 + HEADER_LEN])
         for row in empty:
             row["_kind_head"] = b""
-        return {"cursor": rows[-1]["id"], "hashable": hashable, "empty": empty,
-                "messages": messages, "gather_s": time.perf_counter() - t0}
+        return hashable, empty, messages, gather_s
+
+    # -- stage 1, sharded: split → parallel slices → merge --------------------
+    def pipeline_page_split(self, ctx: JobContext, data: dict, scratch: dict) -> dict | None:
+        """One id-only cursor read, cut into contiguous id ranges, one a
+        gather shard. The slices' rows concatenate back into exactly the
+        rows, in the order, of the unsharded read of the same window."""
+        db = ctx.library.db
+        cursor = scratch.get("cursor", data["cursor"])
+        where, params = _orphan_where(data["location_id"], data.get("sub_path"))
+        ids = [r["id"] for r in db.query(
+            f"SELECT id FROM file_path WHERE {where} AND id > ? ORDER BY id LIMIT ?",
+            params + [cursor, _page_limit(scratch)])]
+        if not ids:
+            return None
+        scratch["cursor"] = ids[-1]
+        shards = max(1, int(scratch.get("shards") or 1))
+        per = -(-len(ids) // shards)
+        parts = [{"lo": ids[lo], "hi": ids[min(lo + per, len(ids)) - 1]}
+                 for lo in range(0, len(ids), per)]
+        return {"cursor": ids[-1], "parts": parts}
+
+    def pipeline_page_shard(self, ctx: JobContext, data: dict, part: dict) -> dict:
+        """One slice's row read and gather; read-only, safe beside the
+        other slices."""
+        where, params = _orphan_where(data["location_id"], data.get("sub_path"))
+        rows = [dict(r) for r in ctx.library.db.query(
+            f"{_PAGE_COLUMNS} WHERE {where} AND id >= ? AND id <= ? ORDER BY id",
+            params + [part["lo"], part["hi"]])]
+        hashable, empty, messages, gather_s = self._gather_rows(data, rows)
+        return {"hashable": hashable, "empty": empty, "messages": messages,
+                "gather_s": gather_s}
+
+    def pipeline_page_merge(self, ctx: JobContext, data: dict, header: dict,
+                            results: list[dict]) -> dict:
+        """The slices, in slice (= id) order, as the payload
+        ``pipeline_page`` returns; ``gather_s`` is the longest slice's, the
+        page's gather wall."""
+        hashable: list = []
+        empty: list = []
+        messages: list = []
+        for res in results:
+            hashable.extend(res["hashable"])
+            empty.extend(res["empty"])
+            messages.extend(res["messages"])
+        return {"cursor": header["cursor"], "hashable": hashable, "empty": empty,
+                "messages": messages, "gather_s": max(r["gather_s"] for r in results)}
 
     # -- stage 2: process (device compute) -----------------------------------
-    def process(self, ctx: JobContext, batch: dict) -> dict:
+    def pipeline_process(self, ctx: JobContext, data: dict, batch: dict) -> dict:
+        """The cas hash and the manifest chunking on the node's device. On
+        the card the kernels launch from this stage's thread, with the
+        device passed explicitly; an error raises through."""
         t0 = time.perf_counter()
         batch["cas_results"] = ctx.node.hasher.hash_gathered(batch["messages"])
-        batch["messages"] = None
+        batch["messages"] = None  # the gathered bytes are dead weight now
         if chunk_manifest.manifests_enabled():
             chunk_manifest.pipeline_chunk_process(batch["hashable"], ctx.node.device)
         batch["hash_s"] = time.perf_counter() - t0
         return batch
 
     # -- stage 3: commit (the only stage that writes) ------------------------
-    def commit(self, ctx: JobContext, data: dict, batch: dict) -> StepResult:
+    def pipeline_commit(self, ctx: JobContext, data: dict, batch: dict) -> StepResult:
+        """Under group commit this transaction joins the group's, and its
+        reads go through the writer on this thread: a later page of the
+        group sees the objects an earlier page created, so copies of one
+        file in two pages of a group share one object."""
         db = ctx.library.db
         location_path = data["location_path"]
         hashable, empty = batch["hashable"], batch["empty"]

@@ -56,6 +56,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
                "search_lex": [_P, _P, _I, _I, _P, _I, ctypes.c_uint64, _P, _I, _P]},
 }
 
+#: incremented without ``_lock``: one thread launches at a time (a scan's
+#: kernels launch from its pipeline's dispatch thread, or from the job
+#: thread when sequential; search kernels from the caller's thread, and no
+#: run here overlaps a scan with a search)
 LAUNCHES: collections.Counter = collections.Counter()
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 PLAIN_ON_CUDA: collections.Counter = collections.Counter()

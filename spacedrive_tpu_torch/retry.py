@@ -1,16 +1,26 @@
-"""Retry with backoff for transient read errors.
+"""Retry with backoff, and the transient-versus-fatal taxonomy.
 
-Counterpart of ``spacedrive_tpu/utils/retry.py``, cut to what the gather
-stages need (the cas message read in :mod:`.objects.cas` and the chunk
-payload read in :mod:`.objects.manifest`): the :class:`RetryPolicy`, the
-transient-errno test and :func:`retry_call` with the same attempts,
-jittered exponential backoff and wall budget. It keeps no telemetry and has
-no cancel hook.
+Counterpart of ``spacedrive_tpu/utils/retry.py`` (:70-93, :124-130) and of
+``is_disk_full`` in ``spacedrive_tpu/recovery.py`` (:67-79), cut to what the
+port needs: the gather stages (the cas message read in :mod:`.objects.cas`
+and the chunk payload read in :mod:`.objects.manifest`) and the pipeline's
+committer and stage supervision (:mod:`.pipeline.executor`). It keeps no
+telemetry counters.
 
-Transient means the same read can succeed if repeated: EINTR, EIO, EAGAIN
-and EBUSY. A vanished file (ENOENT), a refused one (EACCES) or a truncated
-one (EOFError) is not retried: it raises through on the first try, and the
-caller quarantines that item.
+Transient means the same call can succeed if repeated: EINTR, EIO, EAGAIN
+and EBUSY reads, SQLite's busy/locked errors, and any exception carrying a
+true ``sd_transient`` attribute. A vanished file (ENOENT), a refused one
+(EACCES) or a truncated one (EOFError) is not: it raises through on the
+first try, and the caller quarantines that item. A full disk (ENOSPC,
+EDQUOT, SQLite's "database or disk is full") is neither transient nor
+fatal: retrying cannot free space, so the pipeline's committer pauses at its
+last committed group instead.
+
+Two classes of the reference are left out. The relay-flap class
+(``ConnectionError`` / ``TimeoutError`` of a flapping device relay or peer
+link) has nothing to classify: the port has no relay and no p2p. And
+``is_device_wedge`` is not ported on purpose: it turns a device failure into
+a pause, and the port lets a CUDA error fail the job instead.
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import errno
 import random
+import sqlite3
 import time
 from typing import Any, Callable
 
@@ -50,17 +61,44 @@ def is_transient_io(exc: BaseException) -> bool:
     return isinstance(exc, OSError) and exc.errno in TRANSIENT_ERRNOS
 
 
-def retry_call(fn: Callable[[], Any], *, policy: RetryPolicy) -> Any:
-    """Call ``fn`` until it returns, raises an error that is not transient
-    (:func:`is_transient_io`), or the policy's attempts or wall budget run
-    out; then the last error raises."""
+def is_sqlite_busy(exc: BaseException) -> bool:
+    """SQLITE_BUSY / SQLITE_LOCKED, which surface as OperationalError text."""
+    if not isinstance(exc, sqlite3.OperationalError):
+        return False
+    msg = str(exc).lower()
+    return "locked" in msg or "busy" in msg
+
+
+def is_transient(exc: BaseException) -> bool:
+    """The union class :func:`retry_call` retries by default; an exception
+    can also classify itself with a true ``sd_transient`` attribute."""
+    return (is_sqlite_busy(exc) or is_transient_io(exc)
+            or bool(getattr(exc, "sd_transient", False)))
+
+
+def is_disk_full(exc: BaseException) -> bool:
+    """ENOSPC or EDQUOT, or SQLite's own SQLITE_FULL ("database or disk is
+    full"), which a full disk raises mid-commit instead of an OSError."""
+    if isinstance(exc, OSError) and exc.errno in (
+            errno.ENOSPC, getattr(errno, "EDQUOT", errno.ENOSPC)):
+        return True
+    return (isinstance(exc, sqlite3.OperationalError)
+            and "disk is full" in str(exc).lower())
+
+
+def retry_call(fn: Callable[[], Any], *, policy: RetryPolicy,
+               classify: Callable[[BaseException], bool] = is_transient) -> Any:
+    """Call ``fn`` until it returns, raises an error ``classify`` calls not
+    retryable, or the policy's attempts or wall budget run out; then the
+    last error raises. The reference's ``cancel_check`` hook is not ported:
+    the port has no command channel to poll (ROADMAP Queue 1 item 7)."""
     deadline = time.monotonic() + policy.budget_s
     retries = 0
     while True:
         try:
             return fn()
-        except OSError as exc:
-            if not is_transient_io(exc):
+        except BaseException as exc:  # noqa: BLE001 — classified below
+            if not classify(exc):
                 raise
             retries += 1
             if retries >= policy.attempts:

@@ -288,3 +288,46 @@ def test_search_lex_kernel_needs_its_prefix_column(card):
     assert sum(_kernels.LAUNCHES.values()) == sum(before.values()) + 1
     launched = [e.key for e in prof.key_averages() if e.self_device_time_total > 0]
     assert launched and all("lex_kernel<" in key for key in launched), launched
+
+
+def test_pipelined_scan_on_the_card_matches_the_sequential_scan(card, tmp_path, monkeypatch):
+    """A pipelined scan (4 gather shards, groups of 4, 16-file pages) of a
+    seeded tree gives the rows of an ``SD_PIPELINE=0`` scan, and the scan
+    kernels launch from its dispatch thread with no plain version on the
+    card."""
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.models import JobRow
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects import file_identifier as fi
+    from spacedrive_tpu_torch.pipeline import executor
+    from tests.torch_scan_cases import PAGE, make_tree, rows_of
+
+    tree = make_tree(tmp_path / "tree")
+    monkeypatch.setattr(fi, "BATCH_SIZE", PAGE)
+    monkeypatch.setattr(executor, "GROUP_LINGER_S", 60.0)
+    monkeypatch.setenv("SD_CHUNK_MANIFESTS", "1")
+    monkeypatch.setenv("SD_SCAN_SHARDS", "4")
+    monkeypatch.setenv("SD_COMMIT_GROUP", "4")
+
+    def scan(name: str):
+        node = Node(tmp_path / name)
+        try:
+            lib = node.libraries.create(name)
+            scan_location(lib, create_location(lib, tree)["id"])
+            assert node.jobs.wait_idle(300)
+            return rows_of(lib.db), lib.db.find_one(JobRow, {"name": "file_identifier"})
+        finally:
+            node.shutdown()
+
+    monkeypatch.setenv("SD_PIPELINE", "0")
+    seq_rows, seq_job = scan("sequential")
+    monkeypatch.setenv("SD_PIPELINE", "1")
+    _kernels.reset_counts()
+    rows, job = scan("pipelined")
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_ON_CUDA)
+    assert seq_job["status"] == job["status"] == 2
+    assert rows == seq_rows
+    assert job["metadata"]["pipeline_batches"] == 5 and job["metadata"]["commit_txns"] == 2
+    assert all(launches.get(k, 0) > 0
+               for k in ("blake3_chunk_cvs", "blake3_merge", "gear_candidates")), launches
+    assert not any(plain.values()), plain
