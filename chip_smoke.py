@@ -13,7 +13,9 @@ to prove the port.
 Phases, each raising on failure (the script then exits non-zero and prints
 no result line):
 
-1. build the CUDA kernels from ``spacedrive_tpu_torch/csrc/`` with nvcc;
+1. build the CUDA kernels from ``spacedrive_tpu_torch/csrc/`` with nvcc, and
+   the native cas gather (``spacedrive_tpu_torch/native/cas_gather.cc``)
+   with g++ beside them;
 2. hold every kernel against its plain PyTorch version on the card, exactly
    (the outputs are integers and bits), at the main paths' shapes (cas
    messages, a full batch of chunk ids, every Gear plane tier the tree
@@ -24,7 +26,12 @@ no result line):
    matches only at offset 0 or W-L, rows where every offset is a candidate,
    bytes >= 0x80, two different rows with one key; date rows that tie with
    the bound's 8-byte prefix, first bytes >= 0x80, bounds of 0-41 bytes),
-   and BLAKE3 digests against the pure-Python oracle;
+   and BLAKE3 digests against the pure-Python oracle; the BLAKE3 kernels
+   also at the fused cas path's (tier, 57 chunks) rows at every tier it
+   sends (8-2048); and the MinHash device programs (``minhash_rows``,
+   ``similar_pairs_count``, PyTorch ops of the reference's XLA programs) on
+   the card against the same functions on the CPU, on edge rows (lengths
+   0-15, words >= 2**31, an N that is not a multiple of BLOCK);
 3. time each kernel and its plain version at those shapes (CUDA events, or
    the profiler's device time where a wrapper call takes longer to issue
    than the kernel runs; where the profiler loses launches, CUDA events
@@ -40,11 +47,19 @@ no result line):
    defaults (sharded gather, group commit, adaptive pages), log its stage
    busy times, check cas_ids and a sample of manifests against the oracles,
    and show through the launch counters that the scan went through every
-   scan kernel and never through a plain version; scan the tree into a
-   third library under ``SD_PIPELINE=0`` (the sequential step loop), whose
-   rows must equal the pipelined scan's, and print both identify rates;
-   then scan the tree again, pipelined, under torch.profiler for the
-   device's busy share;
+   scan kernel and never through a plain version, and through the native
+   gather's counters that every identify gather was native (its path,
+   ring or pread threads, logged) and no file was re-read through Python;
+   check the chained near-duplicate job (every planted copy over 100 KiB
+   persisted at similarity 1.0, ``search.nearDuplicates`` equal to the
+   persisted groups), run it once more with ``method="all_pairs"``, hold the
+   MinHash programs on 2,048 gathered rows of the tree against their CPU
+   runs and time them; hash the tree's files through the fused
+   ``node.hasher.hash_batch`` (its cas_ids must equal the scan's); scan the
+   tree into a third library under ``SD_PIPELINE=0`` (the sequential step
+   loop), whose rows must equal the pipelined scan's, and print both
+   identify rates; then scan the tree again, pipelined, under
+   torch.profiler for the device's busy share;
 5. the search path: serve ``search.paths`` / ``search.pathsCount`` from the
    device index of the scanned library and of a 1,000,000-row library built
    with the search benchmark's corpus recipe (plus 1,024 files of 2-64 GiB),
@@ -55,8 +70,9 @@ no result line):
    search kernels and never through a plain version; then hold the exact
    and range kernels against their plain versions on the patched path and
    date columns;
-6. print the card, the ``{"kernels": [...]}`` line, then the
-   ``{"ok": true, ...}`` line.
+6. print the ``{"device_programs": [...]}`` line (the MinHash programs'
+   times, calls on the path, CUDA kernels a call, and bounds), the card, the ``{"kernels": [...]}`` line,
+   then the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -69,6 +85,7 @@ import random
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -79,9 +96,12 @@ WORK = ROOT / "build" / "chip_smoke"
 HBM_BYTES_PER_S = 3.35e12
 #: bytes written between timed calls to clear the H100's 50 MB L2
 L2_FLUSH_BYTES = 256 << 20
-#: u32 operations per BLAKE3 compression (ops/roofline.py's model: 7 rounds
-#: x 8 G x 14 + 8 feed-forward xors, ~800 per 64-byte block)
-OPS_PER_COMPRESSION = 800
+#: u32 operations per BLAKE3 compression as the card issues them: 7 rounds
+#: x 8 G, each G four adds (``a + b + m`` is one three-input IADD3), four
+#: xors and four rotates (one SHF or PRMT each), then the 8 feed-forward
+#: xors of a chaining value: 7 * 8 * 12 + 8 = 680 per 64-byte block (two-input
+#: operations would count 800)
+OPS_PER_COMPRESSION = 680
 #: u32 operations per Gear position as the function needs them, the
 #: recurrence h = (h << 1) + GEAR[b]: shift, add, table lookup, mask test,
 #: length test
@@ -113,6 +133,17 @@ EXTRA_TIMES = ("call_ms", "full_row_bound_ms", "cold_ms", "latency_floor_ms", "e
 ROTATES_PER_COMPRESSION = 224
 
 EDGE_LENGTHS = (0, 1, 63, 64, 65, 1023, 1024, 1025, 2048, 2049, 57352, 102408)
+
+#: the batch tiers of the fused cas path's sub-batches (at most 2048 files)
+FUSED_TIERS = (8, 64, 512, 1024, 2048)
+#: u32 operations per shingle and hash of ``minhash_rows`` in the
+#: reference's u32 form as the card issues them: two multiply-adds (IMAD) to
+#: mix the shingle, three shifts, three xors and two multiplies of the
+#: finalizer, the validity select and the min
+OPS_PER_SHINGLE_HASH = 12
+#: u32 operations per signature component and pair of
+#: ``similar_pairs_count``: the compare and the add of the match count
+OPS_PER_COMPONENT_PAIR = 2
 
 #: BASELINE config 2 (mixed media) has 100,000 files; the smoke test cuts
 #: the count to stay well inside its time limit, keeping the size mix
@@ -353,6 +384,7 @@ def parity_phase(rng: random.Random, cols: dict) -> dict:
 
     from spacedrive_tpu_torch.objects.blake3_ref import blake3 as oracle
     from spacedrive_tpu_torch.objects.cas import SAMPLED_MESSAGE_LEN
+    from spacedrive_tpu_torch.objects.hasher import SAMPLED_CHUNKS
     from spacedrive_tpu_torch.ops import blake3 as b3
     from spacedrive_tpu_torch.ops import cdc
 
@@ -404,6 +436,22 @@ def parity_phase(rng: random.Random, cols: dict) -> dict:
                      "the oracle")
         log(f"parity: blake3 on {name} (rows {tuple(rows.shape)}) matches plain exactly "
             "(tolerance 0); 3 digests match the oracle")
+
+    # the fused cas path's rows: sampled messages in 57-chunk rows at every
+    # tier a sub-batch pads to, the last three rows empty (padding)
+    fused = [rng.randbytes(SAMPLED_MESSAGE_LEN) for _ in range(FUSED_TIERS[-1])]
+    for tier in FUSED_TIERS:
+        msgs = fused[: tier - 3] + [b""] * 3
+        rows, lengths = blake3_inputs(msgs, SAMPLED_CHUNKS)
+        errs.append(check_blake3(rows, lengths, f"{tier} rows of 57 chunks"))
+        got = b3.digests_to_hex(b3.blake3_batch_rows(rows, lengths))
+        for i in (0, tier - 4, tier - 1):
+            if got[i] != oracle(msgs[i]).hex():
+                fail(f"blake3 digest {i} of the ({tier}, 57) batch differs from the oracle")
+    del fused
+    log(f"parity: blake3 on sampled messages in 57-chunk rows (the fused cas path) at tiers "
+        f"{list(FUSED_TIERS)} matches plain exactly (tolerance 0); 3 digests a tier match the "
+        "oracle")
     err_groups = max(errs)
 
     # Gear candidate bitmaps at every plane tier the scan fills, and at the
@@ -430,7 +478,66 @@ def parity_phase(rng: random.Random, cols: dict) -> dict:
         "plane off 16-byte alignment")
     err_b3 = max(err_edge, err_sampled, err_ids, err_groups)
     return {"blake3_chunk_cvs": err_b3, "blake3_merge": err_b3, "gear_candidates": 0,
-            **search_parity(cols)}
+            **search_parity(cols), **minhash_edge_parity(rng)}
+
+
+def check_minhash(rows, lengths, what: str) -> dict:
+    """``minhash_rows`` and ``similar_pairs_count`` (thresholds 51 and 64 of
+    64, the rows padded to BLOCK) on the card against the same functions on
+    the CPU, on ``rows`` (B, W) int32 words and ``lengths`` held on the
+    host. Returns the max absolute difference of each (0, or fail)."""
+    import torch
+
+    from spacedrive_tpu_torch.ops import minhash
+
+    got = minhash.minhash_rows(rows.cuda(), lengths.cuda()).cpu()
+    want = minhash.minhash_rows(rows, lengths)
+    err_sigs = int((got - want).abs().max())
+    if err_sigs:
+        fail(f"minhash_rows on the card differs from the CPU on {what} (max err {err_sigs})")
+    sigs, valid = minhash.pad_for_blocks(want.numpy())
+    err_pairs = 0
+    found = []
+    for thr in (51, 64):
+        total, dup = minhash.similar_pairs_count(torch.from_numpy(sigs).cuda(),
+                                                 torch.from_numpy(valid).cuda(), thr)
+        ctotal, cdup = minhash.similar_pairs_count(torch.from_numpy(sigs),
+                                                   torch.from_numpy(valid), thr)
+        err_pairs = max(err_pairs, abs(int(total) - int(ctotal)), int((dup.cpu() != cdup).sum()))
+        found.append(int(ctotal))
+    if err_pairs:
+        fail(f"similar_pairs_count on the card differs from the CPU on {what} (max err {err_pairs})")
+    log(f"parity: minhash_rows and similar_pairs_count on {what} (rows {tuple(rows.shape)}, "
+        f"compared as ({sigs.shape[0]}, 64)) match the CPU exactly (tolerance 0); similar pairs "
+        f"at 51 / 64 of 64: {found[0]} / {found[1]}")
+    return {"minhash_rows": err_sigs, "similar_pairs_count": err_pairs}
+
+
+def minhash_edge_rows(rng: random.Random, n: int = 1000):
+    """(n, 14592) int32 rows of random words (about half >= 2**31) with
+    lengths 0-15 on the first 16 rows and random ones up to the row after;
+    rows 100-109 copy row 99, and row 201 is row 200 with 4 KiB of its
+    bytes changed (similar pairs to find). n = 1000 is not a multiple of
+    BLOCK."""
+    import numpy as np
+    import torch
+
+    gen = np.random.default_rng(rng.randrange(1 << 30))
+    rows = gen.integers(0, 1 << 32, (n, 14592), dtype=np.uint64).astype(np.uint32)
+    lengths = gen.integers(0, 58369, n).astype(np.int32)
+    lengths[:16] = np.arange(16)
+    lengths[99:110] = 57352
+    rows[100:110] = rows[99]
+    lengths[200:202] = 57352
+    rows[201] = rows[200]
+    rows[201, 1000:2024] = gen.integers(0, 1 << 32, 1024, dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(rows.view(np.int32)), torch.from_numpy(lengths)
+
+
+def minhash_edge_parity(rng: random.Random) -> dict:
+    rows, lengths = minhash_edge_rows(rng)
+    return check_minhash(rows, lengths, "edge rows (lengths 0-15, words >= 2**31, copies, "
+                         "an edited copy, N = 1000)")
 
 
 def gear_edge_plane(width: int, seed: int):
@@ -829,7 +936,8 @@ def merge_level_ms(b3) -> float:
 def blake3_timing(rng: random.Random, int32_ops_per_s: float, flush) -> dict:
     """Both BLAKE3 kernels at the shapes the scan launches them: 1024
     sampled cas messages and full (4096) and half (2048) batches of chunk ids,
-    all in 64-chunk rows. Device time per launch (profiler), L2-warm and with
+    all in 64-chunk rows; and a full sub-batch (2048) of the fused cas path in
+    57-chunk rows. Device time per launch (profiler), L2-warm and with
     the L2 cleared before each call, beside the wrapper call's time; the
     merge also against its latency floor, the batch's levels times one
     level's device time (``merge_level_ms``)."""
@@ -839,12 +947,14 @@ def blake3_timing(rng: random.Random, int32_ops_per_s: float, flush) -> dict:
     level_ms = merge_level_ms(b3)
     out = {}
     jobs = (("", [rng.randbytes(SAMPLED_MESSAGE_LEN) for _ in range(1024)],
-             f"{SAMPLED_MESSAGE_LEN}-byte messages"),
-            ("@chunk-ids", chunk_id_messages(rng), "chunk-id messages of 1 B-64 KiB"),
+             f"{SAMPLED_MESSAGE_LEN}-byte messages", 64),
+            ("@chunk-ids", chunk_id_messages(rng), "chunk-id messages of 1 B-64 KiB", 64),
             ("@chunk-ids-2048", chunk_id_messages(rng, 2048),
-             "2048 chunk-id messages of 1 B-64 KiB"))
-    for suffix, messages, what in jobs:
-        rows, lengths = blake3_inputs(messages, 64)
+             "2048 chunk-id messages of 1 B-64 KiB", 64),
+            ("@fused-2048", [rng.randbytes(SAMPLED_MESSAGE_LEN) for _ in range(2048)],
+             f"{SAMPLED_MESSAGE_LEN}-byte messages of the fused cas path", 57))
+    for suffix, messages, what, C in jobs:
+        rows, lengths = blake3_inputs(messages, C)
         B, C = rows.shape[0], rows.shape[1] // 256
         lens = [len(m) for m in messages]
         n_chunks = [max(1, -(-n // 1024)) for n in lens]
@@ -925,12 +1035,12 @@ def timing_phase(rng: random.Random, int32_ops_per_s: float, cols: dict) -> dict
             + ("" if full is None else f"; reading every row whole {full:.4f} ms, kernel at "
                f"{100 * full / t['ms']:.1f}% of that"))
 
-    # the bound above prices ops/roofline.py's 800 operations per block; the
-    # compiler fuses some of them (three-input adds), so also price the
-    # instructions it emitted, at the same 64 per SM per clock
+    # the bound above prices the fewest instructions a block needs; also
+    # price the instructions the compiler emitted, at the same 64 per SM per
+    # clock
     sass = sass_chunk_loop()
     for name in ("blake3_chunk_cvs", "blake3_chunk_cvs@chunk-ids",
-                 "blake3_chunk_cvs@chunk-ids-2048"):
+                 "blake3_chunk_cvs@chunk-ids-2048", "blake3_chunk_cvs@fused-2048"):
         t = out[name]
         t["sass"] = None if sass is None else {
             "per_block": sass["per_block"],
@@ -1177,16 +1287,212 @@ def check_manifests(db, tree: dict, row_of, seed: int, n_files: int = 16) -> int
     return checked
 
 
-def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
+def gather_line() -> str:
+    """The native gather's batches by path, its EWMA cost per file and the
+    threads it would take for a 1,024-file slice."""
+    from spacedrive_tpu_torch.native import cas_native
+
+    us = cas_native.gather_us_per_file()
+    return (f"batches by path {dict(cas_native.GATHER_BATCHES)}, EWMA "
+            f"{'not measured' if us is None else f'{us:.1f} us/file'} (serial-equivalent), "
+            f"{cas_native._default_gather_threads(1024)} threads for a 1,024-file slice")
+
+
+def job_seconds(row) -> float:
+    from datetime import datetime
+
+    return (datetime.fromisoformat(row["date_completed"])
+            - datetime.fromisoformat(row["date_started"])).total_seconds()
+
+
+def dedup_checks(node, lib, loc_id: int, tree: dict, id_of) -> dict:
+    """The chained near-duplicate job of the scan: it completed, every
+    planted copy over 100 KiB is persisted with its original at similarity
+    1.0 and both share a persisted group, and ``search.nearDuplicates``
+    serves the persisted groups. Then the same detection once more with
+    ``method="all_pairs"`` (the scan's tree is past ALL_PAIRS_LIMIT, so the
+    job took the banded path), whose copy pairs inside its window must be
+    found too."""
+    import torch
+
+    from spacedrive_tpu_torch.api.routers import search as router
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.objects.cas import MINIMUM_FILE_SIZE
+    from spacedrive_tpu_torch.objects.dedup import (ALL_PAIRS_LIMIT, find_near_duplicates,
+                                                    persisted_near_duplicate_groups)
+    from spacedrive_tpu_torch.ops import minhash
+
+    db = lib.db
+    job = dict(db.query("SELECT * FROM job WHERE name = 'dedup_detector'")[0])
+    if job["status"] != JobStatus.COMPLETED:
+        fail(f"dedup_detector job ended {job}")
+    meta = json.loads(job["metadata"])
+    near = {(r["file_path_a_id"], r["file_path_b_id"]): r["similarity"]
+            for r in db.query("SELECT * FROM near_duplicate")}
+    persisted = persisted_near_duplicate_groups(db, limit=5000)
+    group_of = {row["id"]: k for k, group in enumerate(persisted["groups"]) for row in group}
+    planted = [tuple(sorted((id_of(tree["paths"][dst]), id_of(tree["paths"][src]))))
+               for dst, src in tree["copy_of"].items() if tree["sizes"][src] > MINIMUM_FILE_SIZE]
+    for a, b in planted:
+        if near.get((a, b)) != 1.0 or a not in group_of or group_of[a] != group_of.get(b):
+            fail(f"planted copy pair of file_path ids {a}, {b} is not persisted at similarity "
+                 f"1.0 in one group (row: {near.get((a, b))})")
+    served = router.near_duplicates(node, lib, {})
+    if served != persisted_near_duplicate_groups(db):
+        fail("search.nearDuplicates differs from persisted_near_duplicate_groups")
+    log(f"main path: dedup_detector {JobStatus.NAMES[job['status']]} in {job_seconds(job):.2f} s, "
+        f"method {meta.get('method')}, {meta['scanned']} files over 100 KiB, "
+        f"{len(near)} near_duplicate rows in {len(persisted['groups'])} groups; all "
+        f"{len(planted)} planted copy pairs over 100 KiB persisted at similarity 1.0 in one "
+        "group each; search.nearDuplicates equals the persisted groups")
+
+    calls = dict(minhash.DEVICE_CALLS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = find_near_duplicates(lib, loc_id, method="all_pairs")
+    torch.cuda.synchronize()
+    all_pairs_s = time.perf_counter() - t0
+    found = {tuple(sorted((p["a"]["id"], p["b"]["id"]))): p["similarity"]
+             for p in result["pairs"]}
+    window = {r["id"] for group in result["groups"] for r in group}
+    last = db.query("SELECT MAX(id) AS id FROM (SELECT id FROM file_path WHERE is_dir = 0 "
+                    "AND size_in_bytes > ? AND location_id = ? ORDER BY id LIMIT ?)",
+                    [MINIMUM_FILE_SIZE, loc_id, ALL_PAIRS_LIMIT])[0]["id"]
+    inside = [(a, b) for a, b in planted if b <= last]
+    missing = [ab for ab in inside if found.get(ab) != 1.0 or ab[0] not in window]
+    if missing or result["method"] != "all_pairs" or result["errors"]:
+        fail(f"find_near_duplicates(method='all_pairs') missed {len(missing)} of {len(inside)} "
+             f"planted pairs in its window ({result['method']}, {result['errors'][:3]})")
+    all_pairs_calls = {k: v - calls.get(k, 0) for k, v in minhash.DEVICE_CALLS.items()}
+    log(f"main path: find_near_duplicates(method='all_pairs') over the first "
+        f"{result['scanned']} files in {all_pairs_s:.2f} s: {len(result['pairs'])} pairs, all "
+        f"{len(inside)} planted copy pairs of its window at 1.0; device calls {all_pairs_calls}")
+    return {"seconds": job_seconds(job), "method": meta.get("method"),
+            "all_pairs_s": all_pairs_s, "all_pairs_calls": all_pairs_calls}
+
+
+def fused_hash(node, tree: dict, row_of) -> dict:
+    """``node.hasher.hash_batch`` over the tree's files (sampled files
+    through the fused native gather into pinned 57-chunk rows, small files
+    bucketed); its cas_ids must equal the scan's. The launch counters are
+    set to 0 just before and read just after."""
+    import torch
+
+    from spacedrive_tpu_torch.native import cas_native
+    from spacedrive_tpu_torch.ops import _kernels
+
+    paths = [str(p) for p in tree["paths"]]
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    cas_native.reset_counts()
+    t0 = time.perf_counter()
+    got = node.hasher.hash_batch(paths, tree["sizes"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    by_shape = shape_counts(_kernels.LAUNCHES_BY_SHAPE)
+    launches = dict(_kernels.LAUNCHES)
+    wrong = [p for p, s, cid in zip(tree["paths"], tree["sizes"], got)
+             if s > 0 and cid != row_of(p)["cas_id"]]
+    if wrong:
+        fail(f"the fused hash_batch gives {len(wrong)} cas_ids unlike the scan's, e.g. {wrong[0]}")
+    if any(_kernels.PLAIN_ON_CUDA.values()):
+        fail(f"the fused hash_batch called plain versions on the card: {dict(_kernels.PLAIN_ON_CUDA)}")
+    log(f"main path: fused hash_batch of {len(paths)} files in {seconds:.2f} s = "
+        f"{len(paths) / seconds:.1f} files/s; cas_ids of every non-empty file equal the scan's; "
+        f"gather {gather_line()}; launches {launches}; blake3_chunk_cvs by shape "
+        f"{by_shape.get('blake3_chunk_cvs', {})}")
+    return {"seconds": seconds, "launches": launches, "by_shape": by_shape}
+
+
+def kernels_per_call(fn) -> int:
+    """CUDA kernels one call of ``fn`` launches, from torch.profiler's device
+    records (copies and memsets left out): the most of three windows, as the
+    profiler now and then loses records."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    counts = []
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts.append(sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                          and not e.name.startswith(("Memcpy", "Memset"))))
+    return max(counts)
+
+
+def minhash_tree_phase(tree: dict, int32_ops_per_s: float) -> dict:
+    """The MinHash programs on the scanned tree's rows: 8,192 sampled files
+    gathered natively into pinned rows (a full SIG_BATCH); the first 2,048
+    held on the card against the CPU; then both programs timed on the card
+    (CUDA events) at the dedup job's shapes beside their bounds, and the
+    CUDA kernels one call of each launches counted (profiler)."""
+    import numpy as np
+    import torch
+
+    from spacedrive_tpu_torch.native import cas_native
+    from spacedrive_tpu_torch.objects.cas import MINIMUM_FILE_SIZE
+    from spacedrive_tpu_torch.objects.dedup import SAMPLED_STRIDE, SIG_BATCH
+    from spacedrive_tpu_torch.ops import minhash
+
+    picks = [i for i, s in enumerate(tree["sizes"]) if s > MINIMUM_FILE_SIZE][:SIG_BATCH]
+    rows = torch.zeros((len(picks), SAMPLED_STRIDE), dtype=torch.uint8, pin_memory=True)
+    lengths = torch.zeros(len(picks), dtype=torch.int32, pin_memory=True)
+    cas_native.gather_batch([tree["paths"][i] for i in picks], [tree["sizes"][i] for i in picks],
+                            rows.numpy(), lengths.numpy())
+    words = rows.view(torch.int32)
+    errs = check_minhash(words[:2048].clone(), lengths[:2048].clone(),
+                         "2,048 gathered rows of the scanned tree")
+    B, W = words.shape
+    dev_rows, dev_lengths = words.cuda(), lengths.cuda()
+    ms = time_ms(lambda: minhash.minhash_rows(dev_rows, dev_lengths), 3, warmup=1)
+    per_call = kernels_per_call(lambda: minhash.minhash_rows(dev_rows, dev_lengths))
+    sigs = minhash.minhash_rows(dev_rows, dev_lengths)
+    del dev_rows
+    Np = -(-B // minhash.BLOCK) * minhash.BLOCK  # B itself on the scan's tree
+    sigs = torch.cat([sigs, sigs.new_zeros((Np - B, minhash.K))])
+    valid = torch.arange(Np, device=sigs.device) < B
+    ms_pairs = time_ms(lambda: minhash.similar_pairs_count(sigs, valid, 51), 3, warmup=1)
+    per_call_pairs = kernels_per_call(lambda: minhash.similar_pairs_count(sigs, valid, 51))
+    shingles = int(np.maximum(1, lengths.numpy() // 8).sum())
+    out = {
+        "minhash_rows": {
+            "ms": ms, "max_abs_err": errs["minhash_rows"],
+            "bound": bound_ms(B * W * 4 + B * 4 + B * minhash.K * 4,
+                              shingles * minhash.K * OPS_PER_SHINGLE_HASH, int32_ops_per_s),
+            "kernels_per_call": per_call,
+            "shape": f"rows ({B}, {W}) u32 -> ({B}, 64), {shingles} valid shingles"},
+        "similar_pairs_count": {
+            "ms": ms_pairs, "max_abs_err": errs["similar_pairs_count"],
+            "bound": bound_ms(B * minhash.K * 4 + B + B,
+                              B * (B - 1) // 2 * minhash.K * OPS_PER_COMPONENT_PAIR,
+                              int32_ops_per_s),
+            "kernels_per_call": per_call_pairs,
+            "shape": f"signatures ({B}, 64), threshold 51"}}
+    for name, t in out.items():
+        b, by = t["bound"]
+        log(f"time: {name} [{t['shape']}] on the card {t['ms']:.3f} ms (CUDA events, mean of 3), "
+            f"bound {b:.4f} ms ({by}), {100 * b / t['ms']:.2f}% of bound; "
+            f"{t['kernels_per_call']} CUDA kernels a call (profiler)")
+    return out
+
+
+def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: float) -> dict:
     import torch
 
     from spacedrive_tpu_torch.jobs import JobStatus
     from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.native import cas_native
     from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects import cas
     from spacedrive_tpu_torch.objects.cas import (MINIMUM_FILE_SIZE, SAMPLED_MESSAGE_LEN,
                                                   generate_cas_id)
+    from spacedrive_tpu_torch.objects.dedup import SIG_BATCH
     from spacedrive_tpu_torch.objects.manifest import payload_cap
-    from spacedrive_tpu_torch.ops import _kernels
+    from spacedrive_tpu_torch.ops import _kernels, minhash
 
     tree_dir, data_dir = WORK / "tree", WORK / "data"
     t0 = time.perf_counter()
@@ -1212,6 +1518,9 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
         pending0 = node.search_engine.status()["libraries"][lib.id]["pending"]
         torch.cuda.synchronize()
         _kernels.reset_counts()
+        cas_native.reset_counts()
+        cas.PYTHON_ROUTES.clear()
+        minhash.DEVICE_CALLS.clear()
         t0 = time.perf_counter()
         scan_location(lib, loc["id"])
         if not node.jobs.wait_idle(900):
@@ -1220,9 +1529,13 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
         launches = dict(_kernels.LAUNCHES)
         by_shape = shape_counts(_kernels.LAUNCHES_BY_SHAPE)
         plain_on_card = dict(_kernels.PLAIN_ON_CUDA)
+        gather_batches = dict(cas_native.GATHER_BATCHES)
+        python_routes = dict(cas.PYTHON_ROUTES)
+        program_calls = dict(minhash.DEVICE_CALLS)
+        scan_gather = gather_line()
         db = lib.db
         jobs = {r["name"]: r for r in db.query("SELECT * FROM job")}
-        for name in ("indexer", "file_identifier"):
+        for name in ("indexer", "file_identifier", "dedup_detector"):
             job = jobs.get(name)
             if job is None or job["status"] != JobStatus.COMPLETED:
                 fail(f"{name} job ended {dict(job) if job else 'missing'}")
@@ -1231,7 +1544,7 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
             fail(f"the identify job did not run on the pipeline: {meta}")
 
         rows = {(r["materialized_path"], r["name"], r["extension"]): dict(r) for r in db.query(
-            "SELECT materialized_path, name, extension, size_in_bytes, cas_id, object_id "
+            "SELECT id, materialized_path, name, extension, size_in_bytes, cas_id, object_id "
             "FROM file_path WHERE is_dir = 0")}
         if len(rows) != n:
             fail(f"indexed {len(rows)} files, wrote {n}")
@@ -1276,6 +1589,24 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
                 fail(f"the scan never launched {kernel}")
         if any(plain_on_card.values()):
             fail(f"the scan called plain versions on the card: {plain_on_card}")
+        # the identify gathers and the dedup job's signature gathers (one
+        # batch per SIG_BATCH files) all go through the native gather
+        dedup_meta = json.loads(jobs["dedup_detector"]["metadata"])
+        dedup_batches = -(-dedup_meta["scanned"] // SIG_BATCH)
+        identify_batches = sum(gather_batches.values()) - dedup_batches
+        if identify_batches <= 0:
+            fail(f"the scan's identify gather was served by no native batch: {gather_batches}")
+        if any(python_routes.values()):
+            fail(f"the scan's gather went through the Python path without a fault: {python_routes}")
+        log(f"main path: native gather of the scan (identify and dedup): {scan_gather}; "
+            f"{identify_batches} identify batches; Python detours {python_routes}")
+        if program_calls.get("minhash_rows", 0) != dedup_batches:
+            fail(f"the dedup job's signatures ran {program_calls} on the card, not "
+                 f"{dedup_batches} minhash_rows passes")
+        dedup = dedup_checks(node, lib, loc["id"], tree, lambda p: row_of(p)["id"])
+        fused = fused_hash(node, tree, row_of)
+        programs = minhash_tree_phase(tree, int32_ops_per_s)
+        torch.cuda.empty_cache()
         n_chunks = db.query("SELECT COUNT(*) AS c FROM chunk_manifest")[0]["c"]
         pending = node.search_engine.status()["libraries"][lib.id]["pending"]
         if pending < pending0 + 2:
@@ -1308,7 +1639,9 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple]) -> dict:
         f"over {pages} pages; plain versions on the card: {sum(plain_on_card.values())}")
     for kernel, shapes in by_shape.items():
         log(f"main path: {kernel} launches by shape: {shapes}")
-    return {"launches": launches, "by_shape": by_shape, "pages": pages, "search": search}
+    return {"launches": launches, "by_shape": by_shape, "pages": pages, "search": search,
+            "programs": programs, "program_calls": program_calls, "dedup": dedup,
+            "fused": fused}
 
 
 def shape_counts(counter) -> dict:
@@ -1663,6 +1996,7 @@ def main() -> int:
     if not (ROOT / "spacedrive_tpu_torch" / "csrc").is_dir():
         fail(f"the port's package is not beside {Path(__file__).name}; run it from a checkout")
     sys.path.insert(0, str(ROOT))
+    from spacedrive_tpu_torch.native import cas_native
     from spacedrive_tpu_torch.ops import _kernels
 
     card = nvidia_smi("name,power.limit")
@@ -1673,8 +2007,24 @@ def main() -> int:
         f"{int32_ops_per_s / 1e12:.2f}e12 ops/s; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
+    # g++ builds the native gather on a thread beside the nvcc processes
+    gather_build: dict = {}
+
+    def build_gather() -> None:
+        try:
+            cas_native.library()
+            gather_build["s"] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — reported after the join
+            gather_build["error"] = e
+
+    gxx = threading.Thread(target=build_gather)
+    gxx.start()
     seconds = _kernels.build()
-    log(f"build: {json.dumps(seconds)}; {time.perf_counter() - t0:.2f} s wall (nvcc in parallel)")
+    gxx.join()
+    if "error" in gather_build:
+        fail(f"the native gather did not build: {gather_build['error']}")
+    log(f"build: {json.dumps(seconds)}; native gather (g++) {gather_build['s']:.2f} s; "
+        f"{time.perf_counter() - t0:.2f} s wall (nvcc and g++ in parallel)")
     for name, text in _kernels.BUILD_LOG.items():
         for line in text.splitlines():
             if "Used" in line or "spill" in line:
@@ -1691,7 +2041,8 @@ def main() -> int:
         times = timing_phase(rng, int32_ops_per_s, cols)
         del cols
         torch.cuda.empty_cache()
-        main = None if args.kernels else main_path_phase(args.seed, card, corpus)
+        main = (None if args.kernels
+                else main_path_phase(args.seed, card, corpus, int32_ops_per_s))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -1735,10 +2086,30 @@ def main() -> int:
         elif main is not None:
             kernels[-1]["launches_per_page"] = launches / main["pages"]
             kernels[-1]["launches_by_shape"] = main["by_shape"].get(name, {})
+            if name.startswith("blake3_"):
+                # the fused hash_batch over the tree, counted in its own window
+                kernels[-1]["launches_fused_hash"] = main["fused"]["launches"].get(name, 0)
+                kernels[-1]["launches_by_shape_fused_hash"] = main["fused"]["by_shape"].get(name, {})
         if "sass" in t:
             sass = t["sass"] or {}
             kernels[-1]["sass_instructions_per_block"] = sass.get("per_block")
             kernels[-1]["sass_bound_ms"] = sass.get("bound_ms")
+    if main is not None:
+        # the reference's XLA programs of this path that are not Pallas
+        # kernels: PyTorch ops on the card, held against their CPU runs
+        sources = {"minhash_rows": "spacedrive_tpu/ops/minhash.py:54",
+                   "similar_pairs_count": "spacedrive_tpu/ops/minhash.py:81"}
+        programs = []
+        for name, t in main["programs"].items():
+            programs.append({
+                "name": name, "route": "pytorch", "source": "spacedrive_tpu_torch/ops/minhash.py",
+                "replaces": sources[name], "calls": main["program_calls"].get(name, 0),
+                "calls_all_pairs_call": main["dedup"]["all_pairs_calls"].get(name, 0),
+                "kernel_launches_per_call": t["kernels_per_call"],
+                "max_abs_err": max(t["max_abs_err"], errs[name]), "ms": t["ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None,
+                "shape": t["shape"]})
+        print(json.dumps({"device_programs": programs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if args.kernels:

@@ -1,9 +1,10 @@
 """search.paths and search.pathsCount: filterable, ordered, cursor-paginated
-``file_path`` search.
+``file_path`` search; search.nearDuplicates: the persisted MinHash groups.
 
 Counterpart of ``spacedrive_tpu/api/routers/search.py`` (``_path_filters``
 :33, ``_ids_clause`` :93, ``_order_parts`` :111, ``_cursor_sql`` :120,
-``paths`` :129, ``paths_count`` :191), with the SQL verbatim. The handlers
+``paths`` :129, ``paths_count`` :191, ``near_duplicates`` :305), with the
+SQL verbatim. The handlers
 are plain functions ``(node, library, arg)``: the rspc router, the reader
 pool and the replica tier are not ported. With the search engine armed
 (``node.search_engine``), the device index scores the filter predicates and
@@ -178,3 +179,15 @@ def paths_count(node, library, arg) -> int:
     return library.db.query(
         f"SELECT COUNT(*) n FROM file_path fp {join}WHERE {where}",
         params)[0]["n"]
+
+
+def near_duplicates(node, library, arg) -> dict[str, Any]:
+    """``search.nearDuplicates``: MinHash similarity groups, served from the
+    persisted ``near_duplicate`` pairs the chained dedup job wrote (database
+    reads only; reference ``search.py:305``)."""
+    from ...objects.dedup import persisted_near_duplicate_groups
+
+    arg = arg or {}
+    return persisted_near_duplicate_groups(
+        library.db, location_id=arg.get("location_id"),
+        limit=int(arg.get("take", arg.get("limit", 1000))))

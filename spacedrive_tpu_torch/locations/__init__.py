@@ -1,9 +1,10 @@
 """Locations: create one and scan it.
 
 Counterpart of ``spacedrive_tpu/locations/__init__.py`` (``create_location``
-:34, ``scan_location`` :99). The port's scan chains the indexer and the file
-identifier; thumbnails (MediaProcessorJob) and MinHash dedup
-(DedupDetectorJob) are not ported yet. The location's ``hasher`` column
+:34, ``scan_location`` :99). The port's scan chains the indexer, the file
+identifier and, on full scans, the MinHash near-duplicate detector
+(DedupDetectorJob); the reference's media processor (thumbnails), which runs
+between the last two there, is not ported. The location's ``hasher`` column
 records the node's device: the port has one device hasher.
 """
 
@@ -59,7 +60,10 @@ def create_location(library: "Library", path: str | Path, name: str | None = Non
 
 def scan_location(library: "Library", location_id: int,
                   sub_path: str | None = None) -> str:
-    """Spawn IndexerJob → FileIdentifierJob; returns the head job id."""
+    """Spawn IndexerJob → FileIdentifierJob, then DedupDetectorJob on a full
+    scan (a sub-path rescan skips it, as in the reference); returns the head
+    job id."""
+    from ..objects.dedup import DedupDetectorJob
     from ..objects.file_identifier import FileIdentifierJob
     from .indexer_job import IndexerJob
 
@@ -68,5 +72,7 @@ def scan_location(library: "Library", location_id: int,
     args: dict[str, Any] = {"location_id": location_id}
     if sub_path:
         args["sub_path"] = sub_path
-    return library.node.jobs.spawn(library, [IndexerJob(args), FileIdentifierJob(dict(args))],
-                                   action="scan_location")
+    jobs = [IndexerJob(args), FileIdentifierJob(dict(args))]
+    if not sub_path:
+        jobs.append(DedupDetectorJob({"location_id": location_id}))
+    return library.node.jobs.spawn(library, jobs, action="scan_location")

@@ -2,10 +2,10 @@
 
 from .base import Database, Field, Model, utc_now
 from .schema import (ALL_MODELS, ChunkManifest, FilePath, IndexerRule,
-                     IndexerRulesInLocation, JobRow, Location, Object)
+                     IndexerRulesInLocation, JobRow, Location, NearDuplicate, Object)
 
 __all__ = [
     "ALL_MODELS", "ChunkManifest", "Database", "Field", "FilePath",
     "IndexerRule", "IndexerRulesInLocation", "JobRow", "Location", "Model",
-    "Object", "utc_now",
+    "NearDuplicate", "Object", "utc_now",
 ]

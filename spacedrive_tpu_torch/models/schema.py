@@ -1,8 +1,8 @@
 """The library tables the scan writes, column for column as
 ``spacedrive_tpu/models/schema.py`` declares them (location :149,
 file_path :174, object :216, job :348, indexer_rule :375,
-indexer_rule_in_location :388, chunk_manifest :439), so rows written by the
-two packages compare directly.
+indexer_rule_in_location :388, near_duplicate :420, chunk_manifest :439),
+so rows written by the two packages compare directly.
 
 One difference in constraints, none in columns: ``location.instance_id``
 keeps its column but not its foreign key, because the port has no
@@ -161,7 +161,25 @@ class ChunkManifest(Model):
     INDEXES = (("chunk_hash",),)
 
 
+class NearDuplicate(Model):
+    """A near-duplicate pair found by the MinHash detector: derived,
+    local-only data, rebuilt by rescans; rows cascade away with their
+    file_paths."""
+
+    TABLE = "near_duplicate"
+    FIELDS = {
+        "id": _pk(),
+        "file_path_a_id": Field(_I, nullable=False,
+                                references="file_path.id", on_delete="CASCADE"),
+        "file_path_b_id": Field(_I, nullable=False,
+                                references="file_path.id", on_delete="CASCADE"),
+        "similarity": Field("REAL", nullable=False),
+        "date_detected": Field(_D),
+    }
+    UNIQUES = (("file_path_a_id", "file_path_b_id"),)
+
+
 ALL_MODELS: tuple[type[Model], ...] = (
     Location, FilePath, Object, JobRow, IndexerRule, IndexerRulesInLocation,
-    ChunkManifest,
+    ChunkManifest, NearDuplicate,
 )

@@ -2,7 +2,9 @@
 
 Counterpart of ``spacedrive_tpu/objects/file_identifier.py``. Each step is
 three stages: ``pipeline_page`` pages the next orphan file_paths (id >
-cursor) and gathers their sampled cas messages (reads only),
+cursor) and gathers their sampled cas messages (reads only, through the
+native gather, as the reference's identifier imports
+``read_sampled_batch_fast as read_sampled_batch``),
 ``pipeline_process`` hashes them on the node's device, and
 ``pipeline_commit`` writes, in one transaction, the cas_ids, links to
 existing objects sharing a cas_id, one new object per new cas_id and per
@@ -28,7 +30,7 @@ from typing import Any
 from ..jobs import EarlyFinish, JobContext, JobError, StatefulJob, StepResult
 from ..models import Location, Object, utc_now
 from . import manifest as chunk_manifest
-from .cas import read_sampled_batch
+from .cas import read_sampled_batch_fast as read_sampled_batch
 from .magic import HEADER_LEN, resolve_kind
 
 logger = logging.getLogger(__name__)

@@ -19,6 +19,7 @@ import os
 
 import torch
 
+from .. import faults
 from ..models import ChunkManifest
 from ..ops import cdc
 from ..retry import RetryPolicy, retry_call
@@ -53,6 +54,9 @@ def payload_cap() -> int:
 
 
 def _read_payload(path: str, msg: bytes, size: int) -> bytes:
+    """One file's whole-content chunk payload; the ``chunk`` fault seam sits
+    here, inside the retry, as in the reference (``manifest.py:105-109``)."""
+    faults.inject("chunk", key=path)
     if size <= _SMALL:
         return bytes(msg[8:])
     with open(path, "rb") as fh:

@@ -5,7 +5,7 @@ chunk payload read (``objects/manifest.py`` ``pipeline_chunk_gather``) retry
 EINTR, EIO, EAGAIN and EBUSY up to 3 times in both packages, and quarantine
 any other read error at once; the payload cap follows
 ``SD_CHUNK_MAX_BYTES``. Faults come from ``open`` patched in each package's
-module, failing a path's first opens; in the scan, the JAX side uses its own
+module, failing a path's first opens; in the scan, each package uses its own
 ``faults`` seams. Outputs are bytes and DB rows, so every comparison is
 exact.
 """
@@ -21,6 +21,7 @@ import pytest
 from spacedrive_tpu import faults
 from spacedrive_tpu.objects import cas as jax_cas
 from spacedrive_tpu.objects import manifest as jax_manifest
+from spacedrive_tpu_torch import faults as port_faults
 from spacedrive_tpu_torch import retry
 from spacedrive_tpu_torch.objects import cas
 from spacedrive_tpu_torch.objects import manifest
@@ -166,8 +167,9 @@ def test_retry_policy_and_taxonomy_match_the_reference():
 
 def test_scan_with_a_transient_error_and_a_cap_matches_jax(tmp_path, monkeypatch):
     """Both Nodes scan one tree with ``SD_CHUNK_MAX_BYTES`` below two of its
-    files and one EIO in the first cas read and the first payload read; the
-    rows, objects and manifests agree, and no file is quarantined."""
+    files and one EIO, from each package's fault seams, in the first cas read
+    and the first payload read; each fires once and is retried: the rows,
+    objects and manifests agree, and no file is quarantined."""
     tree = make_tree(tmp_path / "tree")
     monkeypatch.setenv("SD_CHUNK_MANIFESTS", "1")
     monkeypatch.setenv("SD_CDC_KERNEL", "numpy")
@@ -179,12 +181,16 @@ def test_scan_with_a_transient_error_and_a_cap_matches_jax(tmp_path, monkeypatch
         assert faults.fired() == {"gather:eio": 1, "chunk:eio": 1}
     finally:
         faults.clear()
-    big = str(tree / "d1" / "big0.bin")
-    cas_open, payload_open = FlakyOpen(1), FlakyOpen(1, only={big})
-    monkeypatch.setattr(cas, "open", cas_open, raising=False)
-    monkeypatch.setattr(manifest, "open", payload_open, raising=False)
-    got = port_scan(tmp_path / "port", tree)
-    assert max(cas_open.calls.values()) == 2 and payload_open.calls[big] == 2
+    # the port's own seams: an armed gather seam routes the scan's native
+    # gather through the per-file Python path, where the EIO fires
+    port_faults.install("gather:eio:once;chunk:eio:once")
+    routes = collections.Counter(cas.PYTHON_ROUTES)
+    try:
+        got = port_scan(tmp_path / "port", tree)
+        assert port_faults.fired() == {"gather:eio": 1, "chunk:eio": 1}
+    finally:
+        port_faults.clear()
+    assert cas.PYTHON_ROUTES["seam_armed"] > routes["seam_armed"]
     assert got == want
     paths, _groups, manifests = got
     assert len([r for r in paths if r[3] and r[4]]) >= 38  # as in a scan without faults

@@ -331,3 +331,78 @@ def test_pipelined_scan_on_the_card_matches_the_sequential_scan(card, tmp_path, 
     assert all(launches.get(k, 0) > 0
                for k in ("blake3_chunk_cvs", "blake3_merge", "gear_candidates")), launches
     assert not any(plain.values()), plain
+
+
+@pytest.mark.parametrize("tier", [8, 64, 512, 1024, 2048])
+def test_blake3_kernels_at_57_chunks(card, tier):
+    """The fused cas path's rows: sampled messages in 57-chunk rows, at
+    every batch tier a sub-batch of at most 2048 files pads to, the last
+    rows empty (padding or failed reads)."""
+    from spacedrive_tpu_torch.objects.cas import SAMPLED_MESSAGE_LEN
+    from spacedrive_tpu_torch.objects.hasher import SAMPLED_CHUNKS
+
+    n = max(1, tier - 3)
+    msgs = [blob(tier + i, SAMPLED_MESSAGE_LEN) for i in range(n)] + [b""] * (tier - n)
+    hold_blake3_to_plain(card, msgs, SAMPLED_CHUNKS)
+
+
+def test_fused_hash_batch_on_the_card(card, tmp_path, monkeypatch):
+    """``DeviceHasher.hash_batch`` on the card: sampled files gathered
+    natively into pinned rows, three sub-batches double buffered, the
+    kernels at (8, 57); small files bucketed; cas_ids equal the oracle,
+    and no plain version runs on the card."""
+    from spacedrive_tpu_torch.native import cas_native
+    from spacedrive_tpu_torch.objects import hasher
+    from spacedrive_tpu_torch.objects.cas import generate_cas_id
+
+    monkeypatch.setattr(hasher, "PIPELINE_BATCH", 4)
+    sizes = [102_401 + 997 * i for i in range(10)] + [0, 1, 5000, 102_400]
+    paths = []
+    for i, size in enumerate(sizes):
+        path = tmp_path / f"f{i}"
+        path.write_bytes(blob(700 + i, size))
+        paths.append(str(path))
+    h = hasher.DeviceHasher(card)
+    staged = h._stage(paths, sizes, [0, 1])
+    assert staged[2][0].is_pinned() and staged[2][1].is_pinned()
+    assert staged[0].is_cuda and staged[0].shape == (8, hasher.SAMPLED_CHUNKS * 256)
+    _kernels.reset_counts()
+    cas_native.reset_counts()
+    got = h.hash_batch(paths, sizes)
+    torch.cuda.synchronize()
+    assert got == [generate_cas_id(p) for p in paths]
+    assert _kernels.LAUNCHES_BY_SHAPE[("blake3_chunk_cvs", "cas", (8, 57))] == 3
+    assert sum(cas_native.GATHER_BATCHES.values()) == 3
+    assert not any(_kernels.PLAIN_ON_CUDA.values())
+
+
+def test_minhash_programs_on_the_card(card):
+    """``minhash_rows`` and ``similar_pairs_count`` on the card against the
+    same functions on the CPU and the numpy compare: words >= 2**31 (in int32
+    and int64 carriers), lengths 0-15, ten equal rows (45 pairs), N = 600
+    padded to BLOCK."""
+    from spacedrive_tpu_torch.ops import minhash
+
+    rng = np.random.default_rng(9)
+    rows = rng.integers(0, 1 << 32, (600, 14592), dtype=np.uint64).astype(np.uint32)
+    lengths = rng.integers(0, 58369, 600).astype(np.int32)
+    lengths[:16] = np.arange(16)
+    rows[11:20] = rows[10]
+    lengths[10:20] = 57352
+    r, n = torch.from_numpy(rows.view(np.int32)), torch.from_numpy(lengths)
+    before = minhash.DEVICE_CALLS["minhash_rows"]
+    got = minhash.minhash_rows(r.to(card), n.to(card))
+    assert minhash.DEVICE_CALLS["minhash_rows"] == before + 1
+    want = minhash.minhash_rows(r, n)
+    assert torch.equal(got.cpu(), want)
+    # words carried in int64 reach the card's int32 form intact
+    wide = minhash.minhash_rows(torch.from_numpy(rows.astype(np.int64)).to(card), n.to(card))
+    assert torch.equal(wide.cpu(), want)
+    sigs, valid = minhash.pad_for_blocks(want.numpy())
+    for thr in (51, 64):
+        total, dup = minhash.similar_pairs_count(torch.from_numpy(sigs).to(card),
+                                                 torch.from_numpy(valid).to(card), thr)
+        assert total.dtype == torch.int64
+        cpu_total, cpu_dup = minhash.similar_pairs_count_cpu(sigs, valid, thr)
+        assert int(total) == cpu_total == 45
+        assert np.array_equal(dup.cpu().numpy(), cpu_dup)

@@ -4,9 +4,11 @@ on the same tree, with chunk manifests on.
 Both packages index and identify the tree; the rows must agree exactly:
 ``(materialized_path, name, extension, size, cas_id, kind)`` per path, the
 grouping of files into objects (object ids are random, so the grouping is
-compared), and the manifest rows per cas_id. The JAX side runs the same
-IndexerJob → FileIdentifierJob chain its ``scan_location`` starts (without
-the media and dedup stages the port does not run yet), on its numpy CDC rung.
+compared), and the manifest rows per cas_id. The JAX side runs the
+IndexerJob → FileIdentifierJob head of the chain its ``scan_location``
+starts, on its numpy CDC rung; the port's ``scan_location`` also chains its
+near-duplicate job, which writes none of these rows (its own rows are
+compared in ``tests/test_torch_minhash.py``).
 
 Also: the port's entry points default to the card and raise without one, and
 neither the port nor chip_smoke.py imports jax or the JAX package.
@@ -103,8 +105,9 @@ def port_scan(data_dir, tree):
         loc = create_location(lib, tree)
         scan_location(lib, loc["id"])
         assert node.jobs.wait_idle(120)
-        statuses = [r["status"] for r in lib.db.query("SELECT status FROM job")]
-        assert statuses == [JobStatus.COMPLETED] * 2
+        jobs = {r["name"]: r["status"] for r in lib.db.query("SELECT name, status FROM job")}
+        assert jobs == dict.fromkeys(("indexer", "file_identifier", "dedup_detector"),
+                                     JobStatus.COMPLETED)
         return rows_of(lib.db)
     finally:
         node.shutdown()
@@ -175,27 +178,41 @@ def test_port_module_imports_no_jax(path):
     assert not _imports(path) & FORBIDDEN
 
 
+#: modules a scan must load: the native gather, its fault seams, and the
+#: MinHash stage the scan chains
+SCAN_MODULES = ("spacedrive_tpu_torch.faults", "spacedrive_tpu_torch.native",
+                "spacedrive_tpu_torch.native.cas_native", "spacedrive_tpu_torch.ops.minhash",
+                "spacedrive_tpu_torch.objects.dedup")
+
+
 def test_port_scan_loads_no_jax(tmp_path):
-    """A whole port scan in a fresh interpreter leaves jax unimported."""
+    """A whole port scan in a fresh interpreter (its native gather and its
+    near-duplicate job included: two copies over 100 KiB) leaves jax
+    unimported."""
     (tmp_path / "t").mkdir()
     (tmp_path / "t" / "a.txt").write_bytes(b"hello" * 100)
     (tmp_path / "t" / "b.bin").write_bytes(blob(1, 200_000))
+    (tmp_path / "t" / "c.bin").write_bytes(blob(1, 200_000))
     code = (
         "import sys\n"
         "from spacedrive_tpu_torch.node import Node\n"
         "from spacedrive_tpu_torch.locations import create_location, scan_location\n"
+        "from spacedrive_tpu_torch.native import cas_native\n"
         f"node = Node({str(tmp_path / 'd')!r}, device='cpu')\n"
         "lib = node.libraries.create('x')\n"
         f"loc = create_location(lib, {str(tmp_path / 't')!r})\n"
         "scan_location(lib, loc['id'])\n"
         "assert node.jobs.wait_idle(60)\n"
         "n = lib.db.query('SELECT COUNT(*) AS n FROM chunk_manifest')[0]['n']\n"
+        "pairs = lib.db.query('SELECT COUNT(*) AS n FROM near_duplicate')[0]['n']\n"
         "node.shutdown()\n"
-        "print(n, 'jax' in sys.modules, any(m.startswith('spacedrive_tpu.') "
-        "or m == 'spacedrive_tpu' for m in sys.modules))\n")
+        f"assert all(m in sys.modules for m in {SCAN_MODULES!r})\n"
+        "print(n, pairs, sum(cas_native.GATHER_BATCHES.values()), 'jax' in sys.modules, "
+        "any(m.startswith('spacedrive_tpu.') or m == 'spacedrive_tpu' for m in sys.modules))\n")
     env = {**os.environ, "PYTHONPATH": str(REPO), "SD_CHUNK_MANIFESTS": "1"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=tmp_path, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, jax_loaded, ref_loaded = out.stdout.split()
-    assert int(n) > 0 and jax_loaded == "False" and ref_loaded == "False"
+    n, pairs, batches, jax_loaded, ref_loaded = out.stdout.split()
+    assert int(n) > 0 and int(pairs) == 1 and int(batches) > 0
+    assert jax_loaded == "False" and ref_loaded == "False"
