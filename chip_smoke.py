@@ -31,7 +31,14 @@ no result line):
    sends (8-2048); and the MinHash device programs (``minhash_rows``,
    ``similar_pairs_count``, PyTorch ops of the reference's XLA programs) on
    the card against the same functions on the CPU, on edge rows (lengths
-   0-15, words >= 2**31, an N that is not a multiple of BLOCK);
+   0-15, words >= 2**31, an N that is not a multiple of BLOCK); and the
+   thumbnailer's ``resize_batch`` (PyTorch, two gathered taps a pass in
+   fp32) on a full (32,
+   1024, 1024, 3) sub-batch and a mixed batch (below the canvas, 1x1, a
+   reduced panorama, padding lanes) against the CPU and a float64 bilinear
+   at max |diff| <= 1, then again under
+   ``torch.set_float32_matmul_precision("high")``, which must give the same
+   pixels;
 3. time each kernel and its plain version at those shapes (CUDA events, or
    the profiler's device time where a wrapper call takes longer to issue
    than the kernel runs; where the profiler loses launches, CUDA events
@@ -39,7 +46,9 @@ no result line):
    logged beside the profiler's time for the BLAKE3 chunk and search
    kernels), beside the least time the card could take, and
    count the SASS instructions per block of the BLAKE3 chunk kernel
-   (cuobjdump);
+   (cuobjdump); time the resize on the full sub-batch beside the work's
+   bound (its bytes), the time the reference's dense form would need for
+   its fp32 operations, and a loop of ``F.interpolate`` calls;
 4. the scan path: write a seeded tree of 16,384 files shaped like BASELINE
    config 2 (mixed media), boot ``Node`` on the card with chunk manifests and
    the search engine on, ``create_location`` → ``scan_location`` →
@@ -50,6 +59,8 @@ no result line):
    scan kernel and never through a plain version, and through the native
    gather's counters that every identify gather was native (its path,
    ring or pread threads, logged) and no file was re-read through Python;
+   the tree's locations have preview media off (its images are random
+   bytes; phase 6 drives the media processor);
    check the chained near-duplicate job (every planted copy over 100 KiB
    persisted at similarity 1.0, ``search.nearDuplicates`` equal to the
    persisted groups), run it once more with ``method="all_pairs"``, hold the
@@ -70,9 +81,22 @@ no result line):
    search kernels and never through a plain version; then hold the exact
    and range kernels against their plain versions on the patched path and
    date columns;
-6. print the ``{"device_programs": [...]}`` line (the MinHash programs'
-   times, calls on the path, CUDA kernels a call, and bounds), the card, the ``{"kernels": [...]}`` line,
-   then the ``{"ok": true, ...}`` line.
+6. the media path: write a seeded photo library shaped like BASELINE
+   config 3 (256 files: 12 MP camera frames, phone portraits, screenshots,
+   web images, panoramas and 8 corrupt .jpg files; JPEGs with EXIF and a
+   GPS fix where PIL exists), report which host codecs exist, scan it with
+   preview media on, and check every thumbnail (a WebP whose header gives
+   ``target_dims`` of the reduced source), the ``new_thumbnail`` events, one
+   error and no thumbnail a corrupt file, the per-file retries, the resize
+   calls (all on the card), the ``media_data`` rows (dimensions, EXIF, plus
+   code) and that a rescan makes no thumbnail; hold one call of each shape
+   against the CPU, time each shape beside its bounds and the
+   ``F.interpolate`` loop, and replay each call under the profiler for its
+   device and H2D time;
+7. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
+   the resize's times, calls on the path, CUDA kernels a call, and bounds),
+   the card, the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+   line.
 """
 
 from __future__ import annotations
@@ -1157,6 +1181,19 @@ def write_tree(root: Path, seed: int) -> dict:
 SCAN_KERNEL_SYMBOLS = ("::chunk_cvs_kernel(", "::merge_kernel(", "::gear_candidates_kernel<")
 
 
+def identify_location(lib, tree_dir: Path) -> dict:
+    """A location over phase 4's tree with preview media off: its .jpg and
+    .png files are random bytes, not images, and the identify, rescan and
+    busy-share numbers stay comparable with those of the runs before the
+    media processor joined the scan (phase 6 drives it)."""
+    from spacedrive_tpu_torch.locations import create_location
+    from spacedrive_tpu_torch.models import Location
+
+    loc = create_location(lib, tree_dir)
+    lib.db.update(Location, {"id": loc["id"]}, {"generate_preview_media": False})
+    return loc
+
+
 def profiled_scan(node, tree_dir: Path) -> None:
     """Scan the tree again into a second library under torch.profiler
     (CUDA activity only) and print the device's busy share of the scan and
@@ -1165,10 +1202,10 @@ def profiled_scan(node, tree_dir: Path) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.locations import scan_location
 
     lib = node.libraries.create("chip-smoke-profiled")
-    loc = create_location(lib, tree_dir)
+    loc = identify_location(lib, tree_dir)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1236,10 +1273,10 @@ def sequential_scan(node, tree_dir: Path, pipelined: tuple, n: int) -> float:
     """Scan the tree into a third library with the pipeline off; its rows
     must equal the pipelined scan's. Returns the identify job's seconds."""
     from spacedrive_tpu_torch.jobs import JobStatus
-    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.locations import scan_location
 
     lib = node.libraries.create("chip-smoke-sequential")
-    loc = create_location(lib, tree_dir)
+    loc = identify_location(lib, tree_dir)
     os.environ["SD_PIPELINE"] = "0"
     try:
         scan_location(lib, loc["id"])
@@ -1484,7 +1521,7 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
     import torch
 
     from spacedrive_tpu_torch.jobs import JobStatus
-    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.locations import scan_location
     from spacedrive_tpu_torch.native import cas_native
     from spacedrive_tpu_torch.node import Node
     from spacedrive_tpu_torch.objects import cas
@@ -1511,7 +1548,11 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
     node = Node(data_dir)
     try:
         lib = node.libraries.create("chip-smoke")
-        loc = create_location(lib, tree_dir)
+        loc = identify_location(lib, tree_dir)
+        log("main path: the tree's three locations are created with generate_preview_media "
+            "False (its .jpg and .png files are random bytes), so the media processor skips "
+            "them and the identify, rescan and busy-share numbers stay comparable with PR 9's; "
+            "phase 6 drives the media processor")
         # the search index of this library exists before the scan, so the
         # commits of the scan's job steps and exits must move its watermark
         node.search_engine.refresh_now(lib)
@@ -1982,6 +2023,637 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
     return {"launches": launches, "per_pass": per_pass, "by_shape": by_shape}
 
 
+# --------------------------------------------------------------------------
+# the resize: parity on the card (phase 2) and its times and bounds
+# --------------------------------------------------------------------------
+
+
+def bilinear_ref(img, th: int, tw: int):
+    """Exact 4-tap bilinear in float64 numpy, the resize's specification
+    (a copy of tests/test_resize.py's ``_bilinear_ref``)."""
+    import numpy as np
+
+    h, w, _ = img.shape
+    ys = np.clip((np.arange(th) + 0.5) * (h / th) - 0.5, 0, h - 1)
+    xs = np.clip((np.arange(tw) + 0.5) * (w / tw) - 0.5, 0, w - 1)
+    y0 = np.floor(ys).astype(int)
+    x0 = np.floor(xs).astype(int)
+    y1 = np.minimum(y0 + 1, h - 1)
+    x1 = np.minimum(x0 + 1, w - 1)
+    wy = (ys - y0)[:, None, None]
+    wx = (xs - x0)[None, :, None]
+    f = img.astype(np.float64)
+    val = (f[y0][:, x0] * (1 - wy) * (1 - wx) + f[y0][:, x1] * (1 - wy) * wx
+           + f[y1][:, x0] * wy * (1 - wx) + f[y1][:, x1] * wy * wx)
+    return np.clip(np.round(val), 0, 255).astype(np.uint8)
+
+
+def resize_inputs(seed: int, shapes: list, h_in: int, w_in: int, pad_lanes: int = 0):
+    """A padded (B, h_in, w_in, 3) u8 batch with one random image of each
+    (h, w) in ``shapes`` and ``pad_lanes`` padding lanes (1x1 source and
+    target, random bytes behind them, as the reference pads), with its
+    (B, 2) source and target sizes; made on the card from ``seed``."""
+    import torch
+
+    from spacedrive_tpu_torch.ops.resize import target_dims
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    B = len(shapes) + pad_lanes
+    images = torch.randint(0, 256, (B, h_in, w_in, 3), dtype=torch.uint8, device="cuda",
+                           generator=gen)
+    for i, (h, w) in enumerate(shapes):
+        images[i, h:] = 0
+        images[i, :, w:] = 0
+    src = torch.ones((B, 2), dtype=torch.int32)
+    tgt = torch.ones((B, 2), dtype=torch.int32)
+    for i, (h, w) in enumerate(shapes):
+        src[i] = torch.tensor((h, w))
+        tgt[i] = torch.tensor(target_dims(w, h))
+    return images, src.cuda(), tgt.cuda()
+
+
+def check_resize(images, src, tgt, lanes: list, what: str):
+    """The resize on the card against the same function on the CPU (on
+    ``lanes``: lanes are independent) and against the float64 bilinear on
+    each of those lanes' own region; max |diff| <= 1 for both, the canvas
+    outside each target zero. Returns (card output, max |diff|)."""
+    import numpy as np
+    import torch
+
+    from spacedrive_tpu_torch.ops import resize
+
+    card = resize.resize_batch(images, src, tgt)
+    torch.cuda.synchronize()
+    if not card.is_cuda:
+        fail(f"the resize of {what} did not run on the card")
+    host_src, host_tgt = src.cpu(), tgt.cpu()
+    cpu = resize.resize_batch(images[lanes].cpu(), host_src[lanes], host_tgt[lanes])
+    diff = (card[lanes].cpu().to(torch.int16) - cpu.to(torch.int16)).abs()
+    err_cpu, n_cpu = int(diff.max()), int((diff != 0).sum())
+    err_ref, n_ref = 0, 0
+    for i in lanes:
+        (h, w), (th, tw) = host_src[i].tolist(), host_tgt[i].tolist()
+        got = card[i].cpu().numpy()
+        ref = bilinear_ref(images[i, :h, :w].cpu().numpy(), th, tw)
+        d = np.abs(got[:th, :tw].astype(np.int16) - ref.astype(np.int16))
+        err_ref, n_ref = max(err_ref, int(d.max())), n_ref + int((d != 0).sum())
+        if got[th:].any() or got[:, tw:].any():
+            fail(f"the resize of {what} left pixels outside lane {i}'s target")
+    if err_cpu > 1 or err_ref > 1:
+        fail(f"the resize of {what} on the card differs from the CPU by {err_cpu} and from the "
+             f"float64 bilinear by {err_ref} (tolerance 1)")
+    log(f"parity: resize_batch on {what} (batch {tuple(images.shape)}, lanes {lanes} checked): "
+        f"card vs CPU max |diff| {err_cpu} ({n_cpu} values differ), card vs float64 bilinear "
+        f"max |diff| {err_ref} ({n_ref} values differ); tolerance 1 (an fp32 sum rounds the "
+        "other way from another order's or float64's at a tie)")
+    return card, max(err_cpu, err_ref)
+
+
+def resize_parity(seed: int) -> tuple:
+    """Phase 2's resize: a full (32, 1024, 1024, 3) sub-batch (lane 0 the
+    whole canvas, lanes 1-2 landscape and portrait, the rest 600-1024 px),
+    and a mixed batch (above and below the canvas, 1x1, a 8000x200
+    panorama after the host's 8x reduce, a reduced phone portrait, the
+    canvas' own size, two padding lanes); then the full sub-batch again
+    under ``torch.set_float32_matmul_precision("high")``, which must give
+    the same pixels. Returns (max |diff|, the full sub-batch on the card
+    as (images, src, tgt), its output)."""
+    import torch
+
+    from spacedrive_tpu_torch.ops import resize
+
+    rng = random.Random(seed)
+    shapes = [(1024, 1024), (768, 1024), (1024, 768)] + [
+        (rng.randint(600, 1024), rng.randint(600, 1024)) for _ in range(29)]
+    full = resize_inputs(seed, shapes, 1024, 1024)
+    out, err_full = check_resize(*full, [0, 1, 2, 31], "a full sub-batch (32, 1024, 1024, 3)")
+    mixed = resize_inputs(seed + 1, [(600, 800), (200, 300), (1, 1), (25, 1000), (1008, 756),
+                                     (512, 512)], 1008, 1000, pad_lanes=2)
+    _out, err_mixed = check_resize(*mixed, list(range(8)), "a mixed batch with padding lanes")
+    caller = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        if not torch.backends.cuda.matmul.allow_tf32:
+            fail("set_float32_matmul_precision('high') did not turn TF32 on")
+        again = resize.resize_batch(*full)
+        if torch.get_float32_matmul_precision() != "high":
+            fail("the resize changed the caller's matmul precision")
+    finally:
+        torch.set_float32_matmul_precision(caller)
+    if not torch.equal(again, out):
+        n = int((again != out).sum())
+        fail(f"with TF32 allowed by the caller the resize changed {n} values")
+    log("parity: the full sub-batch under set_float32_matmul_precision('high') gives the same "
+        "pixels (no matrix product runs; the resize reads and sets no precision)")
+    return max(err_full, err_mixed), full, out
+
+
+def resize_bounds(B: int, h_in: int, w_in: int, fp32_ops_per_s: float) -> dict:
+    """The resize's bound at (B, h_in, w_in, 3): the work's (each u8 input
+    read once, each u8 output written once, at the HBM rate; its two-tap
+    arithmetic is far below that); beside it, the time the reference's
+    dense form (two fp32 matrix products) would need for its operations at
+    the card's fp32 rate outside the tensor cores."""
+    nbytes = B * h_in * w_in * 3 + B * 512 * 512 * 3 + 2 * B * 2 * 4
+    taps = 2 * 2 * (B * 512 * w_in * 3 + B * 512 * 512 * 3)  # two taps, multiply and add
+    flops = 2 * B * 512 * h_in * w_in * 3 + 2 * B * 512 * 512 * w_in * 3
+    return {"bound": bound_ms(nbytes, taps, fp32_ops_per_s),
+            "dense_bound_ms": flops / fp32_ops_per_s * 1e3, "flops": flops, "bytes": nbytes}
+
+
+def program_profile(fn, reps: int = 3) -> dict:
+    """Device time per call of ``fn`` from torch.profiler (its kernels,
+    copies and memsets apart) and the kernels a call launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernel_us = sum(e.self_device_time_total for e in prof.key_averages()
+                    if not e.key.startswith(("Memcpy", "Memset")))
+    kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith(("Memcpy", "Memset")))
+    return {"ms": kernel_us / reps / 1e3, "kernels_per_call": kernels // reps}
+
+
+def interpolate_loop(images, src, tgt):
+    """The library yardstick: one ``F.interpolate`` (bilinear,
+    align_corners=False, no antialias) per image at its own target size,
+    on float NCHW copies of the lanes made beforehand. Returns (the timed
+    loop, a function giving its max |diff| against ``out``)."""
+    import torch
+    import torch.nn.functional as F
+
+    lanes = []
+    for i in range(images.shape[0]):
+        (h, w), (th, tw) = src[i].tolist(), tgt[i].tolist()
+        lanes.append((images[i, :h, :w].permute(2, 0, 1)[None].float(), (th, tw)))
+
+    def loop():
+        return [F.interpolate(x, size=size, mode="bilinear", align_corners=False,
+                              antialias=False) for x, size in lanes]
+
+    def max_diff(out) -> int:
+        err = 0
+        for i, y in enumerate(loop()):
+            th, tw = lanes[i][1]
+            y8 = y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.int16)
+            err = max(err, int((y8 - out[i, :th, :tw].to(torch.int16)).abs().max()))
+        return err
+
+    return loop, max_diff
+
+
+def resize_timing(images, src, tgt, out, fp32_ops_per_s: float, what: str) -> dict:
+    """The resize's device time (profiler) at one shape, beside its bound,
+    the dense form's operation time and the F.interpolate loop's time (CUDA
+    events) and max |diff|."""
+    from spacedrive_tpu_torch.ops import resize
+
+    B, h_in, w_in, _ = images.shape
+    prof = program_profile(lambda: resize.resize_batch(images, src, tgt))
+    loop, max_diff = interpolate_loop(images, src, tgt)
+    t = {**prof, **resize_bounds(B, h_in, w_in, fp32_ops_per_s),
+         "library_ms": time_ms(loop, 3, warmup=1), "library_max_abs_err": max_diff(out),
+         "shape": f"({B}, {h_in}, {w_in}, 3) u8 -> ({B}, 512, 512, 3)"}
+    b, by = t["bound"]
+    log(f"time: resize_batch [{t['shape']}, {what}] on the card {t['ms']:.3f} ms (profiler, "
+        f"{t['kernels_per_call']} CUDA kernels a call); the work's bound {b:.4f} ms ({by}, "
+        f"{t['bytes'] / 1e6:.2f} MB) {100 * b / t['ms']:.2f}%; the reference's dense form "
+        f"would need {t['dense_bound_ms']:.3f} ms ({t['flops'] / 1e9:.1f} GFLOP fp32); "
+        f"F.interpolate loop {t['library_ms']:.3f} ms "
+        f"(max |diff| {t['library_max_abs_err']} against the port)")
+    return t
+
+
+# --------------------------------------------------------------------------
+# phase 6: the media processor on a photo library
+# --------------------------------------------------------------------------
+
+#: BASELINE config 3 (a 1M-file, 500 GB photo library) cut to 256 files:
+#: (directory, width, height, format, count, with EXIF)
+PHOTO_MIX = (
+    ("DCIM/100CANON", 4000, 3000, "jpg", 64, True),     # 12 MP camera frames
+    ("DCIM/Camera", 3024, 4032, "jpg", 48, True),       # phone portraits
+    ("Screenshots", 1920, 1080, "png", 32, False),
+    ("Screenshots/phone", 1080, 1920, "png", 16, False),
+    ("Web", 640, 480, "jpg", 40, False),
+    ("Web/small", 300, 200, "png", 40, False),          # below the canvas
+    ("Panoramas", 8000, 1000, "jpg", 6, True),
+    ("Panoramas/tall", 1000, 8000, "jpg", 2, True),
+)
+N_CORRUPT_PHOTOS = 8
+CAMERAS = (("Canon", "EOS R5"), ("Apple", "iPhone 15 Pro"), ("SONY", "ILCE-7M4"))
+
+
+def photo_pixels(gen, h: int, w: int):
+    """A smooth seeded field with light noise, made on the card, so that
+    PNG and JPEG sizes stay near a photo's."""
+    import torch
+
+    p = torch.rand(9, generator=gen, device="cuda")
+    y = torch.arange(h, device="cuda", dtype=torch.float32)[:, None, None]
+    x = torch.arange(w, device="cuda", dtype=torch.float32)[None, :, None]
+    field = 127.5 + 90 * torch.sin(x * (0.001 + 0.006 * p[0:3]) + y * (0.001 + 0.006 * p[3:6])
+                                   + 6.283 * p[6:9])
+    field += 2 * torch.randn((h, w, 3), device="cuda", generator=gen)
+    return field.clamp_(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def write_png_stdlib(path: Path, pixels) -> None:
+    """An 8-bit RGB PNG with zlib and struct only (for a host without PIL)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = pixels.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), pixels.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_photo(photo: dict, pixels, have_pil: bool) -> None:
+    path = photo["path"]
+    if photo["fmt"] == "png" and not have_pil:
+        write_png_stdlib(path, pixels)
+        return
+    from PIL import Image, TiffImagePlugin
+
+    img = Image.fromarray(pixels)
+    if photo["fmt"] == "png":
+        img.save(path)
+        return
+    exif = Image.Exif()
+    if photo["exif"]:
+        e = photo["exif"]
+        exif[271], exif[272], exif[306], exif[274] = e["make"], e["model"], e["date"], e["orientation"]
+        exif[0x8769] = {33434: TiffImagePlugin.IFDRational(1, 250),
+                        33437: TiffImagePlugin.IFDRational(28, 10), 34855: 400}
+        exif[0x8825] = {1: e["lat_ref"], 2: e["lat"], 3: e["lon_ref"], 4: e["lon"]}
+    img.save(path, quality=90, exif=exif)
+
+
+def write_photos(root: Path, seed: int, have_pil: bool) -> dict:
+    """The photo tree: ``PHOTO_MIX`` (every file PNG where PIL is missing)
+    plus ``N_CORRUPT_PHOTOS`` .jpg files of random bytes; pixels made on the
+    card, files written by 8 threads (the encoders release the interpreter
+    lock); synced to disk before it returns."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    rng = random.Random(seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    photos = []
+    for folder, w, h, fmt, count, with_exif in PHOTO_MIX:
+        (root / folder).mkdir(parents=True, exist_ok=True)
+        fmt = fmt if have_pil else "png"
+        for i in range(count):
+            exif = None
+            if with_exif and fmt == "jpg":
+                make, model = CAMERAS[rng.randrange(len(CAMERAS))]
+                lat = (float(rng.randrange(90)), float(rng.randrange(60)), rng.randrange(6000) / 100)
+                lon = (float(rng.randrange(180)), float(rng.randrange(60)), rng.randrange(6000) / 100)
+                exif = {"make": make, "model": model, "orientation": rng.choice((1, 6, 8)),
+                        "date": f"2024:{rng.randint(1, 12):02d}:{rng.randint(1, 28):02d} "
+                                f"{rng.randint(0, 23):02d}:{rng.randint(0, 59):02d}:00",
+                        "lat_ref": rng.choice("NS"), "lat": lat, "lon_ref": rng.choice("EW"),
+                        "lon": lon}
+            photos.append({"path": root / folder / f"IMG_{len(photos):04d}.{fmt}", "w": w, "h": h,
+                           "fmt": fmt, "exif": exif})
+    corrupt = []
+    for i in range(N_CORRUPT_PHOTOS):
+        path = root / "DCIM" / "100CANON" / f"BROKEN_{i:02d}.jpg"
+        path.write_bytes(rng.randbytes(rng.randint(2000, 200_000)))
+        corrupt.append(path)
+    with ThreadPoolExecutor(8) as pool:
+        for start in range(0, len(photos), 16):
+            batch = photos[start : start + 16]
+            pixels = [photo_pixels(gen, p["h"], p["w"]) for p in batch]
+            list(pool.map(lambda pp: write_photo(pp[0], pp[1], have_pil), zip(batch, pixels)))
+    os.sync()
+    return {"photos": photos, "corrupt": corrupt,
+            "bytes": sum(p["path"].stat().st_size for p in photos)}
+
+
+def reduced_dims(photo: dict, native: bool, max_edge: int) -> tuple[int, int]:
+    """(h, w) of a photo after the thumbnailer's decode and host reduce:
+    the native route scales a JPEG in DCT space by n/8 (the largest n whose
+    next step down still covers max_edge, sizes rounded up) and box-reduces
+    by whole factors, dropping the remainder; PIL's ``reduce`` keeps a
+    partial last box (sizes rounded up)."""
+    w, h = photo["w"], photo["h"]
+    if native and photo["fmt"] == "jpg":
+        edge = max(w, h)
+        num = 8
+        while num > 1 and (edge * (num - 1)) // 8 >= max_edge:
+            num -= 1
+        w, h = -(-w * num // 8), -(-h * num // 8)
+    edge = max(w, h)
+    if edge <= max_edge:
+        return h, w
+    k = -(-edge // max_edge)
+    return (h // k, w // k) if native else (-(-h // k), -(-w // k))
+
+
+def webp_dims(data: bytes) -> tuple[int, int] | None:
+    """(width, height) from a WebP file's VP8, VP8L or VP8X header; None
+    when it is not one."""
+    import struct
+
+    if len(data) < 30 or data[:4] != b"RIFF" or data[8:12] != b"WEBP":
+        return None
+    chunk = data[12:16]
+    if chunk == b"VP8 " and data[23:26] == b"\x9d\x01\x2a":
+        w, h = struct.unpack("<HH", data[26:30])
+        return w & 0x3FFF, h & 0x3FFF
+    if chunk == b"VP8L" and data[20] == 0x2F:
+        bits = int.from_bytes(data[21:25], "little")
+        return (bits & 0x3FFF) + 1, ((bits >> 14) & 0x3FFF) + 1
+    if chunk == b"VP8X":
+        return int.from_bytes(data[24:27], "little") + 1, int.from_bytes(data[27:30], "little") + 1
+    return None
+
+
+def media_job(db) -> tuple[dict, dict, float]:
+    row = dict(db.query("SELECT * FROM job WHERE name = 'media_processor' "
+                        "ORDER BY date_created DESC LIMIT 1")[0])
+    return row, json.loads(row["metadata"] or "{}"), job_seconds(row)
+
+
+def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
+    """Phase 6: scan a seeded photo library with preview media on; check
+    every thumbnail, event, error and ``media_data`` row; hold one
+    sub-batch of each shape the job resized against the CPU; time the
+    resize at those shapes beside its bounds and the F.interpolate loop."""
+    import numpy as np
+    import torch
+
+    from spacedrive_tpu_torch import retry
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects.media import processor, thumbnail
+    from spacedrive_tpu_torch.objects.media.metadata import encode_pluscode
+    from spacedrive_tpu_torch.ops import resize
+
+    t_phase = time.perf_counter()
+    try:
+        import PIL
+        from PIL import features
+
+        have_pil = True
+        log(f"media: PIL {PIL.__version__} (WebP {features.check('webp')}, JPEG "
+            f"{features.check('jpg')}, PNG {features.check('zlib')})")
+    except ImportError:
+        have_pil = False
+    native = thumbnail._native_images() is not None
+    log(f"media: host codecs: native helper (libjpeg, libpng, libwebp) "
+        f"{'built' if native else 'unavailable (the reason is logged above)'}; PIL "
+        f"{'present' if have_pil else 'missing'}")
+    if not (native or have_pil):
+        log("media: MISSING: libjpeg, libpng and libwebp headers for the native helper, and PIL: "
+            "no image decoder and no WebP encoder on this host")
+    tree_dir, data_dir = WORK / "photos", WORK / "media-data"
+    tree_dir.mkdir(parents=True)
+    tree_dir = tree_dir.resolve()
+    t0 = time.perf_counter()
+    tree = write_photos(tree_dir, seed, have_pil)
+    photos, corrupt = tree["photos"], tree["corrupt"]
+    by_fmt = {f: sum(1 for p in photos if p["fmt"] == f) for f in ("jpg", "png")}
+    log(f"media: wrote {len(photos)} photos ({by_fmt['jpg']} JPEG, {by_fmt['png']} PNG, "
+        f"{sum(1 for p in photos if p['exif'])} with EXIF and a GPS fix; "
+        f"{tree['bytes'] / 1e6:.1f} MB) and {len(corrupt)} corrupt .jpg files in "
+        f"{time.perf_counter() - t0:.1f} s; BASELINE config 3's 1M-file library cut to "
+        f"{len(photos) + len(corrupt)} files, its shapes kept")
+
+    for knob in ("SD_SEARCH_ENGINE", "SD_CHUNK_MANIFESTS", "SD_PIPELINE"):
+        os.environ.pop(knob, None)
+    calls: list = []  # (arrays, thumbnails) of each resize the job made
+    decoded: dict = {}  # source path -> decoded and reduced shape
+    real_resize, real_decode = thumbnail.resize_images, thumbnail._decode_for_device
+
+    def recorded_resize(arrays, device):
+        out = real_resize(arrays, device)
+        calls.append((arrays, out))
+        return out
+
+    def recorded_decode(source):
+        arr = real_decode(source)
+        decoded[str(source)] = arr.shape
+        return arr
+
+    thumbnail.resize_images, thumbnail._decode_for_device = recorded_resize, recorded_decode
+    node = Node(data_dir)
+    try:
+        lib = node.libraries.create("chip-smoke-photos")
+        loc = create_location(lib, tree_dir)
+        events: list = []
+        node.events.on(lambda e: events.append(e.payload["cas_id"])
+                       if e.kind == "new_thumbnail" else None)
+        for reset in (resize.reset_counts, thumbnail.reset_counts,
+                      processor.SCALAR_RETRIES.clear, retry.DISK_FULL.clear):
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scan_location(lib, loc["id"])
+        if not node.jobs.wait_idle(600):
+            fail("the photo scan did not finish within 600 s")
+        scan_s = time.perf_counter() - t0
+        db = lib.db
+        jobs = {r["name"]: dict(r) for r in db.query("SELECT * FROM job")}
+        for name in ("indexer", "file_identifier", "dedup_detector"):
+            if jobs.get(name, {}).get("status") != JobStatus.COMPLETED:
+                fail(f"photo scan: {name} ended {jobs.get(name)}")
+        job, meta, media_s = media_job(db)
+        cas = {str(tree_dir / r["materialized_path"].lstrip("/") / f"{r['name']}.{r['extension']}"):
+               r["cas_id"] for r in db.query(
+                   "SELECT materialized_path, name, extension, cas_id FROM file_path "
+                   "WHERE is_dir = 0")}
+        image_cas = {cas[str(p["path"])] for p in photos}
+        # thumbnails: one a decodable photo, none for a corrupt file
+        codecs = native or have_pil
+        made = 0
+        for p in photos:
+            out = thumbnail.thumbnail_path(data_dir, cas[str(p["path"])])
+            if not codecs:
+                if out.exists():
+                    fail(f"{p['path']} has a thumbnail on a host with no codecs")
+                continue
+            dims = webp_dims(out.read_bytes()) if out.exists() else None
+            if dims is None:
+                fail(f"{p['path']} has no WebP thumbnail at {out}")
+            shape = decoded.get(str(p["path"]))
+            want_hw = reduced_dims(p, native, thumbnail.MAX_INPUT_EDGE)
+            if shape is None or tuple(shape[:2]) != want_hw:
+                fail(f"{p['path']} decoded and reduced to {shape}, expected {want_hw}")
+            th, tw = resize.target_dims(want_hw[1], want_hw[0])
+            if dims != (tw, th):
+                fail(f"the thumbnail of {p['path']} is {dims}, target_dims says {(tw, th)}")
+            made += 1
+        want_errors = sorted(f"{c}: thumbnail failed (batched + scalar retry)" for c in corrupt)
+        if not codecs:
+            want_errors = sorted(want_errors + [f"{p['path']}: thumbnail failed (batched + scalar "
+                                                "retry)" for p in photos])
+        got_errors = sorted((job["errors_text"] or "").split("\n\n"))
+        if job["status"] != JobStatus.COMPLETED_WITH_ERRORS or got_errors != want_errors:
+            fail(f"media job ended {job['status']} with errors {got_errors[:3]}..., expected "
+                 f"{want_errors[:3]}...")
+        for c in corrupt:
+            if thumbnail.thumbnail_path(data_dir, cas[str(c)]).exists():
+                fail(f"corrupt {c} has a thumbnail")
+        if sorted(events) != sorted(image_cas if made else []) or meta["thumbnails_created"] != made:
+            fail(f"{len(events)} new_thumbnail events and {meta['thumbnails_created']} created, "
+                 f"{made} thumbnails made")
+        routes = (dict(thumbnail.DECODES), dict(thumbnail.ENCODES),
+                  dict(processor.SCALAR_RETRIES))
+        if retry.DISK_FULL:
+            fail(f"the media job absorbed a full disk: {dict(retry.DISK_FULL)}")
+        retried = sum(processor.SCALAR_RETRIES.values())
+        if retried != len(corrupt) + (0 if made else len(photos)):
+            fail(f"{retried} files retried alone ({dict(processor.SCALAR_RETRIES)}), "
+                 f"{len(corrupt)} corrupt")
+        call_counts = dict(resize.CALLS)
+        if not calls and codecs:
+            fail("the media job made no resize call")
+        if any(dev != "cuda" for dev, _shape in call_counts) or \
+                sum(call_counts.values()) != len(calls):
+            fail(f"the resize ran {call_counts}, not only on the card")
+        # media_data: one row an image where PIL reads EXIF, none without it
+        rows = {r["cas_id"]: r for r in db.query(
+            "SELECT fp.cas_id, md.dimensions, md.media_date, md.camera_data, md.media_location "
+            "FROM media_data md JOIN file_path fp ON fp.object_id = md.object_id")}
+        if not have_pil:
+            if rows:
+                fail(f"{len(rows)} media_data rows on a host without PIL (the reference writes none)")
+            log("media: PIL is missing: no media_data row was written, as the reference does")
+        else:
+            if set(rows) != image_cas:
+                fail(f"media_data has {len(rows)} rows for {len(image_cas)} images")
+            for p in photos:
+                r = rows[cas[str(p["path"])]]
+                if json.loads(r["dimensions"]) != {"width": p["w"], "height": p["h"]}:
+                    fail(f"media_data of {p['path']}: dimensions {r['dimensions']}")
+                e = p["exif"]
+                if e is None:
+                    continue
+                camera = json.loads(r["camera_data"] or "{}")
+                where = json.loads(r["media_location"] or "{}")
+
+                def deg(v, ref, neg):
+                    return (v[0] + v[1] / 60 + v[2] / 3600) * (-1 if ref == neg else 1)
+
+                want_code = encode_pluscode(deg(e["lat"], e["lat_ref"], "S"),
+                                            deg(e["lon"], e["lon_ref"], "W"))
+                if (camera.get("camera_make"), camera.get("camera_model"),
+                        camera.get("orientation"), r["media_date"], where.get("pluscode")) != (
+                        e["make"], e["model"], e["orientation"], e["date"], want_code):
+                    fail(f"media_data of {p['path']}: {dict(r)} against the EXIF written {e}")
+            log(f"media: media_data has one row for each of the {len(rows)} images, with the "
+                f"written dimensions; {sum(1 for p in photos if p['exif'])} rows carry the EXIF "
+                "make, model, date, orientation and the GPS fix's plus code")
+
+        # a rescan of the library makes no new thumbnail
+        stamps = {p: p.stat().st_mtime_ns for p in data_dir.glob("thumbnails/*/*.webp")}
+        n_calls = len(calls)
+        scan_location(lib, loc["id"])
+        if not node.jobs.wait_idle(600):
+            fail("the photo rescan did not finish within 600 s")
+        after = {p: p.stat().st_mtime_ns for p in data_dir.glob("thumbnails/*/*.webp")}
+        if after != stamps or len(calls) != n_calls:
+            fail(f"the rescan made thumbnails: {len(after)} files (was {len(stamps)}), "
+                 f"{len(calls) - n_calls} resize calls")
+        rescan_job, _rescan_meta, rescan_s = media_job(db)
+        log(f"media: a rescan makes no new thumbnail ({len(after)} files unchanged, no resize "
+            f"call; media job {rescan_s:.2f} s, status {rescan_job['status']})")
+    finally:
+        thumbnail.resize_images, thumbnail._decode_for_device = real_resize, real_decode
+        node.shutdown()
+
+    if not calls:
+        # no decoder here: drive the resize on the card on arrays made here
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        arrays = [photo_pixels(gen, h, w) for h, w in ((750, 1000), (1008, 756), (200, 300))]
+        calls.append((arrays, thumbnail.resize_images(arrays, torch.device("cuda"))))
+        log("media: no thumbnail has been made on the card (no codecs); the resize ran on "
+            f"{len(arrays)} arrays made here")
+    mp = sum(p["w"] * p["h"] for p in photos if str(p["path"]) in decoded) / 1e6
+    log(f"media job on {card}: {media_s:.2f} s for {len(photos) + len(corrupt)} files, "
+        f"{made} thumbnails = {made / media_s:.1f} images/s, {mp:.1f} MP decoded = "
+        f"{mp / media_s:.1f} MP/s; scan {scan_s:.2f} s; media job pipeline: page "
+        f"{meta['pipeline_page_s']:.2f} s ({100 * meta['pipeline_page_s'] / meta['pipeline_wall_s']:.1f}%), "
+        f"process {meta['pipeline_hash_s']:.2f} s "
+        f"({100 * meta['pipeline_hash_s'] / meta['pipeline_wall_s']:.1f}%), commit "
+        f"{meta['pipeline_commit_s']:.2f} s "
+        f"({100 * meta['pipeline_commit_s'] / meta['pipeline_wall_s']:.1f}%) of wall "
+        f"{meta['pipeline_wall_s']:.2f} s, {meta['pipeline_batches']} batches")
+    log(f"media: decodes by route {routes[0]}, encodes by route {routes[1]}; files retried "
+        f"alone {routes[2]}; resize calls by shape {call_counts}")
+
+    # each call replayed: the resize's device time (profiler) and the copy
+    # of its pinned u8 batch to the card (CUDA events); one call of each
+    # shape held against the CPU (four of its lanes) and timed beside its
+    # bounds and F.interpolate
+    cuda = torch.device("cuda")
+    per_call, by_shape, err = [], {}, 0
+    for arrays, thumbs in calls:
+        shape = (len(arrays), max(a.shape[0] for a in arrays), max(a.shape[1] for a in arrays))
+        pinned = torch.zeros((*shape, 3), dtype=torch.uint8, pin_memory=True)
+        staged = pinned.numpy()
+        for i, a in enumerate(arrays):
+            staged[i, : a.shape[0], : a.shape[1]] = a
+        src = torch.tensor([a.shape[:2] for a in arrays], dtype=torch.int32, device=cuda)
+        tgt = torch.tensor([resize.target_dims(a.shape[1], a.shape[0]) for a in arrays],
+                           dtype=torch.int32, device=cuda)
+        images = pinned.to(cuda)
+        per_call.append({
+            "ms": program_profile(lambda: resize.resize_batch(images, src, tgt))["ms"],
+            "h2d_ms": time_ms(lambda: pinned.to(cuda, non_blocking=True), 3, warmup=1),
+            "h2d_bytes": pinned.nbytes + 16 * shape[0]})
+        if shape in by_shape:
+            continue
+        lanes = sorted({0, 1, len(arrays) // 2, len(arrays) - 1})
+        want = resize.resize_batch_host([arrays[i] for i in lanes], torch.device("cpu"))
+        for i, w in zip(lanes, want):
+            if thumbs[i].shape != w.shape:
+                fail(f"resize call at {shape}: lane {i} is {thumbs[i].shape}, the CPU's {w.shape}")
+            err = max(err, int(np.abs(thumbs[i].astype(np.int16) - w.astype(np.int16)).max()))
+        if err > 1:
+            fail(f"a resize call of the media job at {shape} differs from the CPU by {err}")
+        out = resize.resize_batch(images, src, tgt)
+        by_shape[shape] = resize_timing(images, src, tgt, out, fp32_ops_per_s,
+                                        f"a media job call, {shape[0]} images")
+    log(f"media: the job's resize calls held against the CPU (4 lanes of one call a shape): "
+        f"max |diff| {err} (tolerance 1)")
+    for i, c in enumerate(per_call):
+        log(f"media: resize call {i}: device {c['ms']:.3f} ms (profiler), H2D of "
+            f"{c['h2d_bytes'] / 1e6:.2f} MB pinned {c['h2d_ms']:.3f} ms (CUDA events, "
+            f"{c['h2d_bytes'] / c['h2d_ms'] / 1e6:.1f} GB/s)")
+    device_s = sum(c["ms"] + c["h2d_ms"] for c in per_call) / 1e3
+    log(f"media: resize device time and H2D {device_s * 1e3:.2f} ms in all = "
+        f"{100 * device_s / media_s:.3f}% of the media job's {media_s:.2f} s; phase 6 "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    counts = {shape: n for (_dev, shape), n in call_counts.items()}
+    for shape, t in by_shape.items():
+        t["calls"] = counts.get(shape, 0)
+    return {"calls": sum(call_counts.values()), "call_counts": counts, "by_shape": by_shape,
+            "max_abs_err": err, "per_call": per_call, "media_s": media_s, "images": made}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of all generated data")
@@ -2003,8 +2675,12 @@ def main() -> int:
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     int32_ops_per_s = sms * 64 * clock_mhz * 1e6
+    # 128 fp32 lanes an SM, an FMA two operations: the rate without the
+    # tensor cores
+    fp32_ops_per_s = sms * 128 * 2 * clock_mhz * 1e6
     log(f"card: {card}; {sms} SMs, max SM clock {clock_mhz:.0f} MHz, INT32 issue "
-        f"{int32_ops_per_s / 1e12:.2f}e12 ops/s; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        f"{int32_ops_per_s / 1e12:.2f}e12 ops/s, fp32 {fp32_ops_per_s / 1e12:.2f}e12 FLOP/s; "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     # g++ builds the native gather on a thread beside the nvcc processes
@@ -2038,11 +2714,15 @@ def main() -> int:
         cols = corpus_columns(corpus)
         log(f"search corpus: {len(corpus)} rows made in {time.perf_counter() - t0:.1f} s")
         errs = parity_phase(rng, cols)
+        errs["resize_batch"], full, full_out = resize_parity(args.seed + 7)
         times = timing_phase(rng, int32_ops_per_s, cols)
-        del cols
+        resize_example = resize_timing(*full, full_out, fp32_ops_per_s,
+                                       "phase 2's full sub-batch")
+        del cols, full, full_out
         torch.cuda.empty_cache()
         main = (None if args.kernels
                 else main_path_phase(args.seed, card, corpus, int32_ops_per_s))
+        media = None if args.kernels else media_phase(args.seed, card, fp32_ops_per_s)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -2109,6 +2789,23 @@ def main() -> int:
                 "max_abs_err": max(t["max_abs_err"], errs[name]), "ms": t["ms"],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None,
                 "shape": t["shape"]})
+        # the thumbnailer's resize, at the shape the media job launched most
+        shapes = sorted(media["by_shape"].items(),
+                        key=lambda kv: -media["call_counts"].get(kv[0], 0))
+        _shape, t = shapes[0]
+
+        def resize_row(t: dict) -> dict:
+            return {"ms": t["ms"], "calls_at_shape": t.get("calls"), "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                    "reference_dense_form_ms": t["dense_bound_ms"],
+                    "library_ms": t["library_ms"], "library_max_abs_err": t["library_max_abs_err"],
+                    "kernel_launches_per_call": t["kernels_per_call"], "shape": t["shape"]}
+
+        programs.append({
+            "name": "resize_batch", "route": "pytorch", "source": "spacedrive_tpu_torch/ops/resize.py",
+            "replaces": "spacedrive_tpu/ops/resize_jax.py:63", "calls": media["calls"],
+            "max_abs_err": max(errs["resize_batch"], media["max_abs_err"]), **resize_row(t),
+            "other_shapes": {s["shape"]: resize_row(s) for _k, s in shapes[1:]},
+            "example_full_sub_batch": resize_row(resize_example)})
         print(json.dumps({"device_programs": programs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

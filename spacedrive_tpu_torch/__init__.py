@@ -1,9 +1,12 @@
 """PyTorch/CUDA port of spacedrive_tpu's location scan and search serving.
 
-The package runs the indexer → file-identifier chain (cas_ids, objects and
-chunk manifests) and serves ``search.paths`` / ``search.pathsCount`` from a
-device-resident index, with its device work in hand-written CUDA kernels for
-Hopper (``csrc/``), built with nvcc at first use. It imports torch and never
+The package runs the location scan (indexer → file identifier: cas_ids,
+objects and chunk manifests → media processor: image thumbnails and
+metadata → MinHash near-duplicates) and serves ``search.paths`` /
+``search.pathsCount`` from a device-resident index, with its device work in
+hand-written CUDA kernels for Hopper (``csrc/``), built with nvcc at first
+use, and in PyTorch ops where the reference used plain XLA programs (the
+MinHash signatures, the thumbnail resize). It imports torch and never
 jax, and nothing of the ``spacedrive_tpu`` package: what it shares with it
 (the BLAKE3 oracle, the gear table, the schema) is kept here as its own copy.
 

@@ -1,16 +1,20 @@
-"""Deterministic fault injection at the gather seams.
+"""Deterministic fault injection at the port's seams.
 
 A trimmed copy of ``spacedrive_tpu/faults/__init__.py`` and
-``faults/spec.py``, cut to what the port's two read seams need: ``gather``
-(the per-file cas message read, :mod:`.objects.cas`) and ``chunk`` (the
-per-file manifest payload read, :mod:`.objects.manifest`). Both sit inside
-their transient retry, so an injected ``eio`` is retried like a real one.
+``faults/spec.py``, cut to what the port's seams need: ``gather`` (the
+per-file cas message read, :mod:`.objects.cas`) and ``chunk`` (the
+per-file manifest payload read, :mod:`.objects.manifest`), both inside
+their transient retry, so an injected ``eio`` is retried like a real one;
+and ``thumbnail`` (before each thumbnail is written,
+:mod:`.objects.media.thumbnail`), where an ``enospc`` rehearses a full
+disk.
 
 A plan is a ``;``-separated list of ``seam:kind[:trigger]`` rules, armed by
-:func:`install` (never from the environment). The one kind is ``eio``
-(``OSError(EIO)``); the trigger is absent (every hit) or ``once`` (the
-first hit). At most one rule fires per hit, the first in spec order.
-``inject`` is one module-global read when nothing is armed.
+:func:`install` (never from the environment). The kinds are ``eio``
+(``OSError(EIO)``) and ``enospc`` (``OSError(ENOSPC)``); the trigger is
+absent (every hit) or ``once`` (the first hit). At most one rule fires per
+hit, the first in spec order. ``inject`` is one module-global read when
+nothing is armed.
 
 An armed ``gather`` seam also routes a batch of the native gather through
 the per-file Python path, where the seam is (:func:`seam_armed`).
@@ -42,7 +46,12 @@ class FaultRule:
         return True
 
 
-KINDS = {"eio": lambda key: OSError(errno.EIO, f"I/O error [injected{': ' + key if key else ''}]")}
+def _oserror(code: int, msg: str):
+    return lambda key: OSError(code, f"{msg} [injected{': ' + key if key else ''}]")
+
+
+KINDS = {"eio": _oserror(errno.EIO, "I/O error"),
+         "enospc": _oserror(errno.ENOSPC, "no space left on device")}
 
 
 class FaultPlan:

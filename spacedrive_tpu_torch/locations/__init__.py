@@ -1,11 +1,13 @@
 """Locations: create one and scan it.
 
 Counterpart of ``spacedrive_tpu/locations/__init__.py`` (``create_location``
-:34, ``scan_location`` :99). The port's scan chains the indexer, the file
-identifier and, on full scans, the MinHash near-duplicate detector
-(DedupDetectorJob); the reference's media processor (thumbnails), which runs
-between the last two there, is not ported. The location's ``hasher`` column
-records the node's device: the port has one device hasher.
+:34, ``scan_location`` :99). The port's scan chains, as the reference's
+does, the indexer, the file identifier, the media processor (image
+thumbnails resized on the node's device, and image metadata) unless the
+location's ``generate_preview_media`` is False, and, on full scans, the
+MinHash near-duplicate detector (DedupDetectorJob). The location's
+``hasher`` column records the node's device: the port has one device
+hasher.
 """
 
 from __future__ import annotations
@@ -60,19 +62,24 @@ def create_location(library: "Library", path: str | Path, name: str | None = Non
 
 def scan_location(library: "Library", location_id: int,
                   sub_path: str | None = None) -> str:
-    """Spawn IndexerJob → FileIdentifierJob, then DedupDetectorJob on a full
-    scan (a sub-path rescan skips it, as in the reference); returns the head
-    job id."""
+    """Spawn IndexerJob → FileIdentifierJob → MediaProcessorJob (unless the
+    location's ``generate_preview_media`` is False), then DedupDetectorJob
+    on a full scan (a sub-path rescan skips it, as in the reference);
+    returns the head job id."""
     from ..objects.dedup import DedupDetectorJob
     from ..objects.file_identifier import FileIdentifierJob
+    from ..objects.media.processor import MediaProcessorJob
     from .indexer_job import IndexerJob
 
-    if library.db.find_one(Location, {"id": location_id}) is None:
+    row = library.db.find_one(Location, {"id": location_id})
+    if row is None:
         raise LocationError(f"location {location_id} not found")
     args: dict[str, Any] = {"location_id": location_id}
     if sub_path:
         args["sub_path"] = sub_path
     jobs = [IndexerJob(args), FileIdentifierJob(dict(args))]
+    if row.get("generate_preview_media") is not False:
+        jobs.append(MediaProcessorJob(dict(args)))
     if not sub_path:
         jobs.append(DedupDetectorJob({"location_id": location_id}))
     return library.node.jobs.spawn(library, jobs, action="scan_location")

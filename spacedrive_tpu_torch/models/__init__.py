@@ -2,10 +2,11 @@
 
 from .base import Database, Field, Model, utc_now
 from .schema import (ALL_MODELS, ChunkManifest, FilePath, IndexerRule,
-                     IndexerRulesInLocation, JobRow, Location, NearDuplicate, Object)
+                     IndexerRulesInLocation, JobRow, Location, MediaData, NearDuplicate,
+                     Object)
 
 __all__ = [
     "ALL_MODELS", "ChunkManifest", "Database", "Field", "FilePath",
-    "IndexerRule", "IndexerRulesInLocation", "JobRow", "Location", "Model",
-    "NearDuplicate", "Object", "utc_now",
+    "IndexerRule", "IndexerRulesInLocation", "JobRow", "Location", "MediaData",
+    "Model", "NearDuplicate", "Object", "utc_now",
 ]

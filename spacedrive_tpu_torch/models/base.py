@@ -454,6 +454,16 @@ class Database:
         rows = self.find(model, where, limit=1)
         return rows[0] if rows else None
 
+    def upsert(self, model: type[Model], where: dict[str, Any], create: dict[str, Any],
+               update: dict[str, Any]) -> None:
+        """Insert ``where | create`` unless a row matches ``where``, else
+        update that row with ``update`` (the reference's ``upsert``)."""
+        with self._lock:
+            if self.find_one(model, where) is None:
+                self.insert(model, {**where, **create})
+            else:
+                self.update(model, where, update)
+
 
 class _Txn:
     """Re-entrant transaction scope: the outermost use BEGINs and COMMITs (or

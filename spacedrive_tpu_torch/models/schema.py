@@ -1,7 +1,8 @@
 """The library tables the scan writes, column for column as
 ``spacedrive_tpu/models/schema.py`` declares them (location :149,
 file_path :174, object :216, job :348, indexer_rule :375,
-indexer_rule_in_location :388, near_duplicate :420, chunk_manifest :439),
+indexer_rule_in_location :388, near_duplicate :420, chunk_manifest :439,
+media_data :233),
 so rows written by the two packages compare directly.
 
 One difference in constraints, none in columns: ``location.instance_id``
@@ -179,7 +180,32 @@ class NearDuplicate(Model):
     UNIQUES = (("file_path_a_id", "file_path_b_id"),)
 
 
+class MediaData(Model):
+    """Image metadata of an object (dimensions, capture date, camera
+    fields, GPS location with its plus code), written by the media
+    processor. The stream columns are the reference's and stay empty until
+    audio and video are ported."""
+
+    TABLE = "media_data"
+    FIELDS = {
+        "id": _pk(),
+        "dimensions": Field(_J),
+        "media_date": Field(_T),
+        "media_location": Field(_J),
+        "camera_data": Field(_J),
+        "artist": Field(_T),
+        "description": Field(_T),
+        "copyright": Field(_T),
+        "exif_version": Field(_T),
+        "duration_seconds": Field("REAL"),
+        "bit_rate": Field(_I),
+        "streams": Field(_J),
+        "object_id": Field(_I, nullable=False, unique=True, references="object.id",
+                           on_delete="CASCADE"),
+    }
+
+
 ALL_MODELS: tuple[type[Model], ...] = (
     Location, FilePath, Object, JobRow, IndexerRule, IndexerRulesInLocation,
-    ChunkManifest, NearDuplicate,
+    ChunkManifest, NearDuplicate, MediaData,
 )

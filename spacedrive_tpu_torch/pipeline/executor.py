@@ -42,7 +42,7 @@ What the port leaves out, on purpose:
 - No telemetry registry: stage busy times are ``time.perf_counter``
   intervals (the reference's spans degrade to the same bare timers).
 - No command channel, so nothing is polled between commits: pause, resume
-  and cancel are ROADMAP Queue 1 item 7, and so is the checkpoint persist
+  and cancel are ROADMAP Queue 1 item 8, and so is the checkpoint persist
   for a cold resume.
 """
 
@@ -428,7 +428,7 @@ class PipelineExecutor:
         try:
             while True:
                 # the reference polls the job's command channel here; the
-                # port has none (pause/cancel: ROADMAP Queue 1 item 7)
+                # port has none (pause/cancel: ROADMAP Queue 1 item 8)
                 try:
                     item = self._results.get(timeout=_POLL_S)
                 except queue.Empty:

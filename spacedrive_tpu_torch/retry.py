@@ -1,11 +1,12 @@
 """Retry with backoff, and the transient-versus-fatal taxonomy.
 
 Counterpart of ``spacedrive_tpu/utils/retry.py`` (:70-93, :124-130) and of
-``is_disk_full`` in ``spacedrive_tpu/recovery.py`` (:67-79), cut to what the
-port needs: the gather stages (the cas message read in :mod:`.objects.cas`
-and the chunk payload read in :mod:`.objects.manifest`) and the pipeline's
-committer and stage supervision (:mod:`.pipeline.executor`). It keeps no
-telemetry counters.
+``is_disk_full`` and ``note_disk_full`` in ``spacedrive_tpu/recovery.py``
+(:67-87), cut to what the port needs: the gather stages (the cas message
+read in :mod:`.objects.cas` and the chunk payload read in
+:mod:`.objects.manifest`), the pipeline's committer and stage supervision
+(:mod:`.pipeline.executor`) and the thumbnailer. It keeps no telemetry, only
+the plain :data:`DISK_FULL` counter.
 
 Transient means the same call can succeed if repeated: EINTR, EIO, EAGAIN
 and EBUSY reads, SQLite's busy/locked errors, and any exception carrying a
@@ -30,6 +31,7 @@ import errno
 import random
 import sqlite3
 import time
+from collections import Counter
 from typing import Any, Callable
 
 
@@ -86,12 +88,22 @@ def is_disk_full(exc: BaseException) -> bool:
             and "disk is full" in str(exc).lower())
 
 
+#: full disks absorbed by skipping the work, by site (``thumbnail``)
+DISK_FULL: Counter = Counter()
+
+
+def note_disk_full(site: str) -> None:
+    """Count one ENOSPC that ``site`` absorbed (the thumbnailer skips the
+    file: a thumbnail can be made again later)."""
+    DISK_FULL[site] += 1
+
+
 def retry_call(fn: Callable[[], Any], *, policy: RetryPolicy,
                classify: Callable[[BaseException], bool] = is_transient) -> Any:
     """Call ``fn`` until it returns, raises an error ``classify`` calls not
     retryable, or the policy's attempts or wall budget run out; then the
     last error raises. The reference's ``cancel_check`` hook is not ported:
-    the port has no command channel to poll (ROADMAP Queue 1 item 7)."""
+    the port has no command channel to poll (ROADMAP Queue 1 item 8)."""
     deadline = time.monotonic() + policy.budget_s
     retries = 0
     while True:

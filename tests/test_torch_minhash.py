@@ -275,6 +275,6 @@ def test_scan_of_a_sub_path_skips_the_detector(tmp_path):
         scan_location(lib, loc["id"], sub_path="a")
         assert node.jobs.wait_idle(120)
         names = {r["name"] for r in lib.db.query("SELECT name FROM job")}
-        assert names == {"indexer", "file_identifier"}
+        assert names == {"indexer", "file_identifier", "media_processor"}
     finally:
         node.shutdown()

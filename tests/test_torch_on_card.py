@@ -406,3 +406,101 @@ def test_minhash_programs_on_the_card(card):
         cpu_total, cpu_dup = minhash.similar_pairs_count_cpu(sigs, valid, thr)
         assert int(total) == cpu_total == 45
         assert np.array_equal(dup.cpu().numpy(), cpu_dup)
+
+
+def resize_sub_batch(seed: int = 12):
+    """A full (32, 1024, 1024, 3) sub-batch of the thumbnailer: lanes of
+    600-1024 px edges (lane 0 the whole canvas), each with its target."""
+    from spacedrive_tpu_torch.ops import resize
+
+    rng = np.random.default_rng(seed)
+    batch = rng.integers(0, 256, (32, 1024, 1024, 3), dtype=np.uint8)
+    src = rng.integers(600, 1025, (32, 2)).astype(np.int32)
+    src[0] = (1024, 1024)
+    tgt = np.array([resize.target_dims(int(w), int(h)) for h, w in src], np.int32)
+    return torch.from_numpy(batch), torch.from_numpy(src), torch.from_numpy(tgt)
+
+
+def test_resize_on_the_card_matches_the_cpu(card):
+    """The card against the CPU at max |diff| <= 1, on four lanes of a
+    full sub-batch (lanes are independent), with the outputs on the card
+    and the call counted there."""
+    from spacedrive_tpu_torch.ops import resize
+
+    batch, src, tgt = resize_sub_batch()
+    before = resize.CALLS[("cuda", (32, 1024, 1024))]
+    got = resize.resize_batch(batch.to(card), src.to(card), tgt.to(card))
+    assert got.is_cuda and got.dtype == torch.uint8 and got.shape == (32, 512, 512, 3)
+    assert resize.CALLS[("cuda", (32, 1024, 1024))] == before + 1
+    lanes = [0, 1, 17, 31]
+    want = resize.resize_batch(batch[lanes], src[lanes], tgt[lanes])
+    diff = (got[lanes].cpu().to(torch.int16) - want.to(torch.int16)).abs()
+    assert int(diff.max()) <= 1
+
+
+def test_resize_pixels_do_not_depend_on_tf32(card):
+    from spacedrive_tpu_torch.ops import resize
+
+    batch, src, tgt = (t.to(card) for t in resize_sub_batch(13))
+    full = resize.resize_batch(batch, src, tgt)
+    before = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        assert torch.backends.cuda.matmul.allow_tf32
+        tf32 = resize.resize_batch(batch, src, tgt)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(before)
+    assert torch.equal(full, tf32)
+
+
+def test_resize_host_stages_on_the_card(card):
+    """``resize_batch_host`` stages the batch on the card, padded to its
+    largest image, and crops each thumbnail on the host; the pixels equal
+    the CPU's within 1."""
+    from spacedrive_tpu_torch.ops import resize
+
+    rng = np.random.default_rng(14)
+    arrays = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in [(750, 1000), (200, 300), (1, 1), (125, 1000), (1008, 756)]]
+    resize.reset_counts()
+    got = resize.resize_batch_host(arrays, card)
+    assert resize.CALLS == {("cuda", (5, 1008, 1000)): 1}
+    want = resize.resize_batch_host(arrays, torch.device("cpu"))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert np.abs(g.astype(np.int16) - w.astype(np.int16)).max() <= 1
+
+
+def test_a_raise_in_the_card_resize_fails_the_media_job(card, tmp_path, monkeypatch):
+    from PIL import Image
+
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects.media import processor
+    from spacedrive_tpu_torch.ops import resize
+
+    tree = tmp_path / "tree"
+    tree.mkdir()
+    for i in range(3):
+        pixels = np.random.default_rng(i).integers(0, 256, (300, 400, 3), dtype=np.uint8)
+        Image.fromarray(pixels).save(tree / f"a{i}.png")
+
+    def lost(*_args):
+        raise RuntimeError("CUDA error: an illegal memory access was encountered")
+
+    monkeypatch.setattr(resize, "_taps", lost)
+    processor.SCALAR_RETRIES.clear()
+    node = Node(tmp_path / "data")
+    try:
+        lib = node.libraries.create("card")
+        scan_location(lib, create_location(lib, tree)["id"])
+        assert node.jobs.wait_idle(120)
+        jobs = {r["name"]: r for r in lib.db.query("SELECT * FROM job")}
+        assert jobs["media_processor"]["status"] == JobStatus.FAILED
+        assert "illegal memory access" in jobs["media_processor"]["errors_text"]
+        assert not list(node.data_dir.glob("thumbnails/*/*.webp"))
+    finally:
+        node.shutdown()
+    assert not processor.SCALAR_RETRIES

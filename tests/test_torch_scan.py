@@ -106,8 +106,11 @@ def port_scan(data_dir, tree):
         scan_location(lib, loc["id"])
         assert node.jobs.wait_idle(120)
         jobs = {r["name"]: r["status"] for r in lib.db.query("SELECT name, status FROM job")}
-        assert jobs == dict.fromkeys(("indexer", "file_identifier", "dedup_detector"),
-                                     JobStatus.COMPLETED)
+        # the tree's .jpg files are random bytes: the media processor
+        # records a failed thumbnail for each
+        assert jobs == {**dict.fromkeys(("indexer", "file_identifier", "dedup_detector"),
+                                        JobStatus.COMPLETED),
+                        "media_processor": JobStatus.COMPLETED_WITH_ERRORS}
         return rows_of(lib.db)
     finally:
         node.shutdown()
@@ -178,21 +181,29 @@ def test_port_module_imports_no_jax(path):
     assert not _imports(path) & FORBIDDEN
 
 
-#: modules a scan must load: the native gather, its fault seams, and the
-#: MinHash stage the scan chains
+#: modules a scan must load: the native gather, its fault seams, the media
+#: processor with its resize and codecs, and the MinHash stage the scan chains
 SCAN_MODULES = ("spacedrive_tpu_torch.faults", "spacedrive_tpu_torch.native",
                 "spacedrive_tpu_torch.native.cas_native", "spacedrive_tpu_torch.ops.minhash",
-                "spacedrive_tpu_torch.objects.dedup")
+                "spacedrive_tpu_torch.objects.dedup", "spacedrive_tpu_torch.atomic",
+                "spacedrive_tpu_torch.objects.media.processor",
+                "spacedrive_tpu_torch.objects.media.thumbnail",
+                "spacedrive_tpu_torch.objects.media.metadata",
+                "spacedrive_tpu_torch.native.images_native", "spacedrive_tpu_torch.ops.resize")
 
 
 def test_port_scan_loads_no_jax(tmp_path):
-    """A whole port scan in a fresh interpreter (its native gather and its
-    near-duplicate job included: two copies over 100 KiB) leaves jax
-    unimported."""
+    """A whole port scan in a fresh interpreter (its native gather, its
+    media processor on a PNG and its near-duplicate job on two copies over
+    100 KiB included) leaves jax unimported."""
+    from PIL import Image
+
     (tmp_path / "t").mkdir()
     (tmp_path / "t" / "a.txt").write_bytes(b"hello" * 100)
     (tmp_path / "t" / "b.bin").write_bytes(blob(1, 200_000))
     (tmp_path / "t" / "c.bin").write_bytes(blob(1, 200_000))
+    pixels = np.frombuffer(blob(2, 600 * 800 * 3), np.uint8).reshape(600, 800, 3)
+    Image.fromarray(pixels).save(tmp_path / "t" / "d.png")
     code = (
         "import sys\n"
         "from spacedrive_tpu_torch.node import Node\n"
@@ -205,14 +216,15 @@ def test_port_scan_loads_no_jax(tmp_path):
         "assert node.jobs.wait_idle(60)\n"
         "n = lib.db.query('SELECT COUNT(*) AS n FROM chunk_manifest')[0]['n']\n"
         "pairs = lib.db.query('SELECT COUNT(*) AS n FROM near_duplicate')[0]['n']\n"
+        "thumbs = len(list(node.data_dir.glob('thumbnails/*/*.webp')))\n"
         "node.shutdown()\n"
         f"assert all(m in sys.modules for m in {SCAN_MODULES!r})\n"
-        "print(n, pairs, sum(cas_native.GATHER_BATCHES.values()), 'jax' in sys.modules, "
+        "print(n, pairs, thumbs, sum(cas_native.GATHER_BATCHES.values()), 'jax' in sys.modules, "
         "any(m.startswith('spacedrive_tpu.') or m == 'spacedrive_tpu' for m in sys.modules))\n")
     env = {**os.environ, "PYTHONPATH": str(REPO), "SD_CHUNK_MANIFESTS": "1"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=tmp_path, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, pairs, batches, jax_loaded, ref_loaded = out.stdout.split()
-    assert int(n) > 0 and int(pairs) == 1 and int(batches) > 0
+    n, pairs, thumbs, batches, jax_loaded, ref_loaded = out.stdout.split()
+    assert int(n) > 0 and int(pairs) == 1 and int(thumbs) == 1 and int(batches) > 0
     assert jax_loaded == "False" and ref_loaded == "False"
