@@ -81,18 +81,30 @@ no result line):
    search kernels and never through a plain version; then hold the exact
    and range kernels against their plain versions on the patched path and
    date columns;
-6. the media path: write a seeded photo library shaped like BASELINE
-   config 3 (256 files: 12 MP camera frames, phone portraits, screenshots,
-   web images, panoramas and 8 corrupt .jpg files; JPEGs with EXIF and a
-   GPS fix where PIL exists), report which host codecs exist, scan it with
-   preview media on, and check every thumbnail (a WebP whose header gives
-   ``target_dims`` of the reduced source), the ``new_thumbnail`` events, one
-   error and no thumbnail a corrupt file, the per-file retries, the resize
-   calls (all on the card), the ``media_data`` rows (dimensions, EXIF, plus
-   code) and that a rescan makes no thumbnail; hold one call of each shape
-   against the CPU, time each shape beside its bounds and the
-   ``F.interpolate`` loop, and replay each call under the profiler for its
-   device and H2D time;
+6. the media path: probe the host codecs of HEIF and video first (build
+   ``native/sd_heif.cc`` and ``native/sd_ffmpeg.cc`` from the checkout,
+   load libheif, look for its encoder, the libav headers and the
+   ``ffmpeg`` / ``ffprobe`` CLIs) and print what the reference's gates then
+   allow; write a seeded photo library shaped like BASELINE config 3 (256
+   files: 12 MP camera frames, phone portraits, screenshots, web images,
+   panoramas and 8 corrupt .jpg files; JPEGs with EXIF and a GPS fix where
+   PIL exists), plus 24 phone HEICs where libheif can encode them, 8 videos
+   (.mp4 at 1920x1080 and 1280x720, .mkv) where a video route exists, and
+   4 files of random bytes for each of .heic and .mp4 whose route is
+   absent; report which host codecs exist, scan it with preview media on,
+   and check every thumbnail (a WebP whose header gives ``target_dims`` of
+   the reduced source; for a video the frame's size, its shape and the
+   test encoder's gradient), the ``new_thumbnail`` events, one error and no
+   thumbnail a corrupt file, nothing for a file the gates skip, the
+   per-file retries, the resize calls (all on the card; every HEIF image
+   among them), the ``media_data`` rows (dimensions, EXIF, plus code;
+   streams and duration of a video) and that a rescan makes no thumbnail;
+   read 8 WAVs through ``extract_media_data``; print files, thumbnails and
+   rows by format and the host time of each format's decode; hold one
+   sub-batch with HEIF images whole against the CPU (0 values may differ)
+   and one call of each shape on four lanes, time each shape beside its
+   bounds and the ``F.interpolate`` loop, and replay each call under the
+   profiler for its device and H2D time;
 7. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
    the resize's times, calls on the path, CUDA kernels a call, and bounds),
    the card, the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
@@ -2250,11 +2262,28 @@ PHOTO_MIX = (
 )
 N_CORRUPT_PHOTOS = 8
 CAMERAS = (("Canon", "EOS R5"), ("Apple", "iPhone 15 Pro"), ("SONY", "ILCE-7M4"))
+#: phone HEICs added where libheif loads and has an encoder: (directory,
+#: width, height, count), phones' default format
+HEIC_MIX = (("DCIM/Camera", 3024, 4032, 16), ("DCIM/Camera", 4032, 3024, 8))
+#: videos added where sd_ffmpeg.cc builds or the ffmpeg CLI exists:
+#: (directory, width, height, container, count), VIDEO_FRAMES frames each
+#: at 10-17 fps, one rate a file so that no two files share a cas_id
+#: (BASELINE config 2 is "images + video")
+VIDEO_MIX = (("Movies", 1920, 1080, "mp4", 3), ("Movies", 1280, 720, "mp4", 3),
+             ("Movies/mkv", 1920, 1080, "mkv", 2))
+VIDEO_FRAMES = 24
+#: WAVs probed through ``extract_media_data`` (the media job selects no
+#: audio): (sample rate, channels)
+WAV_MIX = tuple((rate, channels) for rate in (8000, 16000, 44100, 48000) for channels in (1, 2))
+#: files (random bytes) of each new format with no codec on the host: the
+#: reference's gates leave them with no thumbnail, row or error
+N_GATED_PER_FORMAT = 4
 
 
-def photo_pixels(gen, h: int, w: int):
+def photo_pixels(gen, h: int, w: int, noise: float = 2.0):
     """A smooth seeded field with light noise, made on the card, so that
-    PNG and JPEG sizes stay near a photo's."""
+    PNG and JPEG sizes stay near a photo's (HEICs take no noise: HEVC
+    encodes a noisy 12 MP frame several times slower)."""
     import torch
 
     p = torch.rand(9, generator=gen, device="cuda")
@@ -2262,7 +2291,8 @@ def photo_pixels(gen, h: int, w: int):
     x = torch.arange(w, device="cuda", dtype=torch.float32)[None, :, None]
     field = 127.5 + 90 * torch.sin(x * (0.001 + 0.006 * p[0:3]) + y * (0.001 + 0.006 * p[3:6])
                                    + 6.283 * p[6:9])
-    field += 2 * torch.randn((h, w, 3), device="cuda", generator=gen)
+    if noise:
+        field += noise * torch.randn((h, w, 3), device="cuda", generator=gen)
     return field.clamp_(0, 255).to(torch.uint8).cpu().numpy()
 
 
@@ -2388,6 +2418,193 @@ def webp_dims(data: bytes) -> tuple[int, int] | None:
     return None
 
 
+def build_error_line(e: Exception) -> str:
+    """The line of a build error that names the cause (g++'s first
+    ``error``), else its first line."""
+    lines = str(e).splitlines()
+    return next((ln.strip() for ln in lines if "error" in ln), lines[0] if lines else repr(e))
+
+
+def media_probe(work: Path) -> dict:
+    """The host codecs of HEIF and video, probed from the checkout's sources
+    (``native/sd_heif.cc``, ``native/sd_ffmpeg.cc``, built into ``_build/``)
+    and held against the thumbnailer's own probes; logged before anything
+    is written."""
+    import glob
+
+    import numpy as np
+
+    from spacedrive_tpu_torch.native import NativeBuildError, ffmpeg_native, heif_native
+    from spacedrive_tpu_torch.objects.media import metadata, thumbnail
+
+    probe = {"heif": False, "heif_encoder": False, "ffmpeg": False,
+             "ffmpeg_cli": thumbnail._FFMPEG, "ffprobe": metadata._FFPROBE}
+    t0 = time.perf_counter()
+    try:
+        probe["heif"] = heif_native.available()
+        heif_why = ("sd_heif.cc built, libheif.so.1 loaded" if probe["heif"]
+                    else "sd_heif.cc built, libheif.so.1 did not load")
+    except (NativeBuildError, OSError) as e:
+        heif_why = f"sd_heif.cc did not build or load: {build_error_line(e)}"
+    if probe["heif"]:
+        probe["heif_encoder"] = heif_native.encode_file(work / "probe.heic",
+                                                        np.zeros((16, 16, 3), np.uint8))
+    try:
+        ffmpeg_why = f"sd_ffmpeg.cc built ({ffmpeg_native.library()._name})"
+        probe["ffmpeg"] = True
+    except (NativeBuildError, OSError) as e:
+        ffmpeg_why = f"sd_ffmpeg.cc did not build or load: {build_error_line(e)}"
+    headers = sorted(glob.glob("/usr/include/libavformat") + glob.glob("/usr/include/*/libavformat")
+                     + glob.glob("/usr/local/include/libavformat"))
+    if ((thumbnail._native_heif() is not None) != probe["heif"]
+            or (thumbnail._native_ffmpeg() is not None) != probe["ffmpeg"]):
+        fail(f"the thumbnailer's codec probes disagree with the direct probe {probe}")
+    probe["heic_thumbs"] = thumbnail.can_generate_thumbnail("heic")
+    probe["video_thumbs"] = thumbnail.can_generate_thumbnail("mp4")
+    probe["av_rows"] = probe["ffmpeg"] or probe["ffprobe"] is not None
+    log(f"media: probe ({time.perf_counter() - t0:.2f} s): libheif: {heif_why}; HEVC/AV1 encoder "
+        f"{'present' if probe['heif_encoder'] else 'absent'}; libav: {ffmpeg_why}; libav headers "
+        f"{headers or 'none'}; ffmpeg CLI {probe['ffmpeg_cli'] or 'none'}; ffprobe "
+        f"{probe['ffprobe'] or 'none'}")
+    log(f"media: so HEIF images are {'' if probe['heic_thumbs'] else 'NOT '}thumbnailable, videos "
+        f"are {'' if probe['video_thumbs'] else 'NOT '}thumbnailable, and video and audio files "
+        f"{'get' if probe['av_rows'] else 'get NO'} media_data rows here (the reference's gates)")
+    return probe
+
+
+def write_new_formats(root: Path, seed: int, probe: dict, codecs: bool, have_pil: bool) -> dict:
+    """HEIC_MIX where libheif can encode (and a WebP encoder exists),
+    VIDEO_MIX where a video route exists (the native one resizes its frame
+    with PIL), and N_GATED_PER_FORMAT files of
+    random bytes for each of .heic and .mp4 whose route is absent (the
+    gates must skip them)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from spacedrive_tpu_torch.native import ffmpeg_native, heif_native
+
+    rng = random.Random(seed + 1)
+    out: dict = {"heics": [], "videos": [], "gated": []}
+    t0 = time.perf_counter()
+    if probe["heic_thumbs"] and probe["heif_encoder"] and codecs:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 1)
+        for folder, w, h, count in HEIC_MIX:
+            (root / folder).mkdir(parents=True, exist_ok=True)
+            for _ in range(count):
+                out["heics"].append({"path": root / folder / f"IMG_{len(out['heics']):04d}.heic",
+                                     "w": w, "h": h, "fmt": "heic"})
+        with ThreadPoolExecutor(8) as pool:
+            for start in range(0, len(out["heics"]), 8):
+                batch = out["heics"][start : start + 8]
+                pixels = [photo_pixels(gen, p["h"], p["w"], noise=0) for p in batch]
+                if not all(pool.map(lambda pp: heif_native.encode_file(pp[0]["path"], pp[1]),
+                                    zip(batch, pixels))):
+                    fail("libheif's encoder refused a HEIC it accepted in the probe")
+    heic_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if probe["video_thumbs"] and (have_pil or not probe["ffmpeg"]):
+        for folder, w, h, ext, count in VIDEO_MIX:
+            (root / folder).mkdir(parents=True, exist_ok=True)
+            for _ in range(count):
+                n = len(out["videos"])
+                out["videos"].append({"path": root / folder / f"MOV_{n:04d}.{ext}",
+                                      "w": w, "h": h, "fmt": ext, "fps": 10 + n})
+
+        def write_video(v: dict) -> None:
+            if probe["ffmpeg"]:
+                ffmpeg_native.write_test_video(v["path"], v["w"], v["h"], VIDEO_FRAMES, v["fps"])
+            else:
+                subprocess.run([probe["ffmpeg_cli"], "-y", "-loglevel", "error", "-f", "lavfi",
+                                "-i", f"testsrc=size={v['w']}x{v['h']}:rate={v['fps']}",
+                                "-frames:v", str(VIDEO_FRAMES), "-pix_fmt", "yuv420p",
+                                str(v["path"])], check=True, capture_output=True, timeout=120)
+
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(write_video, out["videos"]))
+    video_s = time.perf_counter() - t0
+    for ext, gated in (("heic", not probe["heic_thumbs"]), ("mp4", not probe["video_thumbs"])):
+        if gated:
+            (root / "gated").mkdir(exist_ok=True)
+            for i in range(N_GATED_PER_FORMAT):
+                path = root / "gated" / f"NO_CODEC_{i:02d}.{ext}"
+                path.write_bytes(rng.randbytes(rng.randint(2000, 50_000)))
+                out["gated"].append({"path": path, "fmt": ext})
+    os.sync()
+    log(f"media: wrote {len(out['heics'])} HEIC ({sum(p['path'].stat().st_size for p in out['heics']) / 1e6:.1f} MB, "
+        f"{heic_s:.1f} s), {len(out['videos'])} videos "
+        f"({sum(v['path'].stat().st_size for v in out['videos']) / 1e6:.1f} MB, {video_s:.1f} s) and "
+        f"{len(out['gated'])} files of formats with no codec here "
+        f"({sorted({g['fmt'] for g in out['gated']})})")
+    return out
+
+
+def video_frame_dims(frame_hw: tuple[int, int]) -> tuple[int, int]:
+    """(w, h) of a video thumbnail on the native route: the decoded frame
+    scaled by PIL to the target area."""
+    from spacedrive_tpu_torch.objects.media.thumbnail import TARGET_PX
+
+    h, w = frame_hw
+    if w * h > TARGET_PX:
+        factor = math.sqrt(TARGET_PX / (w * h))
+        return max(1, round(w * factor)), max(1, round(h * factor))
+    return w, h
+
+
+def check_test_video_frame(frame, path: Path) -> float:
+    """The test encoder's green channel is 255 * y / height on every frame:
+    the decoded frame's row means must follow it. Returns the largest
+    deviation."""
+    import numpy as np
+
+    h = frame.shape[0]
+    want = 255.0 * (np.arange(h) + 0.5) / h
+    dev = float(np.abs(frame[:, :, 1].astype(np.float64).mean(axis=1) - want).max())
+    if frame.std() <= 10 or dev > 16:
+        fail(f"the frame of {path} does not show the test encoder's gradient "
+             f"(std {frame.std():.1f}, green row means off by up to {dev:.1f})")
+    return dev
+
+
+def audio_probe(work: Path, probe: dict) -> dict:
+    """WAV_MIX written with the ``wave`` module and read through
+    ``extract_media_data``: each a row of one pcm_s16le stream of its rate
+    and channels where a stream probe exists, else None (the reference's
+    answer)."""
+    import wave
+
+    import numpy as np
+
+    from spacedrive_tpu_torch.objects.media import metadata
+
+    work.mkdir(parents=True, exist_ok=True)
+    rows, t0 = 0, time.perf_counter()
+    for rate, channels in WAV_MIX:
+        path = work / f"tone_{rate}_{channels}.wav"
+        tone = (8000 * np.sin(2 * np.pi * 440 * np.arange(rate // 4) / rate)).astype(np.int16)
+        with wave.open(str(path), "wb") as w:
+            w.setnchannels(channels)
+            w.setsampwidth(2)
+            w.setframerate(rate)
+            w.writeframes(np.repeat(tone[:, None], channels, axis=1).tobytes())
+        row = metadata.extract_media_data(str(path), "wav")
+        want = {"codec_type": "audio", "codec": "pcm_s16le", "channels": channels,
+                "sample_rate": rate}
+        if not probe["av_rows"]:
+            if row is not None:
+                fail(f"{path} got a media_data row {row} with no stream probe on this host")
+            continue
+        if row is None or row.get("streams") != [want] or row.get("duration_seconds") != 0.25:
+            fail(f"{path}: media_data {row}, expected one stream {want} of 0.25 s")
+        rows += 1
+    probe_s = time.perf_counter() - t0
+    log(f"media: {len(WAV_MIX)} WAVs (8-48 kHz, mono and stereo) through extract_media_data: "
+        f"{rows} rows in {probe_s * 1e3:.1f} ms "
+        f"({'each with its rate and channels' if rows else 'none: no libav and no ffprobe here, as the reference answers'})")
+    return {"wavs": len(WAV_MIX), "rows": rows, "s": probe_s}
+
+
 def media_job(db) -> tuple[dict, dict, float]:
     row = dict(db.query("SELECT * FROM job WHERE name = 'media_processor' "
                         "ORDER BY date_created DESC LIMIT 1")[0])
@@ -2406,7 +2623,8 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
     from spacedrive_tpu_torch.jobs import JobStatus
     from spacedrive_tpu_torch.locations import create_location, scan_location
     from spacedrive_tpu_torch.node import Node
-    from spacedrive_tpu_torch.objects.media import processor, thumbnail
+    from spacedrive_tpu_torch.native import ffmpeg_native
+    from spacedrive_tpu_torch.objects.media import metadata, processor, thumbnail
     from spacedrive_tpu_torch.objects.media.metadata import encode_pluscode
     from spacedrive_tpu_torch.ops import resize
 
@@ -2430,6 +2648,7 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
     tree_dir, data_dir = WORK / "photos", WORK / "media-data"
     tree_dir.mkdir(parents=True)
     tree_dir = tree_dir.resolve()
+    probe = media_probe(WORK)
     t0 = time.perf_counter()
     tree = write_photos(tree_dir, seed, have_pil)
     photos, corrupt = tree["photos"], tree["corrupt"]
@@ -2439,24 +2658,47 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
         f"{tree['bytes'] / 1e6:.1f} MB) and {len(corrupt)} corrupt .jpg files in "
         f"{time.perf_counter() - t0:.1f} s; BASELINE config 3's 1M-file library cut to "
         f"{len(photos) + len(corrupt)} files, its shapes kept")
+    added = write_new_formats(tree_dir, seed, probe, native or have_pil, have_pil)
+    heics, videos, gated = added["heics"], added["videos"], added["gated"]
+    n_files = len(photos) + len(corrupt) + len(heics) + len(videos) + len(gated)
 
     for knob in ("SD_SEARCH_ENGINE", "SD_CHUNK_MANIFESTS", "SD_PIPELINE"):
         os.environ.pop(knob, None)
-    calls: list = []  # (arrays, thumbnails) of each resize the job made
+    calls: list = []  # (arrays, thumbnails, formats) of each resize the job made
     decoded: dict = {}  # source path -> decoded and reduced shape
+    pending: list = []  # formats of the arrays decoded for the next resize
+    host_s: dict = {}  # format -> [files, seconds] of host decodes and video thumbnails
     real_resize, real_decode = thumbnail.resize_images, thumbnail._decode_for_device
+    real_video = thumbnail._video_thumbnail
+
+    def timed(fmt: str, t0: float) -> None:
+        entry = host_s.setdefault(fmt, [0, 0.0])
+        entry[0] += 1
+        entry[1] += time.perf_counter() - t0
 
     def recorded_resize(arrays, device):
         out = real_resize(arrays, device)
-        calls.append((arrays, out))
+        calls.append((arrays, out, pending[:]))
+        pending.clear()
         return out
 
     def recorded_decode(source):
+        t0 = time.perf_counter()
         arr = real_decode(source)
+        fmt = Path(source).suffix.lstrip(".").lower()
+        timed(fmt, t0)
         decoded[str(source)] = arr.shape
+        pending.append(fmt)
         return arr
 
+    def recorded_video(source, out):
+        t0 = time.perf_counter()
+        made = real_video(source, out)
+        timed(Path(source).suffix.lstrip(".").lower(), t0)
+        return made
+
     thumbnail.resize_images, thumbnail._decode_for_device = recorded_resize, recorded_decode
+    thumbnail._video_thumbnail = recorded_video
     node = Node(data_dir)
     try:
         lib = node.libraries.create("chip-smoke-photos")
@@ -2464,7 +2706,7 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
         events: list = []
         node.events.on(lambda e: events.append(e.payload["cas_id"])
                        if e.kind == "new_thumbnail" else None)
-        for reset in (resize.reset_counts, thumbnail.reset_counts,
+        for reset in (resize.reset_counts, thumbnail.reset_counts, metadata.reset_counts,
                       processor.SCALAR_RETRIES.clear, retry.DISK_FULL.clear):
             reset()
         torch.cuda.synchronize()
@@ -2504,6 +2746,50 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
             if dims != (tw, th):
                 fail(f"the thumbnail of {p['path']} is {dims}, target_dims says {(tw, th)}")
             made += 1
+        made_cas = set(image_cas) if made else set()
+        # HEICs: libheif's decode box-reduced in numpy (whole boxes), then the card's resize
+        for p in heics:
+            c = cas[str(p["path"])]
+            out = thumbnail.thumbnail_path(data_dir, c)
+            dims = webp_dims(out.read_bytes()) if out.exists() else None
+            k = -(-max(p["w"], p["h"]) // thumbnail.MAX_INPUT_EDGE)
+            want_hw = (p["h"] // k, p["w"] // k)
+            shape = decoded.get(str(p["path"]))
+            if shape is None or tuple(shape[:2]) != want_hw:
+                fail(f"{p['path']} decoded and reduced to {shape}, expected {want_hw}")
+            th, tw = resize.target_dims(want_hw[1], want_hw[0])
+            if dims != (tw, th):
+                fail(f"the thumbnail of {p['path']} is {dims}, target_dims says {(tw, th)}")
+            made_cas.add(c)
+        # videos: one frame (native: long edge DEFAULT_TARGET_EDGE, then PIL
+        # to the target area; CLI: 512 px wide), decoded again here to check
+        # its shape and the test encoder's gradient
+        frame_s, frame_dev = [], 0.0
+        for v in videos:
+            c = cas[str(v["path"])]
+            out = thumbnail.thumbnail_path(data_dir, c)
+            dims = webp_dims(out.read_bytes()) if out.exists() else None
+            if dims is None:
+                fail(f"{v['path']} has no WebP thumbnail at {out}")
+            if probe["ffmpeg"]:
+                t0 = time.perf_counter()
+                frame = ffmpeg_native.decode_frame_rgb(v["path"])
+                frame_s.append(time.perf_counter() - t0)
+                edge, long = ffmpeg_native.DEFAULT_TARGET_EDGE, max(v["w"], v["h"])
+                want_hw = ((v["h"] * edge // long, v["w"] * edge // long) if long > edge
+                           else (v["h"], v["w"]))
+                if frame.shape != (*want_hw, 3):
+                    fail(f"the frame of {v['path']} is {frame.shape}, expected {want_hw}")
+                frame_dev = max(frame_dev, check_test_video_frame(frame, v["path"]))
+                if dims != video_frame_dims(want_hw):
+                    fail(f"the thumbnail of {v['path']} is {dims}, expected "
+                         f"{video_frame_dims(want_hw)}")
+            elif dims[0] != min(512, v["w"]):
+                fail(f"the CLI thumbnail of {v['path']} is {dims}, expected {min(512, v['w'])} wide")
+            made_cas.add(c)
+        for g in gated:
+            if thumbnail.thumbnail_path(data_dir, cas[str(g["path"])]).exists():
+                fail(f"{g['path']} has a thumbnail though no codec reads {g['fmt']} here")
         want_errors = sorted(f"{c}: thumbnail failed (batched + scalar retry)" for c in corrupt)
         if not codecs:
             want_errors = sorted(want_errors + [f"{p['path']}: thumbnail failed (batched + scalar "
@@ -2515,11 +2801,11 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
         for c in corrupt:
             if thumbnail.thumbnail_path(data_dir, cas[str(c)]).exists():
                 fail(f"corrupt {c} has a thumbnail")
-        if sorted(events) != sorted(image_cas if made else []) or meta["thumbnails_created"] != made:
+        if sorted(events) != sorted(made_cas) or meta["thumbnails_created"] != len(made_cas):
             fail(f"{len(events)} new_thumbnail events and {meta['thumbnails_created']} created, "
-                 f"{made} thumbnails made")
+                 f"{len(made_cas)} thumbnails made")
         routes = (dict(thumbnail.DECODES), dict(thumbnail.ENCODES),
-                  dict(processor.SCALAR_RETRIES))
+                  dict(processor.SCALAR_RETRIES), dict(metadata.PROBES))
         if retry.DISK_FULL:
             fail(f"the media job absorbed a full disk: {dict(retry.DISK_FULL)}")
         retried = sum(processor.SCALAR_RETRIES.values())
@@ -2532,17 +2818,31 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
         if any(dev != "cuda" for dev, _shape in call_counts) or \
                 sum(call_counts.values()) != len(calls):
             fail(f"the resize ran {call_counts}, not only on the card")
-        # media_data: one row an image where PIL reads EXIF, none without it
+        # media_data: one row an image where PIL reads EXIF, a HEIC where
+        # libheif loads, a video where a stream probe exists; none else
         rows = {r["cas_id"]: r for r in db.query(
-            "SELECT fp.cas_id, md.dimensions, md.media_date, md.camera_data, md.media_location "
+            "SELECT fp.cas_id, md.dimensions, md.media_date, md.camera_data, md.media_location, "
+            "md.duration_seconds, md.streams "
             "FROM media_data md JOIN file_path fp ON fp.object_id = md.object_id")}
+        heic_cas = {cas[str(p["path"])] for p in heics}
+        video_cas = {cas[str(v["path"])] for v in videos} if probe["av_rows"] else set()
+        want_rows = (image_cas if have_pil else set()) | heic_cas | video_cas
+        if set(rows) != want_rows:
+            fail(f"media_data has {len(rows)} rows, expected {len(want_rows)} ({len(image_cas)} "
+                 f"images with PIL {have_pil}, {len(heic_cas)} HEIC, {len(video_cas)} videos)")
+        for p in heics:
+            if json.loads(rows[cas[str(p["path"])]]["dimensions"]) != {"width": p["w"], "height": p["h"]}:
+                fail(f"media_data of {p['path']}: {dict(rows[cas[str(p['path'])]])}")
+        for v in videos if probe["av_rows"] else ():
+            r = rows[cas[str(v["path"])]]
+            streams = json.loads(r["streams"] or "[]")
+            if (json.loads(r["dimensions"] or "{}") != {"width": v["w"], "height": v["h"]}
+                    or [s["codec_type"] for s in streams] != ["video"]
+                    or abs(r["duration_seconds"] - VIDEO_FRAMES / v["fps"]) > 0.5):
+                fail(f"media_data of {v['path']}: {dict(r)}")
         if not have_pil:
-            if rows:
-                fail(f"{len(rows)} media_data rows on a host without PIL (the reference writes none)")
-            log("media: PIL is missing: no media_data row was written, as the reference does")
+            log("media: PIL is missing: no image got a media_data row, as the reference does")
         else:
-            if set(rows) != image_cas:
-                fail(f"media_data has {len(rows)} rows for {len(image_cas)} images")
             for p in photos:
                 r = rows[cas[str(p["path"])]]
                 if json.loads(r["dimensions"]) != {"width": p["w"], "height": p["h"]}:
@@ -2562,7 +2862,7 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
                         camera.get("orientation"), r["media_date"], where.get("pluscode")) != (
                         e["make"], e["model"], e["orientation"], e["date"], want_code):
                     fail(f"media_data of {p['path']}: {dict(r)} against the EXIF written {e}")
-            log(f"media: media_data has one row for each of the {len(rows)} images, with the "
+            log(f"media: media_data has one row for each of the {len(image_cas)} images, with the "
                 f"written dimensions; {sum(1 for p in photos if p['exif'])} rows carry the EXIF "
                 "make, model, date, orientation and the GPS fix's plus code")
 
@@ -2581,18 +2881,21 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
             f"call; media job {rescan_s:.2f} s, status {rescan_job['status']})")
     finally:
         thumbnail.resize_images, thumbnail._decode_for_device = real_resize, real_decode
+        thumbnail._video_thumbnail = real_video
         node.shutdown()
+    audio = audio_probe(WORK / "audio", probe)
 
     if not calls:
         # no decoder here: drive the resize on the card on arrays made here
         gen = torch.Generator(device="cuda")
         gen.manual_seed(seed)
         arrays = [photo_pixels(gen, h, w) for h, w in ((750, 1000), (1008, 756), (200, 300))]
-        calls.append((arrays, thumbnail.resize_images(arrays, torch.device("cuda"))))
+        calls.append((arrays, thumbnail.resize_images(arrays, torch.device("cuda")), []))
         log("media: no thumbnail has been made on the card (no codecs); the resize ran on "
             f"{len(arrays)} arrays made here")
-    mp = sum(p["w"] * p["h"] for p in photos if str(p["path"]) in decoded) / 1e6
-    log(f"media job on {card}: {media_s:.2f} s for {len(photos) + len(corrupt)} files, "
+    mp = sum(p["w"] * p["h"] for p in photos + heics if str(p["path"]) in decoded) / 1e6
+    made = len(made_cas)
+    log(f"media job on {card}: {media_s:.2f} s for {n_files} files, "
         f"{made} thumbnails = {made / media_s:.1f} images/s, {mp:.1f} MP decoded = "
         f"{mp / media_s:.1f} MP/s; scan {scan_s:.2f} s; media job pipeline: page "
         f"{meta['pipeline_page_s']:.2f} s ({100 * meta['pipeline_page_s'] / meta['pipeline_wall_s']:.1f}%), "
@@ -2602,7 +2905,31 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
         f"({100 * meta['pipeline_commit_s'] / meta['pipeline_wall_s']:.1f}%) of wall "
         f"{meta['pipeline_wall_s']:.2f} s, {meta['pipeline_batches']} batches")
     log(f"media: decodes by route {routes[0]}, encodes by route {routes[1]}; files retried "
-        f"alone {routes[2]}; resize calls by shape {call_counts}")
+        f"alone {routes[2]}; media_data rows by probe route {routes[3]}; resize calls by shape "
+        f"{call_counts}")
+    by_fmt: dict = {}
+    for entry in photos + heics + videos + gated:
+        fmt = by_fmt.setdefault(entry["fmt"], {"files": 0, "thumbnails": 0, "rows": 0})
+        fmt["files"] += 1
+        fmt["thumbnails"] += cas[str(entry["path"])] in made_cas
+        fmt["rows"] += cas[str(entry["path"])] in rows
+    by_fmt["jpg (corrupt)"] = {"files": len(corrupt), "thumbnails": 0, "rows": 0}
+    log(f"media: by format (files, thumbnails, media_data rows): "
+        + "; ".join(f"{f} {v['files']}, {v['thumbnails']}, {v['rows']}" for f, v in by_fmt.items()))
+    log("media: host time by format (the decode and box-reduce of each batched file; the whole "
+        "per-file thumbnail of a video): "
+        + "; ".join(f"{f} {n} files {t:.2f} s = {1e3 * t / n:.1f} ms each"
+                    for f, (n, t) in sorted(host_s.items()))
+        + (f"; a native frame decode again after the scan {1e3 * sum(frame_s) / len(frame_s):.1f} ms "
+           f"each (green rows within {frame_dev:.1f} of the test gradient)" if frame_s else ""))
+    heif_calls = [(a, t, f) for a, t, f in calls if "heic" in f]
+    heif_shapes = sorted({(len(a), max(x.shape[0] for x in a), max(x.shape[1] for x in a))
+                          for a, _t, _f in heif_calls})
+    if heics and sum(f.count("heic") for _a, _t, f in calls) != len(heics):
+        fail(f"{sum(f.count('heic') for _a, _t, f in calls)} HEIF images reached the card's resize, "
+             f"{len(heics)} written")
+    log(f"media: {sum(f.count('heic') for _a, _t, f in calls)} HEIF images went through the card's "
+        f"resize in {len(heif_calls)} calls at shapes {heif_shapes}")
 
     # each call replayed: the resize's device time (profiler) and the copy
     # of its pinned u8 batch to the card (CUDA events); one call of each
@@ -2610,7 +2937,22 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
     # bounds and F.interpolate
     cuda = torch.device("cuda")
     per_call, by_shape, err = [], {}, 0
-    for arrays, thumbs in calls:
+    heif_diff = None
+    if heif_calls:
+        # one HEIF sub-batch whole: every lane of the card's output against the CPU's
+        arrays, thumbs, fmts = heif_calls[0]
+        want = resize.resize_batch_host(arrays, torch.device("cpu"))
+        heif_diff = sum(int((t.astype(np.int16) != w.astype(np.int16)).sum()) if t.shape == w.shape
+                        else t.size for t, w in zip(thumbs, want))
+        if heif_diff:
+            fail(f"the card's resize of a sub-batch with {fmts.count('heic')} HEIF images differs "
+                 f"from the CPU's at {heif_diff} values")
+        log(f"media: the card's resize of a sub-batch of {len(arrays)} images "
+            f"({fmts.count('heic')} HEIF) against the CPU's: 0 values differ")
+    else:
+        log("media: no HEIF image was resized on this machine (no libheif or no encoder): the "
+            "HEIF sub-batch check did not run")
+    for arrays, thumbs, _fmts in calls:
         shape = (len(arrays), max(a.shape[0] for a in arrays), max(a.shape[1] for a in arrays))
         pinned = torch.zeros((*shape, 3), dtype=torch.uint8, pin_memory=True)
         staged = pinned.numpy()
@@ -2651,7 +2993,9 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
     for shape, t in by_shape.items():
         t["calls"] = counts.get(shape, 0)
     return {"calls": sum(call_counts.values()), "call_counts": counts, "by_shape": by_shape,
-            "max_abs_err": err, "per_call": per_call, "media_s": media_s, "images": made}
+            "max_abs_err": err, "per_call": per_call, "media_s": media_s, "images": made,
+            "heif_images": sum(f.count("heic") for _a, _t, f in calls), "heif_shapes": heif_shapes,
+            "heif_differing": heif_diff, "by_format": by_fmt, "audio": audio}
 
 
 def main() -> int:
@@ -2803,6 +3147,8 @@ def main() -> int:
         programs.append({
             "name": "resize_batch", "route": "pytorch", "source": "spacedrive_tpu_torch/ops/resize.py",
             "replaces": "spacedrive_tpu/ops/resize_jax.py:63", "calls": media["calls"],
+            "heif_images": media["heif_images"], "heif_shapes": media["heif_shapes"],
+            "heif_differing_values": media["heif_differing"],
             "max_abs_err": max(errs["resize_batch"], media["max_abs_err"]), **resize_row(t),
             "other_shapes": {s["shape"]: resize_row(s) for _k, s in shapes[1:]},
             "example_full_sub_batch": resize_row(resize_example)})

@@ -1,21 +1,33 @@
-"""Image metadata: EXIF fields and the GPS fix as a ``media_data`` row.
+"""Media metadata as a ``media_data`` row: EXIF and the GPS fix of an
+image, the dimensions of a HEIF image, the streams of a video or an audio
+file.
 
-Counterpart of the image part of ``spacedrive_tpu/objects/media/
-metadata.py`` (``extract_media_data`` :39, ``_extract_image`` :72,
-``_gps_to_decimal`` :232, ``encode_pluscode`` :260): the image's
-dimensions, capture date, camera fields (make, model, orientation,
-software, exposure, aperture, ISO, focal length, flash, lens), and the GPS
-location with its Open Location Code. EXIF is read with PIL only, as in the
-reference: without PIL an image gets no row. Audio, video and HEIF wait for
-their slice; ``extract_media_data`` answers None for them.
+Counterpart of ``spacedrive_tpu/objects/media/metadata.py``
+(``extract_media_data`` :39, ``_extract_heif`` :55, ``_extract_image``
+:72, ``_extract_av`` :122, ``_native_probe`` :184, ``_gps_to_decimal``
+:232, ``encode_pluscode`` :260). An image gets its dimensions, capture
+date, camera fields (make, model, orientation, software, exposure,
+aperture, ISO, focal length, flash, lens) and the GPS location with its
+Open Location Code, read with PIL only, as in the reference: without PIL
+an image gets no row. A HEIF image gets the dimensions libheif reads from
+its container, with no HEVC decode. A video or an audio file gets its
+duration, bit rate, container tags and streams from the linked libav
+probe (``native/sd_ffmpeg.cc``), else from an ``ffprobe`` subprocess,
+both shaped alike; with neither (or no libheif) the file gets no row.
+:data:`PROBES` counts the rows each route made.
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import shutil
+import subprocess
+from collections import Counter
 from typing import Any
 
-from .thumbnail import THUMBNAILABLE_IMAGE_EXTENSIONS
+from . import thumbnail
+from .thumbnail import HEIF_EXTENSIONS, THUMBNAILABLE_IMAGE_EXTENSIONS, THUMBNAILABLE_VIDEO_EXTENSIONS
 
 logger = logging.getLogger(__name__)
 
@@ -32,10 +44,43 @@ _EXIF_IFD_TAGS = {
 }
 
 
+AUDIO_EXTENSIONS = {"mp3", "wav", "flac", "ogg", "m4a", "aac", "opus", "wma"}
+
+_FFPROBE = shutil.which("ffprobe")
+
+#: rows made, by route: "heif" (container dimensions), "native" (the libav
+#: probe), "ffprobe"
+PROBES: Counter = Counter()
+
+
+def reset_counts() -> None:
+    PROBES.clear()
+
+
 def extract_media_data(path: str, extension: str) -> dict[str, Any] | None:
     if extension in THUMBNAILABLE_IMAGE_EXTENSIONS:
         return _extract_image(path)
+    if extension in HEIF_EXTENSIONS:
+        return _extract_heif(path)
+    if extension in THUMBNAILABLE_VIDEO_EXTENSIONS or extension in AUDIO_EXTENSIONS:
+        return _extract_av(path)
     return None
+
+
+def _extract_heif(path: str) -> dict[str, Any] | None:
+    """The primary image's dimensions, read from the container without an
+    HEVC decode (PIL opens no HEIF; EXIF inside HEIF is not read, as in the
+    reference)."""
+    heif = thumbnail._native_heif()
+    if heif is None:
+        return None
+    try:
+        w, h = heif.dims(path)
+    except Exception as e:
+        logger.debug("no media data for %s: %s", path, e)
+        return None
+    PROBES["heif"] += 1
+    return {"dimensions": {"width": w, "height": h}}
 
 
 def _extract_image(path: str) -> dict[str, Any] | None:
@@ -86,6 +131,117 @@ def _extract_image(path: str) -> dict[str, Any] | None:
     except Exception as e:
         logger.debug("no media data for %s: %s", path, e)
         return None
+
+
+def _extract_av(path: str) -> dict[str, Any] | None:
+    """Stream metadata (duration, codecs, dimensions, rates): the linked
+    libav probe where the native wrapper builds, else ``ffprobe``."""
+    native = _native_probe(path)
+    if native is not None:
+        PROBES["native"] += 1
+        return native
+    if _FFPROBE is None:
+        return None
+    try:
+        proc = subprocess.run(
+            [_FFPROBE, "-v", "error", "-print_format", "json",
+             "-show_format", "-show_streams", path],
+            capture_output=True, timeout=30, check=True)
+        probe = json.loads(proc.stdout.decode())
+    except Exception as e:
+        logger.debug("ffprobe failed for %s: %s", path, e)
+        return None
+    out: dict[str, Any] = {}
+    fmt = probe.get("format", {})
+    streams_out = []
+    for stream in probe.get("streams", []):
+        entry: dict[str, Any] = {
+            "codec_type": stream.get("codec_type"),
+            "codec": stream.get("codec_name"),
+        }
+        if stream.get("codec_type") == "video":
+            entry["width"] = stream.get("width")
+            entry["height"] = stream.get("height")
+            rate = stream.get("avg_frame_rate", "0/1")
+            try:
+                num, _, den = rate.partition("/")
+                entry["fps"] = round(float(num) / float(den or 1), 3)
+            except (ValueError, ZeroDivisionError):
+                pass
+            # the first real video stream gives the dimensions; cover art
+            # never does (as in the native probe: rows shaped alike)
+            attached = (stream.get("disposition") or {}).get("attached_pic")
+            if "width" in stream and "height" in stream and not attached:
+                out.setdefault("dimensions", {"width": stream["width"],
+                                              "height": stream["height"]})
+        elif stream.get("codec_type") == "audio":
+            entry["channels"] = stream.get("channels")
+            # ffprobe writes sample_rate as a string, the native probe an int
+            rate = stream.get("sample_rate")
+            entry["sample_rate"] = int(rate) if rate is not None else None
+        streams_out.append(entry)
+    duration = fmt.get("duration")
+    if duration is not None:
+        out["duration_seconds"] = round(float(duration), 3)
+    if fmt.get("bit_rate"):
+        out["bit_rate"] = int(fmt["bit_rate"])
+    if streams_out:
+        out["streams"] = streams_out
+    tags = fmt.get("tags", {}) or {}
+    for src, dst in (("artist", "artist"), ("copyright", "copyright"),
+                     ("creation_time", "media_date")):
+        if tags.get(src):
+            out[dst] = str(tags[src])
+    if out:
+        PROBES["ffprobe"] += 1
+    return out or None
+
+
+def _native_probe(path: str) -> dict[str, Any] | None:
+    """The ``media_data`` fields from the linked libav probe, shaped as the
+    ffprobe branch shapes them, so that either route fills the same
+    columns."""
+    native = thumbnail._native_ffmpeg()
+    if native is None:
+        return None
+    try:
+        probe = native.probe(path)
+    except Exception as e:
+        logger.debug("native probe failed for %s: %s", path, e)
+        return None
+    out: dict[str, Any] = {}
+    streams_out = []
+    for stream in probe.get("streams", []):
+        entry: dict[str, Any] = {
+            "codec_type": stream.get("codec_type"),
+            "codec": stream.get("codec"),
+        }
+        if stream.get("codec_type") == "video":
+            entry["width"] = stream.get("width")
+            entry["height"] = stream.get("height")
+            if stream.get("fps"):
+                entry["fps"] = stream["fps"]
+            # cover art never gives the media's dimensions
+            if not stream.get("attached_pic") and "width" in stream:
+                out.setdefault("dimensions", {"width": stream["width"],
+                                              "height": stream["height"]})
+        elif stream.get("codec_type") == "audio":
+            entry["channels"] = stream.get("channels")
+            entry["sample_rate"] = stream.get("sample_rate")
+        streams_out.append(entry)
+    if probe.get("duration_seconds") is not None:
+        out["duration_seconds"] = probe["duration_seconds"]
+    if probe.get("bit_rate"):
+        out["bit_rate"] = int(probe["bit_rate"])
+    if streams_out:
+        out["streams"] = streams_out
+    tags = probe.get("tags", {}) or {}
+    lower = {k.lower(): v for k, v in tags.items()}
+    for src, dst in (("artist", "artist"), ("copyright", "copyright"),
+                     ("creation_time", "media_date")):
+        if lower.get(src):
+            out[dst] = str(lower[src])
+    return out or None
 
 
 def _gps_to_decimal(gps: dict) -> dict[str, float] | None:

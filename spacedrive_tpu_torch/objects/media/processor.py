@@ -1,5 +1,4 @@
-"""MediaProcessorJob: image thumbnails and image metadata, chained after
-identify.
+"""MediaProcessorJob: thumbnails and media metadata, chained after identify.
 
 Counterpart of ``spacedrive_tpu/objects/media/processor.py`` (:38-186).
 A step is 256 files, one device batch of the resize. The job runs on the
@@ -7,19 +6,24 @@ streaming pipeline (:mod:`...pipeline`) unless ``SD_PIPELINE=0``:
 ``pipeline_page`` reads the step's rows, ``pipeline_process`` decodes,
 resizes on the node's device, encodes and reads EXIF (no database), and
 ``pipeline_commit`` upserts the ``media_data`` rows in one transaction and
-emits a ``new_thumbnail`` event for each thumbnail.
+emits a ``new_thumbnail`` event for each thumbnail. The job selects the
+rows of every thumbnailable extension (images, HEIF images and videos, as
+the reference's ``_thumbable_extensions`` :189); a file whose format has no
+codec on this host (:func:`.thumbnail.can_generate_thumbnail`) gets no
+thumbnail and no error, and its row only if the metadata extractor reads
+it.
 
 Two differences from the reference. Its ``tpuThumbnails`` feature gate is
 not ported (the port has no feature flags): thumbnails always take the
 batched route on the node's device. And a device failure fails the step
 with its error: no file is then retried through PIL. A file whose host
-decode or encode failed in the batch is retried alone through
-:func:`.thumbnail.generate_thumbnail`, as in the reference;
-:data:`SCALAR_RETRIES` counts those retries by extension.
+decode or encode failed in the batch, and a video whose thumbnail failed,
+is retried alone through :func:`.thumbnail.generate_thumbnail`, as in the
+reference; :data:`SCALAR_RETRIES` counts those retries by extension, and a
+retry that fails too is an error line.
 
-Only image extensions are selected: video, audio and HEIF wait for their
-slice. The reference's media lane and its warm start per identified prefix
-are not ported.
+The reference's media lane and its warm start per identified prefix are
+not ported.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from ...jobs import EarlyFinish, JobError, StatefulJob, StepResult
 from ...models import FilePath, Location, MediaData
 from ..file_identifier import abs_path
 from .metadata import extract_media_data
-from .thumbnail import (THUMBNAILABLE_IMAGE_EXTENSIONS, can_generate_thumbnail,
+from .thumbnail import (HEIF_EXTENSIONS, THUMBNAILABLE_IMAGE_EXTENSIONS,
+                        THUMBNAILABLE_VIDEO_EXTENSIONS, can_generate_thumbnail,
                         generate_thumbnail, generate_thumbnails_batched)
 
 logger = logging.getLogger(__name__)
@@ -55,7 +60,7 @@ class MediaProcessorJob(StatefulJob):
         if location.get("generate_preview_media") is False:
             raise EarlyFinish("preview media disabled for location")
 
-        exts = sorted(THUMBNAILABLE_IMAGE_EXTENSIONS)
+        exts = sorted(_thumbable_extensions())
         marks = ",".join("?" for _ in exts)
         sub = self.init_args.get("sub_path")
         sub_sql, sub_params = ("", [])
@@ -116,7 +121,7 @@ class MediaProcessorJob(StatefulJob):
         # the step is the device batch; a failure of the device resize
         # raises here and fails the step
         made = generate_thumbnails_batched(
-            [(path, row["cas_id"]) for row, path, ext in entries
+            [(path, row["cas_id"], ext) for row, path, ext in entries
              if can_generate_thumbnail(ext)], node.data_dir, node.device)
         thumbed: list[str] = []  # cas_ids with a thumbnail
         media_rows: list[tuple[int, dict]] = []  # (object_id, fields)
@@ -128,7 +133,7 @@ class MediaProcessorJob(StatefulJob):
                         # the batch left it out (host decode or encode
                         # failed): retry it alone, and record a failure
                         SCALAR_RETRIES[ext] += 1
-                        out = generate_thumbnail(path, node.data_dir, row["cas_id"])
+                        out = generate_thumbnail(path, node.data_dir, row["cas_id"], ext)
                         if out is None:
                             errors.append(f"{path}: thumbnail failed (batched + scalar retry)")
                     if out is not None:
@@ -159,3 +164,7 @@ class MediaProcessorJob(StatefulJob):
         ctx.library.emit("invalidate_query", {"key": "search.paths"})
         logger.info("media_processor finished: %s", run_metadata)
         return run_metadata
+
+
+def _thumbable_extensions() -> set[str]:
+    return THUMBNAILABLE_IMAGE_EXTENSIONS | THUMBNAILABLE_VIDEO_EXTENSIONS | HEIF_EXTENSIONS

@@ -32,7 +32,7 @@ each u8 output once (for a (32, 1024, 1024, 3) batch 100.66 MB + 25.17 MB,
 ~0.038 ms at 3.35 TB/s). The two passes here are a few gather and
 elementwise programs each, with fp32 and fp64 temporaries in device
 memory; a kernel that does both passes in one would approach the bound
-(ROADMAP Queue 4). The reference's dense form would compute
+(ROADMAP, After the port). The reference's dense form would compute
 2*B*512*H_in*W_in*3 + 2*B*512*512*W_in*3 fp32 operations (154.6 GFLOP at
 that shape).
 

@@ -504,3 +504,36 @@ def test_a_raise_in_the_card_resize_fails_the_media_job(card, tmp_path, monkeypa
     finally:
         node.shutdown()
     assert not processor.SCALAR_RETRIES
+
+
+def test_heif_decode_then_the_card_resize_matches_the_cpu(card, tmp_path):
+    """HEIF images decoded by libheif and box-reduced on the host, as the
+    thumbnailer does, then resized on the card: 0 values differ from the
+    CPU's resize. Skips where libheif or its encoder is missing."""
+    from spacedrive_tpu_torch.native import NativeBuildError, heif_native
+    from spacedrive_tpu_torch.objects.media import thumbnail
+    from spacedrive_tpu_torch.ops import resize
+
+    try:
+        if not heif_native.available():
+            pytest.skip("the libheif runtime (libheif.so.1) is not present on this machine")
+    except NativeBuildError as e:
+        pytest.skip(f"the libheif binding does not build here: {e}")
+    arrays = []
+    for i, (h, w) in enumerate([(2016, 1512), (1512, 2016), (480, 640), (48, 64)]):
+        rng = np.random.default_rng(i)
+        y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+        phase = rng.uniform(0, 6.28, 3)
+        rgb = np.stack([127 + 100 * np.sin(x / (41 + 9 * c) + y / (53 + 5 * c) + phase[c])
+                        for c in range(3)], axis=-1)
+        path = tmp_path / f"p{i}.heic"
+        if not heif_native.encode_file(path, np.clip(rgb, 0, 255).astype(np.uint8)):
+            pytest.skip("this libheif build has no HEVC or AV1 encoder")
+        arrays.append(thumbnail._decode_for_device(path))
+    assert [a.shape[:2] for a in arrays] == [(1008, 756), (756, 1008), (480, 640), (48, 64)]
+    resize.reset_counts()
+    got = resize.resize_batch_host(arrays, card)
+    assert resize.CALLS == {("cuda", (4, 1008, 1008)): 1}
+    want = resize.resize_batch_host(arrays, torch.device("cpu"))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.array_equal(g, w)
