@@ -105,7 +105,26 @@ no result line):
    and one call of each shape on four lanes, time each shape beside its
    bounds and the ``F.interpolate`` loop, and replay each call under the
    profiler for its device and H2D time;
-7. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
+7. the object validator, the mesh and the ``tpu-sharded`` hasher, on phase
+   4's node after phase 5: validate the scan's location on the card
+   (``jobs.objectValidator``, every file's full-file BLAKE3 in 2 MiB windows
+   through both BLAKE3 kernels, then the levels above them; 16,320 files,
+   140 GB, mostly sparse), log files/s, GB/s, the seconds of reads, H2D and
+   kernels and the launches by shape; hold the stored checksums of 4 large
+   files against the long route's plain version on the card and 8 small
+   ones against the Python oracle, and the route against its plain version
+   on an edge set of lengths at 4-chunk windows merged 4 at a time (and
+   against the oracle) and at the default window, up to two sparse files
+   past FAN_IN x WINDOW_CHUNKS chunks; run the four mesh programs over
+   every visible card and over ``["cuda:0"] * 2`` (also with seq = 2), each
+   equal to the one-device call, and time them; scan 4 of the tree's
+   directories (hard links) into a ``tpu-sharded`` location over a
+   two-shard mesh, whose cas_ids must equal phase 4's; then change one byte
+   of a small and one in a middle window of a large file of one directory
+   and revalidate that ``sub_path``, which must report exactly those two
+   with the reference's text; time both kernels at the validator's window
+   shapes;
+8. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
    the resize's times, calls on the path, CUDA kernels a call, and bounds),
    the card, the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line.
@@ -1670,6 +1689,7 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
         del pipelined_rows
         profiled_scan(node, tree_dir)
         search = search_phase(node, lib, corpus, card)
+        validated = validator_phase(node, lib, loc, tree, tree_dir, rows, seed, int32_ops_per_s)
     finally:
         node.shutdown()
 
@@ -1694,7 +1714,435 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
         log(f"main path: {kernel} launches by shape: {shapes}")
     return {"launches": launches, "by_shape": by_shape, "pages": pages, "search": search,
             "programs": programs, "program_calls": program_calls, "dedup": dedup,
-            "fused": fused}
+            "fused": fused, "validator": validated}
+
+
+# --------------------------------------------------------------------------
+# phase 7: the object validator, the device mesh and a tpu-sharded scan
+# --------------------------------------------------------------------------
+
+
+def write_sparse(path: Path, size: int, seed: int) -> None:
+    """A sparse file of ``size`` bytes with 4 KiB of seeded random bytes at
+    its start, its middle and its end."""
+    rng = random.Random(seed)
+    with open(path, "wb") as fh:
+        fh.truncate(size)
+        for off in (0, size // 2, max(0, size - 4096)):
+            fh.seek(off)
+            fh.write(rng.randbytes(min(4096, size - off)))
+
+
+def validator_job(db) -> tuple[dict, dict]:
+    """(job row, metadata) of the last object_validator job."""
+    row = dict(db.query("SELECT * FROM job WHERE name = 'object_validator' "
+                        "ORDER BY date_created")[-1])
+    return row, json.loads(row["metadata"]) if row["metadata"] else {}
+
+
+def window_timing(window: tuple, top: tuple, int32_ops_per_s: float, flush) -> dict:
+    """Both BLAKE3 kernels at the validator's shapes: the chunk kernel on
+    full 2 MiB windows of a long message (offsets past chunk 0, no ROOT),
+    the merge of those windows without ROOT, and the level above them with
+    ROOT at the shape the validator launched most. Device time (profiler),
+    L2-warm and cleared, the wrapper call and the plain version."""
+    import torch
+
+    from spacedrive_tpu_torch.ops import blake3 as b3
+
+    out = {}
+    B, C = window
+    g = torch.Generator(device="cuda")
+    g.manual_seed(12)
+    rows = torch.randint(-2**31, 2**31 - 1, (B, C * 256), dtype=torch.int32, device="cuda",
+                         generator=g)
+    base = torch.arange(1, B + 1, dtype=torch.int64, device="cuda") * C
+    total = torch.full((B,), (B + 2) * C * 1024, dtype=torch.int64, device="cuda")
+    lengths = torch.full((B,), C * 1024, dtype=torch.int32, device="cuda")
+    root = torch.zeros(B, dtype=torch.bool, device="cuda")
+    blocks = B * C * 16
+    cvs = b3.chunk_cvs(rows, lengths, base, total)
+    pcvs = b3.chunk_cvs_plain(rows, lengths, base, total)
+    if not torch.equal(b3.u32(cvs), pcvs):
+        fail("blake3_chunk_cvs disagrees with its plain version on the window rows")
+    out["blake3_chunk_cvs@window"] = {
+        "ms": device_ms(lambda: b3.chunk_cvs(rows, lengths, base, total), "chunk_cvs_kernel"),
+        "cold_ms": device_ms(lambda: b3.chunk_cvs(rows, lengths, base, total), "chunk_cvs_kernel",
+                             between=flush.zero_),
+        "call_ms": time_ms(lambda: b3.chunk_cvs(rows, lengths, base, total), 50),
+        "plain_ms": time_ms(lambda: b3.chunk_cvs_plain(rows, lengths, base, total), 2, warmup=1),
+        "bound": bound_ms(B * C * 1024 + B * 20 + B * C * 32, blocks * OPS_PER_COMPRESSION,
+                          int32_ops_per_s),
+        "shape": f"rows ({B}, {C}*256) u32, full 2 MiB windows at chunk offsets {C}..{B * C}, "
+                 f"no ROOT, {B * C} chunks"}
+    if not torch.equal(b3.u32(b3.merge(cvs, lengths, root)), b3.merge_plain(pcvs, lengths, root)):
+        fail("blake3_merge disagrees with its plain version on the window CVs (no ROOT)")
+    parents = B * (C - 1)
+    out["blake3_merge@window"] = {
+        "ms": device_ms(lambda: b3.merge(cvs, lengths, root), "merge_kernel"),
+        "cold_ms": device_ms(lambda: b3.merge(cvs, lengths, root), "merge_kernel",
+                             between=flush.zero_),
+        "call_ms": time_ms(lambda: b3.merge(cvs, lengths, root), 50),
+        "plain_ms": time_ms(lambda: b3.merge_plain(pcvs, lengths, root), 2, warmup=1),
+        "bound": bound_ms(B * C * 32 + B * 5 + B * 32, parents * OPS_PER_COMPRESSION,
+                          int32_ops_per_s),
+        "shape": f"cvs ({B}, {C}, 8) u32, one subtree CV a row, no ROOT, {parents} parents, "
+                 f"{(C - 1).bit_length()} levels"}
+    R, Cl, nodes = top
+    top_cvs = torch.randint(-2**31, 2**31 - 1, (R, Cl, 8), dtype=torch.int32, device="cuda",
+                        generator=g)
+    top_len = torch.tensor([n * 1024 for n in nodes], dtype=torch.int32, device="cuda")
+    top_root = torch.ones(R, dtype=torch.bool, device="cuda")
+    if not torch.equal(b3.u32(b3.merge(top_cvs, top_len, top_root)),
+                       b3.merge_plain(top_cvs, top_len, top_root)):
+        fail("blake3_merge disagrees with its plain version at the top level")
+    parents = sum(n - 1 for n in nodes)
+    out["blake3_merge@top"] = {
+        "ms": device_ms(lambda: b3.merge(top_cvs, top_len, top_root), "merge_kernel"),
+        "cold_ms": device_ms(lambda: b3.merge(top_cvs, top_len, top_root), "merge_kernel",
+                             between=flush.zero_),
+        "call_ms": time_ms(lambda: b3.merge(top_cvs, top_len, top_root), 50),
+        "plain_ms": time_ms(lambda: b3.merge_plain(top_cvs, top_len, top_root), 2, warmup=1),
+        "bound": bound_ms(sum(nodes) * 32 + R * 5 + R * 32, parents * OPS_PER_COMPRESSION,
+                          int32_ops_per_s),
+        "shape": f"cvs ({R}, {Cl}, 8) u32, the level above a step's windows with ROOT, "
+                 f"{sum(nodes)} window CVs, {parents} parents"}
+    for name, t in out.items():
+        b, by = t["bound"]
+        log(f"time: {name} [{t['shape']}]: kernel {t['ms']:.4f} ms (device time; a wrapper call "
+            f"{t['call_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, bound {b:.4f} ms ({by}), "
+            f"kernel at {100 * b / t['ms']:.1f}% of bound; with the L2 cleared before each call "
+            f"{t['cold_ms']:.4f} ms")
+    return out
+
+
+def validator_checks(tree: dict, row_of) -> dict:
+    """The long route against its plain version on the card: 4 of the
+    tree's large files (their stored checksums), 8 small files against the
+    Python oracle, the edge set at 4-chunk windows merged 4 at a time (also
+    against the oracle) and at the default window (files of 0 B-4 MiB, and
+    two sparse files past FAN_IN x WINDOW_CHUNKS chunks, which take a second
+    merge level). Plain runs stage 512 MiB a batch."""
+    from spacedrive_tpu_torch.objects.blake3_ref import blake3 as oracle
+    from spacedrive_tpu_torch.objects.validator import full_file_hashes
+    from spacedrive_tpu_torch.ops import blake3 as b3
+
+    plain = {"plain": True, "staging_bytes": 512 << 20}
+    sizes = tree["sizes"]
+    large = [i for i, s in enumerate(sizes) if s > 16 << 20][:4]
+    paths = [tree["paths"][i] for i in large]
+    t0 = time.perf_counter()
+    want = full_file_hashes(paths, "cuda", **plain)
+    stored = [row_of(p)["integrity_checksum"] for p in paths]
+    if stored != want:
+        fail(f"stored checksums of 4 large files differ from the plain route: {stored} {want}")
+    small = [i for i, s in enumerate(sizes) if 0 < s <= 100 << 10][:8]
+    for i in small:
+        p = tree["paths"][i]
+        if row_of(p)["integrity_checksum"] != oracle(p.read_bytes()).hex():
+            fail(f"the stored checksum of {p} differs from the Python oracle")
+    log(f"validator: 4 large files ({sum(sizes[i] for i in large) / 2**20:.0f} MiB) equal the "
+        f"plain route on the card and 8 small files the Python oracle "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    edges_dir = WORK / "edges"
+    edges_dir.mkdir(parents=True, exist_ok=True)
+    K = 1024
+    results = {}
+    for W, F, label in ((4, 4, "W = 4, F = 4"),
+                        (b3.WINDOW_CHUNKS, b3.FAN_IN, "the default window")):
+        lens = (0, 1, K, K + 1, W * K - 1, W * K, W * K + 1, 2 * W * K, W * F * K + 1,
+                W * F * K + 17)
+        files = []
+        for n in lens:
+            path = edges_dir / f"w{W}-{n}.bin"
+            if n > 64 << 20:
+                write_sparse(path, n, n)
+            else:
+                path.write_bytes(random.Random(n).randbytes(n))
+            files.append(path)
+        t0 = time.perf_counter()
+        stats: dict = {}
+        got = full_file_hashes(files, "cuda", window_chunks=W, fan_in=F, stats=stats)
+        kernel_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = full_file_hashes(files, "cuda", window_chunks=W, fan_in=F, **plain)
+        plain_s = time.perf_counter() - t0
+        if got != ref:
+            fail(f"the long route disagrees with its plain version on the edge set at {label}: "
+                 f"{[n for n, a, b in zip(lens, got, ref) if a != b]}")
+        small = [k for k, n in enumerate(lens) if n <= 20 * K]
+        for k in small:
+            if got[k] != oracle(files[k].read_bytes()).hex():
+                fail(f"the long route's digest of {lens[k]} B at {label} differs from the oracle")
+        log(f"validator: edge set at {label} ({list(lens)} B) equals the plain route on the card "
+            f"({kernel_s:.2f} s; plain {plain_s:.2f} s) and, at {[lens[k] for k in small]} B, "
+            f"the Python oracle; {stats['windows']} windows, {stats['batches']} launch pairs, "
+            f"{stats['levels']} merge levels above the windows")
+        results[label] = {"lens": list(lens), "levels": stats["levels"]}
+    shutil.rmtree(edges_dir)
+    return results
+
+
+def blake3_blocks(lens: list[int]) -> int:
+    """64-byte blocks BLAKE3 compresses for messages of these lengths."""
+    return sum(max(1, -(-min(n - c * 1024, 1024) // 64))
+               for n in lens for c in range(max(1, -(-n // 1024))))
+
+
+def mesh_checks(seed: int, int32_ops_per_s: float) -> dict:
+    """The four mesh programs over every visible card, and over
+    ``["cuda:0"] * 2`` (seq = 1: two batch shards; seq = 2: each message's
+    chunks in two windows), each equal to the one-device call. Each program
+    is timed a call (CUDA events, its inputs on the host as its callers pass
+    them, so the copies to the card are in the time) beside the bound of
+    its device work."""
+    import numpy as np
+    import torch
+
+    from spacedrive_tpu_torch.objects.blake3_ref import blake3 as oracle
+    from spacedrive_tpu_torch.ops import blake3 as b3
+    from spacedrive_tpu_torch.ops.resize import resize_batch, target_dims
+    from spacedrive_tpu_torch.parallel import mesh as tm
+
+    rng = random.Random(seed + 7)
+    msgs = [rng.randbytes(rng.choice((0, 1, 1024, 1025, rng.randint(2, 64 * 1024))))
+            for _ in range(1000)]
+    # copies of three messages of over a chunk (random, so unique) and an
+    # empty lane, which is never a duplicate
+    planted = [i for i, m in enumerate(msgs) if len(m) > 1025][:3]
+    msgs += [msgs[planted[0]], msgs[planted[1]], b"", msgs[planted[2]]]
+    msgs += [rng.randbytes(57352) for _ in range(20)]
+    words, lengths = b3.pack_messages(msgs, 64)
+    one = b3.blake3_batch(torch.from_numpy(words.view(np.int32)).cuda(),
+                          torch.from_numpy(lengths).cuda())
+    for i in (0, planted[0], 1000, 1023):
+        if b3.digests_to_hex(one[:, i : i + 1])[0] != oracle(msgs[i]).hex():
+            fail(f"one-device blake3_batch digest {i} differs from the oracle")
+    prefix = (b3.u32(one[0]) << 32) | b3.u32(one[1])
+    one_dup = tm.dup_flags(prefix, torch.from_numpy(lengths).cuda() > 0)
+    rows, row_lens = b3.pack_rows(msgs, 64)
+    imgs = np.random.default_rng(seed).integers(0, 256, (8, 480, 640, 3), dtype=np.uint8)
+    th, tw = target_dims(640, 480)
+    src = np.tile(np.int32([480, 640]), (8, 1))
+    tgt = np.tile(np.int32([th, tw]), (8, 1))
+    one_img = resize_batch(torch.from_numpy(imgs).cuda(), torch.from_numpy(src).cuda(),
+                           torch.from_numpy(tgt).cuda())
+    meshes = [("every visible card", tm.make_mesh()),
+              ('["cuda:0"] * 2', tm.make_mesh(devices=["cuda:0"] * 2)),
+              ('["cuda:0"] * 2, seq = 2', tm.make_mesh(seq=2, devices=["cuda:0"] * 2))]
+    out = []
+    for label, mesh in meshes:
+        digests = tm.sharded_hasher(mesh)(words, lengths)
+        row_digests = tm.sharded_row_hasher(mesh)(rows, row_lens)
+        id_digests, dup = tm.identify_step(mesh)(words, lengths)
+        resized = tm.sharded_resizer(mesh)(imgs, src, tgt)
+        bad = [name for name, a, b in (("sharded_hasher", digests, one),
+                                       ("sharded_row_hasher", row_digests, one),
+                                       ("identify_step digests", id_digests, one),
+                                       ("identify_step dup", dup, one_dup),
+                                       ("sharded_resizer", resized, one_img))
+               if not torch.equal(a, b)]
+        if bad:
+            fail(f"mesh over {label}: {bad} differ from the one-device call")
+        if not (dup[1000] and dup[1001] and dup[1003]) or dup[1002]:
+            fail(f"identify_step over {label} flagged {dup.nonzero().flatten().tolist()}")
+        ms = {"sharded_hasher": time_ms(lambda: tm.sharded_hasher(mesh)(words, lengths), 3, 1),
+              "sharded_row_hasher": time_ms(lambda: tm.sharded_row_hasher(mesh)(rows, row_lens),
+                                            3, 1),
+              "identify_step": time_ms(lambda: tm.identify_step(mesh)(words, lengths), 3, 1),
+              "sharded_resizer": time_ms(lambda: tm.sharded_resizer(mesh)(imgs, src, tgt), 3, 1)}
+        out.append({"mesh": label, "shape": mesh.shape, "ms": ms})
+    blocks = blake3_blocks([len(m) for m in msgs])
+    hash_bound = bound_ms(blocks * 64 + words.nbytes // 16 + len(msgs) * 36,
+                          blocks * OPS_PER_COMPRESSION, int32_ops_per_s)
+    resize_bound = bound_ms(imgs.nbytes + 8 * 512 * 512 * 3, 0, int32_ops_per_s)
+    log(f"mesh: sharded_hasher, sharded_row_hasher, identify_step and sharded_resizer over "
+        f"{[(m['mesh'], m['shape']) for m in out]} equal the one-device call on "
+        f"{len(msgs)} messages in 64-chunk rows (3 planted duplicates flagged, the empty lanes "
+        f"not) and 8 images of 640x480; ms a call with its host-to-device copies "
+        f"{[(m['mesh'], m['ms']) for m in out]}; device-work bound of the hashers "
+        f"{hash_bound[0]:.4f} ms ({hash_bound[1]}, {blocks} blocks), of the resizer "
+        f"{resize_bound[0]:.4f} ms ({resize_bound[1]})")
+    return {"meshes": out, "hash_bound": hash_bound, "resize_bound": resize_bound}
+
+
+def sharded_scan(node, tree_dir: Path, phase4_rows: dict) -> dict:
+    """A tpu-sharded location over 4 of the tree's directories (hard links,
+    no new bytes) with the node's mesh over ``["cuda:0"] * 2``: its cas_ids
+    equal phase 4's, and its hash went through the sharded programs."""
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.models import Location
+    from spacedrive_tpu_torch.ops import _kernels
+
+    root = WORK / "sharded"
+    for d in range(4):
+        (root / f"d{d:02d}").mkdir(parents=True)
+        for p in (tree_dir / f"d{d:02d}").iterdir():
+            os.link(p, root / f"d{d:02d}" / p.name)
+    node.mesh_devices = ["cuda:0"] * 2
+    lib = node.libraries.create("chip-smoke-sharded")
+    loc = create_location(lib, root, hasher="tpu-sharded")
+    lib.db.update(Location, {"id": loc["id"]}, {"generate_preview_media": False})
+    _kernels.reset_counts()
+    t0 = time.perf_counter()
+    scan_location(lib, loc["id"])
+    if not node.jobs.wait_idle(900):
+        fail("the tpu-sharded scan did not finish within 900 s")
+    scan_s = time.perf_counter() - t0
+    by_shape = shape_counts(_kernels.LAUNCHES_BY_SHAPE)
+    job, meta, ident_s = identify_job(lib.db)
+    if job["status"] != JobStatus.COMPLETED:
+        fail(f"the tpu-sharded identify job ended {job}")
+    if node.sharded_hasher is None or node.sharded_hasher.mesh.shape != {"data": 2, "seq": 1}:
+        fail("the tpu-sharded scan did not hash over the node's two-shard mesh")
+    rows = {(r["materialized_path"], r["name"], r["extension"]): r["cas_id"] for r in lib.db.query(
+        "SELECT materialized_path, name, extension, cas_id FROM file_path WHERE is_dir = 0")}
+    differ = [k for k, cas in rows.items() if phase4_rows[k]["cas_id"] != cas]
+    if len(rows) != 4 * len(list((tree_dir / "d00").iterdir())) or differ:
+        fail(f"the tpu-sharded scan's {len(rows)} cas_ids: {len(differ)} differ from phase 4's, "
+             f"e.g. {differ[:2]}")
+    log(f"sharded scan: {len(rows)} files of 4 directories in a tpu-sharded location, scan "
+        f"{scan_s:.2f} s, identify {ident_s:.2f} s; every cas_id equals phase 4's; BLAKE3 "
+        f"launches by shape (each batch split over 2 shards): "
+        f"{ {k: v for k, v in by_shape.items() if k.startswith('blake3')} }")
+    return {"files": len(rows), "scan_s": scan_s, "by_shape": by_shape}
+
+
+def validator_phase(node, lib, loc: dict, tree: dict, tree_dir: Path, phase4_rows: dict,
+                    seed: int, int32_ops_per_s: float) -> dict:
+    """Phase 7: validate the scan's location on the card, hold the long
+    route to its plain version, tamper with two files of one directory and
+    revalidate it, run the mesh programs and a tpu-sharded scan."""
+    import torch
+
+    from spacedrive_tpu_torch.api.routers.jobs import object_validator
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.objects import validator
+    from spacedrive_tpu_torch.objects.validator import full_file_hashes
+    from spacedrive_tpu_torch.ops import _kernels
+
+    t_phase = time.perf_counter()
+    db = lib.db
+    n_hashed = db.query("SELECT COUNT(*) AS c FROM file_path WHERE is_dir = 0 AND "
+                        "cas_id IS NOT NULL")[0]["c"]
+    total_bytes = sum(s for s in tree["sizes"] if s > 0)
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    validator.reset_counts()
+    t0 = time.perf_counter()
+    object_validator(node, lib, {"location_id": loc["id"]})
+    if not node.jobs.wait_idle(900):
+        fail("the validator did not finish within 900 s")
+    wall_s = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    by_shape = shape_counts(_kernels.LAUNCHES_BY_SHAPE)
+    raw_shapes = dict(_kernels.LAUNCHES_BY_SHAPE)
+    plain_on_card = dict(_kernels.PLAIN_ON_CUDA)
+    stats = dict(validator.STATS)
+    job, meta = validator_job(db)
+    job_s = job_seconds(job)
+    if job["status"] != JobStatus.COMPLETED or meta != {"validated": n_hashed, "mismatched": 0}:
+        fail(f"the validator ended {job['status']} with {meta} ({job['errors_text']!r:.300}), "
+             f"not {n_hashed} validated")
+    missing = db.query("SELECT COUNT(*) AS c FROM file_path WHERE cas_id IS NOT NULL AND "
+                       "integrity_checksum IS NULL")[0]["c"]
+    if missing:
+        fail(f"{missing} files with a cas_id have no integrity_checksum")
+    for kernel in ("blake3_chunk_cvs", "blake3_merge"):
+        if launches.get(kernel, 0) <= 0:
+            fail(f"the validator never launched {kernel}")
+    if any(plain_on_card.values()):
+        fail(f"the validator called plain versions on the card: {plain_on_card}")
+    log(f"validator on {node.device}: {n_hashed} files, {total_bytes / 1e9:.3f} GB in "
+        f"{job_s:.2f} s (job row; {wall_s:.2f} s to idle) = {n_hashed / job_s:.1f} files/s, "
+        f"{total_bytes / job_s / 1e9:.3f} GB/s; reads {stats['read_s']:.2f} s (host wall, 8 "
+        f"threads), H2D {stats['h2d_s']:.2f} s, kernels {stats['kernel_s']:.3f} s (CUDA events); "
+        f"{stats['windows']} windows in {stats['batches']} launch pairs, "
+        f"{stats['levels']} merge levels; launches {launches}; plain versions on the card: 0")
+    for kernel, shapes in by_shape.items():
+        log(f"validator: {kernel} launches by shape: {shapes}")
+
+    rows = {(r["materialized_path"], r["name"], r["extension"]): dict(r) for r in db.query(
+        "SELECT id, materialized_path, name, extension, integrity_checksum FROM file_path "
+        "WHERE is_dir = 0")}
+
+    def row_of(path: Path) -> dict:
+        rel = path.relative_to(tree_dir)
+        return rows[(f"/{rel.parent}/", path.stem, path.suffix.lstrip("."))]
+
+    edges = validator_checks(tree, row_of)
+    # the mesh and the tpu-sharded scan before any file changes: the scan's
+    # cas_ids must equal phase 4's
+    mesh = mesh_checks(seed, int32_ops_per_s)
+    sharded = sharded_scan(node, tree_dir, phase4_rows)
+
+    # one byte in a small file and one mid-file in a large one, one directory
+    sizes = tree["sizes"]
+    big = next(i for i, s in enumerate(sizes) if s > 16 << 20)
+    d = big % N_DIRS
+    small = next(i for i, s in enumerate(sizes) if 0 < s <= 100 << 10 and i % N_DIRS == d)
+    tampered = {}
+    for i, off in ((small, 0), (big, sizes[big] // 2)):
+        path = tree["paths"][i]
+        with open(path, "r+b") as fh:
+            fh.seek(off)
+            byte = fh.read(1)[0]
+            fh.seek(off)
+            fh.write(bytes([byte ^ 0x5A]))
+        tampered[path] = off
+    window = sizes[big] // 2 // (2 << 20)
+    new = dict(zip(tampered, full_file_hashes(list(tampered), "cuda", plain=True,
+                                              staging_bytes=512 << 20)))
+    want_errors = sorted(
+        f"integrity MISMATCH /d{d:02d}/{p.stem}: stored {row_of(p)['integrity_checksum'][:16]}… "
+        f"!= {new[p][:16]}…" for p in tampered)
+    in_dir = db.query("SELECT COUNT(*) AS c FROM file_path WHERE is_dir = 0 AND cas_id IS NOT "
+                      "NULL AND materialized_path = ?", [f"/d{d:02d}/"])[0]["c"]
+    t0 = time.perf_counter()
+    object_validator(node, lib, {"location_id": loc["id"], "sub_path": f"d{d:02d}",
+                                 "revalidate": True})
+    if not node.jobs.wait_idle(900):
+        fail("the revalidation did not finish within 900 s")
+    job, meta = validator_job(db)
+    errors = sorted((job["errors_text"] or "").split("\n\n"))
+    if (job["status"] != JobStatus.COMPLETED_WITH_ERRORS or errors != want_errors
+            or meta != {"validated": in_dir - 2, "mismatched": 2}):
+        fail(f"revalidating d{d:02d} gave {meta}, {errors}; wanted {want_errors}")
+    log(f"validator: one byte changed at 0 of {tree['paths'][small].name} ({sizes[small]} B) and "
+        f"at {sizes[big] // 2} (window {window}) of {tree['paths'][big].name} "
+        f"({sizes[big] / 2**20:.0f} MiB); revalidating /d{d:02d}/ ({in_dir} files, "
+        f"{time.perf_counter() - t0:.2f} s) reports exactly these: {errors}")
+
+    shapes = sorted(((n, shape) for (k, tag, shape), n in raw_shapes.items()
+                     if k == "blake3_chunk_cvs" and shape[1] == 2048), reverse=True)
+    window_shape = shapes[0][1] if shapes else (32, 2048)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    times = window_timing(window_shape, top_level_shape(tree), int32_ops_per_s, flush)
+    del flush
+    torch.cuda.empty_cache()
+    log(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "by_shape": by_shape, "stats": stats, "job_s": job_s,
+            "files": n_hashed, "bytes": total_bytes, "times": times, "edges": edges,
+            "mesh": mesh, "sharded": sharded}
+
+
+def top_level_shape(tree: dict) -> tuple:
+    """(rows, C, nodes a row) of the merge above the windows in the step
+    that holds the most large files: one row a file of more than one
+    window, its window CVs, C their largest count to a power of two."""
+    from spacedrive_tpu_torch.objects.validator import BATCH
+    from spacedrive_tpu_torch.ops import blake3 as b3
+
+    sizes = [s for s in tree["sizes"] if s > 0]
+    best: list = []
+    for s in range(0, len(sizes), BATCH):
+        nodes = [-(-n // (b3.WINDOW_CHUNKS * 1024)) for n in sizes[s : s + BATCH]]
+        nodes = [n for n in nodes if n > 1]
+        if len(nodes) > len(best):
+            best = nodes
+    return len(best), 1 << (max(best) - 1).bit_length(), best
 
 
 def shape_counts(counter) -> dict:
@@ -3086,6 +3534,8 @@ def main() -> int:
                "search_substring": "spacedrive_tpu_torch/csrc/search.cu",
                "search_exact": "spacedrive_tpu_torch/csrc/search.cu",
                "search_lex": "spacedrive_tpu_torch/csrc/search.cu"}
+    if main is not None:
+        times.update(main["validator"]["times"])
     kernels = []
     for name, key in timed.items():
         t = times[key]
@@ -3114,6 +3564,9 @@ def main() -> int:
                 # the fused hash_batch over the tree, counted in its own window
                 kernels[-1]["launches_fused_hash"] = main["fused"]["launches"].get(name, 0)
                 kernels[-1]["launches_by_shape_fused_hash"] = main["fused"]["by_shape"].get(name, {})
+                # phase 7: the validator's full-file hashes, counted in their own window
+                kernels[-1]["launches_validator"] = main["validator"]["launches"].get(name, 0)
+                kernels[-1]["launches_by_shape_validator"] = main["validator"]["by_shape"].get(name, {})
         if "sass" in t:
             sass = t["sass"] or {}
             kernels[-1]["sass_instructions_per_block"] = sass.get("per_block")
@@ -3152,6 +3605,17 @@ def main() -> int:
             "max_abs_err": max(errs["resize_batch"], media["max_abs_err"]), **resize_row(t),
             "other_shapes": {s["shape"]: resize_row(s) for _k, s in shapes[1:]},
             "example_full_sub_batch": resize_row(resize_example)})
+        # the mesh programs (phase 7): a call over each mesh, copies included
+        mesh = main["validator"]["mesh"]
+        for name, line in (("sharded_hasher", 73), ("sharded_row_hasher", 87),
+                           ("identify_step", 103), ("sharded_resizer", 141)):
+            bound = mesh["resize_bound" if name == "sharded_resizer" else "hash_bound"]
+            programs.append({
+                "name": name, "route": "pytorch", "source": "spacedrive_tpu_torch/parallel/mesh.py",
+                "replaces": f"spacedrive_tpu/parallel/mesh.py:{line}", "max_abs_err": 0,
+                "ms": mesh["meshes"][0]["ms"][name],
+                "ms_by_mesh": {m["mesh"]: m["ms"][name] for m in mesh["meshes"]},
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None})
         print(json.dumps({"device_programs": programs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,4 @@
-"""API procedures of the port (trimmed to the search handlers)."""
+"""API procedures of the port (trimmed to the search and jobs handlers)."""
 
 
 class ApiError(Exception):

@@ -34,7 +34,17 @@
 //                     (8, B) output.
 //
 // Both read the blake3_batch_rows layout: (B, C*256) u32 words, one message
-// per row, zero-padded past its length. The counter's high word stays 0.
+// per row, zero-padded past its length.
+//
+// Windows of a longer message (the validator's full-file hash, the mesh's
+// seq shards). Given per-row 64-bit chunk offsets `base` and message byte
+// lengths `total`, row b of the chunk kernel holds chunks base[b], base[b]+1,
+// ... of its message: chunk c's counter is base + c (low and high word), its
+// length clamp(total - (base + c) * 1024, 0, 1024), it is valid while base + c
+// is under the message's chunk count, and it takes ROOT only when the whole
+// message is one chunk. Given a per-row `root` flag, the merge leaves ROOT off
+// the rows where it is 0 and writes their subtree's chaining value. Null
+// arrays keep the whole-message behaviour above, bit for bit.
 //
 // What bounds it on the H100: integer issue, not memory. A 64-byte block costs
 // ~800 u32 operations (7 rounds x 8 G x 14, plus the output feed-forward),
@@ -121,9 +131,9 @@ __device__ __forceinline__ void permute(uint32_t m[16]) {
 // One compression; cv is replaced by the 8 output words.
 __device__ __forceinline__ void compress(uint32_t cv[8], uint32_t m[16],
                                          uint32_t counter, uint32_t block_len,
-                                         uint32_t flags) {
+                                         uint32_t flags, uint32_t counter_hi = 0u) {
   uint32_t v[16] = {cv[0], cv[1], cv[2], cv[3], cv[4], cv[5], cv[6], cv[7],
-                    IV0,   IV1,   IV2,   IV3,   counter, 0u, block_len, flags};
+                    IV0,   IV1,   IV2,   IV3,   counter, counter_hi, block_len, flags};
 #pragma unroll
   for (int r = 0; r < 7; ++r) {
     round_fn(v, m);
@@ -139,6 +149,16 @@ __device__ __forceinline__ int clamped_len(const int32_t* lengths, int b, int C)
 
 __device__ __forceinline__ int n_chunks_of(int len) {
   return max(1, (len + kChunkLen - 1) / kChunkLen);
+}
+
+// Chunks of row b: its whole message's, or, for a window, those of the
+// message from chunk base on (0 past its end), at most C.
+__device__ __forceinline__ int row_chunks(const int32_t* lengths, const long long* base,
+                                          const long long* msg_len, int b, int C) {
+  if (base == nullptr) return n_chunks_of(clamped_len(lengths, b, C));
+  const long long t = max(msg_len[b], 0LL);
+  const long long n = max(1LL, (t + kChunkLen - 1) / kChunkLen) - max(base[b], 0LL);
+  return (int)min(max(n, 0LL), (long long)C);
 }
 
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
@@ -188,6 +208,8 @@ __device__ __forceinline__ uint4 load_line_hint(const uint4* p) {
 __global__ void __maxnreg__(48)
 chunk_cvs_kernel(const uint32_t* __restrict__ rows,
                  const int32_t* __restrict__ lengths,
+                 const long long* __restrict__ base,
+                 const long long* __restrict__ msg_len,
                  uint32_t* __restrict__ cvs, int B, int C) {
   extern __shared__ int first[];  // B + 1: exclusive prefix of chunk counts
   __shared__ int warp_sums[kChunkThreads / 32];
@@ -203,7 +225,7 @@ chunk_cvs_kernel(const uint32_t* __restrict__ rows,
   int run = 0;
 #pragma unroll
   for (int k = 0; k < kRun; ++k) {
-    count[k] = lo + k < hi ? n_chunks_of(clamped_len(lengths, lo + k, C)) : 0;
+    count[k] = lo + k < hi ? row_chunks(lengths, base, msg_len, lo + k, C) : 0;
     run += count[k];
   }
   const int incl = warp_inclusive_scan(run, lane);
@@ -242,9 +264,22 @@ chunk_cvs_kernel(const uint32_t* __restrict__ rows,
     if (i >= total) break;
     const int b = owner_of(first, B, i);
     const int c = i - first[b];
-    const int len = clamped_len(lengths, b, C);
-    const int n_chunks = first[b + 1] - first[b];
-    const int chunk_len = min(len - c * kChunkLen, kChunkLen);
+    int chunk_len;
+    bool root;
+    uint32_t counter, counter_hi;
+    if (base == nullptr) {  // uniform across the launch
+      chunk_len = min(clamped_len(lengths, b, C) - c * kChunkLen, kChunkLen);
+      root = first[b + 1] - first[b] == 1;
+      counter = (uint32_t)c;
+      counter_hi = 0u;
+    } else {
+      const long long g = max(base[b], 0LL) + c;
+      const long long t = max(msg_len[b], 0LL);
+      chunk_len = (int)min(t - g * kChunkLen, (long long)kChunkLen);
+      root = t <= kChunkLen;
+      counter = (uint32_t)g;
+      counter_hi = (uint32_t)((unsigned long long)g >> 32);
+    }
     const int n_blocks = max(1, (chunk_len + kBlockLen - 1) / kBlockLen);
     const uint4* src = reinterpret_cast<const uint4*>(
         rows + ((size_t)b * C + c) * kWordsPerChunk);
@@ -261,8 +296,8 @@ chunk_cvs_kernel(const uint32_t* __restrict__ rows,
       }
       const uint32_t block_len = (uint32_t)min(max(chunk_len - j * kBlockLen, 0), kBlockLen);
       uint32_t flags = j == 0 ? kChunkStart : 0u;
-      if (j == n_blocks - 1) flags |= kChunkEnd | (n_chunks == 1 ? kRoot : 0u);
-      compress(cv, m, (uint32_t)c, block_len, flags);
+      if (j == n_blocks - 1) flags |= kChunkEnd | (root ? kRoot : 0u);
+      compress(cv, m, counter, block_len, flags, counter_hi);
     }
     uint4* dst = out4 + ((size_t)b * C + c) * 2;
     dst[0] = make_uint4(cv[0], cv[1], cv[2], cv[3]);
@@ -279,10 +314,12 @@ constexpr int kMergeGroupBytes = 64 * 1024;
 __global__ void __launch_bounds__(kMergeThreads)
 merge_kernel(const uint32_t* __restrict__ cvs,
              const int32_t* __restrict__ lengths,
+             const uint8_t* __restrict__ root,
              uint32_t* __restrict__ digests, int B, int C, int group) {
   extern __shared__ uint4 nodes4[];  // group x C x 8 words, in place
   __shared__ int first[kMergeMaxGroup + 1];  // exclusive prefix of items
   __shared__ int rem[kMergeMaxGroup];        // nodes left per message
+  __shared__ uint32_t root_flag[kMergeMaxGroup];  // ROOT, or 0 for a window
   __shared__ int levels;
   const int tid = threadIdx.x, lane = tid & 31;
   const int b0 = blockIdx.x * group;
@@ -298,6 +335,7 @@ merge_kernel(const uint32_t* __restrict__ cvs,
     if (lane < g_n) {
       first[lane + 1] = incl;
       rem[lane] = n;
+      root_flag[lane] = root == nullptr || root[b0 + lane] ? kRoot : 0u;
     }
     int depth = n > 1 ? 32 - __clz(n - 1) : 0;  // ceil(log2 n)
 #pragma unroll
@@ -343,7 +381,7 @@ merge_kernel(const uint32_t* __restrict__ cvs,
 #pragma unroll
           for (int w = 0; w < 16; ++w) m[w] = left[w];  // left || right
           uint32_t cv[8] = {IV0, IV1, IV2, IV3, IV4, IV5, IV6, IV7};
-          compress(cv, m, 0u, (uint32_t)kBlockLen, kParent | (r == 2 ? kRoot : 0u));
+          compress(cv, m, 0u, (uint32_t)kBlockLen, kParent | (r == 2 ? root_flag[g] : 0u));
 #pragma unroll
           for (int w = 0; w < 8; ++w) out[w] = cv[w];
         } else {
@@ -372,8 +410,9 @@ merge_kernel(const uint32_t* __restrict__ cvs,
 // C launchers (bound with ctypes). Each returns cudaGetLastError() after its
 // launch so a refused launch raises in the Python wrapper.
 
-extern "C" int blake3_chunk_cvs(const void* rows, const void* lengths, void* cvs,
-                                int B, int C, int device, void* stream) {
+extern "C" int blake3_chunk_cvs(const void* rows, const void* lengths, const void* base,
+                                const void* total, void* cvs, int B, int C, int device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || C <= 0) return 0;
@@ -388,6 +427,8 @@ extern "C" int blake3_chunk_cvs(const void* rows, const void* lengths, void* cvs
     const size_t smem = (size_t)(Bs + 1) * sizeof(int);
     chunk_cvs_kernel<<<blocks, kChunkThreads, smem, (cudaStream_t)stream>>>(
         (const uint32_t*)rows + (size_t)s * C * kWordsPerChunk, (const int32_t*)lengths + s,
+        base == nullptr ? nullptr : (const long long*)base + s,
+        total == nullptr ? nullptr : (const long long*)total + s,
         (uint32_t*)cvs + (size_t)s * C * 8, Bs, C);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -395,8 +436,8 @@ extern "C" int blake3_chunk_cvs(const void* rows, const void* lengths, void* cvs
   return 0;
 }
 
-extern "C" int blake3_merge(const void* cvs, const void* lengths, void* digests,
-                            int B, int C, int device, void* stream) {
+extern "C" int blake3_merge(const void* cvs, const void* lengths, const void* root,
+                            void* digests, int B, int C, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B <= 0 || C <= 0) return 0;
@@ -415,6 +456,7 @@ extern "C" int blake3_merge(const void* cvs, const void* lengths, void* digests,
   }
   const int blocks = (B + group - 1) / group;
   merge_kernel<<<blocks, kMergeThreads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)cvs, (const int32_t*)lengths, (uint32_t*)digests, B, C, group);
+      (const uint32_t*)cvs, (const int32_t*)lengths, (const uint8_t*)root,
+      (uint32_t*)digests, B, C, group);
   return (int)cudaGetLastError();
 }

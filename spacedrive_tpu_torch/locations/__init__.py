@@ -6,8 +6,10 @@ does, the indexer, the file identifier, the media processor (image
 thumbnails resized on the node's device, and image metadata) unless the
 location's ``generate_preview_media`` is False, and, on full scans, the
 MinHash near-duplicate detector (DedupDetectorJob). The location's
-``hasher`` column records the node's device: the port has one device
-hasher.
+``hasher`` column picks the identify job's hasher
+(``objects.hasher.get_hasher``): ``"tpu-sharded"`` hashes over the node's
+device mesh, any other name on the node's device, which is what it records
+by default.
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ class LocationError(Exception):
 
 
 def create_location(library: "Library", path: str | Path, name: str | None = None,
-                    indexer_rule_names: list[str] | None = None) -> dict[str, Any]:
+                    indexer_rule_names: list[str] | None = None,
+                    hasher: str | None = None) -> dict[str, Any]:
     """Validate the path, insert the row, link the default indexer rules
-    (or the named ones). Does not scan: call :func:`scan_location`."""
+    (or the named ones). ``hasher`` None records the node's device type.
+    Does not scan: call :func:`scan_location`."""
     path = Path(path).resolve()
     if not path.is_dir():
         raise LocationError(f"not a directory: {path}")
@@ -47,7 +51,7 @@ def create_location(library: "Library", path: str | Path, name: str | None = Non
         "name": name or path.name,
         "path": str(path),
         "date_created": utc_now(),
-        "hasher": library.node.device.type,
+        "hasher": hasher or library.node.device.type,
     })
     wanted = indexer_rule_names if indexer_rule_names is not None else [
         spec.name for spec in SYSTEM_RULES if spec.default]

@@ -5,8 +5,10 @@ config, the event bus, the libraries under ``<data_dir>/libraries/``, the job
 runner, the search engine (armed by ``SD_SEARCH_ENGINE=device``, as in the
 JAX package) and the device. ``device`` defaults to the CUDA card and raises
 when there is none; ``device="cpu"`` runs the kernels' plain PyTorch
-versions. p2p, the key manager, telemetry, alerts, the accelerator probe and
-the reader pool are not ported.
+versions. ``mesh_devices`` is the device list a ``tpu-sharded`` location's
+mesh spans (``objects.hasher.get_hasher``; default every visible card, or
+the node's device on a CPU node). p2p, the key manager, telemetry, alerts,
+the accelerator probe and the reader pool are not ported.
 """
 
 from __future__ import annotations
@@ -29,9 +31,11 @@ logger = logging.getLogger(__name__)
 
 
 class Node:
-    def __init__(self, data_dir: str | Path,
-                 device: str | torch.device | None = None) -> None:
+    def __init__(self, data_dir: str | Path, device: str | torch.device | None = None,
+                 mesh_devices: list | None = None) -> None:
         self.device = resolve_device(device)
+        self.mesh_devices = mesh_devices
+        self.sharded_hasher = None  # made at the first tpu-sharded scan
         self.data_dir = Path(data_dir)
         self.data_dir.mkdir(parents=True, exist_ok=True)
         self.config = load_node_config(self.data_dir)

@@ -5,7 +5,8 @@ three stages: ``pipeline_page`` pages the next orphan file_paths (id >
 cursor) and gathers their sampled cas messages (reads only, through the
 native gather, as the reference's identifier imports
 ``read_sampled_batch_fast as read_sampled_batch``),
-``pipeline_process`` hashes them on the node's device, and
+``pipeline_process`` hashes them with the location's hasher (the node's
+device, or its mesh for a ``tpu-sharded`` location), and
 ``pipeline_commit`` writes, in one transaction, the cas_ids, links to
 existing objects sharing a cas_id, one new object per new cas_id and per
 empty file, and (with ``SD_CHUNK_MANIFESTS=1``) chunk manifests. The job
@@ -31,6 +32,7 @@ from ..jobs import EarlyFinish, JobContext, JobError, StatefulJob, StepResult
 from ..models import Location, Object, utc_now
 from . import manifest as chunk_manifest
 from .cas import read_sampled_batch_fast as read_sampled_batch
+from .hasher import get_hasher
 from .magic import HEADER_LEN, resolve_kind
 
 logger = logging.getLogger(__name__)
@@ -134,7 +136,8 @@ class FileIdentifierJob(StatefulJob):
         page = _env_batch_pin() or BATCH_SIZE
         steps = [{"kind": "identify"} for _ in range(-(-count // page))]
         data = {"location_id": location_id, "location_path": location["path"],
-                "cursor": 0, "sub_path": self.init_args.get("sub_path")}
+                "hasher": location.get("hasher"), "cursor": 0,
+                "sub_path": self.init_args.get("sub_path")}
         return data, steps, {"total_orphan_paths": count, "created_objects": 0,
                              "linked_objects": 0, "hash_time": 0.0,
                              "quarantined_files": 0, "chunked_files": 0,
@@ -248,7 +251,8 @@ class FileIdentifierJob(StatefulJob):
         the card the kernels launch from this stage's thread, with the
         device passed explicitly; an error raises through."""
         t0 = time.perf_counter()
-        batch["cas_results"] = ctx.node.hasher.hash_gathered(batch["messages"])
+        hasher = get_hasher(data.get("hasher"), ctx.node)
+        batch["cas_results"] = hasher.hash_gathered(batch["messages"])
         batch["messages"] = None  # the gathered bytes are dead weight now
         if chunk_manifest.manifests_enabled():
             chunk_manifest.pipeline_chunk_process(batch["hashable"], ctx.node.device)

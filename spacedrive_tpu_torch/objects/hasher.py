@@ -19,10 +19,19 @@ two paths:
   :func:`..ops.blake3.blake3_batch_hex`, padded to the same batch tiers. The
   identify pipeline hashes its gathered messages this way, as the
   reference's ``pipeline_process`` does.
+
+:class:`ShardedHasher` (reference :849-889) is the same two paths over a
+device mesh (:mod:`..parallel.mesh`): lanes padded to a multiple of the
+data axis, the fused rows through ``sharded_row_hasher``, the buckets
+through ``sharded_hasher``. :func:`get_hasher` picks by a location's
+``hasher``: ``"tpu-sharded"`` gets the node's sharded hasher, every other
+name the node's device hasher (the reference's CPU, hybrid and remote
+backends are not ported: no hybrid router, no CPU re-dispatch).
 """
 
 from __future__ import annotations
 
+import threading
 from pathlib import Path
 from typing import Callable
 
@@ -30,7 +39,8 @@ import torch
 
 from ..native import cas_native
 from ..ops import _kernels
-from ..ops.blake3 import _pad_to_tier, blake3_batch_hex, blake3_batch_rows, digests_to_hex
+from ..ops.blake3 import (_pad_to_tier, blake3_batch_hex, blake3_batch_rows, digests_to_hex,
+                          pack_messages)
 from .cas import MINIMUM_FILE_SIZE, SAMPLED_MESSAGE_LEN, read_sampled_batch
 
 #: chunk capacities of the message buckets (1 chunk = 1024 B); 101 covers the
@@ -85,16 +95,14 @@ class DeviceHasher:
         start their copy to the device. The host tensors stay referenced
         until the batch's digests are read, so no gather writes a buffer
         whose copy may still be in flight."""
-        tier = _pad_to_tier(len(idxs))
+        tier = self._pad_lanes(_pad_to_tier(len(idxs)))
         pin = self.device.type == "cuda"
         rows = torch.zeros((tier, SAMPLED_CHUNKS * 1024), dtype=torch.uint8, pin_memory=pin)
         lengths = torch.zeros(tier, dtype=torch.int32, pin_memory=pin)
         cas_native.gather_batch([paths[i] for i in idxs], [sizes[i] for i in idxs],
                                 rows.numpy(), lengths.numpy())
         words = rows.view(torch.int32)  # (tier, 57 * 256) u32 words
-        dev_rows = words.to(self.device, non_blocking=True)
-        dev_lengths = lengths.to(self.device, non_blocking=True)
-        return dev_rows, dev_lengths, (rows, lengths), idxs
+        return self._to_device(words), self._to_device(lengths), (rows, lengths), idxs
 
     def _hash_sampled(self, paths, sizes, indices: list[int], out: list) -> None:
         """Fused gather → hash, double buffered: batch k's kernels are
@@ -116,7 +124,7 @@ class DeviceHasher:
         for nxt in batches[1:] + [None]:
             dev_rows, dev_lengths, host, idxs = staged
             with _kernels.tagged("cas"):
-                digest = blake3_batch_rows(dev_rows, dev_lengths)
+                digest = self._hash_rows(dev_rows, dev_lengths)
             staged = self._stage(paths, sizes, nxt) if nxt is not None else None
             if pending is not None:
                 collect(pending)
@@ -143,3 +151,67 @@ class DeviceHasher:
         for j, cid in zip(ok, ids):
             out[j] = cid
         return out
+
+    # hooks the sharded hasher overrides
+    def _pad_lanes(self, n: int) -> int:
+        return n
+
+    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
+        """Start a staged host tensor's copy to the device."""
+        return t.to(self.device, non_blocking=True)
+
+    def _hash_rows(self, rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        return blake3_batch_rows(rows, lengths)
+
+
+class ShardedHasher(DeviceHasher):
+    """The device hasher over a mesh's data axis (reference ``ShardedHasher``
+    :849): ``make_mesh()`` (every visible card) unless given ``devices``."""
+
+    def __init__(self, devices=None) -> None:
+        from ..parallel.mesh import make_mesh
+
+        self.mesh = make_mesh(devices=devices)
+        super().__init__(self.mesh.first)
+
+    def _pad_lanes(self, n: int) -> int:
+        from ..parallel.mesh import pad_batch_for_mesh
+
+        return pad_batch_for_mesh(n, self.mesh)
+
+    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
+        return t  # the sharded program places each shard itself
+
+    def _hash_rows(self, rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        from ..parallel.mesh import sharded_row_hasher
+
+        return sharded_row_hasher(self.mesh)(rows, lengths)
+
+    def _hash_bucket(self, msgs: list[bytes], cap: int) -> list[str]:
+        from ..parallel.mesh import sharded_hasher
+
+        B = len(msgs)
+        target = self._pad_lanes(_pad_to_tier(B))
+        words, lengths = pack_messages(msgs + [b""] * (target - B), cap)
+        with _kernels.tagged("cas"):
+            digest = sharded_hasher(self.mesh)(words, lengths)
+        return digests_to_hex(digest)[:B]
+
+
+_SHARDED_LOCK = threading.Lock()
+
+
+def get_hasher(name: str | None, node) -> DeviceHasher:
+    """A location's hasher by its ``hasher`` column: the node's
+    :class:`ShardedHasher` for ``"tpu-sharded"`` (one a node, over
+    ``node.mesh_devices``, by default every visible card, or the node's own
+    device on a CPU node), the node's device hasher for every other name."""
+    if name != "tpu-sharded":
+        return node.hasher
+    with _SHARDED_LOCK:
+        if node.sharded_hasher is None:
+            devices = node.mesh_devices
+            if devices is None and node.device.type != "cuda":
+                devices = [node.device]
+            node.sharded_hasher = ShardedHasher(devices)
+        return node.sharded_hasher

@@ -42,10 +42,10 @@ _U = ctypes.c_uint32
 
 #: C launchers per source: function name -> argtypes (all return int)
 SIGNATURES: dict[str, dict[str, list]] = {
-    # (rows, lengths, cvs, B, C, device, stream)
-    "blake3": {"blake3_chunk_cvs": [_P, _P, _P, _I, _I, _I, _P],
-               # (cvs, lengths, digests, B, C, device, stream)
-               "blake3_merge": [_P, _P, _P, _I, _I, _I, _P]},
+    # (rows, lengths, base or NULL, total or NULL, cvs, B, C, device, stream)
+    "blake3": {"blake3_chunk_cvs": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+               # (cvs, lengths, root or NULL, digests, B, C, device, stream)
+               "blake3_merge": [_P, _P, _P, _P, _I, _I, _I, _P]},
     # (plane, lengths, gear, mask, out, B, L, device, stream)
     "cdc": {"gear_candidates": [_P, _P, _P, _U, _P, _I, _I, _I, _P]},
     # (rows, W, n, needle bytes on the host, needle length, out, device, stream)

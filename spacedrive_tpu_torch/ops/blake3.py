@@ -31,6 +31,8 @@ zero, as in the JAX module.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -81,17 +83,19 @@ def _g(v, a, b, c, d, mx, my) -> None:
     v[b] = _rotr(v[b] ^ v[c], 7)
 
 
-def compress(cv, m, counter, block_len, flags) -> list[torch.Tensor]:
+def compress(cv, m, counter, block_len, flags, counter_hi=None) -> list[torch.Tensor]:
     """One BLAKE3 compression broadcast over the lane shape. ``cv``: 8 int64
-    tensors; ``m``: 16 int64 tensors; ``counter``/``block_len``/``flags``:
-    int64 tensors broadcastable to the lanes (counter high word is 0).
-    Returns the 8 output words (chaining value / digest head)."""
+    tensors; ``m``: 16 int64 tensors; ``counter``/``block_len``/``flags``
+    (and ``counter_hi``, the counter's high word, 0 when None): int64
+    tensors broadcastable to the lanes. Returns the 8 output words (chaining
+    value / digest head)."""
     shape = torch.broadcast_shapes(cv[0].shape, m[0].shape, counter.shape,
                                    block_len.shape, flags.shape)
     zero = torch.zeros(shape, dtype=torch.int64, device=cv[0].device)
     v = [w + zero for w in cv]
     v += [zero + IV[i] for i in range(4)]
-    v += [counter + zero, zero, block_len + zero, flags + zero]
+    v += [counter + zero, zero if counter_hi is None else counter_hi + zero,
+          block_len + zero, flags + zero]
     for r in range(7):
         s = MSG_SCHEDULE[r]
         _g(v, 0, 4, 8, 12, m[s[0]], m[s[1]])
@@ -126,21 +130,40 @@ def _note_plain(kernel: str, t: torch.Tensor) -> None:
         _kernels.PLAIN_ON_CUDA[kernel] += 1
 
 
-def chunk_cvs_plain(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def _window(lengths: torch.Tensor, C: int, base, total) -> tuple[torch.Tensor, torch.Tensor]:
+    """(first chunk index, message byte length) per row, int64: a whole
+    message (``base`` None: chunk 0 on, the row's clamped length) or a
+    window of ``C`` chunks at chunk ``base`` of a ``total``-byte message."""
+    if base is None:
+        return torch.zeros_like(lengths, dtype=torch.int64), _clamped_lengths(lengths, C)
+    return base.to(torch.int64).clamp_min(0), total.to(torch.int64).clamp_min(0)
+
+
+def chunk_cvs_plain(rows: torch.Tensor, lengths: torch.Tensor, base: torch.Tensor | None = None,
+                    total: torch.Tensor | None = None) -> torch.Tensor:
     """Phase 1: every chunk's chaining value, ``(B, C, 8)`` int64. A
     one-chunk message's chunk 0 takes CHUNK_END|ROOT on its final block, so
     its CV is the digest (``_single_chunk_root``). Chunks past a message's
-    chunk count are zero."""
+    chunk count are zero.
+
+    With ``base`` and ``total`` ((B,) int64), row b holds chunks
+    ``base[b]``, ``base[b] + 1``, ... of a message of ``total[b]`` bytes
+    (``lengths`` is not read): chunk c is hashed with counter ``base + c``
+    (both words), length ``clamp(total - (base + c) * 1024, 0, 1024)``, is
+    zero once ``base + c`` reaches the message's chunk count, and takes ROOT
+    only when the whole message is one chunk."""
     _note_plain("blake3_chunk_cvs", rows)
     B, W = rows.shape
     C = W // WORDS_PER_CHUNK
     words = u32(rows).reshape(B, C, BLOCKS_PER_CHUNK, 16)
-    lengths = _clamped_lengths(lengths, C)
-    n_chunks = _n_chunks(lengths)                                   # (B,)
-    chunk_idx = torch.arange(C, dtype=torch.int64, device=rows.device)[None, :]
-    chunk_len = (lengths[:, None] - chunk_idx * CHUNK_LEN).clamp(0, CHUNK_LEN)
+    first, total = _window(lengths, C, base, total)
+    n_chunks = _n_chunks(total)                                     # (B,)
+    chunk_idx = first[:, None] + torch.arange(C, dtype=torch.int64, device=rows.device)[None, :]
+    chunk_len = (total[:, None] - chunk_idx * CHUNK_LEN).clamp(0, CHUNK_LEN)
     n_blocks = ((chunk_len + (BLOCK_LEN - 1)) // BLOCK_LEN).clamp_min(1)
-    single = (n_chunks[:, None] == 1) & (chunk_idx == 0)           # (B, C)
+    valid = chunk_idx < n_chunks[:, None]
+    single = (n_chunks[:, None] == 1) & valid                      # (B, C)
+    counter, counter_hi = chunk_idx & MASK, chunk_idx >> 32
     cv = [torch.full((B, C), IV[w], dtype=torch.int64, device=rows.device)
           for w in range(8)]
     for j in range(BLOCKS_PER_CHUNK):
@@ -149,21 +172,25 @@ def chunk_cvs_plain(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         flags = (final.long() * CHUNK_END
                  + (final & single).long() * ROOT + (CHUNK_START if j == 0 else 0))
         out = compress(cv, [words[:, :, j, w] for w in range(16)],
-                       chunk_idx, block_len, flags)
+                       counter, block_len, flags, counter_hi)
         keep = j < n_blocks
         cv = [torch.where(keep, out[w], cv[w]) for w in range(8)]
-    valid = chunk_idx < n_chunks[:, None]
     return torch.where(valid[..., None], torch.stack(cv, dim=-1), 0)
 
 
-def merge_plain(cvs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def merge_plain(cvs: torch.Tensor, lengths: torch.Tensor,
+                root: torch.Tensor | None = None) -> torch.Tensor:
     """Phase 2: the log-depth merkle merge over ``(B, C, 8)`` chunk CVs →
     ``(8, B)`` int64 digest words. Level-wise adjacent pairing with the odd
     tail promoted is BLAKE3's left-heavy tree; the pair taken when two nodes
-    remain carries PARENT|ROOT (``blake3_jax.py:218-243``)."""
+    remain carries PARENT|ROOT (``blake3_jax.py:218-243``). Where ``root``
+    ((B,) bool) is False that pair takes PARENT alone, and the row's output
+    is its subtree's chaining value (a window of a longer message)."""
     _note_plain("blake3_merge", cvs)
     B, C, _ = cvs.shape
     cvs = u32(cvs)
+    root_ok = (torch.ones(B, dtype=torch.bool, device=cvs.device) if root is None
+               else root.to(device=cvs.device, dtype=torch.bool))
     root = cvs[:, 0, :]               # one-chunk messages: already the digest
     if C > 1:
         remaining = _n_chunks(_clamped_lengths(lengths, C))
@@ -175,7 +202,7 @@ def merge_plain(cvs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         for _ in range(Cp.bit_length() - 1):
             left, right = nodes[:, 0::2], nodes[:, 1::2]            # (B, half, 8)
             has_right = (2 * pair_idx + 1) < remaining[:, None]
-            is_root = (pair_idx == 0) & (remaining[:, None] == 2)
+            is_root = (pair_idx == 0) & (remaining[:, None] == 2) & root_ok[:, None]
             parent = compress([zero + IV[w] for w in range(8)],
                               [left[..., w] for w in range(8)]
                               + [right[..., w] for w in range(8)],
@@ -214,33 +241,56 @@ def _check_rows(rows: torch.Tensor, lengths: torch.Tensor) -> int:
     return C
 
 
-def chunk_cvs(rows: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+def _check_window(rows: torch.Tensor, base, total) -> None:
+    if (base is None) != (total is None):
+        raise ValueError("a window needs both base and total")
+    if base is None:
+        return
+    B = rows.shape[0]
+    for name, t in (("base", base), ("total", total)):
+        if t.shape != (B,):
+            raise ValueError(f"{name} must be (B,)")
+        if rows.is_cuda and (t.dtype != torch.int64 or not t.is_contiguous()
+                             or t.device != rows.device):
+            raise ValueError(f"kernel takes a contiguous int64 (B,) {name} on the rows' device")
+
+
+def chunk_cvs(rows: torch.Tensor, lengths: torch.Tensor, base: torch.Tensor | None = None,
+              total: torch.Tensor | None = None) -> torch.Tensor:
     """Phase 1 wrapper: ``(B, C, 8)`` chunk chaining values (int32 words from
-    the kernel, int64 from the plain version)."""
+    the kernel, int64 from the plain version). ``base`` / ``total`` make
+    each row a window of a longer message (:func:`chunk_cvs_plain`)."""
     C = _check_rows(rows, lengths)
+    _check_window(rows, base, total)
     if not rows.is_cuda:
-        return chunk_cvs_plain(rows, lengths)
+        return chunk_cvs_plain(rows, lengths, base, total)
     B = rows.shape[0]
     out = torch.empty((B, C, 8), dtype=torch.int32, device=rows.device)
-    _kernels.launch("blake3", "blake3_chunk_cvs", rows.data_ptr(),
-                    lengths.data_ptr(), out.data_ptr(), B, C,
+    _kernels.launch("blake3", "blake3_chunk_cvs", rows.data_ptr(), lengths.data_ptr(),
+                    None if base is None else base.data_ptr(),
+                    None if total is None else total.data_ptr(), out.data_ptr(), B, C,
                     rows.device.index or 0, _kernels.stream_of(rows.device), shape=(B, C))
     return out
 
 
-def merge(cvs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """Phase 2 wrapper: ``(8, B)`` digest words."""
+def merge(cvs: torch.Tensor, lengths: torch.Tensor,
+          root: torch.Tensor | None = None) -> torch.Tensor:
+    """Phase 2 wrapper: ``(8, B)`` digest words; where ``root`` ((B,) bool)
+    is False, the row's subtree chaining value instead."""
     if not cvs.is_cuda:
-        return merge_plain(cvs, lengths)
+        return merge_plain(cvs, lengths, root)
     B, C, _ = cvs.shape
     if cvs.dtype != torch.int32 or not cvs.is_contiguous() or C > MAX_CHUNKS:
         raise ValueError("merge kernel takes contiguous int32 (B, C<=3584, 8) CVs")
     if (lengths.dtype != torch.int32 or not lengths.is_contiguous()
             or lengths.shape != (B,) or lengths.device != cvs.device):
         raise ValueError("merge kernel takes contiguous int32 (B,) lengths on the CVs' device")
+    if root is not None and (root.dtype != torch.bool or not root.is_contiguous()
+                             or root.shape != (B,) or root.device != cvs.device):
+        raise ValueError("merge kernel takes a contiguous bool (B,) root on the CVs' device")
     out = torch.empty((8, B), dtype=torch.int32, device=cvs.device)
-    _kernels.launch("blake3", "blake3_merge", cvs.data_ptr(),
-                    lengths.data_ptr(), out.data_ptr(), B, C,
+    _kernels.launch("blake3", "blake3_merge", cvs.data_ptr(), lengths.data_ptr(),
+                    None if root is None else root.data_ptr(), out.data_ptr(), B, C,
                     cvs.device.index or 0, _kernels.stream_of(cvs.device), shape=(B, C))
     return out
 
@@ -335,4 +385,259 @@ def blake3_batch_hex(messages: list[bytes], max_chunks: int | None = None,
         digest = blake3_batch_rows(torch.from_numpy(rows).to(dev),
                                    torch.from_numpy(lengths).to(dev))
         out.extend(digests_to_hex(digest)[: len(part)])
+    return out
+
+
+# --------------------------------------------------------------------------
+# long messages: windows through both kernels, then the tree above them
+# --------------------------------------------------------------------------
+
+#: chunks of one window of the long-message route (2 MiB): a power of two
+#: under MAX_CHUNKS, so every full window is one of BLAKE3's subtrees
+WINDOW_CHUNKS = 2048
+#: chaining values one merge row above the windows takes: a power of two, so
+#: each level's groups are subtrees too
+FAN_IN = 2048
+#: bytes of one host staging buffer (two on the card, pinned, double
+#: buffered): what bounds the route's host and device memory, whatever the
+#: messages' sizes
+STAGING_BYTES = 64 << 20
+#: threads that read a batch's windows into its staging buffer
+READ_THREADS = 8
+
+
+class BytesMessage:
+    """A message in memory, as a source of :func:`blake3_long_hex`. A
+    source has a ``length`` and ``read_into(offset, out)``, which fills the
+    writable buffer ``out`` with the message's bytes from ``offset`` or
+    raises ``OSError``."""
+
+    def __init__(self, data: bytes) -> None:
+        self.data = memoryview(data).cast("B")
+        self.length = len(self.data)
+
+    def read_into(self, offset: int, out: memoryview) -> None:
+        out[:] = self.data[offset : offset + len(out)]
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _window_batches(windows: list[tuple[int, int, int]],
+                    staging_bytes: int) -> list[tuple[int, list[int]]]:
+    """(C, window indices) of each launch pair: windows longest first, each
+    batch in rows of C chunks (a power of two) that fill one staging buffer."""
+    order = sorted(range(len(windows)), key=lambda j: -windows[j][2])
+    batches, s = [], 0
+    while s < len(order):
+        C = _pow2_at_least(windows[order[s]][2])
+        n = max(1, staging_bytes // (C * CHUNK_LEN))
+        batches.append((C, order[s : s + n]))
+        s += n
+    return batches
+
+
+class _Clock:
+    """Seconds of the long route's copies and kernels: CUDA events around
+    each launch pair on the card (read once the device is done), the host
+    clock around each on the CPU."""
+
+    def __init__(self, cuda: bool) -> None:
+        self.cuda = cuda
+        self.events: list = []
+        self.cpu_s = 0.0
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+        if self.cuda:
+            self.events.append([torch.cuda.Event(enable_timing=True) for _ in range(3)])
+            self.events[-1][0].record()
+
+    def copied(self):
+        """Mark the end of this pair's host-to-device copies; returns the
+        event a staging buffer waits on before it is refilled."""
+        if self.cuda:
+            self.events[-1][1].record()
+            return self.events[-1][1]
+        return None
+
+    def done(self) -> None:
+        if self.cuda:
+            self.events[-1][2].record()
+        else:
+            self.cpu_s += time.perf_counter() - self._t0
+
+    def seconds(self) -> tuple[float, float]:
+        """(H2D, kernels), once the device has synchronized."""
+        h2d = sum(a.elapsed_time(b) for a, b, _c in self.events) / 1e3
+        return h2d, self.cpu_s + sum(b.elapsed_time(c) for _a, b, c in self.events) / 1e3
+
+
+def _hash_windows(messages: list, windows: list, n_windows: list, first_slot: list,
+                  level: torch.Tensor, W: int, staging: int, fns: tuple, clock: _Clock,
+                  st: dict) -> dict:
+    """Every window through one launch pair a batch, its CV (or a
+    one-window message's digest) into ``level`` at the window's slot;
+    returns the messages whose reads failed, with their errors."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    chunk_fn, merge_fn = fns
+    dev = level.device
+    max_rows = staging // CHUNK_LEN
+    bufs = [(torch.empty(staging, dtype=torch.uint8, pin_memory=clock.cuda),
+             torch.empty(5 * max_rows, dtype=torch.int64, pin_memory=clock.cuda))
+            for _ in range(2 if clock.cuda else 1)]
+    copied: list = [None] * len(bufs)  # event: that buffer's copy has landed
+    failed: dict[int, Exception] = {}
+
+    def read_rows(buf, jobs, t: int) -> None:
+        for r in range(t, len(jobs), READ_THREADS):
+            i, off, n, row_off, zero_to = jobs[r]
+            if i in failed:
+                continue
+            try:
+                messages[i].read_into(off, memoryview(buf[row_off : row_off + n]))
+            except OSError as e:
+                failed[i] = e
+            buf[row_off + n : row_off + zero_to] = 0  # the last block's tail
+
+    with ThreadPoolExecutor(READ_THREADS) as pool:
+        for k, (C, batch) in enumerate(_window_batches(windows, staging)):
+            host, meta = bufs[k % len(bufs)]
+            if copied[k % len(bufs)] is not None:
+                copied[k % len(bufs)].synchronize()
+            buf, B = host.numpy(), len(batch)
+            meta = meta[: 5 * B].view(5, B)  # offset, total, bytes, root, slot a row
+            jobs, m = [], meta.numpy()
+            for r, j in enumerate(batch):
+                i, w, chunks = windows[j]
+                off = w * W * CHUNK_LEN
+                n = max(0, min(messages[i].length - off, chunks * CHUNK_LEN))
+                jobs.append((i, off, n, r * C * CHUNK_LEN,
+                             min(C * CHUNK_LEN, max(CHUNK_LEN, -(-n // CHUNK_LEN) * CHUNK_LEN))))
+                m[:, r] = (w * W, messages[i].length, n, n_windows[i] == 1, first_slot[i] + w)
+                st["bytes"] += n
+            t0 = time.perf_counter()
+            list(pool.map(lambda t: read_rows(buf, jobs, t), range(READ_THREADS)))
+            st["read_s"] += time.perf_counter() - t0
+            clock.start()
+            rows = host[: B * C * CHUNK_LEN].view(torch.int32).view(B, C * WORDS_PER_CHUNK)
+            rows = rows.to(dev, non_blocking=True)
+            meta_d = meta.to(dev, non_blocking=True)
+            copied[k % len(bufs)] = clock.copied()
+            lengths = meta_d[2].to(torch.int32)
+            cvs = chunk_fn(rows, lengths, meta_d[0].contiguous(), meta_d[1].contiguous())
+            out = merge_fn(cvs, lengths, meta_d[3].bool())
+            level.index_copy_(0, meta_d[4], out.T.to(level.dtype))
+            clock.done()
+            st["batches"] += 1
+    return failed
+
+
+def _merge_levels(level: torch.Tensor, nodes: dict, final: torch.Tensor, fan_in: int,
+                  merge_fn, clock: _Clock) -> int:
+    """Merge each message's window CVs (``nodes``: message -> slots in
+    ``level``) a level at a time, groups of at most ``fan_in`` a row, one
+    launch a level, ROOT on the row that holds a message's last nodes; the
+    digests land in ``final``. Returns the number of levels."""
+    levels = 0
+    while nodes:
+        groups = [(i, ns[g : g + fan_in], len(ns) <= fan_in)
+                  for i, ns in nodes.items() for g in range(0, len(ns), fan_in)]
+        idx = np.full((len(groups), _pow2_at_least(max(len(g) for _i, g, _r in groups))),
+                      level.shape[0] - 1, np.int64)  # padding: the zero row
+        for r, (_i, g, _r) in enumerate(groups):
+            idx[r, : len(g)] = g
+        clock.start()
+        lengths = torch.tensor([len(g) * CHUNK_LEN for _i, g, _r in groups], dtype=torch.int32)
+        root = torch.tensor([r for _i, _g, r in groups], dtype=torch.bool)
+        idx_d, lengths, root = (t.to(level.device) for t in (torch.from_numpy(idx), lengths, root))
+        clock.copied()
+        up = merge_fn(level[idx_d].contiguous(), lengths, root).T.to(level.dtype)
+        level = torch.cat([up, up.new_zeros(1, 8)])
+        done = [r for r, (_i, _g, is_root) in enumerate(groups) if is_root]
+        if done:
+            final[[groups[r][0] for r in done]] = level[done]
+        clock.done()
+        levels += 1
+        nodes = {}
+        for r, (i, _g, is_root) in enumerate(groups):
+            if not is_root:
+                nodes.setdefault(i, []).append(r)
+    return levels
+
+
+def blake3_long_hex(messages: list, device: str | torch.device | None = None, *,
+                    window_chunks: int = WINDOW_CHUNKS, fan_in: int = FAN_IN,
+                    staging_bytes: int = STAGING_BYTES, plain: bool = False,
+                    stats: dict | None = None) -> list:
+    """BLAKE3 hex digests of messages of any length, on ``device`` (default
+    the card).
+
+    ``messages`` holds sources (:class:`BytesMessage`, or anything with its
+    ``length`` and ``read_into``); an Exception entry passes through in
+    place, and so does the ``OSError`` a source raises while it is read.
+
+    Each message is cut into windows of ``window_chunks`` chunks aligned at
+    multiples of the window from chunk 0. The windows of all the messages go
+    through the chunk and merge kernels in batches, one launch pair a batch
+    (rows of a power-of-two chunk count, longest windows first, each batch
+    one staging buffer): a message of one window gets its digest there; the
+    others get one subtree chaining value a window (chunk counters from the
+    window's offset, no ROOT). Those are merged a level at a time, at most
+    ``fan_in`` a row, one merge launch a level, with ROOT only on the row
+    that holds a message's last nodes. Windows and groups aligned at powers
+    of two make this BLAKE3's left-heavy tree, the one ``merge_plain``'s
+    level-wise pairing builds. On the card a batch's windows are read into
+    one of two pinned buffers while the other's copy and kernels run.
+
+    ``plain=True`` runs the plain versions on the tensors' device (to hold
+    the kernels to them). ``stats``, if given, gains ``read_s``, ``h2d_s``
+    and ``kernel_s`` (CUDA-event times on the card), ``bytes``,
+    ``windows``, ``batches`` and ``levels``."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    for name, v in (("window_chunks", window_chunks), ("fan_in", fan_in)):
+        if v < 1 or v & (v - 1) or v > MAX_CHUNKS:
+            raise ValueError(f"{name} must be a power of two <= {MAX_CHUNKS}, got {v}")
+    W = window_chunks
+    out: list = [m if isinstance(m, Exception) else None for m in messages]
+    n_windows = [0] * len(messages)
+    first_slot = [0] * len(messages)
+    windows: list[tuple[int, int, int]] = []  # (message, window, chunks)
+    for i, m in enumerate(messages):
+        if out[i] is not None:
+            continue
+        n_total = max(1, -(-m.length // CHUNK_LEN))
+        n_windows[i] = -(-n_total // W)
+        first_slot[i] = len(windows)
+        windows += [(i, k, min(W, n_total - k * W)) for k in range(n_windows[i])]
+    if not windows:
+        return out
+
+    fns = (chunk_cvs_plain, merge_plain) if plain else (chunk_cvs, merge)
+    dtype = torch.int32 if dev.type == "cuda" and not plain else torch.int64
+    clock = _Clock(dev.type == "cuda")
+    st = {"read_s": 0.0, "bytes": 0, "windows": len(windows), "batches": 0}
+    # the row past the last slot stays zero: the padding of the levels above
+    level = torch.zeros((len(windows) + 1, 8), dtype=dtype, device=dev)
+    final = torch.zeros((len(messages), 8), dtype=dtype, device=dev)
+    failed = _hash_windows(messages, windows, n_windows, first_slot, level, W,
+                           max(staging_bytes, W * CHUNK_LEN), fns, clock, st)
+    singles = [i for i, n in enumerate(n_windows) if n == 1 and i not in failed]
+    if singles:
+        final[singles] = level[[first_slot[i] for i in singles]]
+    nodes = {i: list(range(first_slot[i], first_slot[i] + n)) for i, n in enumerate(n_windows)
+             if n > 1 and i not in failed}
+    st["levels"] = _merge_levels(level, nodes, final, fan_in, fns[1], clock)
+    hexes = digests_to_hex(final.cpu().T)
+    st["h2d_s"], st["kernel_s"] = clock.seconds()
+    if stats is not None:
+        for key, v in st.items():
+            stats[key] = stats.get(key, 0) + v
+    for i in range(len(messages)):
+        if out[i] is None:
+            out[i] = failed.get(i, hexes[i])
     return out

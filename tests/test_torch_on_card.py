@@ -537,3 +537,136 @@ def test_heif_decode_then_the_card_resize_matches_the_cpu(card, tmp_path):
     want = resize.resize_batch_host(arrays, torch.device("cpu"))
     for g, w in zip(got, want):
         assert g.shape == w.shape and np.array_equal(g, w)
+
+
+# --------------------------------------------------------------------------
+# windows of long messages: the object validator and the mesh's seq axis
+# --------------------------------------------------------------------------
+
+def window_edges(W: int, F: int) -> tuple[int, ...]:
+    """Message lengths at the long route's edges for windows of W chunks
+    merged F at a time."""
+    return (0, 1, 1024, 1025, W * 1024 - 1, W * 1024, W * 1024 + 1, 2 * W * 1024,
+            W * F * 1024 + 1, W * F * 1024 + 17)
+
+
+def test_blake3_windows_with_offsets_match_plain(card):
+    """Rows that are windows of longer messages: chunk offsets across the
+    counter's high word, a window holding only the final short chunk, one
+    past the end, beside whole messages; and a null offset array against
+    offsets 0 with totals equal to the lengths: the same words."""
+    C = 4
+    bases = [0, 3, 2**32 - 2, 2**32, 5, 2**40 + 7, 9, 0]
+    totals = [3000, 4 * 1024 + 1, (2**32 + 3) * 1024, (2**32 + 1) * 1024 + 77, 5 * 1024,
+              (2**40 + 9) * 1024 + 5, 9 * 1024, 0]
+    msgs = []
+    for i, (b, t) in enumerate(zip(bases, totals)):
+        msgs.append(blob(i, max(0, min(C * 1024, t - b * 1024))))
+    rows, lengths = b3.pack_rows(msgs, C)
+    r, n = torch.from_numpy(rows).to(card), torch.from_numpy(lengths).to(card)
+    base = torch.tensor(bases, device=card)
+    total = torch.tensor(totals, device=card)
+    cvs = b3.chunk_cvs(r, n, base, total)
+    assert torch.equal(b3.u32(cvs), b3.chunk_cvs_plain(r, n, base, total))
+    root = torch.tensor([True, False] * 4, device=card)
+    assert torch.equal(b3.u32(b3.merge(cvs, n, root)),
+                       b3.merge_plain(b3.chunk_cvs_plain(r, n, base, total), n, root))
+    whole = b3.chunk_cvs(r, n)
+    assert torch.equal(whole, b3.chunk_cvs(r, n, torch.zeros_like(base),
+                                           n.to(torch.int64)))
+    assert torch.equal(b3.merge(whole, n), b3.merge(whole, n, torch.ones_like(root)))
+
+
+@pytest.mark.parametrize("W, F", [(4, 4), (2048, 4), (2048, 2048)],
+                         ids=["W4-F4", "default-window-F4", "default"])
+def test_blake3_long_route_on_the_card(card, W, F):
+    """The edge set through the long route on the card, against the same
+    route through the plain versions on the card and, where it is small
+    enough, the Python oracle; every window batch one launch pair."""
+    sizes = [n for n in window_edges(W, F) if n <= 64 << 20]
+    msgs = [blob(n % 1000, n) for n in sizes]
+    src = [b3.BytesMessage(m) for m in msgs]
+    _kernels.reset_counts()
+    stats: dict = {}
+    got = b3.blake3_long_hex(src, card, window_chunks=W, fan_in=F, stats=stats)
+    assert _kernels.LAUNCHES["blake3_chunk_cvs"] == stats["batches"]
+    assert _kernels.LAUNCHES["blake3_merge"] == stats["batches"] + stats["levels"]
+    assert got == b3.blake3_long_hex(src, card, window_chunks=W, fan_in=F, plain=True)
+    for m, g in zip(msgs, got):
+        if len(m) <= 20_000:
+            assert g == blake3(m).hex()
+
+
+def test_validator_host_memory_stays_bounded(card, tmp_path):
+    """A 2 GiB sparse file through ``full_file_hashes`` on the card: after a
+    warm-up (the CUDA context, the kernels, the pinned staging buffers),
+    the process's peak RSS grows by under 600 MiB, the reference's slack in
+    tests/test_blake3.py. The peak is sampled from /proc/self/statm every
+    2 ms while the file hashes (not every kernel reports VmHWM)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    big = tmp_path / "big.bin"
+    with open(big, "wb") as fh:
+        fh.truncate(2 << 30)
+    small = tmp_path / "small.bin"
+    small.write_bytes(blob(1, 3 << 20))
+    code = f"""
+import os, threading, time
+def rss_kb():
+    with open('/proc/self/statm') as fh:
+        return int(fh.read().split()[1]) * os.sysconf('SC_PAGE_SIZE') // 1024
+from spacedrive_tpu_torch.objects.validator import full_file_hashes
+full_file_hashes([{str(small)!r}])
+before = peak = rss_kb()
+done = threading.Event()
+def sample():
+    global peak
+    while not done.is_set():
+        peak = max(peak, rss_kb())
+        time.sleep(0.002)
+t = threading.Thread(target=sample)
+t.start()
+(h,) = full_file_hashes([{str(big)!r}])
+done.set()
+t.join()
+grew = max(peak, rss_kb()) - before
+print(h, grew)
+assert len(h) == 64, h
+assert grew < 600 * 1024, f"peak RSS grew {{grew}} kB hashing a 2 GiB file"
+"""
+    repo = Path(__file__).resolve().parent.parent
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=600, cwd=repo, env={**os.environ, "PYTHONPATH": str(repo)})
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    print(proc.stdout)
+
+
+def test_mesh_of_two_shards_on_one_card_gives_the_one_device_bytes(card):
+    """``["cuda:0"] * 2`` with seq = 2 (one batch shard, its chunks split
+    into two windows) and with seq = 1 (two batch shards): every program
+    equals the one-device call."""
+    from spacedrive_tpu_torch.ops.resize import target_dims
+    from spacedrive_tpu_torch.parallel import mesh as tm
+
+    msgs = [blob(i, n) for i, n in enumerate((0, 1, 1024, 1025, 4000, 8192, 5000, 7777))]
+    words, lengths = b3.pack_messages(msgs, 8)
+    one = tm.sharded_hasher(tm.make_mesh(devices=["cuda:0"]))(words, lengths)
+    assert one.is_cuda and b3.digests_to_hex(one) == [blake3(m).hex() for m in msgs]
+    for seq in (1, 2):
+        mesh = tm.make_mesh(seq=seq, devices=["cuda:0"] * 2)
+        assert torch.equal(tm.sharded_hasher(mesh)(words, lengths), one)
+        rows, lens = b3.pack_rows(msgs, 8)
+        assert torch.equal(tm.sharded_row_hasher(mesh)(rows, lens), one)
+        digests, dup = tm.identify_step(mesh)(*b3.pack_messages(msgs + msgs[2:4], 8))
+        assert torch.equal(digests[:, :8], one)
+        assert dup.tolist() == [False] * 8 + [True, True]
+    imgs = np.random.default_rng(3).integers(0, 256, (4, 90, 120, 3), dtype=np.uint8)
+    th, tw = target_dims(120, 90)
+    src = np.tile(np.int32([90, 120]), (4, 1))
+    tgt = np.tile(np.int32([th, tw]), (4, 1))
+    mesh = tm.make_mesh(devices=["cuda:0"] * 2)
+    assert torch.equal(tm.sharded_resizer(mesh)(imgs, src, tgt),
+                       tm.sharded_resizer(tm.make_mesh(devices=["cuda:0"]))(imgs, src, tgt))
