@@ -124,7 +124,22 @@ no result line):
    and revalidate that ``sub_path``, which must report exactly those two
    with the reference's text; time both kernels at the validator's window
    shapes;
-8. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
+8. job control, on phase 4's node after phase 7: a new location over 16 of
+   the tree's 64 directories (hard links, 4,096 files; the directory phase 7
+   changed is left out) with 256-file pages, one a transaction. (a) Pause
+   the scan's identify job after a committed page: the row is Paused, its
+   checkpoint's step matches the committed files at a page boundary, no
+   kernel launches for 2 s; resume it to phase 4's cas_ids and manifests
+   through both scan kernels and no plain version. (b) Cancel it after a
+   committed page: it and its chain end Canceled with whole pages
+   committed. (c) A child process (``chip_smoke.py --kill-child``) boots a
+   Node on the card on its own data dir, plants a ``*.sd-tmp`` file in its
+   thumbnail cache and scans until ``commit:kill:skip7`` SIGKILLs it at its
+   fourth page; a Node booted here on that data dir sweeps the file and
+   cold-resumes the Running identify job, whose chain finishes with phase
+   4's cas_ids. Phase 6's photo scan runs warm-start media-lane jobs beside
+   identify; it logs how many started before identify ended;
+9. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
    the resize's times, calls on the path, CUDA kernels a call, and bounds),
    the card, the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line.
@@ -1690,6 +1705,7 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
         profiled_scan(node, tree_dir)
         search = search_phase(node, lib, corpus, card)
         validated = validator_phase(node, lib, loc, tree, tree_dir, rows, seed, int32_ops_per_s)
+        jobs = job_control_phase(node, tree_dir, db, rows, validated["tampered_dir"])
     finally:
         node.shutdown()
 
@@ -1714,7 +1730,7 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
         log(f"main path: {kernel} launches by shape: {shapes}")
     return {"launches": launches, "by_shape": by_shape, "pages": pages, "search": search,
             "programs": programs, "program_calls": program_calls, "dedup": dedup,
-            "fused": fused, "validator": validated}
+            "fused": fused, "validator": validated, "jobs": jobs}
 
 
 # --------------------------------------------------------------------------
@@ -2125,7 +2141,319 @@ def validator_phase(node, lib, loc: dict, tree: dict, tree_dir: Path, phase4_row
     log(f"phase 7: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "by_shape": by_shape, "stats": stats, "job_s": job_s,
             "files": n_hashed, "bytes": total_bytes, "times": times, "edges": edges,
-            "mesh": mesh, "sharded": sharded}
+            "mesh": mesh, "sharded": sharded, "tampered_dir": d}
+
+
+# --------------------------------------------------------------------------
+# phase 8: job control on the card
+# --------------------------------------------------------------------------
+
+#: phase 8's pages and groups: 256-file pages (adaptation off), one page a
+#: transaction, so a pause, a cancel and a kill land after a few of the 16
+#: pages of its 4,096 files
+JOBS_ENV = {"SD_SCAN_BATCH": "256", "SD_COMMIT_GROUP": "1"}
+#: the kill point of run (c): the eighth seam hit of identify's
+#: transactions, the COMMIT of its fourth page (three pages checkpointed)
+KILL_SPEC = "commit:kill:skip7"
+#: a temporary that a killed thumbnail write would leave
+PLANTED_TMP = "thumbnails/ab/ab00000000000000.webp.sd-tmp.0badf00d"
+
+
+def jobs_tree(tree_dir: Path, skip_dir: int) -> tuple[Path, list[int]]:
+    """16 of the tree's directories, the one phase 7 changed left out, as
+    hard links (no new bytes: the sparse large files stay sparse)."""
+    dirs = [d for d in range(N_DIRS) if d != skip_dir][:16]
+    root = WORK / "jobs"
+    for d in dirs:
+        (root / f"d{d:02d}").mkdir(parents=True)
+        for p in (tree_dir / f"d{d:02d}").iterdir():
+            os.link(p, root / f"d{d:02d}" / p.name)
+    return root, dirs
+
+
+def jobs_location(lib, root: Path) -> dict:
+    from spacedrive_tpu_torch.locations import create_location
+    from spacedrive_tpu_torch.models import Location
+
+    loc = create_location(lib, root)
+    lib.db.update(Location, {"id": loc["id"]}, {"generate_preview_media": False})
+    return loc
+
+
+def identify_row(db) -> dict:
+    return dict(db.query("SELECT * FROM job WHERE name = 'file_identifier'")[0])
+
+
+def checkpoint_of(row: dict) -> dict:
+    return json.loads(row["data"])
+
+
+def wait_until(what: str, pred, timeout: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            fail(f"job control: {what} did not happen within {timeout:.0f} s")
+        time.sleep(0.005)
+
+
+def committed_pages(db, step_number: int) -> tuple[set, set]:
+    """(the files with a cas_id, the non-empty files of the first
+    ``step_number`` pages): a checkpoint at a page boundary makes them
+    equal."""
+    rows = db.query("SELECT materialized_path, name, size_in_bytes, cas_id FROM file_path "
+                    "WHERE is_dir = 0 AND name != '' ORDER BY id")
+    page = int(JOBS_ENV["SD_SCAN_BATCH"])
+    want = {(r["materialized_path"], r["name"]) for r in rows[:step_number * page]
+            if r["size_in_bytes"]}
+    have = {(r["materialized_path"], r["name"]) for r in rows if r["cas_id"]}
+    return have, want
+
+
+def rows_against_phase4(db, phase4_db, phase4_rows: dict, n_files: int, what: str) -> None:
+    """Every cas_id and every manifest equal phase 4's for the same files."""
+    rows = {(r["materialized_path"], r["name"], r["extension"]): r["cas_id"] for r in db.query(
+        "SELECT materialized_path, name, extension, cas_id FROM file_path WHERE is_dir = 0")}
+    differ = [k for k, cas in rows.items() if phase4_rows[k]["cas_id"] != cas]
+    if len(rows) != n_files or differ:
+        fail(f"job control: {what}: {len(rows)} files, {len(differ)} cas_ids differ from "
+             f"phase 4's, e.g. {differ[:2]}")
+    mine, theirs = scan_rows(db)[2], scan_rows(phase4_db)[2]
+    bad = [c for c, m in mine.items() if theirs.get(c) != m]
+    want = {c for c in set(rows.values()) if c in theirs}
+    if bad or set(mine) != want:
+        fail(f"job control: {what}: {len(bad)} manifests differ from phase 4's, "
+             f"{len(set(mine) ^ want)} missing or extra")
+
+
+def pause_resume_run(node, root: Path, phase4_db, phase4_rows: dict, n_files: int) -> dict:
+    """Run (a): pause identify after a committed page, check the Paused
+    row, its checkpoint and the frozen launch counters, resume it."""
+    from spacedrive_tpu_torch.api.routers.jobs import pause, resume
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.locations import scan_location
+    from spacedrive_tpu_torch.ops import _kernels
+
+    lib = node.libraries.create("chip-smoke-pause")
+    loc = jobs_location(lib, root)
+    t0 = time.perf_counter()
+    scan_location(lib, loc["id"])
+    wait_until("a committed page", lambda: lib.db.query(
+        "SELECT data FROM job WHERE name = 'file_identifier' AND status = ?",
+        [JobStatus.RUNNING]) and checkpoint_of(identify_row(lib.db))["step_number"] >= 1)
+    job_id = identify_row(lib.db)["id"]
+    if not pause(node, job_id):
+        fail("job control: pause found no running identify job")
+    wait_until("the pause", lambda: identify_row(lib.db)["status"] == JobStatus.PAUSED, 60)
+    paused_s = time.perf_counter() - t0
+    frozen = dict(_kernels.LAUNCHES)
+    time.sleep(2.0)
+    if dict(_kernels.LAUNCHES) != frozen:
+        fail(f"job control: kernels launched while the job was Paused: {frozen} -> "
+             f"{dict(_kernels.LAUNCHES)}")
+    state = checkpoint_of(identify_row(lib.db))
+    have, want = committed_pages(lib.db, state["step_number"])
+    if not 0 < state["step_number"] < len(state["steps"]) or have != want:
+        fail(f"job control: paused at step {state['step_number']} of {len(state['steps'])} "
+             f"with {len(have)} files identified, {len(want)} in its committed pages")
+    chain = {r["name"]: r["status"] for r in lib.db.query("SELECT name, status FROM job")}
+    if chain.get("dedup_detector") != JobStatus.PAUSED:
+        fail(f"job control: the chain after the paused job is {chain}")
+    torch_sync()
+    _kernels.reset_counts()
+    t1 = time.perf_counter()
+    if not resume(node, lib, job_id):
+        fail("job control: resume refused the paused job")
+    if not node.jobs.wait_idle(600):
+        fail("job control: the resumed scan did not finish within 600 s")
+    resumed_s = time.perf_counter() - t1
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_ON_CUDA)
+    row = identify_row(lib.db)
+    statuses = {r["name"]: r["status"] for r in lib.db.query("SELECT name, status FROM job")}
+    if set(statuses.values()) != {JobStatus.COMPLETED}:
+        fail(f"job control: after the resume the jobs ended {statuses}")
+    for kernel in ("blake3_chunk_cvs", "blake3_merge", "gear_candidates"):
+        if launches.get(kernel, 0) <= 0:
+            fail(f"job control: the resumed scan never launched {kernel}")
+    if any(plain.values()):
+        fail(f"job control: the resumed scan called plain versions on the card: {plain}")
+    rows_against_phase4(lib.db, phase4_db, phase4_rows, n_files, "the resumed scan")
+    meta = json.loads(row["metadata"])
+    log(f"job control (a) pause and resume: paused after {paused_s:.2f} s at step "
+        f"{state['step_number']} of {len(state['steps'])} ({len(have)} files committed, whole "
+        f"pages); no launch in the 2 s after Paused; resumed in {resumed_s:.2f} s, "
+        f"{meta['pipeline_batches']} pages committed by the resumed run; launches of the "
+        f"resumed run {launches}, plain versions on the card 0; cas_ids and manifests of "
+        f"{n_files} files equal phase 4's")
+    return {"paused_s": paused_s, "resumed_s": resumed_s, "paused_step": state["step_number"],
+            "steps": len(state["steps"]), "launches": launches}
+
+
+def cancel_run(node, root: Path) -> dict:
+    """Run (b): cancel identify after a committed page: the job and its
+    chain end Canceled with only whole pages committed."""
+    from spacedrive_tpu_torch.api.routers.jobs import cancel
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.locations import scan_location
+
+    lib = node.libraries.create("chip-smoke-cancel")
+    loc = jobs_location(lib, root)
+    t0 = time.perf_counter()
+    scan_location(lib, loc["id"])
+    wait_until("a committed page", lambda: lib.db.query(
+        "SELECT data FROM job WHERE name = 'file_identifier' AND status = ?",
+        [JobStatus.RUNNING]) and checkpoint_of(identify_row(lib.db))["step_number"] >= 1)
+    if not cancel(node, identify_row(lib.db)["id"]):
+        fail("job control: cancel found no running identify job")
+    if not node.jobs.wait_idle(120):
+        fail("job control: the canceled scan did not stop within 120 s")
+    cancel_s = time.perf_counter() - t0
+    row = identify_row(lib.db)
+    statuses = {r["name"]: r["status"] for r in lib.db.query("SELECT name, status FROM job")}
+    state = checkpoint_of(row)
+    have, want = committed_pages(lib.db, state["step_number"])
+    if (statuses["file_identifier"] != JobStatus.CANCELED
+            or statuses["dedup_detector"] != JobStatus.CANCELED or have != want):
+        fail(f"job control: cancel left {statuses}, {len(have)} files identified, "
+             f"{len(want)} in the {state['step_number']} committed pages")
+    log(f"job control (b) cancel: canceled {cancel_s:.2f} s after the scan began, at step "
+        f"{state['step_number']} of {len(state['steps'])}: identify and its chain Canceled, "
+        f"{len(have)} files identified, exactly the non-empty files of the committed pages")
+    return {"cancel_s": cancel_s, "step": state["step_number"], "steps": len(state["steps"])}
+
+
+def kill_child(data_dir: str, root: str) -> int:
+    """The child of run (c): boot a Node on the card on ``data_dir``, plant
+    a stale temporary in its thumbnail cache, scan ``root`` and arm
+    ``KILL_SPEC`` once identify's init is done, so the commit seam counts
+    identify's transactions only. The armed seam SIGKILLs this process."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("the kill child needs a CUDA card")
+    sys.path.insert(0, str(ROOT))
+    from spacedrive_tpu_torch import faults
+    from spacedrive_tpu_torch.locations import scan_location
+    from spacedrive_tpu_torch.node import Node
+
+    node = Node(data_dir)
+    lib = node.libraries.create("chip-smoke-kill")
+    loc = jobs_location(lib, Path(root))
+    planted = Path(data_dir) / PLANTED_TMP
+    planted.parent.mkdir(parents=True, exist_ok=True)
+    planted.write_bytes(b"half a thumbnail")
+
+    def arm(event) -> None:
+        if event.kind == "db.commit" and (event.payload or {}).get("source") == "job.init" \
+                and event.payload.get("job") == "file_identifier":
+            faults.install(KILL_SPEC)
+
+    node.events.on(arm)
+    scan_location(lib, loc["id"])
+    node.jobs.wait_idle(600)
+    node.shutdown()
+    print("job control: the kill child was not killed", file=sys.stderr, flush=True)
+    return 3
+
+
+def kill_run(node_cls, root: Path, phase4_rows: dict, n_files: int) -> dict:
+    """Run (c): a child process scans on the card until ``KILL_SPEC``
+    SIGKILLs it mid-identify; a Node booted here on its data dir sweeps the
+    planted temporary and cold-resumes the Running identify job, which
+    finishes the chain with phase 4's cas_ids."""
+    import signal
+    import sqlite3
+
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.ops import _kernels
+
+    data_dir = WORK / "kill-data"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--kill-child",
+                           str(data_dir), str(root)], env={**os.environ, **JOBS_ENV},
+                          capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != -signal.SIGKILL:
+        fail(f"job control: the kill child exited {proc.returncode}, not by SIGKILL:\n"
+             f"{proc.stderr[-3000:]}")
+    (db_path,) = (data_dir / "libraries").glob("*.db")
+    conn = sqlite3.connect(db_path)
+    status, blob = conn.execute(
+        "SELECT status, data FROM job WHERE name = 'file_identifier'").fetchone()
+    conn.close()
+    killed_at = json.loads(blob)["step_number"]
+    if status != JobStatus.RUNNING or killed_at != 3:
+        fail(f"job control: the killed identify job is {status} at step {killed_at}, not "
+             f"Running at step 3")
+    planted = data_dir / PLANTED_TMP
+    if not planted.exists():
+        fail("job control: the kill child planted no temporary file")
+    _kernels.reset_counts()
+    t1 = time.perf_counter()
+    node = node_cls(data_dir)  # sweeps, then cold-resumes
+    try:
+        if planted.exists():
+            fail(f"job control: the boot sweep left {planted}")
+        (lib,) = node.libraries.list()
+        if not node.jobs.wait_idle(600):
+            fail("job control: the cold-resumed chain did not finish within 600 s")
+        resume_s = time.perf_counter() - t1
+        statuses = {r["name"]: r["status"] for r in lib.db.query("SELECT name, status FROM job")}
+        if set(statuses.values()) != {JobStatus.COMPLETED}:
+            fail(f"job control: after the cold resume the jobs ended {statuses}")
+        rows = {(r["materialized_path"], r["name"], r["extension"]): r["cas_id"]
+                for r in lib.db.query("SELECT materialized_path, name, extension, cas_id "
+                                      "FROM file_path WHERE is_dir = 0")}
+        meta = json.loads(identify_row(lib.db)["metadata"])
+    finally:
+        node.shutdown()
+    differ = [k for k, cas in rows.items() if phase4_rows[k]["cas_id"] != cas]
+    if len(rows) != n_files or differ:
+        fail(f"job control: the cold-resumed scan's {len(rows)} cas_ids: {len(differ)} differ "
+             f"from phase 4's")
+    launches = dict(_kernels.LAUNCHES)
+    if launches.get("blake3_chunk_cvs", 0) <= 0 or any(_kernels.PLAIN_ON_CUDA.values()):
+        fail(f"job control: the cold resume launched {launches}, plain versions "
+             f"{dict(_kernels.PLAIN_ON_CUDA)}")
+    log(f"job control (c) kill and cold resume: the child died by SIGKILL at {KILL_SPEC} "
+        f"after {child_s:.2f} s (boot, index and three committed pages), its identify row "
+        f"Running at step {killed_at}; the boot here swept {PLANTED_TMP} and cold-resumed "
+        f"the chain in {resume_s:.2f} s ({meta['pipeline_batches']} pages committed after the "
+        f"resume); cas_ids of {n_files} files equal phase 4's; launches {launches}")
+    return {"child_s": child_s, "resume_s": resume_s, "killed_at": killed_at,
+            "launches": launches}
+
+
+def job_control_phase(node, tree_dir: Path, phase4_db, phase4_rows: dict, skip_dir: int) -> dict:
+    """Phase 8: pause and resume, cancel, kill and cold resume a scan of 16
+    of the tree's directories on the card."""
+    from spacedrive_tpu_torch.node import Node
+
+    t_phase = time.perf_counter()
+    root, dirs = jobs_tree(tree_dir, skip_dir)
+    n_files = sum(1 for _ in root.glob("d*/*"))
+    saved = {k: os.environ.get(k) for k in JOBS_ENV}
+    os.environ.update(JOBS_ENV)
+    try:
+        paused = pause_resume_run(node, root, phase4_db, phase4_rows, n_files)
+        canceled = cancel_run(node, root)
+        killed = kill_run(Node, root, phase4_rows, n_files)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 8 (job control): {n_files} files of directories {dirs[0]}-{dirs[-1]} "
+        f"(d{skip_dir:02d} left out), {seconds:.1f} s")
+    return {"pause": paused, "cancel": canceled, "kill": killed, "seconds": seconds,
+            "files": n_files}
+
+
+def torch_sync() -> None:
+    import torch
+
+    torch.cuda.synchronize()
 
 
 def top_level_shape(tree: dict) -> tuple:
@@ -3054,9 +3382,38 @@ def audio_probe(work: Path, probe: dict) -> dict:
 
 
 def media_job(db) -> tuple[dict, dict, float]:
-    row = dict(db.query("SELECT * FROM job WHERE name = 'media_processor' "
-                        "ORDER BY date_created DESC LIMIT 1")[0])
+    """The last scan chain's media job (not a warm-start one)."""
+    row = dict(db.query("SELECT * FROM job WHERE name = 'media_processor' AND action LIKE "
+                        "'scan_location%' ORDER BY date_created DESC LIMIT 1")[0])
     return row, json.loads(row["metadata"] or "{}"), job_seconds(row)
+
+
+def media_lane(db) -> dict:
+    """Every media job of the library: the chain's and the warm-start
+    media-lane jobs identify spawned. Their summed metadata, all their error
+    lines, the warm-start jobs' directories, how many of those started
+    before identify ended, and the seconds from the first start to the
+    last end."""
+    from datetime import datetime
+
+    rows = [dict(r) for r in db.query("SELECT * FROM job WHERE name = 'media_processor' "
+                                      "ORDER BY date_created")]
+    ident = dict(db.query("SELECT * FROM job WHERE name = 'file_identifier' "
+                          "ORDER BY date_created LIMIT 1")[0])
+    meta: dict = {}
+    for r in rows:
+        for k, v in json.loads(r["metadata"] or "{}").items():
+            if isinstance(v, (int, float)):
+                meta[k] = meta.get(k, 0) + v
+    warm = [r for r in rows if r["action"] == "media_warm_start"]
+    start = min(datetime.fromisoformat(r["date_started"]) for r in rows)
+    end = max(datetime.fromisoformat(r["date_completed"]) for r in rows)
+    return {"meta": meta, "jobs": len(rows),
+            "errors": [e for r in rows for e in (r["errors_text"] or "").split("\n\n") if e],
+            "warm": sorted(json.loads(r["data"])["init_args"]["sub_path"] for r in warm),
+            "warm_before_identify_ended": sum(r["date_started"] < ident["date_completed"]
+                                             for r in warm),
+            "span_s": (end - start).total_seconds()}
 
 
 def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
@@ -3168,7 +3525,14 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
         for name in ("indexer", "file_identifier", "dedup_detector"):
             if jobs.get(name, {}).get("status") != JobStatus.COMPLETED:
                 fail(f"photo scan: {name} ended {jobs.get(name)}")
-        job, meta, media_s = media_job(db)
+        job, _chain_meta, chain_s = media_job(db)
+        # the media lane: warm-start jobs beside identify, then the chain's
+        lane = media_lane(db)
+        meta, media_s = lane["meta"], lane["span_s"]
+        log(f"media: {len(lane['warm'])} warm-start media-lane jobs ({', '.join(lane['warm'])}), "
+            f"{lane['warm_before_identify_ended']} of them started before identify ended; the "
+            f"chain's media job {chain_s:.2f} s; the lane's {lane['jobs']} media jobs span "
+            f"{media_s:.2f} s")
         cas = {str(tree_dir / r["materialized_path"].lstrip("/") / f"{r['name']}.{r['extension']}"):
                r["cas_id"] for r in db.query(
                    "SELECT materialized_path, name, extension, cas_id FROM file_path "
@@ -3249,15 +3613,23 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
         for c in corrupt:
             if thumbnail.thumbnail_path(data_dir, cas[str(c)]).exists():
                 fail(f"corrupt {c} has a thumbnail")
-        if sorted(events) != sorted(made_cas) or meta["thumbnails_created"] != len(made_cas):
-            fail(f"{len(events)} new_thumbnail events and {meta['thumbnails_created']} created, "
-                 f"{len(made_cas)} thumbnails made")
+        # a thumbnail is made once; each media job that selects it counts
+        # it and emits its event, the chain's job every one
+        if (set(events) != made_cas or len(events) != meta["thumbnails_created"]
+                or _chain_meta["thumbnails_created"] != len(made_cas)):
+            fail(f"{len(events)} new_thumbnail events ({len(set(events))} cas_ids), "
+                 f"{meta['thumbnails_created']} counted by the media jobs, "
+                 f"{_chain_meta['thumbnails_created']} by the chain's, {len(made_cas)} "
+                 f"thumbnails made")
         routes = (dict(thumbnail.DECODES), dict(thumbnail.ENCODES),
                   dict(processor.SCALAR_RETRIES), dict(metadata.PROBES))
         if retry.DISK_FULL:
             fail(f"the media job absorbed a full disk: {dict(retry.DISK_FULL)}")
         retried = sum(processor.SCALAR_RETRIES.values())
-        if retried != len(corrupt) + (0 if made else len(photos)):
+        failed_lines = sum(e.endswith("thumbnail failed (batched + scalar retry)")
+                           for e in lane["errors"])
+        # each media job that selects a file its batch left out retries it
+        if retried != failed_lines or retried < len(corrupt) + (0 if made else len(photos)):
             fail(f"{retried} files retried alone ({dict(processor.SCALAR_RETRIES)}), "
                  f"{len(corrupt)} corrupt")
         call_counts = dict(resize.CALLS)
@@ -3345,7 +3717,8 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
     made = len(made_cas)
     log(f"media job on {card}: {media_s:.2f} s for {n_files} files, "
         f"{made} thumbnails = {made / media_s:.1f} images/s, {mp:.1f} MP decoded = "
-        f"{mp / media_s:.1f} MP/s; scan {scan_s:.2f} s; media job pipeline: page "
+        f"{mp / media_s:.1f} MP/s (the media lane's jobs, first start to last end); scan "
+        f"{scan_s:.2f} s; media jobs' pipelines, summed: page "
         f"{meta['pipeline_page_s']:.2f} s ({100 * meta['pipeline_page_s'] / meta['pipeline_wall_s']:.1f}%), "
         f"process {meta['pipeline_hash_s']:.2f} s "
         f"({100 * meta['pipeline_hash_s'] / meta['pipeline_wall_s']:.1f}%), commit "
@@ -3435,7 +3808,7 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
             f"{c['h2d_bytes'] / c['h2d_ms'] / 1e6:.1f} GB/s)")
     device_s = sum(c["ms"] + c["h2d_ms"] for c in per_call) / 1e3
     log(f"media: resize device time and H2D {device_s * 1e3:.2f} ms in all = "
-        f"{100 * device_s / media_s:.3f}% of the media job's {media_s:.2f} s; phase 6 "
+        f"{100 * device_s / media_s:.3f}% of the media lane's {media_s:.2f} s; phase 6 "
         f"{time.perf_counter() - t_phase:.1f} s")
     counts = {shape: n for (_dev, shape), n in call_counts.items()}
     for shape, t in by_shape.items():
@@ -3451,7 +3824,13 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0, help="seed of all generated data")
     parser.add_argument("--kernels", action="store_true",
                         help="build, parity and timing only; no main path, no ok line")
+    parser.add_argument("--kill-child", nargs=2, metavar=("DATA_DIR", "TREE"),
+                        help="phase 8's child process: scan TREE into a Node on DATA_DIR "
+                             "until the armed commit seam kills it")
     args = parser.parse_args()
+    if args.kill_child:
+        return kill_child(*args.kill_child)
+    t_script = time.perf_counter()
 
     import torch
 
@@ -3617,6 +3996,7 @@ def main() -> int:
                 "ms_by_mesh": {m["mesh"]: m["ms"][name] for m in mesh["meshes"]},
                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None})
         print(json.dumps({"device_programs": programs}), flush=True)
+    log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     if args.kernels:

@@ -6,17 +6,21 @@ thumbnailer needs. A thumbnail is never visible half written: the payload
 goes to a temporary file in the destination's directory (one filesystem,
 so the rename is atomic), is fsynced, and is renamed over the destination;
 the directory is then fsynced, best effort. A kill leaves the old file or
-the new one, and at worst a stale ``*.sd-tmp*`` beside them. The boot-time
-sweep of stale temporaries (``cleanup_stale_tmp``) is not ported.
+the new one, and at worst a stale ``*.sd-tmp*`` beside them, which
+:func:`cleanup_stale_tmp` sweeps at boot (``cleanup_stale_tmp`` :127).
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
 import os
+import shutil
 import uuid
 from pathlib import Path
 from typing import Iterator
+
+logger = logging.getLogger(__name__)
 
 #: infix every temporary file carries, as in the reference
 TMP_MARK = ".sd-tmp"
@@ -80,3 +84,29 @@ def atomic_write_bytes(dest: str | Path, data: bytes) -> None:
 
 def atomic_write_text(dest: str | Path, text: str) -> None:
     atomic_write_bytes(dest, text.encode("utf-8"))
+
+
+def cleanup_stale_tmp(directory: str | Path) -> int:
+    """Remove the ``*.sd-tmp*`` debris a kill left mid-write in
+    ``directory`` and one level of subdirectories below it (the thumbnail
+    cache keeps its files in two-hex shards); returns how many were
+    removed."""
+    directory = Path(directory)
+    try:
+        entries = (list(directory.glob(f"*{TMP_MARK}*"))
+                   + list(directory.glob(f"*/*{TMP_MARK}*")))
+    except OSError:
+        return 0
+    removed = 0
+    for stale in entries:
+        try:
+            if stale.is_dir():
+                shutil.rmtree(stale, ignore_errors=True)
+            else:
+                stale.unlink(missing_ok=True)
+            removed += 1
+        except OSError:
+            logger.debug("could not remove stale temp %s", stale)
+    if removed:
+        logger.info("removed %d stale temp file(s) under %s", removed, directory)
+    return removed

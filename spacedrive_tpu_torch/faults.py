@@ -5,16 +5,22 @@ A trimmed copy of ``spacedrive_tpu/faults/__init__.py`` and
 per-file cas message read, :mod:`.objects.cas`) and ``chunk`` (the
 per-file manifest payload read, :mod:`.objects.manifest`), both inside
 their transient retry, so an injected ``eio`` is retried like a real one;
-and ``thumbnail`` (before each thumbnail is written,
+``thumbnail`` (before each thumbnail is written,
 :mod:`.objects.media.thumbnail`), where an ``enospc`` rehearses a full
-disk.
+disk; ``hash`` (before each hash dispatch of the identify job,
+:mod:`.objects.file_identifier`); and ``commit`` (at the BEGIN and the
+COMMIT of every outermost database transaction, :mod:`.models.base`).
 
 A plan is a ``;``-separated list of ``seam:kind[:trigger]`` rules, armed by
-:func:`install` (never from the environment). The kinds are ``eio``
-(``OSError(EIO)``) and ``enospc`` (``OSError(ENOSPC)``); the trigger is
-absent (every hit) or ``once`` (the first hit). At most one rule fires per
-hit, the first in spec order. ``inject`` is one module-global read when
-nothing is armed.
+:func:`install`, never from the environment: a child process that a test or
+``chip_smoke.py`` starts to be killed reads its plan from its arguments and
+installs it. The kinds are ``eio`` (``OSError(EIO)``), ``enospc``
+(``OSError(ENOSPC)``) and ``kill``, which SIGKILLs the process at the seam
+(no atexit, no flush: what the OOM killer or a power cut does). The trigger
+is absent (every hit), ``once`` (the first hit) or ``skipN`` (every hit
+after the first N: ``commit:kill:skip3`` dies at the fourth transaction
+seam hit). At most one rule fires per hit, the first in spec order.
+``inject`` is one module-global read when nothing is armed.
 
 An armed ``gather`` seam also routes a batch of the native gather through
 the per-file Python path, where the seam is (:func:`seam_armed`).
@@ -23,6 +29,8 @@ the per-file Python path, where the seam is (:func:`seam_armed`).
 from __future__ import annotations
 
 import errno
+import os
+import signal
 import threading
 from dataclasses import dataclass
 
@@ -36,11 +44,16 @@ class FaultRule:
     seam: str
     kind: str
     once: bool = False
+    #: hits to let pass before the rule fires on every later one
+    skip: int = 0
     fired: int = 0
 
     def should_fire(self) -> bool:
         """Caller holds the plan lock."""
         if self.once and self.fired:
+            return False
+        if self.skip > 0:
+            self.skip -= 1
             return False
         self.fired += 1
         return True
@@ -50,8 +63,14 @@ def _oserror(code: int, msg: str):
     return lambda key: OSError(code, f"{msg} [injected{': ' + key if key else ''}]")
 
 
+def _kill(key: str):
+    os.kill(os.getpid(), signal.SIGKILL)
+    threading.Event().wait(3600.0)  # never reached
+
+
 KINDS = {"eio": _oserror(errno.EIO, "I/O error"),
-         "enospc": _oserror(errno.ENOSPC, "no space left on device")}
+         "enospc": _oserror(errno.ENOSPC, "no space left on device"),
+         "kill": _kill}
 
 
 class FaultPlan:
@@ -76,9 +95,14 @@ class FaultPlan:
         if kind not in KINDS:
             raise FaultSpecError(f"rule {raw!r}: unknown kind {kind!r} (known: "
                                  f"{', '.join(sorted(KINDS))})")
-        if len(parts) == 3 and parts[2] != "once":
-            raise FaultSpecError(f"rule {raw!r}: the trigger is absent or 'once'")
-        return FaultRule(seam, kind, once=len(parts) == 3)
+        if len(parts) == 2:
+            return FaultRule(seam, kind)
+        trigger = parts[2]
+        if trigger == "once":
+            return FaultRule(seam, kind, once=True)
+        if trigger.startswith("skip") and trigger[4:].isdigit():
+            return FaultRule(seam, kind, skip=int(trigger[4:]))
+        raise FaultSpecError(f"rule {raw!r}: the trigger is absent, 'once' or 'skip<N>'")
 
     def has_seam(self, seam: str) -> bool:
         return seam in self._rules

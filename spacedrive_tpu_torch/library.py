@@ -2,9 +2,14 @@
 
 Counterpart of ``spacedrive_tpu/library.py`` (``Libraries.create`` :288),
 trimmed to what a scan and a search need: the ``<uuid>.sdlibrary`` JSON
-sidecar with the name, the ``<uuid>.db`` database with the port's tables, and
-``Library.emit`` onto the node's event bus. Sync, instance identities and the
-boot-time repair ladder are not ported.
+sidecar with the name, the ``<uuid>.db`` database with the port's tables,
+``Library.emit`` onto the node's event bus, and each library's
+:class:`.objects.gc.OrphanRemoverActor` (``library.py`` :278-286).
+:meth:`Libraries.init` sweeps the ``*.sd-tmp*`` debris a kill left in the
+libraries directory and in the node's ``thumbnails`` and ``backups``
+directories before it opens anything (:204-212). Sync, instance identities
+and the boot-time repair ladder are not ported; SQLite's own WAL recovery
+runs when a database opens.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import uuid
 from pathlib import Path
 from typing import TYPE_CHECKING, Any
 
+from .atomic import cleanup_stale_tmp
 from .models import ALL_MODELS, Database
 
 if TYPE_CHECKING:
@@ -22,32 +28,43 @@ if TYPE_CHECKING:
 
 
 class Library:
-    def __init__(self, lib_id: str, name: str, db: Database, node: "Node") -> None:
+    def __init__(self, lib_id: str, name: str, db: Database, node: "Node | None") -> None:
+        from .objects.gc import OrphanRemoverActor
+
         self.id = lib_id
         self.name = name
         self.db = db
         self.node = node
+        self.orphan_remover = OrphanRemoverActor(self)
 
     def emit(self, kind: str, payload: Any = None) -> None:
-        """An event scoped to this library on the node's bus."""
-        self.node.events.emit_kind(kind, payload, library_id=self.id)
+        """An event scoped to this library on the node's bus (none when the
+        library has no node)."""
+        if self.node is not None:
+            self.node.events.emit_kind(kind, payload, library_id=self.id)
 
     def close(self) -> None:
+        self.orphan_remover.stop()
         self.db.close()
 
 
 class Libraries:
     """Loads and owns every library under ``<data_dir>/libraries``."""
 
-    def __init__(self, data_dir: str | Path, node: "Node") -> None:
+    def __init__(self, data_dir: str | Path, node: "Node | None") -> None:
         self.dir = Path(data_dir) / "libraries"
         self.node = node
         self._lock = threading.Lock()
         self._libraries: dict[str, Library] = {}
 
     def init(self) -> None:
-        """Open every library already on disk."""
+        """Sweep the temporaries a killed write left, then open every
+        library already on disk."""
         self.dir.mkdir(parents=True, exist_ok=True)
+        cleanup_stale_tmp(self.dir)
+        if self.node is not None:
+            for artifact_dir in ("backups", "thumbnails"):
+                cleanup_stale_tmp(self.node.data_dir / artifact_dir)
         for cfg_path in sorted(self.dir.glob("*.sdlibrary")):
             self._open(cfg_path.stem, json.loads(cfg_path.read_text())["name"])
 
@@ -57,6 +74,10 @@ class Libraries:
         with self._lock:
             self._libraries[lib_id] = library
         return library
+
+    def list(self) -> list[Library]:
+        with self._lock:
+            return list(self._libraries.values())
 
     def get(self, lib_id: str) -> Library:
         """The open library ``lib_id``; KeyError when there is none."""

@@ -61,6 +61,7 @@ def create_location(library: "Library", path: str | Path, name: str | None = Non
             db.insert(IndexerRulesInLocation,
                       {"location_id": location_id, "indexer_rule_id": rule["id"]},
                       or_ignore=True)
+    library.node.locations.add(library, location_id)
     return db.find_one(Location, {"id": location_id})
 
 

@@ -12,7 +12,8 @@ journal the search engine refreshes from (:class:`RowJournal`, attached with
 and sees its own uncommitted rows; every other thread reads the last
 committed snapshot through a ``PRAGMA query_only=ON`` reader with its own
 lock, so the scan pipeline's prefetch never waits behind a group commit.
-Sync annotations and retry seams are not ported.
+Sync annotations and the transaction's busy retry are not ported; the
+``commit`` fault seam is (:class:`_Txn`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ import sqlite3
 import threading
 from pathlib import Path
 from typing import Any, ClassVar, Iterable
+
+from .. import faults
 
 
 @dataclasses.dataclass(frozen=True)
@@ -468,7 +471,8 @@ class Database:
 class _Txn:
     """Re-entrant transaction scope: the outermost use BEGINs and COMMITs (or
     ROLLs BACK on an exception); nested uses join it. Holds the connection
-    lock for its whole extent, so other threads' writes wait."""
+    lock for its whole extent, so other threads' writes wait. The ``commit``
+    fault seam is hit before the BEGIN and before the COMMIT."""
 
     def __init__(self, db: Database) -> None:
         self.db = db
@@ -477,6 +481,7 @@ class _Txn:
         self.db._lock.acquire()
         try:
             if self.db._txn_depth == 0:
+                faults.inject("commit", key="begin")
                 self.db._conn.execute("BEGIN IMMEDIATE")
                 self.db._txn_thread = threading.get_ident()
             self.db._txn_depth += 1
@@ -491,6 +496,12 @@ class _Txn:
             if self.db._txn_depth == 0:
                 self.db._txn_thread = None
                 try:
+                    if exc_type is None:
+                        try:
+                            faults.inject("commit", key="commit")
+                        except BaseException:
+                            self.db._conn.execute("ROLLBACK")
+                            raise
                     self.db._conn.execute("COMMIT" if exc_type is None else "ROLLBACK")
                 finally:
                     # buffered row-journal notes become drainable only now

@@ -2,8 +2,14 @@
 
 Counterpart of ``spacedrive_tpu/node.py`` (``Node`` :75), trimmed to the node
 config, the event bus, the libraries under ``<data_dir>/libraries/``, the job
-runner, the search engine (armed by ``SD_SEARCH_ENGINE=device``, as in the
-JAX package) and the device. ``device`` defaults to the CUDA card and raises
+manager, the locations actor, the thumbnail remover, the search engine
+(armed by ``SD_SEARCH_ENGINE=device``, as in the JAX package) and the
+device. The boot order is the reference's (:191-199): every job type is
+registered, the libraries are swept of stale temporaries and opened, the
+locations actor starts, and each library's unfinished jobs cold-resume from
+their checkpoints (on the node's device: the kernels load from
+``_build``). :meth:`Node.shutdown` checkpoints the running jobs instead of
+waiting for them: call ``jobs.wait_idle`` first to let them finish. ``device`` defaults to the CUDA card and raises
 when there is none; ``device="cpu"`` runs the kernels' plain PyTorch
 versions. ``mesh_devices`` is the device list a ``tpu-sharded`` location's
 mesh spans (``objects.hasher.get_hasher``; default every visible card, or
@@ -22,8 +28,10 @@ import torch
 from . import resolve_device
 from .config import load_node_config
 from .events import EventBus
-from .jobs import Jobs
+from .jobs import Jobs, register_builtin_jobs
 from .library import Libraries
+from .locations.manager import LocationsActor
+from .objects.gc import ThumbnailRemoverActor
 from .objects.hasher import DeviceHasher
 from .search.engine import SearchEngine
 
@@ -43,7 +51,15 @@ class Node:
         self.hasher = DeviceHasher(self.device)
         self.jobs = Jobs()
         self.libraries = Libraries(self.data_dir, node=self)
+        self.thumbnail_remover = ThumbnailRemoverActor(self)
+        self.search_engine = None
+        register_builtin_jobs()  # every job type, before a cold resume looks one up
         self.libraries.init()
+        self.locations = LocationsActor(self)
+        for library in self.libraries.list():
+            revived = self.jobs.cold_resume(library)
+            if revived:
+                logger.info("cold-resumed %d jobs of library %s", revived, library.id[:8])
         self.search_engine = SearchEngine.maybe_start(self)
         logger.info("node %s up on %s", self.config["id"][:8], self.device)
 
@@ -51,9 +67,11 @@ class Node:
         self.events.emit_kind(kind, payload, library_id)
 
     def shutdown(self) -> None:
-        """Let spawned jobs finish, stop the job worker and the search
-        engine, close the databases."""
-        self.jobs.shutdown()
+        """Stop the search engine, checkpoint the running jobs (each pauses
+        at its last committed step or group; cold resume revives it at the
+        next boot), stop the actors, close the databases."""
         if self.search_engine is not None:
             self.search_engine.stop()
+        self.jobs.shutdown()
+        self.thumbnail_remover.stop()
         self.libraries.close()

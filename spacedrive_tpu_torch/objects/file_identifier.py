@@ -15,6 +15,12 @@ group commit, adaptive pages) unless ``SD_PIPELINE=0``, when
 ``execute_step`` runs the same three back to back: one implementation, two
 schedules, the same rows.
 
+After each committed batch the job hands the top-level directories of its
+newly identified thumbnailable files to the locations actor, which spawns a
+media-lane job for each (``_media_warm_start``, reference :544-596), so
+thumbnails start while identify still hashes. The ``hash`` fault seam sits
+before each hash dispatch.
+
 Unlike the JAX job there is no CPU re-dispatch of a failed hash batch
 (reference :378-397): on the card a kernel failure raises in the dispatch
 stage and fails the job.
@@ -28,6 +34,7 @@ import time
 import uuid
 from typing import Any
 
+from .. import faults
 from ..jobs import EarlyFinish, JobContext, JobError, StatefulJob, StepResult
 from ..models import Location, Object, utc_now
 from . import manifest as chunk_manifest
@@ -137,7 +144,8 @@ class FileIdentifierJob(StatefulJob):
         steps = [{"kind": "identify"} for _ in range(-(-count // page))]
         data = {"location_id": location_id, "location_path": location["path"],
                 "hasher": location.get("hasher"), "cursor": 0,
-                "sub_path": self.init_args.get("sub_path")}
+                "sub_path": self.init_args.get("sub_path"),
+                "preview_media": location.get("generate_preview_media") is not False}
         return data, steps, {"total_orphan_paths": count, "created_objects": 0,
                              "linked_objects": 0, "hash_time": 0.0,
                              "quarantined_files": 0, "chunked_files": 0,
@@ -252,6 +260,7 @@ class FileIdentifierJob(StatefulJob):
         device passed explicitly; an error raises through."""
         t0 = time.perf_counter()
         hasher = get_hasher(data.get("hasher"), ctx.node)
+        faults.inject("hash")
         batch["cas_results"] = hasher.hash_gathered(batch["messages"])
         batch["messages"] = None  # the gathered bytes are dead weight now
         if chunk_manifest.manifests_enabled():
@@ -342,6 +351,14 @@ class FileIdentifierJob(StatefulJob):
                 chunked = chunk_manifest.commit_manifest_rows(db, items)
         # the cursor advances only after the transaction committed
         data["cursor"] = batch["cursor"]
+        # best effort from here on: the batch is durable, and an exception
+        # out of this call would make the committer retry it
+        try:
+            self._media_warm_start(ctx, data, identified)
+            ctx.progress(message=f"identified {len(identified)} files ({len(creations)} new "
+                                 f"objects, {linked} linked)")
+        except Exception:
+            logger.exception("post-commit media warm start failed (the batch is committed)")
         return StepResult(metadata={"created_objects": len(creations),
                                     "linked_objects": linked,
                                     "hash_time": batch["hash_s"],
@@ -350,6 +367,27 @@ class FileIdentifierJob(StatefulJob):
                                     "chunked_files": chunked,
                                     "chunk_quarantined": len(chunk_errors)},
                           errors=errors)
+
+    def _media_warm_start(self, ctx: JobContext, data: dict,
+                          identified: list[tuple[dict, str]]) -> None:
+        """Hand the top-level directories of the batch's thumbnailable files
+        to the locations actor, which starts media-lane jobs on them while
+        this job hashes the rest; the chain's whole-location media job
+        takes up what they miss."""
+        actor = getattr(ctx.node, "locations", None)
+        if actor is None or not data.get("preview_media", True):
+            return
+        from .media.processor import thumbable_extensions
+
+        exts = thumbable_extensions()
+        prefixes = set()
+        for row, _cas in identified:
+            if (row.get("extension") or "").lower() in exts:
+                mp = (row.get("materialized_path") or "/").strip("/")
+                if mp:
+                    prefixes.add(mp.split("/")[0])
+        if prefixes:
+            actor.media_warm_start(ctx.library, data["location_id"], prefixes)
 
     def _object_row(self, row: dict, location_path: str) -> dict:
         # magic-byte disambiguation for conflicting/unknown extensions; the

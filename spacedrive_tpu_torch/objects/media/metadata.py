@@ -26,6 +26,7 @@ import subprocess
 from collections import Counter
 from typing import Any
 
+from ...ops._kernels import count
 from . import thumbnail
 from .thumbnail import HEIF_EXTENSIONS, THUMBNAILABLE_IMAGE_EXTENSIONS, THUMBNAILABLE_VIDEO_EXTENSIONS
 
@@ -79,7 +80,7 @@ def _extract_heif(path: str) -> dict[str, Any] | None:
     except Exception as e:
         logger.debug("no media data for %s: %s", path, e)
         return None
-    PROBES["heif"] += 1
+    count(PROBES, "heif")
     return {"dimensions": {"width": w, "height": h}}
 
 
@@ -138,7 +139,7 @@ def _extract_av(path: str) -> dict[str, Any] | None:
     libav probe where the native wrapper builds, else ``ffprobe``."""
     native = _native_probe(path)
     if native is not None:
-        PROBES["native"] += 1
+        count(PROBES, "native")
         return native
     if _FFPROBE is None:
         return None
@@ -193,7 +194,7 @@ def _extract_av(path: str) -> dict[str, Any] | None:
         if tags.get(src):
             out[dst] = str(tags[src])
     if out:
-        PROBES["ffprobe"] += 1
+        count(PROBES, "ffprobe")
     return out or None
 
 

@@ -22,8 +22,13 @@ is retried alone through :func:`.thumbnail.generate_thumbnail`, as in the
 reference; :data:`SCALAR_RETRIES` counts those retries by extension, and a
 retry that fails too is an error line.
 
-The reference's media lane and its warm start per identified prefix are
-not ported.
+The job runs in the media lane (``LANE``, :mod:`...jobs.manager`): beside
+the default lane's scan chain, as the warm-start jobs the identify job
+spawns for each identified prefix
+(:meth:`...locations.manager.LocationsActor.media_warm_start`) do. A
+thumbnail that exists already is not made again, but it still counts in
+``thumbnails_created`` and gets a ``new_thumbnail`` event, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from collections import Counter
 
 from ...jobs import EarlyFinish, JobError, StatefulJob, StepResult
 from ...models import FilePath, Location, MediaData
+from ...ops._kernels import count
 from ..file_identifier import abs_path
 from .metadata import extract_media_data
 from .thumbnail import (HEIF_EXTENSIONS, THUMBNAILABLE_IMAGE_EXTENSIONS,
@@ -50,6 +56,7 @@ SCALAR_RETRIES: Counter = Counter()
 
 class MediaProcessorJob(StatefulJob):
     NAME = "media_processor"
+    LANE = "media"
 
     def init(self, ctx):
         db = ctx.library.db
@@ -60,7 +67,7 @@ class MediaProcessorJob(StatefulJob):
         if location.get("generate_preview_media") is False:
             raise EarlyFinish("preview media disabled for location")
 
-        exts = sorted(_thumbable_extensions())
+        exts = sorted(thumbable_extensions())
         marks = ",".join("?" for _ in exts)
         sub = self.init_args.get("sub_path")
         sub_sql, sub_params = ("", [])
@@ -132,7 +139,7 @@ class MediaProcessorJob(StatefulJob):
                     if out is None:
                         # the batch left it out (host decode or encode
                         # failed): retry it alone, and record a failure
-                        SCALAR_RETRIES[ext] += 1
+                        count(SCALAR_RETRIES, ext)
                         out = generate_thumbnail(path, node.data_dir, row["cas_id"], ext)
                         if out is None:
                             errors.append(f"{path}: thumbnail failed (batched + scalar retry)")
@@ -166,5 +173,5 @@ class MediaProcessorJob(StatefulJob):
         return run_metadata
 
 
-def _thumbable_extensions() -> set[str]:
+def thumbable_extensions() -> set[str]:
     return THUMBNAILABLE_IMAGE_EXTENSIONS | THUMBNAILABLE_VIDEO_EXTENSIONS | HEIF_EXTENSIONS

@@ -47,6 +47,7 @@ import torch
 
 from ... import faults
 from ...atomic import atomic_path, atomic_write_bytes, atomic_write_text
+from ...ops._kernels import count
 from ...ops.resize import MAX_INPUT_EDGE, resize_batch_host
 from ...retry import is_disk_full, note_disk_full
 
@@ -222,7 +223,7 @@ def _native_decode(source: Path):
     except Exception as e:
         logger.debug("native decode fell back to PIL for %s: %s", source, e)
         return None
-    DECODES["native"] += 1
+    count(DECODES, "native")
     return arr
 
 
@@ -231,7 +232,7 @@ def _heif_decode(source: Path) -> np.ndarray:
     if heif is None:
         raise RuntimeError("libheif runtime not available")
     arr = heif.decode_rgb(source)
-    DECODES["heif"] += 1
+    count(DECODES, "heif")
     return arr
 
 
@@ -259,7 +260,7 @@ def _image_thumbnail(source: Path, out: Path, ext: str | None = None) -> Path:
         with atomic_path(out) as tmp:
             _save_webp(img, tmp)
     if arr is None:
-        DECODES["pil"] += 1
+        count(DECODES, "pil")
     return out
 
 
@@ -273,7 +274,7 @@ def _save_webp(img, tmp: Path) -> None:
             rgb = img if isinstance(img, np.ndarray) else np.asarray(img.convert("RGB"),
                                                                      dtype=np.uint8)
             tmp.write_bytes(native.encode_webp(rgb, WEBP_QUALITY))
-            ENCODES["native"] += 1
+            count(ENCODES, "native")
             return
         except Exception as e:
             logger.debug("native webp encode fell back to PIL: %s", e)
@@ -282,7 +283,7 @@ def _save_webp(img, tmp: Path) -> None:
     if isinstance(img, np.ndarray):
         img = Image.fromarray(img)
     img.save(tmp, "WEBP", quality=WEBP_QUALITY)
-    ENCODES["pil"] += 1
+    count(ENCODES, "pil")
 
 
 def _video_thumbnail(source: Path, out: Path) -> Path | None:
@@ -296,7 +297,7 @@ def _video_thumbnail(source: Path, out: Path) -> Path | None:
             from PIL import Image
 
             frame = native.decode_frame_rgb(source)
-            DECODES["video_native"] += 1
+            count(DECODES, "video_native")
             img = _fit_target_area(Image.fromarray(frame))
             with atomic_path(out) as tmp:
                 _save_webp(img, tmp)
@@ -308,8 +309,8 @@ def _video_thumbnail(source: Path, out: Path) -> Path | None:
         return None
     with atomic_path(out) as tmp:
         _cli_grab_frame(source, tmp, 512, webp_quality=WEBP_QUALITY)
-    DECODES["video_cli"] += 1
-    ENCODES["video_cli"] += 1
+    count(DECODES, "video_cli")
+    count(ENCODES, "video_cli")
     return out
 
 
@@ -421,7 +422,7 @@ def _decode_for_device(source: Path) -> np.ndarray:
         if edge > MAX_INPUT_EDGE:
             img = img.reduce(-(-edge // MAX_INPUT_EDGE))
         arr = np.asarray(img, dtype=np.uint8)
-    DECODES["pil"] += 1
+    count(DECODES, "pil")
     return arr
 
 

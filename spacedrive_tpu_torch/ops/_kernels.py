@@ -56,10 +56,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
                "search_lex": [_P, _P, _I, _I, _P, _I, ctypes.c_uint64, _P, _I, _P]},
 }
 
-#: incremented without ``_lock``: one thread launches at a time (a scan's
-#: kernels launch from its pipeline's dispatch thread, or from the job
-#: thread when sequential; search kernels from the caller's thread, and no
-#: run here overlaps a scan with a search)
+#: counted under ``_count_lock`` (:func:`count`): several threads launch at
+#: once (a scan's dispatch thread beside a media-lane job, two libraries'
+#: scans, a search), and ``counter[key] += 1`` is a read and a write
 LAUNCHES: collections.Counter = collections.Counter()
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 PLAIN_ON_CUDA: collections.Counter = collections.Counter()
@@ -68,6 +67,7 @@ PLAIN_ON_CUDA: collections.Counter = collections.Counter()
 BUILD_LOG: dict[str, str] = {}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _tag = threading.local()
 
@@ -81,9 +81,18 @@ class KernelLaunchError(RuntimeError):
 
 
 def reset_counts() -> None:
-    LAUNCHES.clear()
-    LAUNCHES_BY_SHAPE.clear()
-    PLAIN_ON_CUDA.clear()
+    with _count_lock:
+        LAUNCHES.clear()
+        LAUNCHES_BY_SHAPE.clear()
+        PLAIN_ON_CUDA.clear()
+
+
+def count(counter: collections.Counter, key, n: int = 1) -> None:
+    """Add ``n`` to ``counter[key]`` under one lock; the port's module
+    counters that several threads bump (the launch counters, the resize
+    calls, the thumbnailer's decodes and encodes) all go through it."""
+    with _count_lock:
+        counter[key] += n
 
 
 @contextlib.contextmanager
@@ -167,8 +176,9 @@ def launch(source: str, kernel: str, *args, shape: tuple[int, ...] = ()) -> None
     rc = getattr(library(source), kernel)(*args)
     if rc != 0:
         raise KernelLaunchError(f"{kernel} launch failed: cudaError {rc}")
-    LAUNCHES[kernel] += 1
-    LAUNCHES_BY_SHAPE[(kernel, getattr(_tag, "value", None), shape)] += 1
+    with _count_lock:
+        LAUNCHES[kernel] += 1
+        LAUNCHES_BY_SHAPE[(kernel, getattr(_tag, "value", None), shape)] += 1
 
 
 def stream_of(device) -> int:

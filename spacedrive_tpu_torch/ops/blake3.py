@@ -127,7 +127,7 @@ def _n_chunks(lengths: torch.Tensor) -> torch.Tensor:
 
 def _note_plain(kernel: str, t: torch.Tensor) -> None:
     if t.is_cuda:
-        _kernels.PLAIN_ON_CUDA[kernel] += 1
+        _kernels.count(_kernels.PLAIN_ON_CUDA, kernel)
 
 
 def _window(lengths: torch.Tensor, C: int, base, total) -> tuple[torch.Tensor, torch.Tensor]:

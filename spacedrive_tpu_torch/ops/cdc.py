@@ -142,7 +142,7 @@ def gear_candidates_plain(plane: torch.Tensor, lengths: torch.Tensor,
     32 shifted adds of the gear-mapped plane in int64, masked to 32 bits.
     Positions before the file start contribute 0."""
     if plane.is_cuda:
-        _kernels.PLAIN_ON_CUDA["gear_candidates"] += 1
+        _kernels.count(_kernels.PLAIN_ON_CUDA, "gear_candidates")
     B, L = plane.shape
     g = GEAR.to(plane.device)[plane.long()]
     h = torch.zeros((B, L), dtype=torch.int64, device=plane.device)

@@ -51,6 +51,8 @@ from collections import Counter
 import numpy as np
 import torch
 
+from . import _kernels
+
 #: output canvas edge: ceil(sqrt(262144)), the thumbnail's target area
 CANVAS = 512
 
@@ -59,8 +61,10 @@ CANVAS = 512
 #: box-reduces anything larger on the host first
 MAX_INPUT_EDGE = 1024
 
-#: calls of ``resize_batch`` by (device type, (B, H_in, W_in)); a plain
-#: counter, so a run can show where the resize ran and at which shapes
+#: calls of ``resize_batch`` by (device type, (B, H_in, W_in)), counted
+#: under ``_kernels.count``'s lock (a media-lane job and another library's
+#: media job may resize at once), so a run can show where the resize ran
+#: and at which shapes
 CALLS: Counter = Counter()
 
 
@@ -126,7 +130,7 @@ def resize_batch(images: torch.Tensor, src_hw: torch.Tensor,
         raise ValueError("src_hw and tgt_hw must be (B, 2)")
     if src_hw.device != images.device or tgt_hw.device != images.device:
         raise ValueError("images, src_hw and tgt_hw must be on one device")
-    CALLS[(images.device.type, (B, h_in, w_in))] += 1
+    _kernels.count(CALLS, (images.device.type, (B, h_in, w_in)))
     rows = _two_tap(images, 1, _taps(src_hw[:, 0], tgt_hw[:, 0]))   # vertical pass
     out = _two_tap(rows, 2, _taps(src_hw[:, 1], tgt_hw[:, 1]))      # horizontal pass
     return torch.clamp(torch.round(out), 0.0, 255.0).to(torch.uint8)

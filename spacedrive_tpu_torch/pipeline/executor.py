@@ -21,6 +21,17 @@ of the group back and restores ``data``, and ``COMMIT_RETRY`` retries it
 while the error is transient. A full disk ends the job Paused at the last
 committed group.
 
+Checkpoints and commands: the committer is the job's worker thread. After
+each committed group it persists the job's serialized state into its report
+row (outside the group transaction: a kill between the two resumes one
+group early, and re-running a committed group is idempotent, its rows being
+no longer orphans), so a killed process cold-resumes there. It polls the
+worker's commands before every wait for a result and between the backoff
+quanta of a group's retry, so pause, shutdown and cancel land on a
+committed-group boundary: the pages processed but not committed are
+dropped, and the drain joins the stage threads before the worker writes
+the row's new status, so no stage launches a kernel after it.
+
 Stage supervision: a failure on a stage thread reaches the committer in
 page order, after the pages before it. Those are committed first; then a
 transient failure (``retry.is_transient``) ends the job Paused at the last
@@ -41,9 +52,6 @@ What the port leaves out, on purpose:
   hide the device.
 - No telemetry registry: stage busy times are ``time.perf_counter``
   intervals (the reference's spans degrade to the same bare timers).
-- No command channel, so nothing is polled between commits: pause, resume
-  and cancel are ROADMAP Queue 1 item 8, and so is the checkpoint persist
-  for a cold resume.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ from ..jobs import JobError, JobPaused, merge_metadata
 from ..retry import RetryPolicy, is_disk_full, is_transient, retry_call
 
 if TYPE_CHECKING:
-    from ..jobs import JobContext, JobState, StatefulJob
+    from ..jobs import DynJob, WorkerContext
     from .spec import PipelineSpec
 
 logger = logging.getLogger(__name__)
@@ -155,15 +163,16 @@ class _PageTicket:
 
 
 class PipelineExecutor:
-    """Drive one pipelined job run; advances ``state`` exactly as the
-    sequential step loop in ``jobs._run`` would."""
+    """Drive one pipelined job run; advances the job's state exactly as the
+    sequential step loop in ``DynJob.run`` would."""
 
-    def __init__(self, spec: "PipelineSpec", ctx: "JobContext", job: "StatefulJob",
-                 state: "JobState", errors: list[str]) -> None:
+    def __init__(self, spec: "PipelineSpec", ctx: "WorkerContext", dyn_job: "DynJob",
+                 errors: list[str]) -> None:
         self.spec = spec
         self.ctx = ctx
-        self.job = job
-        self.state = state
+        self.dyn_job = dyn_job
+        self.job = dyn_job.job
+        self.state = dyn_job.state
         self.errors = errors
         depth = pipeline_depth()
         self._pages: queue.Queue[Any] = queue.Queue(maxsize=depth)
@@ -183,6 +192,18 @@ class PipelineExecutor:
         self._commit_s = 0.0
         self._batches = 0
         self._txns = 0
+
+    def _persist_checkpoint(self) -> None:
+        """Write the committed state into the job's report row, so a killed
+        process resumes here. Best effort: a failed write costs re-run
+        work (the previous checkpoint), never correctness."""
+        try:
+            report = self.dyn_job.report
+            report.data = self.dyn_job.serialize_state()
+            report.upsert(self.ctx.library.db)
+        except Exception:
+            logger.exception("pipeline %s: checkpoint persist failed (a resume starts at "
+                             "the previous checkpoint)", self.job.NAME)
 
     # -- bounded put that never deadlocks a drain ----------------------------
     def _put(self, q: queue.Queue, item: Any) -> bool:
@@ -377,7 +398,9 @@ class PipelineExecutor:
 
         t0 = time.perf_counter()
         try:
-            results = retry_call(attempt, policy=COMMIT_RETRY, classify=is_transient)
+            # a pause during the backoff serializes the last committed group
+            results = retry_call(attempt, policy=COMMIT_RETRY, classify=is_transient,
+                                 cancel_check=lambda: self.ctx.check_commands(self.dyn_job))
         except (OSError, sqlite3.OperationalError) as e:
             if not is_disk_full(e):
                 raise
@@ -388,7 +411,7 @@ class PipelineExecutor:
                                f"batch {self._batches}: {e!r}")
             logger.error("pipeline %s: disk full during commit; pausing at committed "
                          "batch %d", self.job.NAME, self._batches)
-            raise JobPaused(self.errors) from e
+            raise JobPaused(self.dyn_job.serialize_state(), errors=self.errors) from e
         with self._stats_lock:
             self._commit_s += time.perf_counter() - t0
             self._txns += 1
@@ -406,6 +429,7 @@ class PipelineExecutor:
                 state.steps.append(dict(state.steps[-1]))
             self.ctx.progress(completed_task_count=state.step_number,
                               task_count=len(state.steps))
+        self._persist_checkpoint()
         # one post-commit db.commit per durable transaction (the search
         # index's watermark moves past the group's rows)
         self.ctx.library.emit("db.commit", {"source": "pipeline", "job": self.job.NAME,
@@ -427,8 +451,9 @@ class PipelineExecutor:
         pending_since = 0.0  # when the oldest uncommitted page arrived
         try:
             while True:
-                # the reference polls the job's command channel here; the
-                # port has none (pause/cancel: ROADMAP Queue 1 item 8)
+                # pause, shutdown and cancel land here, after the last
+                # committed group: the pending pages are dropped
+                self.ctx.check_commands(self.dyn_job)
                 try:
                     item = self._results.get(timeout=_POLL_S)
                 except queue.Empty:
@@ -449,7 +474,8 @@ class PipelineExecutor:
                         logger.warning("pipeline %s: transient stage failure, pausing at "
                                        "committed batch %d: %r", self.job.NAME,
                                        self._batches, exc)
-                        raise JobPaused(self.errors) from exc
+                        raise JobPaused(self.dyn_job.serialize_state(),
+                                        errors=self.errors) from exc
                     raise exc
                 if not pending:
                     pending_since = time.perf_counter()

@@ -88,6 +88,10 @@ def is_disk_full(exc: BaseException) -> bool:
             and "disk is full" in str(exc).lower())
 
 
+#: backoff quantum of :func:`retry_call`: how long a pause or cancel can
+#: wait behind a retry's sleep
+POLL_S = 0.05
+
 #: full disks absorbed by skipping the work, by site (``thumbnail``)
 DISK_FULL: Counter = Counter()
 
@@ -99,11 +103,14 @@ def note_disk_full(site: str) -> None:
 
 
 def retry_call(fn: Callable[[], Any], *, policy: RetryPolicy,
-               classify: Callable[[BaseException], bool] = is_transient) -> Any:
+               classify: Callable[[BaseException], bool] = is_transient,
+               cancel_check: Callable[[], None] | None = None) -> Any:
     """Call ``fn`` until it returns, raises an error ``classify`` calls not
     retryable, or the policy's attempts or wall budget run out; then the
-    last error raises. The reference's ``cancel_check`` hook is not ported:
-    the port has no command channel to poll (ROADMAP Queue 1 item 8)."""
+    last error raises. ``cancel_check`` runs between backoff quanta of
+    :data:`POLL_S` and before each retry; what it raises (the job's
+    ``JobPaused`` or ``JobCanceled``) propagates at once and drops the
+    pending transient error."""
     deadline = time.monotonic() + policy.budget_s
     retries = 0
     while True:
@@ -118,4 +125,12 @@ def retry_call(fn: Callable[[], Any], *, policy: RetryPolicy,
             delay = policy.delay(retries - 1)
             if time.monotonic() + delay > deadline:
                 raise
-            time.sleep(delay)
+            waited = 0.0
+            while waited < delay:
+                if cancel_check is not None:
+                    cancel_check()
+                quantum = min(POLL_S, delay - waited)
+                time.sleep(quantum)
+                waited += quantum
+            if cancel_check is not None:
+                cancel_check()

@@ -131,7 +131,7 @@ def pad_cap(n: int) -> int:
 
 def _note_plain(kernel: str, rows: torch.Tensor) -> None:
     if rows.is_cuda:
-        _kernels.PLAIN_ON_CUDA[kernel] += 1
+        _kernels.count(_kernels.PLAIN_ON_CUDA, kernel)
 
 
 def _padded(raw: bytes, width: int, device: torch.device) -> torch.Tensor:

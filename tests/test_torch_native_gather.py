@@ -206,7 +206,7 @@ def test_fault_spec_grammar():
     finally:
         faults.clear()
     faults.inject("gather")  # disarmed: nothing
-    for bad in ("", "gather", "gather:kill", "gather:eio:2", "gather:eio:x"):
+    for bad in ("", "gather", "gather:hang", "gather:eio:2", "gather:eio:x", "gather:kill:skip"):
         with pytest.raises(faults.FaultSpecError):
             faults.install(bad)
 

@@ -333,6 +333,152 @@ def test_pipelined_scan_on_the_card_matches_the_sequential_scan(card, tmp_path, 
     assert not any(plain.values()), plain
 
 
+def test_pause_and_resume_on_the_card_gives_the_uninterrupted_rows(card, tmp_path, monkeypatch):
+    """An identify job paused on the card once two pages are committed
+    launches nothing while Paused, and resumed gives the rows of an
+    uninterrupted scan, through both scan kernels and no plain version."""
+    import json
+    import threading
+    import time
+
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.models import JobRow
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects import file_identifier as fi
+    from tests.torch_scan_cases import PAGE, make_tree, rows_of
+
+    tree = make_tree(tmp_path / "tree")
+    monkeypatch.setattr(fi, "BATCH_SIZE", PAGE)
+    monkeypatch.setenv("SD_CHUNK_MANIFESTS", "1")
+    monkeypatch.setenv("SD_SCAN_SHARDS", "1")
+    monkeypatch.setenv("SD_COMMIT_GROUP", "1")
+
+    def scan(name: str, hold: int | None = None):
+        node = Node(tmp_path / name)
+        try:
+            lib = node.libraries.create(name)
+            loc = create_location(lib, tree)
+            lib.db.execute("UPDATE location SET generate_preview_media = 0")
+            scan_location(lib, loc["id"])
+            if hold is not None:
+                hold(node, lib)
+            assert node.jobs.wait_idle(300)
+            return rows_of(lib.db), lib.db.find_one(JobRow, {"name": "file_identifier"})
+        finally:
+            node.shutdown()
+
+    want, _job = scan("uninterrupted")
+    reached, release = threading.Event(), threading.Event()
+    real = fi.read_sampled_batch
+    gathers = []
+
+    def held_gather(paths, sizes):
+        gathers.append(len(paths))
+        if len(gathers) == 3:
+            reached.set()
+            assert release.wait(60)
+        return real(paths, sizes)
+
+    def pause_then_resume(node, lib):
+        assert reached.wait(120)
+        job = lib.db.find_one(JobRow, {"name": "file_identifier"})
+
+        def checkpoint():
+            return json.loads(lib.db.find_one(JobRow, {"id": job["id"]})["data"])
+
+        deadline = time.monotonic() + 60
+        while checkpoint()["step_number"] < 2:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        worker = node.jobs._running[job["id"]]
+        assert node.jobs.pause(job["id"])
+        while worker._commands.empty():
+            time.sleep(0.001)
+        release.set()
+        while lib.db.find_one(JobRow, {"id": job["id"]})["status"] != JobStatus.PAUSED:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        frozen = dict(_kernels.LAUNCHES)
+        time.sleep(2.0)
+        assert dict(_kernels.LAUNCHES) == frozen  # nothing launches while Paused
+        # the third page, released with the command queued, may still reach
+        # the committer before its next poll
+        assert checkpoint()["step_number"] in (2, 3)
+        _kernels.reset_counts()
+        assert node.jobs.resume(lib, job["id"])
+
+    monkeypatch.setattr(fi, "read_sampled_batch", held_gather)
+    rows, job = scan("paused", pause_then_resume)
+    launches, plain = dict(_kernels.LAUNCHES), dict(_kernels.PLAIN_ON_CUDA)
+    assert job["status"] == JobStatus.COMPLETED and rows == want
+    assert launches.get("blake3_chunk_cvs", 0) > 0 and launches.get("gear_candidates", 0) > 0
+    assert not any(plain.values())
+
+
+def test_a_scan_killed_on_the_card_cold_resumes(card, tmp_path, monkeypatch):
+    """A child process identifying on the card is SIGKILLed at the COMMIT
+    of its second commit group (``commit:kill:skip3``); a Node booted on
+    its data dir sweeps the stale temporary the child planted and
+    cold-resumes the Running identify job, through the scan kernels, to the
+    rows of an uninterrupted scan on the card."""
+    import json
+    import signal
+    import sqlite3
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.locations import create_location
+    from spacedrive_tpu_torch.locations.indexer_job import IndexerJob
+    from spacedrive_tpu_torch.models import JobRow
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects import file_identifier as fi
+    from tests.crash_harness import make_tree
+    from tests.torch_scan_cases import rows_of
+
+    tree = make_tree(tmp_path / "tree")
+    monkeypatch.setattr(fi, "BATCH_SIZE", 24)
+    monkeypatch.setenv("SD_COMMIT_GROUP", "4")
+    monkeypatch.setenv("SD_SCAN_SHARDS", "1")
+    node = Node(tmp_path / "uninterrupted")
+    try:
+        lib = node.libraries.create("uninterrupted")
+        args = {"location_id": create_location(lib, tree)["id"]}
+        node.jobs.spawn(lib, [IndexerJob(args), fi.FileIdentifierJob(dict(args))])
+        assert node.jobs.wait_idle(300)
+        want = rows_of(lib.db)
+    finally:
+        node.shutdown()
+
+    data = tmp_path / "killed"
+    child = Path(__file__).resolve().parent / "torch_kill_child.py"
+    proc = subprocess.run([sys.executable, str(child), str(data), str(tree), "commit:kill:skip3",
+                           "24", "4", "cuda"], capture_output=True, text=True, timeout=600)
+    assert proc.returncode == -signal.SIGKILL, proc.stderr[-3000:]
+    (db_path,) = (data / "libraries").glob("*.db")
+    conn = sqlite3.connect(db_path)
+    status, blob = conn.execute(
+        "SELECT status, data FROM job WHERE name = 'file_identifier'").fetchone()
+    conn.close()
+    assert status == JobStatus.RUNNING and json.loads(blob)["step_number"] > 0
+    (stale,) = (data / "thumbnails").glob("*/*.sd-tmp*")
+    _kernels.reset_counts()
+    node = Node(data)  # sweeps, then cold-resumes on the card
+    try:
+        assert not stale.exists()
+        (lib,) = node.libraries.list()
+        assert node.jobs.wait_idle(300)
+        job = lib.db.find_one(JobRow, {"name": "file_identifier"})
+        rows = rows_of(lib.db)
+    finally:
+        node.shutdown()
+    assert job["status"] == JobStatus.COMPLETED and rows == want
+    assert _kernels.LAUNCHES.get("blake3_chunk_cvs", 0) > 0
+    assert not any(_kernels.PLAIN_ON_CUDA.values())
+
+
 @pytest.mark.parametrize("tier", [8, 64, 512, 1024, 2048])
 def test_blake3_kernels_at_57_chunks(card, tier):
     """The fused cas path's rows: sampled messages in 57-chunk rows, at

@@ -29,7 +29,8 @@ from spacedrive_tpu.locations import create_location as jax_create_location
 from spacedrive_tpu.locations.indexer_job import IndexerJob as JaxIndexerJob
 from spacedrive_tpu.node import Node as JaxNode
 from spacedrive_tpu.objects import file_identifier as jax_fi
-from spacedrive_tpu_torch.jobs import JobPaused, JobState, StatefulJob, StepResult, JobStatus
+from spacedrive_tpu_torch.jobs import (DynJob, JobPaused, JobReport, JobState, StatefulJob,
+                                       StepResult, JobStatus)
 from spacedrive_tpu_torch.locations import create_location, scan_location
 from spacedrive_tpu_torch.models import ALL_MODELS, Database, JobRow
 from spacedrive_tpu_torch.node import Node
@@ -197,12 +198,21 @@ class FakeCtx:
         self.library = FakeLibrary(db)
         self.progressed: list = []
 
-    def progress(self, completed_task_count=None, task_count=None) -> None:
+    def progress(self, completed_task_count=None, task_count=None, message=None) -> None:
         self.progressed.append(completed_task_count)
+
+    def check_commands(self, dyn_job) -> None:
+        pass
 
 
 class FakeJob(StatefulJob):
     NAME = "fake"
+
+
+def fake_job(pages: int) -> DynJob:
+    """A fake job past its init: ``pages`` steps, the cursor at 0."""
+    return DynJob(FakeJob({}), JobReport.new("fake"),
+                  JobState({}, {"cursor": 0}, [{}] * pages, 0, {}))
 
 
 def db_with_table(path: Path) -> Database:
@@ -262,10 +272,11 @@ def run_fake(tmp_path, pages: int, *, slice_s=None, hash_s=0.0, commit=None,
     spec = PipelineSpec(page=page, process=process, commit=commit or default_commit,
                         split=split, shard=shard, merge=merge)
     ctx = FakeCtx(db)
-    state = JobState({"cursor": 0}, [{}] * pages)
+    dyn = fake_job(pages)
+    state = dyn.state
     if box is not None:
         box["state"] = state
-    PipelineExecutor(spec, ctx, FakeJob({}), state, []).run()
+    PipelineExecutor(spec, ctx, dyn, []).run()
     return ctx, state, db, order
 
 
@@ -321,9 +332,10 @@ def test_stages_overlap(tmp_path, monkeypatch):
         data["cursor"] = n + 1
         return StepResult()
 
-    state = JobState({"cursor": 0}, [{}] * pages)
+    dyn = fake_job(pages)
+    state = dyn.state
     PipelineExecutor(PipelineSpec(page=page, process=process, commit=commit),
-                     FakeCtx(db), FakeJob({}), state, []).run()
+                     FakeCtx(db), dyn, []).run()
     assert committed(db) == list(range(pages))
     assert sorted(seen) == sorted([(stage, n, True) for stage in ("process", "commit")
                                    for n in range(pages - 1)])

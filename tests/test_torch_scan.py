@@ -174,7 +174,8 @@ def _imports(path: Path) -> set[str]:
 
 
 PORT_FILES = sorted((REPO / "spacedrive_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tests" / "torch_multihost_worker.py"]
+    REPO / "chip_smoke.py", REPO / "tests" / "torch_multihost_worker.py",
+    REPO / "tests" / "torch_kill_child.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))

@@ -231,9 +231,10 @@ def test_validator_rows_and_revalidation_match_jax(both):
 
 def test_validator_early_finish_and_a_missing_location(both):
     _tree, _j, (pnode, plib, ploc) = both
-    from spacedrive_tpu_torch.jobs import JobContext, JobError, JobReport
+    from spacedrive_tpu_torch.jobs import DynJob, JobError, JobReport, Worker, WorkerContext
 
-    ctx = JobContext(plib, JobReport(id="x", name="object_validator"))
+    job = ObjectValidatorJob({})
+    ctx = WorkerContext(Worker(pnode.jobs, plib, DynJob(job, JobReport(id="x", name=job.NAME))))
     with pytest.raises(EarlyFinish, match="no file paths to validate"):
         ObjectValidatorJob({"location_id": ploc["id"], "sub_path": "nowhere"}).init(ctx)
     with pytest.raises(JobError, match="location 999 not found"):
