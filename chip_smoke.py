@@ -139,9 +139,30 @@ no result line):
    cold-resumes the Running identify job, whose chain finishes with phase
    4's cas_ids. Phase 6's photo scan runs warm-start media-lane jobs beside
    identify; it logs how many started before identify ended;
-9. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
+9. the serving path, through the rspc router and the server shell: (a) on
+   phase 5's node after phase 8, a ``Server`` in process serves phase 5's
+   queries on the 1,000,000-row library over HTTP GET, HTTP POST and the
+   websocket, each answer byte-identical to the in-process
+   ``router.resolve`` answer and to the engine-off SQL answer, each call
+   growing the three search kernels' launches by what the in-process call
+   launched, with the p50 of each transport beside the in-process p50; (b)
+   after phase 6, a new node on the card behind a ``Server``:
+   ``libraries.create``, ``locations.create`` over 4 of phase 4's
+   directories and 8 of phase 6's photos (hard links), then
+   ``locations.fullRescan``, all over HTTP, followed on a ``jobs.progress``
+   websocket subscription; ``invalidation.listen`` sees ``search.paths``;
+   the cas_ids equal phase 4's through both scan kernels and Gear; a
+   thumbnail fetched with a ``Range`` header answers 206 with the file's
+   bytes; ``search.paths`` over HTTP equals SQL; (c) ``python -m
+   spacedrive_tpu_torch.server`` in a child process on the card
+   (``SD_SEARCH_ENGINE=device``): ``LISTENING``, ``/health``,
+   ``buildInfo``, a library, a location of one of those directories,
+   ``fullRescan``, one ``search.paths`` equal to the in-process answer for
+   the same tree, and an exit 0 within 10 s of SIGTERM;
+10. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
    the resize's times, calls on the path, CUDA kernels a call, and bounds),
-   the card, the ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+   the card, the ``{"kernels": [...]}`` line (each kernel's
+   ``launches_serving`` counted in phase 9), then the ``{"ok": true, ...}``
    line.
 """
 
@@ -1706,6 +1727,7 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
         search = search_phase(node, lib, corpus, card)
         validated = validator_phase(node, lib, loc, tree, tree_dir, rows, seed, int32_ops_per_s)
         jobs = job_control_phase(node, tree_dir, db, rows, validated["tampered_dir"])
+        serving = serve_search_phase(node, node.libraries.get(search["library_id"]), card)
     finally:
         node.shutdown()
 
@@ -1730,7 +1752,8 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
         log(f"main path: {kernel} launches by shape: {shapes}")
     return {"launches": launches, "by_shape": by_shape, "pages": pages, "search": search,
             "programs": programs, "program_calls": program_calls, "dedup": dedup,
-            "fused": fused, "validator": validated, "jobs": jobs}
+            "fused": fused, "validator": validated, "jobs": jobs, "serving": serving,
+            "rows": rows, "tampered_dir": validated["tampered_dir"]}
 
 
 # --------------------------------------------------------------------------
@@ -2808,7 +2831,354 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
     log(f"parity: search_exact on the path column and search_lex on the date column after "
         f"1,000 renames and 1,000 inserts (keys and prefixes patched, equal to row_keys and "
         f"date_prefix_of the rows) match plain exactly on {checked} needles and bounds")
-    return {"launches": launches, "per_pass": per_pass, "by_shape": by_shape}
+    return {"launches": launches, "per_pass": per_pass, "by_shape": by_shape,
+            "library_id": lib.id}
+
+
+# --------------------------------------------------------------------------
+# phase 9: the serving path (the rspc router and the server shell)
+# --------------------------------------------------------------------------
+
+#: repeats of each query over each transport (the p50 of 3)
+SERVE_REPEATS = 3
+SEARCH_KERNELS = ("search_substring", "search_exact", "search_lex")
+SCAN_KERNELS = ("blake3_chunk_cvs", "blake3_merge", "gear_candidates")
+
+
+def kernel_counts(names) -> dict:
+    from spacedrive_tpu_torch.ops import _kernels
+
+    return {k: _kernels.LAUNCHES.get(k, 0) for k in names}
+
+
+def serve_search_phase(node, lib, card: str) -> dict:
+    """Phase 9 (a): phase 5's queries on the 1,000,000-row library through
+    a Server on phase 5's node, over HTTP GET, HTTP POST and the websocket,
+    each answer byte-identical to the in-process ``router.resolve`` answer
+    and to the engine-off SQL answer, each call growing the search kernels'
+    launches by what the in-process call launched; p50s of each transport
+    beside the in-process p50. Counts zeroed before, read after."""
+    import statistics
+
+    import torch
+
+    from spacedrive_tpu_torch.ops import _kernels
+    from spacedrive_tpu_torch.server import Server
+    from tests.torch_serve_client import WsClient, rspc_get, rspc_post
+
+    t_phase = time.perf_counter()
+    engine = node.search_engine
+    engine.refresh_now(lib)
+    server = Server(node, "127.0.0.1", 0)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    ws = WsClient("127.0.0.1", server.port)
+    try:
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        served0 = engine.status()["served"]
+        p50: dict = {t: {} for t in ("in_process", "get", "post", "ws")}
+        expected: dict = {}
+        for label, key, arg in SEARCH_MATRIX:
+            engine.set_enabled(False)
+            sql = json.dumps(node.router.resolve(key, arg, lib.id), default=str)
+            engine.set_enabled(True)
+            before = kernel_counts(SEARCH_KERNELS)
+            value = node.router.resolve(key, arg, lib.id)
+            want = json.dumps(value, default=str)
+            expected[label] = {k: v - before[k] for k, v in kernel_counts(SEARCH_KERNELS).items()}
+            if want != sql:
+                fail(f"serve: {label}: the in-process engine answer differs from SQL")
+            http_want = json.dumps({"result": value}, default=str)
+
+            def ws_call():
+                msg_id, raw = ws.call_raw("query", key, {"library_id": lib.id, "arg": arg})
+                return raw.decode(), json.dumps({"jsonrpc": "2.0", "id": msg_id, "result": {
+                    "type": "response", "data": value}}, default=str)
+
+            calls = {
+                "in_process": lambda: (json.dumps(node.router.resolve(key, arg, lib.id),
+                                                  default=str), want),
+                "get": lambda: (rspc_get(url, key, arg, lib.id).decode(), http_want),
+                "post": lambda: (rspc_post(url, key, arg, lib.id).decode(), http_want),
+                "ws": ws_call,
+            }
+            for transport, fn in calls.items():
+                lat = []
+                for _ in range(SERVE_REPEATS):
+                    before = kernel_counts(SEARCH_KERNELS)
+                    t0 = time.perf_counter()
+                    got, expect = fn()
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                    grew = {k: v - before[k] for k, v in kernel_counts(SEARCH_KERNELS).items()}
+                    if got != expect:
+                        fail(f"serve: {label} over {transport}: the answer is not byte-identical "
+                             f"to the in-process one ({len(got)} vs {len(expect)} bytes)")
+                    if grew != expected[label]:
+                        fail(f"serve: {label} over {transport} launched {grew}, the in-process "
+                             f"call {expected[label]}")
+                p50[transport][label] = statistics.median(lat)
+            log(f"serve: {label} ({key}): p50 in-process {p50['in_process'][label]:.3f} ms, GET "
+                f"{p50['get'][label]:.3f} ms, POST {p50['post'][label]:.3f} ms, websocket "
+                f"{p50['ws'][label]:.3f} ms; launches a call {expected[label]}")
+        launches = kernel_counts(SEARCH_KERNELS)
+        plain = {k: v for k, v in _kernels.PLAIN_ON_CUDA.items() if v}
+        served = engine.status()["served"] - served0
+    finally:
+        ws.close()
+        server.stop()
+    for kernel in SEARCH_KERNELS:
+        if launches[kernel] <= 0:
+            fail(f"serve: the queries over the server never launched {kernel}")
+    if plain:
+        fail(f"serve: plain versions ran on the card: {plain}")
+    median = {t: statistics.median(v.values()) for t, v in p50.items()}
+    added = {t: statistics.median(p50[t][q] - p50["in_process"][q] for q in p50[t])
+             for t in ("get", "post", "ws")}
+    seconds = time.perf_counter() - t_phase
+    log(f"serve (phase 9a) on {card}: {len(SEARCH_MATRIX)} queries x 4 routes x "
+        f"{SERVE_REPEATS} repeats, every answer byte-identical to the in-process and the SQL "
+        f"answer; {served} engine serves; launches {launches}; median of the queries' p50s: "
+        + ", ".join(f"{t} {v:.3f} ms" for t, v in median.items())
+        + "; added over in-process (median of the per-query differences): "
+        + ", ".join(f"{t} {v:.3f} ms" for t, v in added.items()) + f"; {seconds:.1f} s")
+    return {"launches": launches, "p50": median, "added_ms": added, "seconds": seconds}
+
+
+def follow_jobs(ws, sub_id: int, url: str, lib_id: str, what: str,
+                timeout: float = 300.0) -> tuple[list, list]:
+    """Read the websocket until the jobs.progress subscription ``sub_id``
+    shows the chain's last job (dedup_detector) finished and no job is
+    active; (progress payloads, other events)."""
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from tests.torch_serve_client import rspc
+
+    progress, other = [], []
+    deadline = time.monotonic() + timeout
+    done = False
+    while not (done and not rspc(url, "jobs.isActive")):
+        if time.monotonic() > deadline:
+            fail(f"serve: {what}: the chain did not end within {timeout:.0f} s: "
+                 f"{[(p['name'], p['status']) for p in progress[-5:]]}")
+        try:
+            msg = ws.recv(timeout=0.5)
+        except TimeoutError:
+            continue
+        if msg is None:
+            fail(f"serve: {what}: the websocket closed")
+        if msg.get("id") != sub_id:
+            other.append(msg)
+            continue
+        payload = msg["result"]["data"]["payload"]
+        progress.append(payload)
+        if payload["name"] == "dedup_detector" and payload["status"] in JobStatus.FINISHED:
+            done = True
+    return progress, other
+
+
+def serve_scan_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str) -> dict:
+    """Phase 9 (b) and (c): a scan requested over the rspc of a Server on a
+    new node on the card, followed on a jobs.progress websocket
+    subscription; then the entry point in a child process."""
+    import torch
+
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects.media.thumbnail import thumbnail_path
+    from spacedrive_tpu_torch.ops import _kernels
+    from spacedrive_tpu_torch.server import Server
+    from tests.torch_serve_client import WsClient, get, rspc, rspc_get
+
+    t_phase = time.perf_counter()
+    dirs = [d for d in range(N_DIRS) if d != skip_dir][-4:]
+    root = WORK / "serve" / "lib"
+    for d in dirs:
+        (root / f"d{d:02d}").mkdir(parents=True)
+        for p in (tree_dir / f"d{d:02d}").iterdir():
+            os.link(p, root / f"d{d:02d}" / p.name)
+    photos = sorted(p for p in (WORK / "photos" / "Web").iterdir() if p.name.startswith("IMG_"))[:8]
+    (root / "photos").mkdir()
+    for p in photos:
+        os.link(p, root / "photos" / p.name)
+    os.environ["SD_CHUNK_MANIFESTS"] = "1"
+    os.environ["SD_SEARCH_ENGINE"] = "device"
+    node = Node(WORK / "serve-data")
+    server = Server(node, "127.0.0.1", 0)
+    server.start()
+    url = f"http://127.0.0.1:{server.port}"
+    ws = WsClient("127.0.0.1", server.port)
+    try:
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        lib_id = rspc(url, "libraries.create", {"name": "served"})["id"]
+        sub = ws.call("subscription", "jobs.progress", {"library_id": lib_id, "arg": None})
+        inval = ws.call("subscription", "invalidation.listen")
+        if sub["result"] != {"type": "started"} or inval["result"] != {"type": "started"}:
+            fail(f"serve: the subscriptions did not start: {sub}, {inval}")
+        t0 = time.perf_counter()
+        loc = rspc(url, "locations.create", {"path": str(root)}, lib_id)
+        progress, other = follow_jobs(ws, sub["id"], url, lib_id, "locations.create")
+        create_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rspc(url, "locations.fullRescan", {"location_id": loc["id"]}, lib_id)
+        progress2, other2 = follow_jobs(ws, sub["id"], url, lib_id, "locations.fullRescan")
+        rescan_s = time.perf_counter() - t0
+        launches = kernel_counts(SCAN_KERNELS)
+        plain = {k: v for k, v in _kernels.PLAIN_ON_CUDA.items() if v}
+        lib = node.libraries.get(lib_id)
+        jobs = [(r["name"], r["status"]) for r in lib.db.query(
+            "SELECT name, status FROM job ORDER BY date_created, rowid")]
+        bad_jobs = [j for j in jobs if j[1] not in (JobStatus.COMPLETED,
+                                                    JobStatus.COMPLETED_WITH_ERRORS)]
+        ends = {(p["name"], p["status"]) for p in progress + progress2
+                if p["status"] in JobStatus.FINISHED}
+        if bad_jobs or {n for n, _s in ends} < {"indexer", "file_identifier", "media_processor",
+                                                "dedup_detector"}:
+            fail(f"serve: the scans over the rspc: jobs {jobs}; progress ended {ends}")
+        keys = [m["result"]["data"]["payload"].get("key") for m in other + other2 + ws.pending
+                if m.get("id") == inval["id"]]
+        if "search.paths" not in keys:
+            fail(f"serve: invalidation.listen never saw search.paths: {sorted(set(keys))}")
+        rows = {(r["materialized_path"], r["name"], r["extension"]): r for r in lib.db.query(
+            "SELECT materialized_path, name, extension, cas_id FROM file_path WHERE is_dir = 0")}
+        mine = {k: r["cas_id"] for k, r in rows.items() if k[0] != "/photos/"}
+        differ = [k for k, cas in mine.items() if phase4_rows[k]["cas_id"] != cas]
+        if len(mine) != 4 * len(list((tree_dir / f"d{dirs[0]:02d}").iterdir())) or differ:
+            fail(f"serve: the scan over the rspc: {len(mine)} files, {len(differ)} cas_ids differ "
+                 f"from phase 4's, e.g. {differ[:2]}")
+        for kernel in SCAN_KERNELS:
+            if launches[kernel] <= 0:
+                fail(f"serve: the scan over the rspc never launched {kernel}")
+        if plain:
+            fail(f"serve: the scan over the rspc ran plain versions on the card: {plain}")
+        thumbs = [r["cas_id"] for k, r in rows.items() if k[0] == "/photos/"]
+        missing = [c for c in thumbs if not thumbnail_path(node.data_dir, c).exists()]
+        if len(thumbs) != len(photos) or missing:
+            fail(f"serve: {len(missing)} of the {len(thumbs)} photos have no thumbnail")
+        data = thumbnail_path(node.data_dir, thumbs[0]).read_bytes()
+        status, headers, body = get(url, f"/spacedrive/thumbnail/{thumbs[0][:2]}/{thumbs[0]}.webp",
+                                    {"Range": "bytes=100-1099"})
+        if status != 206 or body != data[100:1100] or \
+                headers.get("content-range") != f"bytes 100-1099/{len(data)}":
+            fail(f"serve: the ranged thumbnail answered {status} {headers} with "
+                 f"{len(body)} bytes")
+        node.search_engine.refresh_now(lib)
+        arg = {"search": "f0", "take": 100}
+        node.search_engine.set_enabled(False)
+        sql = node.router.resolve("search.paths", arg, lib_id)
+        node.search_engine.set_enabled(True)
+        served0 = node.search_engine.status()["served"]
+        before = kernel_counts(SEARCH_KERNELS)
+        body = rspc_get(url, "search.paths", arg, lib_id)
+        if body.decode() != json.dumps({"result": sql}, default=str):
+            fail("serve: search.paths over HTTP on the scanned library differs from SQL")
+        if node.search_engine.status()["served"] != served0 + 1:
+            fail("serve: the engine did not serve search.paths over HTTP")
+        if kernel_counts(SEARCH_KERNELS)["search_substring"] <= before["search_substring"]:
+            fail("serve: search.paths over HTTP did not launch search_substring")
+        log(f"serve (phase 9b) on {card}: libraries.create, locations.create over "
+            f"{len(mine)} files of phase 4's directories {dirs} and {len(thumbs)} of phase 6's "
+            f"photos (hard links), then locations.fullRescan, over HTTP: create's chain "
+            f"{create_s:.2f} s, the rescan's {rescan_s:.2f} s, followed on jobs.progress "
+            f"({len(progress) + len(progress2)} events); jobs {jobs}; every cas_id equals "
+            f"phase 4's; launches {launches}; invalidation.listen keys {sorted(set(keys))}; a "
+            f"ranged thumbnail 206 equal to the file's bytes 100-1099; search.paths over "
+            f"HTTP equal to SQL ({len(sql['items'])} items)")
+        # (c) the entry point on the same card, a location of one directory
+        one = root / f"d{dirs[0]:02d}"
+        same_lib = rspc(url, "libraries.create", {"name": "same-tree"})["id"]
+        rspc(url, "locations.create", {"path": str(one)}, same_lib)
+        if not node.jobs.wait_idle(300):
+            fail("serve: the in-process scan of one directory did not end")
+        needle = {"search": "f", "take": 300}
+        in_process = node.router.resolve("search.paths", needle, same_lib)
+        entry = entry_point_check(one, in_process, needle)
+    finally:
+        ws.close()
+        server.stop()
+        node.shutdown()
+    seconds = time.perf_counter() - t_phase
+    log(f"serve (phase 9b, 9c): {seconds:.1f} s")
+    return {"launches": launches, "create_s": create_s, "rescan_s": rescan_s,
+            "entry": entry, "seconds": seconds}
+
+
+def same_tree(answer: dict) -> list:
+    """A search.paths answer without what differs between two libraries of
+    one tree: row, object and location ids, pub_ids and dates."""
+    drop = {"id", "location_id", "object_id", "pub_id", "object_pub_id"}
+    return [{k: v for k, v in item.items() if k not in drop and not k.startswith("date_")}
+            for item in answer["items"]]
+
+
+def entry_point_check(one: Path, in_process: dict, needle: dict) -> dict:
+    """Phase 9 (c): ``python -m spacedrive_tpu_torch.server`` in a child
+    process on the card: LISTENING, /health, buildInfo, a library, a
+    location of ``one``, fullRescan, one search.paths equal to the
+    in-process answer for the same tree; SIGTERM exits 0 within 10 s."""
+    import signal
+
+    from tests.torch_serve_client import get, rspc
+
+    env = {**os.environ, "SD_SEARCH_ENGINE": "device", "PYTHONPATH": str(ROOT),
+           "SD_LOG": "WARNING"}
+    log_path = WORK / "serve-child.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "spacedrive_tpu_torch.server", "--data-dir",
+             str(WORK / "serve-child"), "--port", "0"],
+            stdout=subprocess.PIPE, stderr=err, text=True, env=env, cwd=ROOT)
+    try:
+        line: list = []
+        reader = threading.Thread(target=lambda: line.append(proc.stdout.readline()))
+        reader.start()
+        reader.join(120)
+        if not line or not line[0].startswith("LISTENING "):
+            fail(f"serve: the entry point printed {line} (exit {proc.poll()}): "
+                 f"{log_path.read_text()[-2000:]}")
+        boot_s = time.perf_counter() - t0
+        url = "http://" + line[0].split()[1]
+        if get(url, "/health")[2] != b"OK" or not rspc(url, "buildInfo")["version"]:
+            fail("serve: the entry point's /health or buildInfo failed")
+        lib_id = rspc(url, "libraries.create", {"name": "child"})["id"]
+        loc = rspc(url, "locations.create", {"path": str(one)}, lib_id)
+        wait_inactive(url, "the child's scan")
+        rspc(url, "locations.fullRescan", {"location_id": loc["id"]}, lib_id)
+        wait_inactive(url, "the child's rescan")
+        got = rspc(url, "search.paths", needle, lib_id)
+        if not got["items"] or same_tree(got) != same_tree(in_process):
+            fail(f"serve: the child's search.paths ({len(got['items'])} items) differs from the "
+                 f"in-process answer for the same tree ({len(in_process['items'])} items)")
+        t_stop = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            code = proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            fail("serve: the entry point did not exit within 10 s of SIGTERM")
+        stop_s = time.perf_counter() - t_stop
+        if code != 0:
+            fail(f"serve: the entry point exited {code} on SIGTERM: {log_path.read_text()[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"serve (phase 9c): the entry point on the card: LISTENING after {boot_s:.2f} s, "
+        f"/health, buildInfo, a location of {one.name} ({len(got['items'])} paths for "
+        f"{needle['search']!r}, equal to the in-process answer), fullRescan; exit 0 "
+        f"{stop_s:.2f} s after SIGTERM")
+    return {"boot_s": boot_s, "stop_s": stop_s}
+
+
+def wait_inactive(url: str, what: str, timeout: float = 300.0) -> None:
+    from tests.torch_serve_client import rspc
+
+    deadline = time.monotonic() + timeout
+    time.sleep(0.2)
+    while rspc(url, "jobs.isActive"):
+        if time.monotonic() > deadline:
+            fail(f"serve: {what} did not end within {timeout:.0f} s")
+        time.sleep(0.2)
 
 
 # --------------------------------------------------------------------------
@@ -3894,6 +4264,8 @@ def main() -> int:
         main = (None if args.kernels
                 else main_path_phase(args.seed, card, corpus, int32_ops_per_s))
         media = None if args.kernels else media_phase(args.seed, card, fp32_ops_per_s)
+        served = (None if args.kernels else
+                  serve_scan_phase(WORK / "tree", main["rows"], main["tampered_dir"], card))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -3933,6 +4305,10 @@ def main() -> int:
                 "bound_by": v["bound"][1], "shape": v["shape"],
                 **{f: v[f] for f in EXTRA_TIMES if f in v}}
             for k, v in times.items() if k.startswith(name + "@") and k != key}
+        if main is not None:
+            # phase 9: the serving path, counted in its own windows
+            kernels[-1]["launches_serving"] = (main["serving"] if search else served)[
+                "launches"][name]
         if main is not None and search:
             kernels[-1]["launches_per_matrix_pass"] = main["search"]["per_pass"].get(name, 0)
             kernels[-1]["launches_by_shape"] = main["search"]["by_shape"].get(name, {})

@@ -18,6 +18,9 @@ from __future__ import annotations
 
 import torch
 
+#: the version of the system this package ports (``buildInfo``)
+__version__ = "0.1.0"
+
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` means the card. Asking for CUDA without one raises: the port

@@ -1,6 +1,6 @@
-"""API procedures of the port (trimmed to the search and jobs handlers)."""
+"""API of the port: the rspc router (:mod:`.router`) and its procedures
+(:mod:`.routers`)."""
 
+from .router import ApiError
 
-class ApiError(Exception):
-    """A request the procedure refuses (the JAX package's
-    ``api.router.ApiError``)."""
+__all__ = ["ApiError"]

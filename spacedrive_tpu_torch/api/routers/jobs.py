@@ -1,16 +1,18 @@
-"""jobs procedures (``spacedrive_tpu/api/routers/jobs.py`` :16-88) as plain
-functions of ``(node, library, arg)`` or ``(node, arg)``: the reports,
-``isActive``, ``clear``, ``clearAll``, ``pause``, ``resume``, ``cancel`` and
-the job launchers. The router, its query invalidation and the
-``jobs.progress`` / ``jobs.newThumbnail`` subscriptions are not ported (the
-events they serve, ``job_progress`` and ``new_thumbnail``, are on the node's
-bus)."""
+"""jobs.* procedures (``spacedrive_tpu/api/routers/jobs.py``): the reports,
+``isActive``, ``clear``, ``clearAll``, ``pause``, ``resume``, ``cancel``, the
+job launchers, and the ``jobs.progress`` / ``jobs.newThumbnail``
+subscriptions to the ``job_progress`` and ``new_thumbnail`` events of the
+library. Each handler is a plain function of ``(node, library, arg)`` or
+``(node, arg)`` too; :func:`mount` registers them under the reference's
+keys."""
 
 from __future__ import annotations
 
 from ...jobs import JobStatus
 from ...models import JobRow
 from ...objects.validator import ObjectValidatorJob
+from ..invalidate import invalidate_query
+from ._util import filtered_subscription
 
 _ACTIVE = {JobStatus.QUEUED, JobStatus.RUNNING, JobStatus.PAUSED}
 
@@ -36,6 +38,7 @@ def is_active(node, _arg=None) -> bool:
 
 def clear(node, library, job_id: str) -> None:
     library.db.delete(JobRow, {"id": job_id})
+    invalidate_query(library, "jobs.reports")
 
 
 def clear_all(node, library, _arg=None) -> None:
@@ -43,6 +46,7 @@ def clear_all(node, library, _arg=None) -> None:
     for row in library.db.find(JobRow):
         if row["status"] not in _ACTIVE:
             library.db.delete(JobRow, {"id": row["id"]})
+    invalidate_query(library, "jobs.reports")
 
 
 def pause(node, job_id: str) -> bool:
@@ -80,3 +84,28 @@ def generate_thumbs_for_location(node, library, arg) -> str:
     return node.jobs.spawn(library, [MediaProcessorJob({
         "location_id": arg["location_id"], "sub_path": arg.get("sub_path"),
         "regenerate": arg.get("regenerate", False)})])
+
+
+def progress(node, library, _arg=None):
+    """jobs.progress: the library's job_progress events."""
+    return filtered_subscription(node, {"job_progress"}, library.id)
+
+
+def new_thumbnail(node, library, _arg=None):
+    """jobs.newThumbnail: the library's new_thumbnail events."""
+    return filtered_subscription(node, {"new_thumbnail"}, library.id)
+
+
+def mount(router) -> None:
+    router.library_query("jobs.reports")(reports)
+    router.query("jobs.isActive")(is_active)
+    router.library_mutation("jobs.clear")(clear)
+    router.library_mutation("jobs.clearAll")(clear_all)
+    router.mutation("jobs.pause")(pause)
+    router.library_mutation("jobs.resume")(resume)
+    router.mutation("jobs.cancel")(cancel)
+    router.library_mutation("jobs.objectValidator")(object_validator)
+    router.library_mutation("jobs.identifyUniqueFiles")(identify_unique_files)
+    router.library_mutation("jobs.generateThumbsForLocation")(generate_thumbs_for_location)
+    router.library_subscription("jobs.progress")(progress)
+    router.library_subscription("jobs.newThumbnail")(new_thumbnail)

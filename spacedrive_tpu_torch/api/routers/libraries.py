@@ -1,0 +1,41 @@
+"""libraries.* procedures (``spacedrive_tpu/api/routers/libraries.py``):
+list, statistics, create, edit, delete. A library of the port has no
+instance identity: ``instance_id`` and ``instance_pub_id`` are None."""
+
+from __future__ import annotations
+
+from ...statistics import compute_statistics
+from ..invalidate import invalidate_query
+
+
+def mount(router) -> None:
+    @router.query("libraries.list")
+    def list_libraries(node, _arg):
+        return [{"id": lib.id, "name": lib.name, "description": lib.description,
+                 "instance_id": None, "instance_pub_id": None}
+                for lib in node.libraries.list()]
+
+    @router.library_query("libraries.statistics", pool=True)
+    def statistics(node, library, _arg):
+        """Recomputed on query; a pure read over the library database and
+        the node's data dir (whose disk figures are node-specific)."""
+        row = dict(compute_statistics(library.db, node.data_dir))
+        row.pop("date_captured", None)
+        return row
+
+    @router.mutation("libraries.create")
+    def create(node, arg):
+        lib = node.libraries.create(arg["name"], arg.get("description", ""))
+        invalidate_query(lib, "libraries.list")
+        return {"id": lib.id, "name": lib.name}
+
+    @router.mutation("libraries.edit")
+    def edit(node, arg):
+        node.libraries.edit(arg["id"], name=arg.get("name"),
+                            description=arg.get("description"))
+        return None
+
+    @router.mutation("libraries.delete")
+    def delete(node, library_id: str):
+        node.libraries.delete(library_id)
+        return None

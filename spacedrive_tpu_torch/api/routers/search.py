@@ -1,23 +1,32 @@
-"""search.paths and search.pathsCount: filterable, ordered, cursor-paginated
-``file_path`` search; search.nearDuplicates: the persisted MinHash groups.
+"""search.* procedures: search.paths and search.pathsCount (filterable,
+ordered, cursor-paginated ``file_path`` search), search.objects and
+search.objectsCount, search.ephemeralPaths (a directory outside any
+location, with thumbnails on request), and the duplicate views:
+search.duplicates (the persisted near-duplicate pairs), search.chunkDuplicates
+(chunk hashes shared by several objects) and search.nearDuplicates (the
+persisted MinHash groups).
 
 Counterpart of ``spacedrive_tpu/api/routers/search.py`` (``_path_filters``
 :33, ``_ids_clause`` :93, ``_order_parts`` :111, ``_cursor_sql`` :120,
-``paths`` :129, ``paths_count`` :191, ``near_duplicates`` :305), with the
-SQL verbatim. The handlers
-are plain functions ``(node, library, arg)``: the rspc router, the reader
-pool and the replica tier are not ported. With the search engine armed
-(``node.search_engine``), the device index scores the filter predicates and
-the SQL below hydrates the matching ids, so the answer is byte-identical to
-the SQL path; an error of the engine propagates.
+``paths`` :129, ``paths_count`` :191, ``objects`` :216, ``objects_count``
+:243, ``ephemeral_paths`` :247, ``duplicates`` :262, ``chunk_duplicates``
+:288, ``near_duplicates`` :305), with the SQL verbatim and the reference's
+``pool=`` marks. Each handler is a plain function ``(node, library, arg)``
+(``ephemeral_paths``: ``(node, arg)``) that :func:`mount` registers. With
+the search engine armed (``node.search_engine``), the device index scores
+the filter predicates of ``paths`` and ``pathsCount`` and the SQL below
+hydrates the matching ids, so the answer is byte-identical to the SQL path;
+an error of the engine propagates. The ``tags`` filter is one the engine
+declines: SQL serves it.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-from ...models import FilePath
-from .. import ApiError
+from ...locations.non_indexed import walk_ephemeral
+from ...models import FilePath, Object
+from ..router import ApiError
 
 _PATH_ORDERS = {"name", "size_in_bytes", "date_created", "date_modified"}
 
@@ -181,6 +190,91 @@ def paths_count(node, library, arg) -> int:
         params)[0]["n"]
 
 
+def objects(node, library, arg) -> dict[str, Any]:
+    """search.objects: objects by kind, favorite and tag, in id order,
+    paginated by an id cursor."""
+    arg = arg or {}
+    where, params = ["1=1"], []
+    if arg.get("kinds"):
+        marks = ",".join("?" for _ in arg["kinds"])
+        where.append(f"o.kind IN ({marks})")
+        params.extend(arg["kinds"])
+    if arg.get("favorite") is not None:
+        where.append("o.favorite = ?")
+        params.append(int(arg["favorite"]))
+    if arg.get("tags"):
+        marks = ",".join("?" for _ in arg["tags"])
+        where.append(f"o.id IN (SELECT object_id FROM tag_on_object "
+                     f"WHERE tag_id IN ({marks}))")
+        params.extend(arg["tags"])
+    take = min(int(arg.get("take", 100)), 500)
+    cursor_sql = ""
+    if arg.get("cursor") is not None:
+        cursor_sql = "AND o.id > ?"
+        params.append(arg["cursor"])
+    rows = library.db.query(
+        f"SELECT o.* FROM object o WHERE {' AND '.join(where)} {cursor_sql} "
+        f"ORDER BY o.id LIMIT ?", params + [take + 1])
+    items = [Object.decode_row(r) for r in rows[:take]]
+    return {"items": items,
+            "cursor": items[-1]["id"] if len(rows) > take else None}
+
+
+def objects_count(node, library, arg) -> int:
+    return library.db.query("SELECT COUNT(*) n FROM object")[0]["n"]
+
+
+def ephemeral_paths(node, arg) -> dict[str, Any]:
+    """search.ephemeralPaths: a listing of a directory outside any location;
+    ``with_thumbnails`` (which implies ``with_cas_ids``) makes thumbnails
+    into the node's cache."""
+    arg = arg or {}
+    with_thumbs = bool(arg.get("with_thumbnails"))
+    return walk_ephemeral(
+        arg["path"],
+        include_hidden=bool(arg.get("include_hidden")),
+        with_cas_ids=bool(arg.get("with_cas_ids")) or with_thumbs,
+        node=node if with_thumbs else None)
+
+
+def duplicates(node, library, arg) -> list[dict[str, Any]]:
+    """search.duplicates: the persisted near-duplicate pairs, most similar
+    first."""
+    arg = arg or {}
+    where, params = "1=1", []
+    if arg.get("location_id") is not None:
+        where = "(fa.location_id = ? OR fb.location_id = ?)"
+        params = [arg["location_id"], arg["location_id"]]
+    limit = max(0, min(int(arg.get("take", 200)), 1000))
+    rows = library.db.query(
+        f"SELECT nd.id, nd.similarity, nd.date_detected, "
+        f"fa.id AS a_id, fa.materialized_path AS a_dir, fa.name AS a_name, "
+        f"fa.extension AS a_ext, fa.size_in_bytes AS a_size, "
+        f"fb.id AS b_id, fb.materialized_path AS b_dir, fb.name AS b_name, "
+        f"fb.extension AS b_ext, fb.size_in_bytes AS b_size "
+        f"FROM near_duplicate nd "
+        f"JOIN file_path fa ON nd.file_path_a_id = fa.id "
+        f"JOIN file_path fb ON nd.file_path_b_id = fb.id "
+        f"WHERE {where} ORDER BY nd.similarity DESC, nd.id LIMIT ?",
+        params + [limit])
+    return [dict(r) for r in rows]
+
+
+def chunk_duplicates(node, library, arg) -> list[dict[str, Any]]:
+    """search.chunkDuplicates: chunk hashes of the manifests shared by more
+    than one object, most duplicated bytes first."""
+    arg = arg or {}
+    limit = max(0, min(int(arg.get("take", 200)), 1000))
+    rows = library.db.query(
+        "SELECT chunk_hash, COUNT(DISTINCT object_id) AS objects, "
+        "COUNT(*) AS copies, MAX(length) AS length, "
+        "SUM(length) - MAX(length) AS duplicated_bytes "
+        "FROM chunk_manifest GROUP BY chunk_hash "
+        "HAVING COUNT(DISTINCT object_id) > 1 "
+        "ORDER BY duplicated_bytes DESC, chunk_hash LIMIT ?", [limit])
+    return [dict(r) for r in rows]
+
+
 def near_duplicates(node, library, arg) -> dict[str, Any]:
     """``search.nearDuplicates``: MinHash similarity groups, served from the
     persisted ``near_duplicate`` pairs the chained dedup job wrote (database
@@ -191,3 +285,14 @@ def near_duplicates(node, library, arg) -> dict[str, Any]:
     return persisted_near_duplicate_groups(
         library.db, location_id=arg.get("location_id"),
         limit=int(arg.get("take", arg.get("limit", 1000))))
+
+
+def mount(router) -> None:
+    router.library_query("search.paths", pool=True)(paths)
+    router.library_query("search.pathsCount", pool=True)(paths_count)
+    router.library_query("search.objects", pool=True)(objects)
+    router.library_query("search.objectsCount", pool=True)(objects_count)
+    router.query("search.ephemeralPaths")(ephemeral_paths)
+    router.library_query("search.duplicates", pool=True)(duplicates)
+    router.library_query("search.chunkDuplicates", pool=True)(chunk_duplicates)
+    router.library_query("search.nearDuplicates", pool=True)(near_duplicates)

@@ -1,20 +1,30 @@
 """Node configuration (trimmed).
 
-Counterpart of ``spacedrive_tpu/config.py``: a versioned JSON file,
-``node_state.sdconfig`` in the data dir, holding the node's identity and
-name. p2p keys, feature flags and the accelerator inventory are not ported.
+Counterpart of ``spacedrive_tpu/config.py`` (``NodeConfig`` and
+``ConfigManager``): a versioned JSON file, ``node_state.sdconfig`` in the
+data dir, holding the node's identity and name, the device inventory the
+node records at boot (``accelerator``: the card's kind and count, or none
+on a CPU node, as the reference records its probe) and the node-level
+notifications. :class:`ConfigManager` reads it under a lock and writes it
+through atomically. p2p keys and the feature flags are not ported.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import threading
 import uuid
 from pathlib import Path
 from typing import Any
 
+from .atomic import atomic_write_text
+
 VERSION = 1
 FILENAME = "node_state.sdconfig"
+
+#: the reference's record of a node with no accelerator
+NO_ACCELERATOR = {"kind": None, "devices": 0, "mesh": []}
 
 
 def load_node_config(data_dir: str | Path) -> dict[str, Any]:
@@ -23,6 +33,26 @@ def load_node_config(data_dir: str | Path) -> dict[str, Any]:
     if path.exists():
         return json.loads(path.read_text())
     config = {"version": VERSION, "id": str(uuid.uuid4()),
-              "name": os.uname().nodename if hasattr(os, "uname") else "spacedrive"}
-    path.write_text(json.dumps(config, indent=2))
+              "name": os.uname().nodename if hasattr(os, "uname") else "spacedrive",
+              "accelerator": dict(NO_ACCELERATOR)}
+    atomic_write_text(path, json.dumps(config, indent=2))
     return config
+
+
+class ConfigManager:
+    """Thread-safe access with write-through persistence."""
+
+    def __init__(self, data_dir: str | Path) -> None:
+        self._path = Path(data_dir) / FILENAME
+        self._data = load_node_config(data_dir)
+        self._lock = threading.Lock()
+
+    def get(self) -> dict[str, Any]:
+        with self._lock:
+            return dict(self._data)
+
+    def write(self, **updates: Any) -> dict[str, Any]:
+        with self._lock:
+            self._data.update(updates)
+            atomic_write_text(self._path, json.dumps(self._data, indent=2))
+            return dict(self._data)

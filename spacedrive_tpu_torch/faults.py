@@ -8,8 +8,9 @@ their transient retry, so an injected ``eio`` is retried like a real one;
 ``thumbnail`` (before each thumbnail is written,
 :mod:`.objects.media.thumbnail`), where an ``enospc`` rehearses a full
 disk; ``hash`` (before each hash dispatch of the identify job,
-:mod:`.objects.file_identifier`); and ``commit`` (at the BEGIN and the
-COMMIT of every outermost database transaction, :mod:`.models.base`).
+:mod:`.objects.file_identifier`); ``commit`` (at the BEGIN and the
+COMMIT of every outermost database transaction, :mod:`.models.base`); and
+``rspc`` (before each procedure the router resolves, :mod:`.api.router`).
 
 A plan is a ``;``-separated list of ``seam:kind[:trigger]`` rules, armed by
 :func:`install`, never from the environment: a child process that a test or

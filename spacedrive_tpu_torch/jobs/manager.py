@@ -16,9 +16,10 @@ and cancel act on one job; :meth:`Jobs.shutdown` checkpoints every running
 job instead of letting it finish, and :meth:`Jobs.cold_resume` revives the
 checkpoints at boot.
 
-Left out: the telemetry gauges and events, the cold-resume failure
-notification and ``recovery.note_cold_resumed`` (the port has no
-notifications and no recovery accounting).
+A checkpoint that cannot be revived is marked Failed and pushes a
+library notification (``job_cold_resume_failed``), as in the reference.
+Left out: the telemetry gauges and events and ``recovery.note_cold_resumed``
+(the port has no recovery accounting).
 """
 
 from __future__ import annotations
@@ -273,6 +274,14 @@ class Jobs:
                 report.errors_text = (f"{report.errors_text}\n\n{failure}"
                                       if report.errors_text else failure)
                 report.upsert(library.db)
+                try:
+                    from ..notifications import emit_library_notification
+
+                    emit_library_notification(library, {
+                        "kind": "job_cold_resume_failed", "job_name": report.name,
+                        "job_id": report.id, "error": str(e)})
+                except Exception:
+                    logger.exception("cold-resume failure notification could not be emitted")
         return revived
 
     def _load_chain(self, library: "Library", row: dict) -> list[DynJob]:

@@ -1,14 +1,16 @@
 """Libraries: one SQLite database per library under ``<data_dir>/libraries/``.
 
-Counterpart of ``spacedrive_tpu/library.py`` (``Libraries.create`` :288),
-trimmed to what a scan and a search need: the ``<uuid>.sdlibrary`` JSON
-sidecar with the name, the ``<uuid>.db`` database with the port's tables,
+Counterpart of ``spacedrive_tpu/library.py`` (``Libraries.create`` :288,
+``edit`` :334, ``delete`` :350), trimmed to what a scan, a search and the
+``libraries.*`` procedures need: the ``<uuid>.sdlibrary`` JSON sidecar with
+the name and description, the ``<uuid>.db`` database with the port's tables,
 ``Library.emit`` onto the node's event bus, and each library's
 :class:`.objects.gc.OrphanRemoverActor` (``library.py`` :278-286).
 :meth:`Libraries.init` sweeps the ``*.sd-tmp*`` debris a kill left in the
 libraries directory and in the node's ``thumbnails`` and ``backups``
 directories before it opens anything (:204-212). Sync, instance identities
-and the boot-time repair ladder are not ported; SQLite's own WAL recovery
+(a library has no ``instance_id``), the library-manager events and the
+boot-time repair ladder are not ported; SQLite's own WAL recovery
 runs when a database opens.
 """
 
@@ -20,19 +22,28 @@ import uuid
 from pathlib import Path
 from typing import TYPE_CHECKING, Any
 
-from .atomic import cleanup_stale_tmp
+from .atomic import atomic_write_text, cleanup_stale_tmp
 from .models import ALL_MODELS, Database
 
 if TYPE_CHECKING:
     from .node import Node
 
 
+def validate_library_name(name: str) -> str:
+    name = name.strip()
+    if not name:
+        raise ValueError("library name cannot be empty")
+    return name
+
+
 class Library:
-    def __init__(self, lib_id: str, name: str, db: Database, node: "Node | None") -> None:
+    def __init__(self, lib_id: str, name: str, db: Database, node: "Node | None",
+                 description: str = "") -> None:
         from .objects.gc import OrphanRemoverActor
 
         self.id = lib_id
         self.name = name
+        self.description = description
         self.db = db
         self.node = node
         self.orphan_remover = OrphanRemoverActor(self)
@@ -66,11 +77,12 @@ class Libraries:
             for artifact_dir in ("backups", "thumbnails"):
                 cleanup_stale_tmp(self.node.data_dir / artifact_dir)
         for cfg_path in sorted(self.dir.glob("*.sdlibrary")):
-            self._open(cfg_path.stem, json.loads(cfg_path.read_text())["name"])
+            cfg = json.loads(cfg_path.read_text())
+            self._open(cfg_path.stem, cfg["name"], cfg.get("description", ""))
 
-    def _open(self, lib_id: str, name: str) -> Library:
+    def _open(self, lib_id: str, name: str, description: str = "") -> Library:
         library = Library(lib_id, name, Database(self.dir / f"{lib_id}.db", ALL_MODELS),
-                          self.node)
+                          self.node, description)
         with self._lock:
             self._libraries[lib_id] = library
         return library
@@ -84,15 +96,35 @@ class Libraries:
         with self._lock:
             return self._libraries[lib_id]
 
+    def _write_config(self, library_id: str, name: str, description: str) -> None:
+        atomic_write_text(self.dir / f"{library_id}.sdlibrary", json.dumps(
+            {"version": 1, "name": name, "description": description}))
+
     def create(self, name: str, description: str = "") -> Library:
-        name = name.strip()
-        if not name:
-            raise ValueError("library name cannot be empty")
+        name = validate_library_name(name)
         lib_id = str(uuid.uuid4())
         self.dir.mkdir(parents=True, exist_ok=True)
-        (self.dir / f"{lib_id}.sdlibrary").write_text(
-            json.dumps({"version": 1, "name": name, "description": description}))
-        return self._open(lib_id, name)
+        self._write_config(lib_id, name, description)
+        return self._open(lib_id, name, description)
+
+    def edit(self, lib_id: str, name: str | None = None,
+             description: str | None = None) -> Library:
+        library = self.get(lib_id)
+        if name is not None:
+            library.name = validate_library_name(name)
+        if description is not None:
+            library.description = description
+        self._write_config(lib_id, library.name, library.description)
+        return library
+
+    def delete(self, lib_id: str) -> None:
+        """Close the library and remove its sidecar and database."""
+        library = self.get(lib_id)
+        with self._lock:
+            self._libraries.pop(lib_id, None)
+        library.close()
+        (self.dir / f"{lib_id}.sdlibrary").unlink(missing_ok=True)
+        (self.dir / f"{lib_id}.db").unlink(missing_ok=True)
 
     def close(self) -> None:
         with self._lock:

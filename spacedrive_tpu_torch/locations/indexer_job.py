@@ -80,6 +80,10 @@ class IndexerJob(StatefulJob):
         }
         return steps, meta
 
+    def finalize(self, ctx: JobContext, data: dict, run_metadata: dict):
+        ctx.library.emit("invalidate_query", {"key": "search.paths"})
+        return super().finalize(ctx, data, run_metadata)
+
     def init(self, ctx: JobContext):
         location = self._location(ctx)
         location_path = location["path"]

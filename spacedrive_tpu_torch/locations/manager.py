@@ -41,6 +41,10 @@ class LocationsActor:
         with self._lock:
             self._online.add((library.id, location_id))
 
+    def remove(self, library: "Library", location_id: int) -> None:
+        with self._lock:
+            self._online.discard((library.id, location_id))
+
     def is_online(self, library_id: str, location_id: int) -> bool:
         with self._lock:
             return (library_id, location_id) in self._online

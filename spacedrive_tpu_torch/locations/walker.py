@@ -1,10 +1,10 @@
 """Filesystem walker: rules-filtered, DB-diffing, budgeted BFS.
 
-Copy of spacedrive_tpu/locations/walker.py (without the single-directory
-walk), which mirrors the semantics of core/src/location/indexer/walk.rs —
-iterative walk applying rules per entry (:116-186), keep-walking
-continuation for dirs beyond the budget (:187-240), and existing-path
-diffing on (inode, device) + mtime >1ms delta (:355-372).
+Copy of spacedrive_tpu/locations/walker.py, which mirrors the semantics of
+core/src/location/indexer/walk.rs — iterative walk applying rules per entry
+(:116-186), keep-walking continuation for dirs beyond the budget
+(:187-240), single-dir walk for the shallow rescan (:242-310), and
+existing-path diffing on (inode, device) + mtime >1ms delta (:355-372).
 """
 
 from __future__ import annotations
@@ -73,6 +73,7 @@ def walk(
     sub_path: str = "",
     limit: int = 50_000,
     include_root: bool = True,
+    recurse: bool = True,
 ) -> WalkResult:
     """BFS from ``location_path/sub_path``; stops enqueuing new directories
     into the in-walk queue once ``limit`` entries have been produced, returning
@@ -161,7 +162,7 @@ def walk(
                 result.walked.append(WalkedEntry(iso, meta))
                 produced += 1
 
-            if is_dir:
+            if is_dir and recurse:
                 if produced < limit:
                     queue.append((entry.path, rel_path))
                 else:
@@ -173,6 +174,15 @@ def walk(
                 result.to_remove.append(row)
 
     return result
+
+
+def walk_single_dir(location_id: int, location_path: str | Path,
+                    rules: CompiledRules, sub_path: str = "",
+                    db_fetcher: DbFetcher | None = None) -> WalkResult:
+    """Shallow single-directory walk (walk_single_dir, walk.rs:242-310) used
+    by the quick rescan."""
+    return walk(location_id, location_path, rules, db_fetcher,
+                sub_path=sub_path, include_root=False, recurse=False)
 
 
 def db_fetcher_for(db, location_id: int) -> DbFetcher:

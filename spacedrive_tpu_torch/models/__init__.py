@@ -3,10 +3,11 @@
 from .base import Database, Field, Model, utc_now
 from .schema import (ALL_MODELS, ChunkManifest, FilePath, IndexerRule,
                      IndexerRulesInLocation, JobRow, Location, MediaData, NearDuplicate,
-                     Object)
+                     Notification, Object, Statistics, Tag, TagOnObject)
 
 __all__ = [
     "ALL_MODELS", "ChunkManifest", "Database", "Field", "FilePath",
     "IndexerRule", "IndexerRulesInLocation", "JobRow", "Location", "MediaData",
-    "Model", "NearDuplicate", "Object", "utc_now",
+    "Model", "NearDuplicate", "Notification", "Object", "Statistics", "Tag",
+    "TagOnObject", "utc_now",
 ]

@@ -2,8 +2,8 @@
 ``spacedrive_tpu/models/schema.py`` declares them (location :149,
 file_path :174, object :216, job :348, indexer_rule :375,
 indexer_rule_in_location :388, near_duplicate :420, chunk_manifest :439,
-media_data :233),
-so rows written by the two packages compare directly.
+media_data :233, statistics :114, tag :257, tag_on_object :271,
+notification :410), so rows written by the two packages compare directly.
 
 One difference in constraints, none in columns: ``location.instance_id``
 keeps its column but not its foreign key, because the port has no
@@ -205,7 +205,57 @@ class MediaData(Model):
     }
 
 
+class Statistics(Model):
+    TABLE = "statistics"
+    FIELDS = {
+        "id": _pk(),
+        "date_captured": Field(_D, nullable=False),
+        "total_object_count": Field(_I, default=0),
+        "library_db_size": Field(_T, default="0"),
+        "total_bytes_used": Field(_T, default="0"),
+        "total_bytes_capacity": Field(_T, default="0"),
+        "total_unique_bytes": Field(_T, default="0"),
+        "total_bytes_free": Field(_T, default="0"),
+        "preview_media_bytes": Field(_T, default="0"),
+    }
+
+
+class Tag(Model):
+    TABLE = "tag"
+    FIELDS = {
+        "id": _pk(),
+        "pub_id": _pub_id(),
+        "name": Field(_T),
+        "color": Field(_T),
+        "redundancy_goal": Field(_I),
+        "date_created": Field(_D),
+        "date_modified": Field(_D),
+    }
+
+
+class TagOnObject(Model):
+    TABLE = "tag_on_object"
+    FIELDS = {
+        "tag_id": Field(_I, nullable=False, references="tag.id", on_delete="RESTRICT"),
+        "object_id": Field(_I, nullable=False, references="object.id", on_delete="RESTRICT"),
+    }
+    UNIQUES = (("tag_id", "object_id"),)
+
+
+class Notification(Model):
+    """A library-level notification (node-level ones live in the node
+    config)."""
+
+    TABLE = "notification"
+    FIELDS = {
+        "id": _pk(),
+        "read": Field(_B, default=0),
+        "data": Field(_J, nullable=False),
+        "expires_at": Field(_D),
+    }
+
+
 ALL_MODELS: tuple[type[Model], ...] = (
-    Location, FilePath, Object, JobRow, IndexerRule, IndexerRulesInLocation,
-    ChunkManifest, NearDuplicate, MediaData,
+    Statistics, Location, FilePath, Object, MediaData, Tag, TagOnObject, JobRow,
+    IndexerRule, IndexerRulesInLocation, Notification, ChunkManifest, NearDuplicate,
 )

@@ -3,8 +3,9 @@
 Counterpart of ``spacedrive_tpu/node.py`` (``Node`` :75), trimmed to the node
 config, the event bus, the libraries under ``<data_dir>/libraries/``, the job
 manager, the locations actor, the thumbnail remover, the search engine
-(armed by ``SD_SEARCH_ENGINE=device``, as in the JAX package) and the
-device. The boot order is the reference's (:191-199): every job type is
+(armed by ``SD_SEARCH_ENGINE=device``, as in the JAX package), the rspc
+router (``node.router``, mounted last, as at :271-273) and the device,
+whose kind and count the node records in its config at boot. The boot order is the reference's (:191-199): every job type is
 registered, the libraries are swept of stale temporaries and opened, the
 locations actor starts, and each library's unfinished jobs cold-resume from
 their checkpoints (on the node's device: the kernels load from
@@ -13,8 +14,8 @@ waiting for them: call ``jobs.wait_idle`` first to let them finish. ``device`` d
 when there is none; ``device="cpu"`` runs the kernels' plain PyTorch
 versions. ``mesh_devices`` is the device list a ``tpu-sharded`` location's
 mesh spans (``objects.hasher.get_hasher``; default every visible card, or
-the node's device on a CPU node). p2p, the key manager, telemetry, alerts,
-the accelerator probe and the reader pool are not ported.
+the node's device on a CPU node). p2p (``node.p2p`` is None), the key
+manager, telemetry, alerts and the reader pool are not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from typing import Any
 import torch
 
 from . import resolve_device
-from .config import load_node_config
+from .api.router import mount as api_mount
+from .config import NO_ACCELERATOR, ConfigManager
 from .events import EventBus
 from .jobs import Jobs, register_builtin_jobs
 from .library import Libraries
@@ -38,6 +40,14 @@ from .search.engine import SearchEngine
 logger = logging.getLogger(__name__)
 
 
+def _accelerator(device: torch.device) -> dict[str, Any]:
+    """The reference's record of its accelerator probe, for the card."""
+    if device.type != "cuda":
+        return dict(NO_ACCELERATOR)
+    n = torch.cuda.device_count()
+    return {"kind": torch.cuda.get_device_name(device), "devices": n, "mesh": [n]}
+
+
 class Node:
     def __init__(self, data_dir: str | Path, device: str | torch.device | None = None,
                  mesh_devices: list | None = None) -> None:
@@ -46,7 +56,9 @@ class Node:
         self.sharded_hasher = None  # made at the first tpu-sharded scan
         self.data_dir = Path(data_dir)
         self.data_dir.mkdir(parents=True, exist_ok=True)
-        self.config = load_node_config(self.data_dir)
+        self.config = ConfigManager(self.data_dir)
+        self.config.write(accelerator=_accelerator(self.device))
+        self.p2p = None
         self.events = EventBus()
         self.hasher = DeviceHasher(self.device)
         self.jobs = Jobs()
@@ -61,7 +73,8 @@ class Node:
             if revived:
                 logger.info("cold-resumed %d jobs of library %s", revived, library.id[:8])
         self.search_engine = SearchEngine.maybe_start(self)
-        logger.info("node %s up on %s", self.config["id"][:8], self.device)
+        self.router = api_mount(self)
+        logger.info("node %s up on %s", self.config.get()["id"][:8], self.device)
 
     def emit(self, kind: str, payload: Any = None, library_id: str | None = None) -> None:
         self.events.emit_kind(kind, payload, library_id)

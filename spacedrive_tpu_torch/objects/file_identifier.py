@@ -127,6 +127,11 @@ def abs_path(location_path: str, row: dict) -> str:
 class FileIdentifierJob(StatefulJob):
     NAME = "file_identifier"
 
+    def finalize(self, ctx: JobContext, data: dict, run_metadata: dict):
+        ctx.library.emit("invalidate_query", {"key": "search.paths"})
+        ctx.library.emit("invalidate_query", {"key": "search.objects"})
+        return super().finalize(ctx, data, run_metadata)
+
     def init(self, ctx: JobContext):
         db = ctx.library.db
         location_id = self.init_args["location_id"]

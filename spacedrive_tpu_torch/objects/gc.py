@@ -6,9 +6,9 @@ whose ticks are constructor arguments, so tests tick them at will:
 - :class:`OrphanRemoverActor`, one a library: every ``tick_interval`` (1
   minute) or on :meth:`~OrphanRemoverActor.invoke`, at most once a
   ``debounce`` (10 s), deletes in batches of 512 the objects no file_path
-  points at, with their ``media_data`` and ``chunk_manifest`` rows (the
-  port's tables that hang off an object; the reference's tag, label, space
-  and album links are not in the port's schema). A cancelled or killed scan
+  points at, with their ``tag_on_object``, ``media_data`` and
+  ``chunk_manifest`` rows (the port's tables that hang off an object; the
+  reference's label, space and album links are not in the port's schema). A cancelled or killed scan
   leaves no orphan of its own (an object is created in the transaction that
   links it), but a rescan that re-identifies a changed file does.
 - :class:`ThumbnailRemoverActor`, one a node: every ``batch_interval`` (30
@@ -16,21 +16,24 @@ whose ticks are constructor arguments, so tests tick them at will:
   ``full_interval`` (half an hour) every cached thumbnail whose cas_id no
   loaded library references.
 
-The ephemeral-thumbnail shield is kept as a hook only:
-:meth:`~ThumbnailRemoverActor.register_ephemeral` shields a cas_id from the
-full sweep for ``EPHEMERAL_TTL`` after its last browse. Nothing calls it
-yet, since the ephemeral browse (``search.ephemeralPaths``) is not ported,
-and the registry is not persisted across restarts (the reference's
-``ephemeral.json``).
+The ephemeral-thumbnail shield:
+:meth:`~ThumbnailRemoverActor.register_ephemeral`, called by the browse of
+a directory outside any location (``search.ephemeralPaths`` with
+thumbnails) before it makes them, shields a cas_id from the full sweep for
+``EPHEMERAL_TTL`` after its last browse. The registry is persisted in
+``thumbnails/ephemeral.json``, so the shield outlives a restart.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import threading
 import time
 from pathlib import Path
 from typing import TYPE_CHECKING, Iterable
+
+from ..atomic import atomic_write_text
 
 if TYPE_CHECKING:
     from ..library import Library
@@ -45,7 +48,7 @@ HALF_HOUR = 30.0 * 60.0
 
 _ORPHAN_BATCH = 512
 #: the port's tables whose rows belong to an object
-_OBJECT_LINKS = ("media_data", "chunk_manifest")
+_OBJECT_LINKS = ("tag_on_object", "media_data", "chunk_manifest")
 
 
 class OrphanRemoverActor:
@@ -128,7 +131,9 @@ class ThumbnailRemoverActor:
         self.batch_interval = batch_interval
         self.full_interval = full_interval
         self._marked: set[str] = set()
-        self._ephemeral: dict[str, float] = {}  # cas_id -> last browse time
+        # cas_id -> last browse time, persisted: the first sweep after a
+        # restart must not collect thumbnails browsed just before it
+        self._ephemeral: dict[str, float] = self._load_ephemeral()
         self._marked_lock = threading.Lock()
         self._signal = threading.Event()
         self._stop = threading.Event()
@@ -149,6 +154,24 @@ class ThumbnailRemoverActor:
         with self._marked_lock:
             for cas in cas_ids:
                 self._ephemeral[cas] = now
+            snapshot = dict(self._ephemeral)
+        self._save_ephemeral(snapshot)
+
+    def _ephemeral_path(self) -> Path:
+        return self._thumb_dir() / "ephemeral.json"
+
+    def _load_ephemeral(self) -> dict[str, float]:
+        try:
+            raw = json.loads(self._ephemeral_path().read_text())
+            return {str(k): float(v) for k, v in raw.items()}
+        except Exception:  # a missing or malformed side file is an empty registry
+            return {}
+
+    def _save_ephemeral(self, snapshot: dict[str, float]) -> None:
+        try:
+            atomic_write_text(self._ephemeral_path(), json.dumps(snapshot))
+        except OSError as e:
+            logger.debug("could not persist the ephemeral registry: %s", e)
 
     def _run(self) -> None:
         last_full = 0.0

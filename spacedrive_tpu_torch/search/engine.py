@@ -12,9 +12,10 @@ Correctness ladder (SQLite stays the oracle):
 1. **Eligibility** — :func:`~.columnar.parse_predicate` accepts only filter
    sets the index answers bit-exactly; wildcards, tag subqueries and
    over-long needles stay on SQLite.
-2. **Freshness** — a synchronous ``db.commit`` bus hook (emitted by the
-   jobs after every committed step and at exit) bumps a per-library
-   ``pending`` counter, a refresh stamps the index
+2. **Freshness** — a synchronous bus hook on ``db.commit`` (emitted by the
+   jobs after every committed step and at exit), ``invalidate_query``
+   (emitted by the API's mutations and at the end of the scan's jobs) and
+   ``job_progress`` bumps a per-library ``pending`` counter, a refresh stamps the index
    with the watermark it read under, and a query is served from the index
    ONLY when the two are equal. A post-commit query therefore never sees
    pre-watermark rows: while a refresh is in flight the query falls back to
@@ -58,9 +59,10 @@ if TYPE_CHECKING:
 
 logger = logging.getLogger(__name__)
 
-#: the event that moves a library's watermark (over-bumping costs a
-#: refresh, under-bumping would serve stale rows)
-BUMP_KIND = "db.commit"
+#: the events that move a library's watermark, the reference's set without
+#: the sync messages the port does not have (over-bumping costs a refresh,
+#: under-bumping would serve stale rows)
+BUMP_KINDS = frozenset({"db.commit", "invalidate_query", "job_progress"})
 
 
 class _LibState:
@@ -136,7 +138,7 @@ class SearchEngine:
 
     # -- invalidation ----------------------------------------------------------
     def _on_event(self, event) -> None:
-        if event.kind != BUMP_KIND or not event.library_id:
+        if event.kind not in BUMP_KINDS or not event.library_id:
             return
         state = self._states.get(event.library_id)
         if state is None:

@@ -1,0 +1,395 @@
+"""Headless server shell: HTTP + websocket transport over the node's router.
+
+Counterpart of ``spacedrive_tpu/server/shell.py`` (the reference's
+apps/server: axum's ``/health``, the ``/spacedrive`` custom_uri and the
+``/rspc`` websocket). Procedures resolve on a worker-thread pool, so a slow
+query never stalls the accept loop, which runs on its own thread; each
+websocket subscription is pumped into its socket by a thread of its own.
+
+Routes:
+    GET  /health                                   → "OK" (never behind auth)
+    GET  /info                                     → server/node JSON
+    GET  /rspc/<key>?arg=<json>[&library_id=]      → query
+    POST /rspc/<key>   {"arg":..,"library_id":..}  → query or mutation
+    GET  /rspc/ws (Upgrade: websocket)             → JSON-RPC incl. subscriptions
+    GET  /spacedrive/thumbnail/<shard>/<cas>.webp  → thumbnail cache, ranged
+    GET  /spacedrive/file/<library>/<loc>/<fp_id>  → file bytes, ranged
+    GET  /schema                                   → router schema export
+
+websocket JSON-RPC (the rspc wire shape):
+    → {"id":1,"method":"query"|"mutation","params":{"path":k,"input":..}}
+    ← {"jsonrpc":"2.0","id":1,"result":{"type":"response","data":..}}
+    → {"id":2,"method":"subscription","params":{"path":k,"input":..}}
+    ← {"jsonrpc":"2.0","id":2,"result":{"type":"event","data":..}} (each event)
+    → {"id":3,"method":"subscriptionStop","params":{"subscriptionId":2}}
+Library-scoped procedures take input = {"library_id":.., "arg":..}.
+
+An error a handler raises (a kernel's included) answers 500, an
+:class:`~..api.router.ApiError` 400. A file or thumbnail owned by another
+instance answers 404, as the reference does with p2p offline: the port has
+no p2p. Not ported: ``/`` (the web explorer), ``/metrics``, the SSE event
+tail ``/telemetry/stream``, ``/client/*``, the HTTP telemetry and the
+reader pool the reference starts with the shell.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import base64
+import json
+import logging
+import secrets
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import TYPE_CHECKING, Any
+
+from ..api.router import ApiError
+from .http import HttpError, Request, Response, WebSocket, parse_range, read_request, write_response
+
+if TYPE_CHECKING:
+    from ..node import Node
+
+logger = logging.getLogger(__name__)
+
+
+class Server:
+    def __init__(self, node: "Node", host: str = "127.0.0.1", port: int = 8080,
+                 auth: str | None = None) -> None:
+        """``auth``: optional "user:password" enabling basic auth on every
+        route but /health."""
+        self.node = node
+        self.host = host
+        self.port = port
+        self.auth = auth
+        self._server: asyncio.AbstractServer | None = None
+        self._loop: asyncio.AbstractEventLoop | None = None
+        self._thread: threading.Thread | None = None
+        self._pool = ThreadPoolExecutor(max_workers=8, thread_name_prefix="rspc")
+        self._ready = threading.Event()
+        #: live websocket subscriptions: (subscription, pump thread);
+        #: stop() closes and joins them
+        self._pumps: set[tuple[Any, threading.Thread]] = set()
+        self._pumps_lock = threading.Lock()
+
+    # -- lifecycle -----------------------------------------------------------
+    def start(self) -> None:
+        """Run the accept loop on its own thread; returns once bound."""
+        self._thread = threading.Thread(target=self._run, name="sd-server", daemon=True)
+        self._thread.start()
+        if not self._ready.wait(10):
+            raise RuntimeError("server failed to bind")
+
+    def _run(self) -> None:
+        asyncio.run(self._serve())
+
+    async def _serve(self) -> None:
+        self._loop = asyncio.get_running_loop()
+        self._server = await asyncio.start_server(self._client, self.host, self.port)
+        if self.port == 0:
+            self.port = self._server.sockets[0].getsockname()[1]
+        self._ready.set()
+        logger.info("server listening on %s:%s", self.host, self.port)
+        async with self._server:
+            try:
+                await self._server.serve_forever()
+            except asyncio.CancelledError:
+                pass
+
+    def stop(self) -> None:
+        """Close every subscription (its pump ends), stop the loop, join the
+        loop's and the pumps' threads, and shut the worker pool."""
+        with self._pumps_lock:
+            pumps = list(self._pumps)
+        for sub, _thread in pumps:
+            sub.close()
+        loop, server = self._loop, self._server
+        if loop is not None and server is not None:
+            try:
+                loop.call_soon_threadsafe(server.close)
+                loop.call_soon_threadsafe(
+                    lambda: [t.cancel() for t in asyncio.all_tasks(loop)])
+            except RuntimeError:
+                pass  # the loop is already closed
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+        for _sub, thread in pumps:
+            if thread.is_alive():
+                thread.join(timeout=5)
+        self._pool.shutdown(wait=False, cancel_futures=True)
+
+    # -- connection handling -------------------------------------------------
+    async def _client(self, reader: asyncio.StreamReader,
+                      writer: asyncio.StreamWriter) -> None:
+        try:
+            while True:
+                try:
+                    req = await read_request(reader)
+                except HttpError as e:
+                    await write_response(writer, Request("GET", "/", {}, {}, b""),
+                                         Response.error(e.status, str(e)))
+                    break
+                if req is None:
+                    break
+                if req.header("upgrade", "").lower() == "websocket":
+                    try:
+                        await self._websocket(req, reader, writer)
+                    except HttpError as e:
+                        await write_response(writer, req, Response.error(e.status, str(e)))
+                    break
+                try:
+                    resp = await self._route(req)
+                except HttpError as e:
+                    resp = Response.error(e.status, str(e))
+                    if e.status == 401:
+                        resp.headers["www-authenticate"] = 'Basic realm="spacedrive"'
+                except ApiError as e:
+                    resp = Response.error(400, str(e))
+                except Exception:
+                    logger.exception("request failed: %s %s", req.method, req.path)
+                    resp = Response.error(500)
+                await write_response(writer, req, resp)
+                if req.header("connection", "").lower() == "close":
+                    break
+        except (ConnectionError, asyncio.IncompleteReadError):
+            pass
+        finally:
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except (ConnectionError, RuntimeError):
+                pass
+
+    def _check_auth(self, req: Request) -> None:
+        if self.auth is None:
+            return
+        expect = "Basic " + base64.b64encode(self.auth.encode()).decode()
+        if not secrets.compare_digest(req.header("authorization").encode("utf-8", "replace"),
+                                      expect.encode()):
+            raise HttpError(401, "authentication required")
+
+    async def _route(self, req: Request) -> Response:
+        parts = [p for p in req.path.split("/") if p]
+        if req.path == "/health":
+            return Response.text("OK")
+        self._check_auth(req)
+        if not parts:
+            raise HttpError(404)
+        if parts[0] == "info":
+            return Response.json({"server": "spacedrive_tpu_torch",
+                                  "node": self.node.config.get().get("name")})
+        if parts[0] == "rspc":
+            return await self._rspc_http(req, "/".join(parts[1:]))
+        if parts[0] == "schema":
+            return Response.json(self.node.router.schema())
+        if parts[0] == "spacedrive":
+            return await self._custom_uri(req, parts[1:])
+        raise HttpError(404)
+
+    # -- rspc over plain HTTP ------------------------------------------------
+    async def _rspc_http(self, req: Request, key: str) -> Response:
+        if not key:
+            raise HttpError(404)
+        try:
+            if req.method == "GET":
+                # GET is side-effect-free: queries only (mutations need POST)
+                proc = self.node.router.procedures.get(key)
+                if proc is not None and proc.kind != "query":
+                    raise HttpError(405, f"{key} is a {proc.kind}; use POST")
+                arg = json.loads(req.query["arg"]) if "arg" in req.query else None
+                library_id = req.query.get("library_id")
+            elif req.method == "POST":
+                payload = json.loads(req.body.decode() or "{}")
+                arg = payload.get("arg")
+                library_id = payload.get("library_id")
+            else:
+                raise HttpError(405)
+        except (json.JSONDecodeError, UnicodeDecodeError) as e:
+            raise HttpError(400, f"malformed request payload: {e}")
+        try:
+            result = await self._resolve(key, arg, library_id)
+        except ApiError as e:
+            return Response.json({"error": str(e)}, 400)
+        return Response.json({"result": result})
+
+    async def _resolve(self, key: str, arg: Any, library_id: str | None) -> Any:
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            self._pool, lambda: self.node.router.resolve(key, arg, library_id))
+
+    # -- custom_uri ------------------------------------------------------------
+    async def _custom_uri(self, req: Request, parts: list[str]) -> Response:
+        if req.method not in ("GET", "HEAD"):
+            raise HttpError(405)
+        if len(parts) == 3 and parts[0] == "thumbnail":
+            from ..objects.media.thumbnail import thumbnail_dir
+
+            shard, name = parts[1], parts[2]
+            if "/" in name or ".." in name or ".." in shard:
+                raise HttpError(400)
+            path = Path(thumbnail_dir(self.node.data_dir)) / shard / name
+            # a preview a paired node owns would be fetched over p2p: with
+            # none, a missing thumbnail is a 404
+            if not path.is_file():
+                raise HttpError(404, "no such thumbnail")
+            rng = parse_range(req.header("range"), path.stat().st_size)
+            return Response(headers={"content-type": "image/webp"},
+                            file_path=path, file_range=rng)
+        if len(parts) == 4 and parts[0] == "file":
+            return await self._serve_file(req, parts[1], parts[2], parts[3])
+        raise HttpError(404)
+
+    async def _serve_file(self, req: Request, library_id: str,
+                          location_id: str, file_path_id: str) -> Response:
+        from ..models import FilePath, Location
+
+        try:
+            library = self.node.libraries.get(library_id)
+        except KeyError:
+            raise HttpError(404, "no such library")
+        try:
+            fp_id, loc_id = int(file_path_id), int(location_id)
+        except ValueError:
+            raise HttpError(400, "file/location ids must be integers")
+        db = library.db
+        row = db.find_one(FilePath, {"id": fp_id})
+        if row is None or row["location_id"] != loc_id:
+            raise HttpError(404, "no such file_path")
+        location = db.find_one(Location, {"id": row["location_id"]})
+        if location is None:
+            raise HttpError(404, "no such location")
+        if location.get("instance_id") is not None:
+            # another instance's location: its bytes come over p2p, which
+            # the port does not have (the reference's answer with p2p off)
+            raise HttpError(404, "remote file and p2p is offline")
+        name = row["name"] + (f".{row['extension']}" if row["extension"] else "")
+        path = Path(location["path"]) / (row["materialized_path"] or "/").lstrip("/") / name
+        try:
+            size = path.stat().st_size
+        except OSError as e:
+            raise HttpError(404, f"file missing on disk: {e}")
+        rng = parse_range(req.header("range"), size)
+        ext = (row.get("extension") or "").lower()
+        return Response(headers={"content-type": _MIME.get(ext, "application/octet-stream")},
+                        file_path=path, file_range=rng)
+
+    # -- rspc over websocket -------------------------------------------------
+    async def _websocket(self, req: Request, reader: asyncio.StreamReader,
+                         writer: asyncio.StreamWriter) -> None:
+        self._check_auth(req)
+        key = req.header("sec-websocket-key")
+        if not key:
+            raise HttpError(400, "missing websocket key")
+        writer.write(("HTTP/1.1 101 Switching Protocols\r\n"
+                      "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                      f"Sec-WebSocket-Accept: {WebSocket.accept_key(key)}\r\n\r\n").encode())
+        await writer.drain()
+        ws = WebSocket(reader, writer)
+        subs: dict[Any, tuple[Any, threading.Thread]] = {}
+        loop = asyncio.get_running_loop()
+        send_lock = asyncio.Lock()
+
+        async def send(obj: dict) -> None:
+            async with send_lock:
+                await ws.send_text(json.dumps(obj, default=str))
+
+        def pump(sub_id: Any, subscription) -> None:
+            """Worker thread: drain a subscription into the socket until it
+            is closed or the socket fails."""
+            for event in subscription:
+                if subscription.filter is not None and not subscription.filter(event):
+                    continue
+                payload = {"jsonrpc": "2.0", "id": sub_id,
+                           "result": {"type": "event",
+                                      "data": {"kind": event.kind, "payload": event.payload,
+                                               "library_id": event.library_id}}}
+                try:
+                    asyncio.run_coroutine_threadsafe(send(payload), loop).result(10)
+                except Exception:
+                    break
+
+        try:
+            while True:
+                raw = await ws.recv()
+                if raw is None:
+                    break
+                try:
+                    msg = json.loads(raw)
+                except json.JSONDecodeError:
+                    await send({"jsonrpc": "2.0", "id": None,
+                                "result": {"type": "error",
+                                           "data": {"code": 400, "message": "bad json"}}})
+                    continue
+                await self._ws_message(msg, send, subs, pump)
+        finally:
+            # no join here: this runs on the loop, which a pump may be
+            # waiting on; a closed subscription ends its pump, and stop()
+            # joins what is left
+            for subscription, _thread in subs.values():
+                subscription.close()
+
+    async def _ws_message(self, msg: dict, send, subs: dict, pump) -> None:
+        msg_id = msg.get("id")
+        method = msg.get("method")
+        params = msg.get("params") or {}
+        path = params.get("path", "")
+        library_id, arg = _split_library_args(params.get("input"))
+
+        async def reply_error(code: int, message: str) -> None:
+            await send({"jsonrpc": "2.0", "id": msg_id,
+                        "result": {"type": "error", "data": {"code": code, "message": message}}})
+
+        if method in ("query", "mutation"):
+            try:
+                data = await self._resolve(path, arg, library_id)
+            except ApiError as e:
+                await reply_error(400, str(e))
+                return
+            except Exception:
+                logger.exception("ws %s %s failed", method, path)
+                await reply_error(500, "internal error")
+                return
+            await send({"jsonrpc": "2.0", "id": msg_id,
+                        "result": {"type": "response", "data": data}})
+        elif method == "subscription":
+            try:
+                subscription = self.node.router.subscribe(path, arg, library_id)
+            except ApiError as e:
+                await reply_error(400, str(e))
+                return
+            stale = subs.pop(msg_id, None)
+            if stale is not None:
+                stale[0].close()  # a reused id: stop the old stream first
+            thread = threading.Thread(target=pump, args=(msg_id, subscription),
+                                      name=f"ws-sub-{path}", daemon=True)
+            subs[msg_id] = (subscription, thread)
+            with self._pumps_lock:
+                self._pumps = {p for p in self._pumps if p[1].is_alive()}
+                self._pumps.add((subscription, thread))
+            # the ack goes out before the pump starts, so "started" precedes
+            # every event
+            await send({"jsonrpc": "2.0", "id": msg_id, "result": {"type": "started"}})
+            thread.start()
+        elif method == "subscriptionStop":
+            pair = subs.pop(params.get("subscriptionId", msg_id), None)
+            if pair is not None:
+                pair[0].close()
+            await send({"jsonrpc": "2.0", "id": msg_id, "result": {"type": "stopped"}})
+        else:
+            await reply_error(400, f"unknown method {method!r}")
+
+
+def _split_library_args(input_: Any) -> tuple[str | None, Any]:
+    """The library envelope: {"library_id": .., "arg": ..} → (lib, arg)."""
+    if isinstance(input_, dict) and "library_id" in input_:
+        return input_["library_id"], input_.get("arg")
+    return None, input_
+
+
+_MIME = {
+    "webp": "image/webp", "png": "image/png", "jpg": "image/jpeg",
+    "jpeg": "image/jpeg", "gif": "image/gif", "svg": "image/svg+xml",
+    "mp4": "video/mp4", "webm": "video/webm", "mp3": "audio/mpeg",
+    "pdf": "application/pdf", "txt": "text/plain", "json": "application/json",
+    "html": "text/html",
+}

@@ -816,3 +816,45 @@ def test_mesh_of_two_shards_on_one_card_gives_the_one_device_bytes(card):
     mesh = tm.make_mesh(devices=["cuda:0"] * 2)
     assert torch.equal(tm.sharded_resizer(mesh)(imgs, src, tgt),
                        tm.sharded_resizer(tm.make_mesh(devices=["cuda:0"]))(imgs, src, tgt))
+
+
+def test_the_server_serves_search_from_the_card(card, tmp_path, monkeypatch):
+    """A CUDA node's Server answers search.paths over HTTP with the SQL
+    answer, byte for byte, while the queries launch all three search
+    kernels (a substring, a directory and a date range)."""
+    import json
+
+    from spacedrive_tpu_torch.models import FilePath, Location
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.server import Server
+    from tests.torch_serve_client import rspc_get
+
+    monkeypatch.setenv("SD_SEARCH_ENGINE", "device")
+    node = Node(tmp_path / "data")
+    server = Server(node, "127.0.0.1", 0)
+    try:
+        lib = node.libraries.create("served")
+        loc = lib.db.insert(Location, {"pub_id": "l", "name": "l", "path": "/x"})
+        lib.db.insert_many(FilePath, [{
+            "pub_id": f"fp-{i}", "location_id": loc, "materialized_path": f"/d{i % 7}/",
+            "name": f"report-{i:05d}", "extension": "pdf", "is_dir": 0, "hidden": 0,
+            "size_in_bytes": i * 1000, "date_created": f"2026-0{1 + i % 9}-11T00:00:00+00:00"}
+            for i in range(5000)])
+        node.emit("db.commit", None, lib.id)
+        node.search_engine.refresh_now(lib)
+        server.start()
+        url = f"http://127.0.0.1:{server.port}"
+        before = dict(_kernels.LAUNCHES)
+        for arg in ({"search": "report-01", "take": 50}, {"materialized_path": "/d3/"},
+                    {"date_range": ["2026-03-01T00:00:00+00:00", "2026-05-30T00:00:00+00:00"]}):
+            node.search_engine.set_enabled(False)
+            sql = node.router.resolve("search.paths", arg, lib.id)
+            node.search_engine.set_enabled(True)
+            assert sql["items"]
+            got = rspc_get(url, "search.paths", arg, lib.id).decode()
+            assert got == json.dumps({"result": sql}, default=str)
+        for kernel in ("search_substring", "search_exact", "search_lex"):
+            assert _kernels.LAUNCHES[kernel] > before.get(kernel, 0), kernel
+    finally:
+        server.stop()
+        node.shutdown()

@@ -175,7 +175,7 @@ def _imports(path: Path) -> set[str]:
 
 PORT_FILES = sorted((REPO / "spacedrive_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "torch_multihost_worker.py",
-    REPO / "tests" / "torch_kill_child.py"]
+    REPO / "tests" / "torch_kill_child.py", REPO / "tests" / "torch_serve_client.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -191,13 +191,23 @@ SCAN_MODULES = ("spacedrive_tpu_torch.faults", "spacedrive_tpu_torch.native",
                 "spacedrive_tpu_torch.objects.media.processor",
                 "spacedrive_tpu_torch.objects.media.thumbnail",
                 "spacedrive_tpu_torch.objects.media.metadata",
-                "spacedrive_tpu_torch.native.images_native", "spacedrive_tpu_torch.ops.resize")
+                "spacedrive_tpu_torch.native.images_native", "spacedrive_tpu_torch.ops.resize",
+                # the serving path: the router with every sub-router and the shell
+                "spacedrive_tpu_torch.api.router", "spacedrive_tpu_torch.api.invalidate",
+                "spacedrive_tpu_torch.api.routers.root", "spacedrive_tpu_torch.api.routers.libraries",
+                "spacedrive_tpu_torch.api.routers.locations", "spacedrive_tpu_torch.api.routers.search",
+                "spacedrive_tpu_torch.api.routers.jobs", "spacedrive_tpu_torch.api.routers.tags",
+                "spacedrive_tpu_torch.api.routers.notifications", "spacedrive_tpu_torch.statistics",
+                "spacedrive_tpu_torch.notifications", "spacedrive_tpu_torch.objects.tags",
+                "spacedrive_tpu_torch.locations.non_indexed", "spacedrive_tpu_torch.server.shell",
+                "spacedrive_tpu_torch.server.http")
 
 
 def test_port_scan_loads_no_jax(tmp_path):
     """A whole port scan in a fresh interpreter (its native gather, its
     media processor on a PNG and its near-duplicate job on two copies over
-    100 KiB included) leaves jax unimported."""
+    100 KiB included), then a search served by the server shell over HTTP,
+    leaves jax unimported."""
     from PIL import Image
 
     (tmp_path / "t").mkdir()
@@ -211,6 +221,8 @@ def test_port_scan_loads_no_jax(tmp_path):
         "from spacedrive_tpu_torch.node import Node\n"
         "from spacedrive_tpu_torch.locations import create_location, scan_location\n"
         "from spacedrive_tpu_torch.native import cas_native\n"
+        "from spacedrive_tpu_torch.server import Server\n"
+        "import json, urllib.request\n"
         f"node = Node({str(tmp_path / 'd')!r}, device='cpu')\n"
         "lib = node.libraries.create('x')\n"
         f"loc = create_location(lib, {str(tmp_path / 't')!r})\n"
@@ -219,6 +231,12 @@ def test_port_scan_loads_no_jax(tmp_path):
         "n = lib.db.query('SELECT COUNT(*) AS n FROM chunk_manifest')[0]['n']\n"
         "pairs = lib.db.query('SELECT COUNT(*) AS n FROM near_duplicate')[0]['n']\n"
         "thumbs = len(list(node.data_dir.glob('thumbnails/*/*.webp')))\n"
+        "server = Server(node, '127.0.0.1', 0)\n"
+        "server.start()\n"
+        "body = urllib.request.urlopen(f'http://127.0.0.1:{server.port}/rspc/search.pathsCount'"
+        "f'?library_id={lib.id}').read()\n"
+        "server.stop()\n"
+        "assert json.loads(body) == {'result': 5}, body\n"
         "node.shutdown()\n"
         f"assert all(m in sys.modules for m in {SCAN_MODULES!r})\n"
         "print(n, pairs, thumbs, sum(cas_native.GATHER_BATCHES.values()), 'jax' in sys.modules, "
