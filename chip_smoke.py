@@ -159,11 +159,33 @@ no result line):
    ``buildInfo``, a library, a location of one of those directories,
    ``fullRescan``, one ``search.paths`` equal to the in-process answer for
    the same tree, and an exit 0 within 10 s of SIGTERM;
-10. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
+10. the live library, after phase 9, on a new node on the card with the
+   watcher on (it logs which backend ran, inotify or polling): a seeded
+   location of 2,048 files in 16 directories (phase 4's small and medium
+   mix, manifests on, preview media off) is scanned, then a burst (1,024
+   files of 100-512 KiB imported into 4 new directories, 256 appended to, a
+   directory of 128 renamed, one of 256 moved in from outside, 128
+   deleted, one of 64 moved out) settles, bounded at 60 s; its rows (each
+   file's path, name, extension, size and cas_id, the directories, the
+   files sharing an object) must equal a fresh scan's on a second node on
+   the card, and both BLAKE3 kernels must have launched from the watcher
+   thread; then ``files.copyFiles``, ``cutFiles``, ``duplicateFiles``,
+   ``renameFile``, ``createDirectory``, ``createFile``, ``deleteFiles`` and
+   ``eraseFiles`` through the router, each followed by the watcher, and
+   again a fresh scan's rows; then ``backups.backup``, the node shut down,
+   pages of its database overwritten: the next boot's gate quarantines the
+   file and restores the backup (its rows come back, a notification is
+   pushed), and without a backup starts a fresh database;
+11. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
    the resize's times, calls on the path, CUDA kernels a call, and bounds),
    the card, the ``{"kernels": [...]}`` line (each kernel's
-   ``launches_serving`` counted in phase 9), then the ``{"ok": true, ...}``
-   line.
+   ``launches_serving`` counted in phase 9, and the BLAKE3 and Gear
+   kernels' ``launches_watcher`` from the watcher thread in phase 10), then
+   the ``{"ok": true, ...}`` line.
+
+``--live`` builds the kernels and runs phase 10 alone: it prints the card
+and a ``{"live_library": {...}}`` line, never the ``{"ok": true, ...}``
+line.
 """
 
 from __future__ import annotations
@@ -1612,7 +1634,7 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
     for knob in ("SD_PIPELINE", "SD_PIPELINE_DEPTH", "SD_SCAN_SHARDS", "SD_COMMIT_GROUP",
                  "SD_SCAN_BATCH", "SD_SCAN_ADAPT"):
         os.environ.pop(knob, None)
-    node = Node(data_dir)
+    node = Node(data_dir, watch_locations=False)
     try:
         lib = node.libraries.create("chip-smoke")
         loc = identify_location(lib, tree_dir)
@@ -2358,7 +2380,7 @@ def kill_child(data_dir: str, root: str) -> int:
     from spacedrive_tpu_torch.locations import scan_location
     from spacedrive_tpu_torch.node import Node
 
-    node = Node(data_dir)
+    node = Node(data_dir, watch_locations=False)
     lib = node.libraries.create("chip-smoke-kill")
     loc = jobs_location(lib, Path(root))
     planted = Path(data_dir) / PLANTED_TMP
@@ -2412,7 +2434,7 @@ def kill_run(node_cls, root: Path, phase4_rows: dict, n_files: int) -> dict:
         fail("job control: the kill child planted no temporary file")
     _kernels.reset_counts()
     t1 = time.perf_counter()
-    node = node_cls(data_dir)  # sweeps, then cold-resumes
+    node = node_cls(data_dir, watch_locations=False)  # sweeps, then cold-resumes
     try:
         if planted.exists():
             fail(f"job control: the boot sweep left {planted}")
@@ -2693,6 +2715,11 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
     db = lib.db
     loc_id = db.insert(Location, {"pub_id": "loc-search", "name": "search", "path": "/search"})
     t0 = time.perf_counter()
+    # the bulk load is set-up: a 256 MiB page cache on the writer holds
+    # file_path's indexes while it runs (SQLite's default 2 MiB made it
+    # superlinear in the rows); the queries below run at the default again
+    cache_pages = db.execute("PRAGMA cache_size").fetchone()[0]
+    db.execute("PRAGMA cache_size=-262144")
     n_objects = max(1, N_SEARCH_ROWS // 100)
     db.executemany("INSERT INTO object (pub_id, kind, favorite) VALUES (?, ?, ?)",
                    [(f"ob-{i}", i % 8, int(i % 5 == 0)) for i in range(n_objects)])
@@ -2702,7 +2729,13 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
         "is_dir, hidden, size_in_bytes, object_id, date_created) VALUES (?,?,?,?,?,?,?,?,?,?)",
         [(r[0], loc_id, r[1], r[2], r[3], 0, r[4], r[5],
           None if r[6] is None else first_obj + r[6], r[7]) for r in corpus])
+    db.execute(f"PRAGMA cache_size={cache_pages}")
     corpus_s = time.perf_counter() - t0
+    # the recipe leaves half its objects without a file_path: remove them
+    # now, as the orphan remover's first tick would (its raw DELETE floods
+    # the row journal, so a tick between two refreshes below forces a full
+    # rebuild)
+    lib.orphan_remover.process_clean_up()
     node.emit("db.commit", None, lib.id)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2771,6 +2804,7 @@ def search_phase(node, scan_lib, corpus: list[tuple], card: str) -> dict:
     # row journal) and 1,000 inserts through insert_many (the append scan)
     rng = random.Random(17)
     renamed = sorted(rng.sample(range(1, N_SEARCH_ROWS + 1), 1000))
+    engine.refresh_now(lib)  # whatever was noted before the renames
     before = engine.status()  # the refresher may catch up before refresh_now
     t0 = time.perf_counter()
     for k, row_id in enumerate(renamed):
@@ -3002,7 +3036,7 @@ def serve_scan_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str
         os.link(p, root / "photos" / p.name)
     os.environ["SD_CHUNK_MANIFESTS"] = "1"
     os.environ["SD_SEARCH_ENGINE"] = "device"
-    node = Node(WORK / "serve-data")
+    node = Node(WORK / "serve-data", watch_locations=False)
     server = Server(node, "127.0.0.1", 0)
     server.start()
     url = f"http://127.0.0.1:{server.port}"
@@ -3121,7 +3155,7 @@ def entry_point_check(one: Path, in_process: dict, needle: dict) -> dict:
     from tests.torch_serve_client import get, rspc
 
     env = {**os.environ, "SD_SEARCH_ENGINE": "device", "PYTHONPATH": str(ROOT),
-           "SD_LOG": "WARNING"}
+           "SD_LOG": "WARNING", "SD_NO_WATCHER": "1"}
     log_path = WORK / "serve-child.log"
     t0 = time.perf_counter()
     with open(log_path, "w") as err:
@@ -3874,7 +3908,7 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
 
     thumbnail.resize_images, thumbnail._decode_for_device = recorded_resize, recorded_decode
     thumbnail._video_thumbnail = recorded_video
-    node = Node(data_dir)
+    node = Node(data_dir, watch_locations=False)
     try:
         lib = node.libraries.create("chip-smoke-photos")
         loc = create_location(lib, tree_dir)
@@ -4189,11 +4223,347 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
             "heif_differing": heif_diff, "by_format": by_fmt, "audio": audio}
 
 
+# --------------------------------------------------------------------------
+# phase 10: the live library (the watcher, the file operations, backups)
+# --------------------------------------------------------------------------
+
+#: the watched location: phase 4's small and medium mix at 2,048 files in
+#: 16 directories of 128 (the last one's 128 split 64 / 64 with an
+#: ``export`` subdirectory)
+LIVE_FILES, LIVE_DIRS = 2048, 16
+#: the burst: a camera import of 1,024 files of 100-512 KiB into 4 new
+#: directories; 256 files appended to; a directory of 128 renamed; one of
+#: 256 moved in from outside the location; 128 files deleted; the 64-file
+#: ``export`` directory moved out (a rename whose other half never comes)
+LIVE_IMPORT_DIRS, LIVE_IMPORTS, LIVE_APPENDS, LIVE_MOVED_IN, LIVE_DELETES = 4, 1024, 256, 256, 128
+#: seconds the watcher gets to settle after a change, at most
+LIVE_SETTLE_S = 60.0
+
+
+def live_tree(root: Path, outside: Path, seed: int) -> dict:
+    """The watched tree and the directory that will move in, written from
+    the seed; the small files 1 B-100 KiB log-uniform, the medium ones
+    100 KiB+1-512 KiB, in phase 4's proportions (4,096 : 11,264)."""
+    rng = random.Random(seed)
+    data = RandomBytes(seed)
+    n_small = LIVE_FILES * N_SMALL // (N_SMALL + N_MEDIUM)
+
+    def size(i: int) -> int:
+        if i < n_small:
+            return 0 if i % 64 == 0 else max(1, int(math.exp(rng.uniform(0, math.log(100 << 10)))))
+        return rng.randint((100 << 10) + 1, 512 << 10)
+
+    order = list(range(LIVE_FILES))
+    rng.shuffle(order)
+    written = 0
+    for k, i in enumerate(order):
+        d = k % LIVE_DIRS
+        sub = "export/" if d == LIVE_DIRS - 1 and k // LIVE_DIRS % 2 else ""
+        path = root / f"d{d:02d}" / sub / f"f{i:05d}.{EXTS[i % len(EXTS)]}"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        blob = data.take(size(i))
+        path.write_bytes(blob)
+        written += len(blob)
+    incoming = outside / "incoming"
+    incoming.mkdir(parents=True)
+    for i in range(LIVE_MOVED_IN):
+        blob = data.take(size(rng.randrange(LIVE_FILES)))
+        (incoming / f"in{i:04d}.{EXTS[i % len(EXTS)]}").write_bytes(blob)
+        written += len(blob)
+    os.sync()
+    return {"data": data, "rng": rng, "bytes": written}
+
+
+def live_burst(root: Path, outside: Path, tree: dict) -> dict:
+    """The user's burst, one change after another: the import, the appends,
+    the rename, the move in, the deletes, the move out."""
+    data, rng = tree["data"], tree["rng"]
+    counts = {"imported": 0, "appended": 0, "deleted": 0, "bytes": 0}
+    for k in range(LIVE_IMPORTS):
+        d = root / f"DCIM_{k % LIVE_IMPORT_DIRS:02d}"
+        d.mkdir(exist_ok=True)
+        blob = data.take(rng.randint(100 << 10, 512 << 10))
+        (d / f"IMG_{k:05d}.raw").write_bytes(blob)
+        counts["imported"] += 1
+        counts["bytes"] += len(blob)
+    appended = [p for d in range(4, 8)
+                for p in sorted((root / f"d{d:02d}").iterdir())[:LIVE_APPENDS // 4]]
+    for p in appended[:LIVE_APPENDS]:
+        with open(p, "ab") as fh:
+            fh.write(data.take(4096))
+        counts["appended"] += 1
+    renamed = root / f"d{LIVE_DIRS - 2:02d}"
+    counts["renamed"] = len(list(renamed.iterdir()))
+    os.rename(renamed, root / f"d{LIVE_DIRS - 2:02d}_renamed")
+    os.rename(outside / "incoming", root / "incoming")
+    per_dir = LIVE_DELETES // 4
+    for p in [p for d in range(4) for p in sorted((root / f"d{d:02d}").iterdir())[:per_dir]]:
+        p.unlink()
+        counts["deleted"] += 1
+    export = root / f"d{LIVE_DIRS - 1:02d}" / "export"
+    counts["moved_out"] = len(list(export.iterdir()))
+    os.rename(export, outside / "export")
+    return counts
+
+
+def live_rows(db) -> tuple:
+    """Files as (path, name, extension, size, cas_id), directories by path,
+    and the files grouped by the object they share."""
+    files = sorted(tuple(r) for r in db.query(
+        "SELECT materialized_path, name, extension, size_in_bytes, cas_id FROM file_path "
+        "WHERE is_dir = 0"))
+    dirs = sorted(tuple(r) for r in db.query(
+        "SELECT materialized_path, name FROM file_path WHERE is_dir = 1"))
+    groups: dict = {}
+    for r in db.query("SELECT object_id, materialized_path, name, extension FROM file_path "
+                      "WHERE object_id IS NOT NULL AND is_dir = 0"):
+        groups.setdefault(r[0], []).append(tuple(r)[1:])
+    return files, dirs, sorted(sorted(g) for g in groups.values())
+
+
+def live_settle(watcher, what: str, since: float, quiet: float) -> float:
+    """Wait until the watcher's buffers are empty, no identify pass runs and
+    no event came for ``quiet`` seconds (at most LIVE_SETTLE_S); returns the
+    seconds from ``since`` to the last moment it was busy."""
+    from spacedrive_tpu_torch.locations import watcher as live
+
+    h = watcher.handler
+    deadline = time.perf_counter() + LIVE_SETTLE_S
+    last_busy, seen = time.perf_counter(), None
+    while True:
+        now = time.perf_counter()
+        busy = h.files_to_update or h.rename_from or h.need_identify or h.identifying
+        counts = (live.STATS["events"], live.STATS["identify"], live.STATS["overflow"])
+        if busy or counts != seen:
+            last_busy, seen = now, counts
+        elif now - last_busy >= quiet:
+            return last_busy - since
+        if now > deadline:
+            fail(f"live library: {what}: the watcher did not settle within {LIVE_SETTLE_S:.0f} s")
+        time.sleep(0.02)
+
+
+def live_fresh(node, root: Path, name: str) -> tuple:
+    """A fresh scan (index and identify) of the tree on the second node:
+    its rows."""
+    from spacedrive_tpu_torch.locations.indexer_job import IndexerJob
+    from spacedrive_tpu_torch.objects.file_identifier import FileIdentifierJob
+
+    lib = node.libraries.create(name)
+    loc = identify_location(lib, root)
+    node.jobs.spawn(lib, [IndexerJob({"location_id": loc["id"]}),
+                          FileIdentifierJob({"location_id": loc["id"]})])
+    if not node.jobs.wait_idle(300):
+        fail(f"live library: the fresh scan {name} did not finish")
+    return live_rows(lib.db)
+
+
+def live_compare(got: tuple, want: tuple, what: str) -> None:
+    for part, g, w in zip(("files", "directories", "objects"), got, want):
+        if g != w:
+            gs, ws = set(map(repr, g)), set(map(repr, w))
+            fail(f"live library: {what}: {part} differ from a fresh scan's: only in the "
+                 f"watched library {sorted(gs - ws)[:3]}, only in the fresh scan "
+                 f"{sorted(ws - gs)[:3]} ({len(g)} against {len(w)})")
+
+
+def live_backup_and_gate(node_cls, data_dir: Path, lib_id: str, want: tuple) -> dict:
+    """(c): overwrite pages of the backed-up library's database, boot; the
+    gate quarantines it and restores the backup. Then again with no
+    backup: the library comes up with a fresh database."""
+    from spacedrive_tpu_torch import recovery
+
+    db_path = data_dir / "libraries" / f"{lib_id}.db"
+    out = {}
+    for case in ("restored_from_backup", "fresh_db"):
+        if case == "fresh_db":
+            shutil.rmtree(data_dir / "backups")
+        with open(db_path, "r+b") as fh:
+            fh.seek(4096)
+            fh.write(os.urandom(8 * 4096))
+        recovery.reset_counts()
+        t0 = time.perf_counter()
+        node = node_cls(data_dir, watch_locations=False)
+        try:
+            boot_s = time.perf_counter() - t0
+            got = live_rows(node.libraries.get(lib_id).db)
+            notes = [n["data"] for n in node.config.get().get("notifications", [])
+                     if n["data"].get("kind") == "library_db_repaired"]
+        finally:
+            node.shutdown()
+        if not notes or notes[-1]["action"] != case or notes[-1]["library_id"] != lib_id:
+            fail(f"live library: the gate's notification is {notes}, not {case}")
+        if case == "restored_from_backup" and got != want:
+            fail("live library: the restored library's rows differ from the backup's")
+        if case == "fresh_db" and any(got):
+            fail(f"live library: the fresh database holds rows: {[len(p) for p in got]}")
+        quarantined = sorted((data_dir / "libraries" / "quarantine").glob(f"{lib_id}.db.corrupt-*"))
+        if len(quarantined) != len(out) + 1:
+            fail(f"live library: {len(quarantined)} quarantined databases after {case}")
+        out[case] = {"boot_s": boot_s, "repairs": dict(recovery.REPAIRS),
+                     "checks": dict(recovery.BOOT_CHECKS), "rows": [len(p) for p in got]}
+    return out
+
+
+def live_library_phase(seed: int, card: str) -> dict:
+    """Phase 10: a new node on the card watches a seeded location; a burst
+    of changes, then the file operations through the router, must leave
+    the rows of a fresh scan; then a backup, pages of the database
+    overwritten, and the boot gate's repair."""
+    import torch
+
+    from spacedrive_tpu_torch.locations import scan_location
+    from spacedrive_tpu_torch.locations import watcher as live
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.ops import _kernels
+
+    t_phase = time.perf_counter()
+    root, outside = WORK / "live" / "library", WORK / "live" / "outside"
+    data_dir = WORK / "live" / "data"
+    tree = live_tree(root, outside, seed + 10)
+    write_s = time.perf_counter() - t_phase
+    os.environ["SD_CHUNK_MANIFESTS"] = "1"
+    for knob in ("SD_SEARCH_ENGINE", "SD_PIPELINE", "SD_PIPELINE_DEPTH", "SD_SCAN_SHARDS",
+                 "SD_COMMIT_GROUP", "SD_SCAN_BATCH", "SD_SCAN_ADAPT", "SD_NO_WATCHER"):
+        os.environ.pop(knob, None)
+    node = Node(data_dir, watch_locations=True)
+    fresh = Node(WORK / "live" / "fresh", watch_locations=False)
+    kernels = ("blake3_chunk_cvs", "blake3_merge", "gear_candidates")
+    try:
+        lib = node.libraries.create("live")
+        loc = identify_location(lib, root)
+        watcher = node.locations.watcher_for(lib.id, loc["id"])
+        if watcher is None:
+            fail("live library: the node started no watcher on the location")
+        backend = type(watcher.backend).__name__
+        quiet = 0.5 if backend == "InotifyBackend" else 1.5
+        t0 = time.perf_counter()
+        scan_location(lib, loc["id"])
+        if not node.jobs.wait_idle(300):
+            fail("live library: the first scan did not finish")
+        scan_s = time.perf_counter() - t0
+        live_settle(watcher, "the first scan", t0, quiet)
+
+        # (a) the burst
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        live.reset_counts()
+        t0 = time.perf_counter()
+        burst = live_burst(root, outside, tree)
+        t_last = time.perf_counter()
+        burst_s = t_last - t0
+        settled_s = live_settle(watcher, "the burst", t_last, quiet)
+        stats_a = dict(live.STATS)
+        launches_a = {k: _kernels.LAUNCHES_BY_ORIGIN.get((k, "watcher"), 0) for k in kernels}
+        if stats_a.get("identify_failed"):
+            fail(f"live library: {stats_a['identify_failed']} identify passes raised on the "
+                 "watcher thread")
+        for k in ("blake3_chunk_cvs", "blake3_merge"):
+            if not launches_a[k]:
+                fail(f"live library: the watcher thread never launched {k}")
+        if any(_kernels.PLAIN_ON_CUDA.values()):
+            fail(f"live library: plain versions ran on the card: {dict(_kernels.PLAIN_ON_CUDA)}")
+        rows_a = live_rows(lib.db)
+        t0 = time.perf_counter()
+        live_compare(rows_a, live_fresh(fresh, root, "fresh-burst"), "after the burst")
+        fresh_s = time.perf_counter() - t0
+        log(f"live library (phase 10a) on {card}: watcher backend {backend}; wrote "
+            f"{LIVE_FILES} files ({tree['bytes'] / 1e9:.3f} GB with the 256 to move in) in "
+            f"{write_s:.1f} s, first scan {scan_s:.2f} s; burst {burst_s:.2f} s "
+            f"({burst['imported']} imported, {burst['bytes'] / 1e9:.3f} GB; {burst['appended']} "
+            f"appended; a directory of {burst['renamed']} renamed; {LIVE_MOVED_IN} moved in; "
+            f"{burst['deleted']} deleted; {burst['moved_out']} moved out); events applied "
+            f"{stats_a.get('events', 0)}, "
+            f"shallow identify passes {stats_a.get('identify', 0)}, overflow rescans "
+            f"{stats_a.get('overflow', 0)}; launches from the watcher thread {launches_a}; "
+            f"rows settled {settled_s:.2f} s after the last change; {len(rows_a[0])} files equal "
+            f"a fresh scan's on the card ({fresh_s:.2f} s)")
+
+        # (b) the file operations through the router
+        _kernels.reset_counts()
+        live.reset_counts()
+        db = lib.db
+
+        def ids(sql: str, params: list) -> list[int]:
+            return [r["id"] for r in db.query(sql, params)]
+
+        def files_in(d: str, n: int, skip: int = 0) -> list[int]:
+            return ids("SELECT id FROM file_path WHERE materialized_path = ? AND is_dir = 0 "
+                       "AND size_in_bytes > 0 ORDER BY name LIMIT ? OFFSET ?", [f"/{d}/", n, skip])
+
+        ops = [
+            ("files.copyFiles", lambda: {"sources": files_in("d08", 8), "target_location_id":
+                                         loc["id"], "target_dir": "d09"}),
+            ("files.cutFiles", lambda: {"sources": files_in("d10", 8), "target_location_id":
+                                        loc["id"], "target_dir": "d11"}),
+            ("files.duplicateFiles", lambda: {"sources": files_in("d12", 4)}),
+            ("files.renameFile", lambda: {"file_path_id": files_in("d13", 1)[0],
+                                          "new_name": "renamed.bin"}),
+            ("files.createDirectory", lambda: {"location_id": loc["id"], "sub_path": "",
+                                               "name": "New Folder"}),
+            ("files.createFile", lambda: {"location_id": loc["id"], "sub_path": "d13",
+                                          "name": "notes.txt"}),
+            ("files.deleteFiles", lambda: {"sources": files_in("d08", 8, skip=8)}),
+            ("files.eraseFiles", lambda: {"sources": files_in("d09", 4, skip=8), "passes": 1}),
+        ]
+        op_s = {}
+        for key, arg in ops:
+            t0 = time.perf_counter()
+            node.router.resolve(key, arg(), lib.id)
+            if not node.jobs.wait_idle(120):
+                fail(f"live library: {key}'s job did not finish")
+            live_settle(watcher, key, t0, quiet)
+            op_s[key] = round(time.perf_counter() - t0, 3)
+        failed_jobs = [dict(r) for r in db.query(
+            "SELECT name, status, errors_text FROM job WHERE name LIKE 'file_%' AND status NOT IN (?, ?)",
+            [2, 6])]
+        if failed_jobs:
+            fail(f"live library: fs jobs ended {failed_jobs}")
+        stats_b = dict(live.STATS)
+        launches_b = {k: _kernels.LAUNCHES_BY_ORIGIN.get((k, "watcher"), 0) for k in kernels}
+        if stats_b.get("identify_failed"):
+            fail("live library: an identify pass raised on the watcher thread")
+        rows_b = live_rows(db)
+        live_compare(rows_b, live_fresh(fresh, root, "fresh-ops"), "after the file operations")
+        log(f"live library (phase 10b): {len(ops)} file operations through the router, each "
+            f"settled (s): {json.dumps(op_s)}; events applied {stats_b.get('events', 0)}, "
+            f"identify passes {stats_b.get('identify', 0)}; launches from the watcher thread "
+            f"{launches_b}; {len(rows_b[0])} files equal a fresh scan's")
+
+        # (c) a backup, then the boot gate
+        t0 = time.perf_counter()
+        backup_id = node.router.resolve("backups.backup", lib.id)
+        backup_s = time.perf_counter() - t0
+        lib_id = lib.id
+    finally:
+        node.shutdown()
+        fresh.shutdown()
+    gate = live_backup_and_gate(Node, data_dir, lib_id, rows_b)
+    seconds = time.perf_counter() - t_phase
+    log(f"live library (phase 10c): backup {backup_id[:8]} in {backup_s:.2f} s; pages "
+        f"overwritten, the next boot quarantined the database and restored the backup in "
+        f"{gate['restored_from_backup']['boot_s']:.2f} s (repairs "
+        f"{gate['restored_from_backup']['repairs']}; {len(rows_b[0])} files back); with no "
+        f"backup, a fresh database in {gate['fresh_db']['boot_s']:.2f} s; notifications pushed")
+    log(f"phase 10 (live library): {seconds:.1f} s")
+    if seconds > 90:
+        fail(f"phase 10 took {seconds:.1f} s, over its 90 s budget")
+    launches = {k: launches_a[k] + launches_b[k] for k in kernels}
+    return {"backend": backend, "seconds": seconds, "settled_s": settled_s,
+            "launches": launches, "launches_burst": launches_a, "launches_ops": launches_b,
+            "events": stats_a.get("events", 0) + stats_b.get("events", 0),
+            "identify_passes": stats_a.get("identify", 0) + stats_b.get("identify", 0),
+            "overflow": stats_a.get("overflow", 0) + stats_b.get("overflow", 0),
+            "ops_s": op_s, "gate": gate}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of all generated data")
     parser.add_argument("--kernels", action="store_true",
                         help="build, parity and timing only; no main path, no ok line")
+    parser.add_argument("--live", action="store_true",
+                        help="build, then phase 10 (the live library) only; no ok line")
     parser.add_argument("--kill-child", nargs=2, metavar=("DATA_DIR", "TREE"),
                         help="phase 8's child process: scan TREE into a Node on DATA_DIR "
                              "until the armed commit seam kills it")
@@ -4249,6 +4619,14 @@ def main() -> int:
 
     rng = random.Random(args.seed)
     shutil.rmtree(WORK, ignore_errors=True)
+    if args.live:
+        try:
+            live = live_library_phase(args.seed, card)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        print(card, flush=True)
+        print(json.dumps({"live_library": live}), flush=True)
+        return 0
     try:
         t0 = time.perf_counter()
         corpus = search_corpus()
@@ -4266,6 +4644,7 @@ def main() -> int:
         media = None if args.kernels else media_phase(args.seed, card, fp32_ops_per_s)
         served = (None if args.kernels else
                   serve_scan_phase(WORK / "tree", main["rows"], main["tampered_dir"], card))
+        live = None if args.kernels else live_library_phase(args.seed, card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -4322,6 +4701,8 @@ def main() -> int:
                 # phase 7: the validator's full-file hashes, counted in their own window
                 kernels[-1]["launches_validator"] = main["validator"]["launches"].get(name, 0)
                 kernels[-1]["launches_by_shape_validator"] = main["validator"]["by_shape"].get(name, {})
+            # phase 10: the watcher thread's identify passes
+            kernels[-1]["launches_watcher"] = live["launches"].get(name, 0)
         if "sass" in t:
             sass = t["sass"] or {}
             kernels[-1]["sass_instructions_per_block"] = sass.get("per_block")

@@ -6,9 +6,13 @@ metadata → MinHash near-duplicates) and serves ``search.paths`` /
 ``search.pathsCount`` from a device-resident index, with its device work in
 hand-written CUDA kernels for Hopper (``csrc/``), built with nvcc at first
 use, and in PyTorch ops where the reference used plain XLA programs (the
-MinHash signatures, the thumbnail resize). It imports torch and never
-jax, and nothing of the ``spacedrive_tpu`` package: what it shares with it
-(the BLAKE3 oracle, the gear table, the schema) is kept here as its own copy.
+MinHash signatures, the thumbnail resize). Its nodes keep their libraries
+live: a watcher on every location applies changes as they happen and
+identifies changed files on the card, the file operations run as jobs, and
+a library's database is backed up and checked at every boot. It imports
+torch and never jax, and nothing of the ``spacedrive_tpu`` package: what it
+shares with it (the BLAKE3 oracle, the gear table, the schema) is kept here
+as its own copy.
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``,
 which selects each kernel's plain PyTorch version (the CPU tests do).

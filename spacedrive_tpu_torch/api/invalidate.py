@@ -3,8 +3,7 @@
 Counterpart of ``spacedrive_tpu/api/invalidate.py``: domain code calls
 :func:`invalidate_query` (or emits the raw event and lists its key in
 ``USED_KEYS``), and :func:`validate` checks at mount that every such key
-names a registered query. ``USED_KEYS`` is the reference's set without
-``preferences.get``, whose router is not ported.
+names a registered query. ``USED_KEYS`` is the reference's set.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ USED_KEYS: set[str] = {
     "locations.list",
     "tags.list",
     "tags.getForObject",
+    "preferences.get",
     "jobs.reports",
     "notifications.get",
     "libraries.list",

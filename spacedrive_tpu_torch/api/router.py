@@ -139,10 +139,12 @@ def mount(node: "Node") -> Router:
     """Build the router from the ported sub-routers and validate the
     invalidation-key contract."""
     from . import invalidate
-    from .routers import jobs, libraries, locations, notifications, root, search, tags
+    from .routers import (backups, categories, files, jobs, libraries, locations, nodes,
+                          notifications, preferences, root, search, tags, volumes)
 
     router = Router(node)
-    for module in (root, libraries, locations, search, jobs, tags, notifications):
+    for module in (root, libraries, locations, search, files, jobs, tags, volumes, nodes,
+                   notifications, preferences, backups, categories):
         module.mount(router)
     invalidate.validate(router)
     return router

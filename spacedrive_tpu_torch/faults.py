@@ -9,8 +9,11 @@ their transient retry, so an injected ``eio`` is retried like a real one;
 :mod:`.objects.media.thumbnail`), where an ``enospc`` rehearses a full
 disk; ``hash`` (before each hash dispatch of the identify job,
 :mod:`.objects.file_identifier`); ``commit`` (at the BEGIN and the
-COMMIT of every outermost database transaction, :mod:`.models.base`); and
-``rspc`` (before each procedure the router resolves, :mod:`.api.router`).
+COMMIT of every outermost database transaction, :mod:`.models.base`);
+``rspc`` (before each procedure the router resolves, :mod:`.api.router`);
+and ``backup`` (before a backup's archive is built and before it is
+written) and ``restore`` (before a restore renames the extracted files
+over the live ones), :mod:`.backups`.
 
 A plan is a ``;``-separated list of ``seam:kind[:trigger]`` rules, armed by
 :func:`install`, never from the environment: a child process that a test or

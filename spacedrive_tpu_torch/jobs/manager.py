@@ -17,9 +17,10 @@ job instead of letting it finish, and :meth:`Jobs.cold_resume` revives the
 checkpoints at boot.
 
 A checkpoint that cannot be revived is marked Failed and pushes a
-library notification (``job_cold_resume_failed``), as in the reference.
-Left out: the telemetry gauges and events and ``recovery.note_cold_resumed``
-(the port has no recovery accounting).
+library notification (``job_cold_resume_failed``), as in the reference; the
+jobs a dead process left Running are counted by
+:func:`..recovery.note_cold_resumed`. Left out: the telemetry gauges and
+events.
 """
 
 from __future__ import annotations
@@ -234,6 +235,7 @@ class Jobs:
         checkpoint that cannot be revived is marked Failed, its error
         appended to the errors it carried; it is not re-queued."""
         revived = 0
+        crash_survivors = 0
         rows = library.db.query(
             "SELECT * FROM job WHERE status IN (?, ?, ?) ORDER BY date_created, rowid",
             list(_UNFINISHED))
@@ -262,6 +264,7 @@ class Jobs:
                 self.ingest(library, dyn_job)
                 revived += 1
                 if row["status"] == JobStatus.RUNNING:
+                    crash_survivors += 1
                     logger.info("cold-resuming %s (%s) from its checkpoint after a crash",
                                 report.name, report.id[:8])
             except Exception as e:
@@ -282,6 +285,10 @@ class Jobs:
                         "job_id": report.id, "error": str(e)})
                 except Exception:
                     logger.exception("cold-resume failure notification could not be emitted")
+        if crash_survivors:
+            from ..recovery import note_cold_resumed
+
+            note_cold_resumed(crash_survivors)
         return revived
 
     def _load_chain(self, library: "Library", row: dict) -> list[DynJob]:

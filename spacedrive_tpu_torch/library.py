@@ -8,10 +8,12 @@ the name and description, the ``<uuid>.db`` database with the port's tables,
 :class:`.objects.gc.OrphanRemoverActor` (``library.py`` :278-286).
 :meth:`Libraries.init` sweeps the ``*.sd-tmp*`` debris a kill left in the
 libraries directory and in the node's ``thumbnails`` and ``backups``
-directories before it opens anything (:204-212). Sync, instance identities
-(a library has no ``instance_id``), the library-manager events and the
-boot-time repair ladder are not ported; SQLite's own WAL recovery
-runs when a database opens.
+directories before it opens anything (:204-212). Before a database opens,
+the boot gate (:func:`.recovery.ensure_library_integrity`, :219-231) checks
+it and repairs a corrupt one from the newest valid backup under
+``<data_dir>/backups`` (or starts it fresh). Sync, instance identities (a
+library has no ``instance_id``) and the library-manager events are not
+ported.
 """
 
 from __future__ import annotations
@@ -77,10 +79,35 @@ class Libraries:
             for artifact_dir in ("backups", "thumbnails"):
                 cleanup_stale_tmp(self.node.data_dir / artifact_dir)
         for cfg_path in sorted(self.dir.glob("*.sdlibrary")):
-            cfg = json.loads(cfg_path.read_text())
-            self._open(cfg_path.stem, cfg["name"], cfg.get("description", ""))
+            self.load(cfg_path.stem)
+
+    def load(self, lib_id: str) -> Library:
+        """Open the library whose config is on disk; its locations go
+        online (and are watched) when the node's locations actor runs."""
+        cfg = json.loads((self.dir / f"{lib_id}.sdlibrary").read_text())
+        library = self._open(lib_id, cfg["name"], cfg.get("description", ""))
+        actor = getattr(self.node, "locations", None) if self.node is not None else None
+        if actor is not None:
+            from .models import Location
+
+            for row in library.db.find(Location):
+                actor.add(library, row["id"])
+        return library
+
+    def unload(self, lib_id: str) -> None:
+        """Close the library and forget it; its files stay."""
+        library = self.get(lib_id)
+        with self._lock:
+            self._libraries.pop(lib_id, None)
+        library.close()
 
     def _open(self, lib_id: str, name: str, description: str = "") -> Library:
+        from .recovery import ensure_library_integrity
+
+        ensure_library_integrity(
+            self.dir, lib_id,
+            backups_path=self.node.data_dir / "backups" if self.node is not None else None,
+            node=self.node)
         library = Library(lib_id, name, Database(self.dir / f"{lib_id}.db", ALL_MODELS),
                           self.node, description)
         with self._lock:
@@ -119,10 +146,10 @@ class Libraries:
 
     def delete(self, lib_id: str) -> None:
         """Close the library and remove its sidecar and database."""
-        library = self.get(lib_id)
-        with self._lock:
-            self._libraries.pop(lib_id, None)
-        library.close()
+        actor = getattr(self.node, "locations", None) if self.node is not None else None
+        if actor is not None:
+            actor.drop_library(lib_id)
+        self.unload(lib_id)
         (self.dir / f"{lib_id}.sdlibrary").unlink(missing_ok=True)
         (self.dir / f"{lib_id}.db").unlink(missing_ok=True)
 

@@ -1,13 +1,12 @@
-"""Locations actor: the online set and the media warm start.
+"""Locations actor: the online set, the watchers and the media warm start.
 
-Counterpart of ``spacedrive_tpu/locations/manager.py`` (:25-96). The node
-boots it after its libraries and before their cold resume, as the reference
-does; it marks every location of every loaded library online, and
-:meth:`LocationsActor.media_warm_start` hands freshly identified prefixes to
-the media lane. The filesystem watcher (``_start_watcher``, the
-``LocationWatcher`` of every online location) is not ported: the port has
-no watcher yet, so a location's changes reach its rows only through a
-rescan.
+Counterpart of ``spacedrive_tpu/locations/manager.py``. The node boots it
+after its libraries and before their cold resume, as the reference does;
+it marks every location of every loaded library online and, unless the
+node's ``watch_locations`` is off, starts a :class:`.watcher.LocationWatcher`
+on each (:meth:`LocationsActor._start_watcher`), so a change on disk
+reaches the rows without a rescan. :meth:`LocationsActor.media_warm_start`
+hands freshly identified prefixes to the media lane.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ class LocationsActor:
         self.node = node
         self._lock = threading.Lock()
         self._online: set[tuple[str, int]] = set()  # (library id, location id)
+        self._watchers: dict[tuple[str, int], object] = {}
         #: (library id, location id, prefix) already handed to the media
         #: lane by this process
         self._warm_started: set[tuple[str, int, str]] = set()
@@ -40,10 +40,21 @@ class LocationsActor:
     def add(self, library: "Library", location_id: int) -> None:
         with self._lock:
             self._online.add((library.id, location_id))
+        self._start_watcher(library, location_id)
 
     def remove(self, library: "Library", location_id: int) -> None:
+        key = (library.id, location_id)
         with self._lock:
-            self._online.discard((library.id, location_id))
+            self._online.discard(key)
+            self._stop_watcher(key)
+
+    def drop_library(self, library_id: str) -> None:
+        """A library closed for good (deleted, or unloaded for a restore):
+        its locations go offline and their watchers stop."""
+        with self._lock:
+            for key in [k for k in self._online if k[0] == library_id]:
+                self._online.discard(key)
+                self._stop_watcher(key)
 
     def is_online(self, library_id: str, location_id: int) -> bool:
         with self._lock:
@@ -77,3 +88,41 @@ class LocationsActor:
                 pass
             except Exception:
                 logger.exception("media warm start failed for %s", prefix)
+
+    def _start_watcher(self, library: "Library", location_id: int) -> None:
+        if not getattr(self.node, "watch_locations", True):
+            return
+        from .watcher import LocationWatcher
+
+        key = (library.id, location_id)
+        with self._lock:
+            if key in self._watchers:
+                return
+            try:
+                self._watchers[key] = LocationWatcher(library, location_id)
+            except Exception as e:
+                logger.warning("watcher for location %s failed to start: %s",
+                               location_id, e)
+
+    def watcher_for(self, library_id: str, location_id: int):
+        """The location's watcher, or None (``ignore_path`` on it mutes a
+        path: the reference's IgnorePath channel)."""
+        with self._lock:
+            return self._watchers.get((library_id, location_id))
+
+    def _stop_watcher(self, key: tuple[str, int]) -> None:
+        """Callers hold the lock."""
+        watcher = self._watchers.pop(key, None)
+        if watcher is not None:
+            try:
+                watcher.stop()
+            except Exception:
+                logger.exception("watcher stop failed")
+
+    def stop(self) -> None:
+        """Stop every watcher (the node's shutdown, after its jobs)."""
+        with self._lock:
+            keys = list(self._watchers)
+        for key in keys:
+            with self._lock:
+                self._stop_watcher(key)

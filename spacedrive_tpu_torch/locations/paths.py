@@ -1,7 +1,8 @@
 """IsolatedFilePathData: the canonical path representation.
 
-Copy of the parts of spacedrive_tpu/locations/paths.py the scan uses, which
-mirrors core/src/location/file_path_helper/isolated_file_path_data.rs:25-38:
+Copy of the parts of spacedrive_tpu/locations/paths.py the scan and the
+watcher use, which mirrors
+core/src/location/file_path_helper/isolated_file_path_data.rs:25-38:
 a file_path row is (location_id, materialized_path, name, extension, is_dir)
 where ``materialized_path`` is the parent directory path relative to the
 location root, always "/"-wrapped (``"/"``, ``"/sub/dir/"``). The location
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from pathlib import Path
+from pathlib import Path, PurePosixPath
 from typing import Any
 
 
@@ -34,6 +35,15 @@ class IsolatedFilePathData:
             raise FilePathError(f"materialized_path must be '/'-wrapped: {mp!r}")
 
     # -- constructors -------------------------------------------------------
+    @classmethod
+    def from_relative(cls, location_id: int, rel_path: str | PurePosixPath,
+                      is_dir: bool) -> "IsolatedFilePathData":
+        """Build from a path relative to the location root ('' = root itself)."""
+        rel = PurePosixPath(str(rel_path).strip("/"))
+        if str(rel) in (".", ""):
+            return cls(location_id, "/", "", "", True)
+        return cls.from_parts(location_id, "/".join(rel.parts[:-1]), rel.parts[-1], is_dir)
+
     @classmethod
     def from_parts(cls, location_id: int, rel_dir: str, leaf: str,
                    is_dir: bool) -> "IsolatedFilePathData":
@@ -58,6 +68,17 @@ class IsolatedFilePathData:
     def relative_path(self) -> str:
         """Path relative to the location root, no leading slash."""
         return (self.materialized_path + self.full_name).lstrip("/")
+
+    def absolute_path(self, location_path: str | Path) -> Path:
+        return Path(location_path) / self.relative_path()
+
+    def child_materialized_path(self) -> str:
+        """The materialized_path that children of this directory carry."""
+        if not self.is_dir:
+            raise FilePathError("files have no children")
+        if self.name == "":
+            return "/"
+        return f"{self.materialized_path}{self.name}/"
 
     def db_fields(self) -> dict[str, Any]:
         return {

@@ -3,7 +3,7 @@
 file_path :174, object :216, job :348, indexer_rule :375,
 indexer_rule_in_location :388, near_duplicate :420, chunk_manifest :439,
 media_data :233, statistics :114, tag :257, tag_on_object :271,
-notification :410), so rows written by the two packages compare directly.
+notification :410, preference :400), so rows written by the two packages compare directly.
 
 One difference in constraints, none in columns: ``location.instance_id``
 keeps its column but not its foreign key, because the port has no
@@ -242,6 +242,16 @@ class TagOnObject(Model):
     UNIQUES = (("tag_id", "object_id"),)
 
 
+class Preference(Model):
+    """One leaf of the library's preference tree, by its dotted key."""
+
+    TABLE = "preference"
+    FIELDS = {
+        "key": Field(_T, primary_key=True),
+        "value": Field(_J),
+    }
+
+
 class Notification(Model):
     """A library-level notification (node-level ones live in the node
     config)."""
@@ -258,4 +268,5 @@ class Notification(Model):
 ALL_MODELS: tuple[type[Model], ...] = (
     Statistics, Location, FilePath, Object, MediaData, Tag, TagOnObject, JobRow,
     IndexerRule, IndexerRulesInLocation, Notification, ChunkManifest, NearDuplicate,
+    Preference,
 )

@@ -21,6 +21,7 @@ manager, telemetry, alerts and the reader pool are not ported.
 from __future__ import annotations
 
 import logging
+import os
 from pathlib import Path
 from typing import Any
 
@@ -50,8 +51,12 @@ def _accelerator(device: torch.device) -> dict[str, Any]:
 
 class Node:
     def __init__(self, data_dir: str | Path, device: str | torch.device | None = None,
-                 mesh_devices: list | None = None) -> None:
+                 mesh_devices: list | None = None,
+                 watch_locations: bool | None = None) -> None:
         self.device = resolve_device(device)
+        if watch_locations is None:
+            watch_locations = not os.environ.get("SD_NO_WATCHER")
+        self.watch_locations = watch_locations
         self.mesh_devices = mesh_devices
         self.sharded_hasher = None  # made at the first tpu-sharded scan
         self.data_dir = Path(data_dir)
@@ -82,9 +87,10 @@ class Node:
     def shutdown(self) -> None:
         """Stop the search engine, checkpoint the running jobs (each pauses
         at its last committed step or group; cold resume revives it at the
-        next boot), stop the actors, close the databases."""
+        next boot), stop the watchers and the actors, close the databases."""
         if self.search_engine is not None:
             self.search_engine.stop()
         self.jobs.shutdown()
+        self.locations.stop()
         self.thumbnail_remover.stop()
         self.libraries.close()

@@ -21,6 +21,9 @@ media-lane job for each (``_media_warm_start``, reference :544-596), so
 thumbnails start while identify still hashes. The ``hash`` fault seam sits
 before each hash dispatch.
 
+:func:`shallow_identify` runs the same job inline, without a worker, for
+the location watcher.
+
 Unlike the JAX job there is no CPU re-dispatch of a failed hash batch
 (reference :378-397): on the card a kernel failure raises in the dispatch
 stage and fails the job.
@@ -401,3 +404,35 @@ class FileIdentifierJob(StatefulJob):
                             bool(row.get("is_dir")), head=row.get("_kind_head"))
         return {"pub_id": str(uuid.uuid4()), "kind": kind,
                 "date_created": row.get("date_created") or utc_now()}
+
+
+class _ShallowContext:
+    """What :class:`FileIdentifierJob` reads from its context when it runs
+    without a worker: the library, the node (its device, hasher and
+    locations actor), and no-op progress and command polls."""
+
+    def __init__(self, library) -> None:
+        self.library = library
+        self.node = library.node
+
+    def progress(self, *args, **kwargs) -> None:
+        pass
+
+    def check_commands(self, *args) -> None:
+        pass
+
+
+def shallow_identify(library, location_id: int) -> dict[str, Any]:
+    """Identify the location's orphan rows inline on
+    the calling thread, without a job: the job's ``init`` and its
+    sequential steps, on the node's device. The location watcher runs it
+    after each flush (reference ``file_identifier.py`` :642-665)."""
+    job = FileIdentifierJob({"location_id": location_id})
+    ctx = _ShallowContext(library)
+    try:
+        data, steps, meta = job.init(ctx)
+    except EarlyFinish:
+        return {"identified": 0}
+    for i, step in enumerate(steps):
+        job.execute_step(ctx, data, step, i)
+    return {"identified": meta.get("total_orphan_paths", 0)}

@@ -103,3 +103,20 @@ def kind_from_extension(extension: str | None, is_dir: bool = False) -> int:
     if not extension:
         return ObjectKind.UNKNOWN
     return EXTENSION_TO_KIND.get(extension.lower().lstrip("."), ObjectKind.UNKNOWN)
+
+
+#: the kinds each overview category counts (categories without kinds, like
+#: Recents or Favorites, count none)
+CATEGORY_KINDS: dict[str, tuple[int, ...]] = {
+    "Photos": (ObjectKind.IMAGE,),
+    "Videos": (ObjectKind.VIDEO,),
+    "Movies": (ObjectKind.VIDEO,),
+    "Music": (ObjectKind.AUDIO,),
+    "Documents": (ObjectKind.DOCUMENT, ObjectKind.TEXT),
+    "Encrypted": (ObjectKind.ENCRYPTED,),
+    "Projects": (ObjectKind.CODE,),
+    "Applications": (ObjectKind.EXECUTABLE, ObjectKind.WIDGET),
+    "Archives": (ObjectKind.ARCHIVE,),
+    "Databases": (ObjectKind.DATABASE,),
+    "Books": (ObjectKind.BOOK,),
+}

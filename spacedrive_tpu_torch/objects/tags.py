@@ -2,8 +2,9 @@
 
 Counterpart of ``spacedrive_tpu/objects/tags.py``. Every mutation emits
 the reference's ``invalidate_query`` event; the CRDT operations it also
-logs when sync is on are not ported (the port's libraries have no sync),
-nor is the seeded category list (its router is not ported).
+logs when sync is on are not ported (the port's libraries have no sync).
+:data:`CATEGORIES` is the overview's seeded category list, which the
+``categories.list`` procedure counts objects in.
 """
 
 from __future__ import annotations
@@ -15,6 +16,12 @@ from ..models import Object, Tag, TagOnObject, utc_now
 
 if TYPE_CHECKING:
     from ..library import Library
+
+CATEGORIES = [
+    "Recents", "Favorites", "Photos", "Videos", "Movies", "Music",
+    "Documents", "Downloads", "Encrypted", "Projects", "Applications",
+    "Archives", "Databases", "Games", "Books", "Contacts", "Trash",
+]
 
 
 def create_tag(library: "Library", name: str, color: str | None = None) -> dict[str, Any]:

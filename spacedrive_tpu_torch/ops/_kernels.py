@@ -11,7 +11,10 @@ missing nvcc, a failed compile or a refused launch raises.
 ``LAUNCHES_BY_SHAPE`` counts the same launches by (kernel, caller's tag,
 shape), the tag set by :func:`tagged` (the BLAKE3 kernels hash cas messages
 and chunk ids at the same shapes); ``PLAIN_ON_CUDA`` counts calls of a
-kernel's plain PyTorch version on CUDA tensors. A run that must prove it went
+kernel's plain PyTorch version on CUDA tensors; ``LAUNCHES_BY_ORIGIN`` counts
+launches by (kernel, origin), the origin set by :func:`origin` around a
+caller's whole call (the location watcher's identify passes), whatever tags
+the layers below it set. A run that must prove it went
 through the kernels resets them with :func:`reset_counts` and reads them
 afterwards.
 """
@@ -62,6 +65,7 @@ SIGNATURES: dict[str, dict[str, list]] = {
 LAUNCHES: collections.Counter = collections.Counter()
 LAUNCHES_BY_SHAPE: collections.Counter = collections.Counter()
 PLAIN_ON_CUDA: collections.Counter = collections.Counter()
+LAUNCHES_BY_ORIGIN: collections.Counter = collections.Counter()
 
 #: ptxas report (registers, spills, shared memory) of each source's last build
 BUILD_LOG: dict[str, str] = {}
@@ -70,6 +74,7 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _tag = threading.local()
+_origin = threading.local()
 
 
 class KernelCompileError(RuntimeError):
@@ -85,6 +90,7 @@ def reset_counts() -> None:
         LAUNCHES.clear()
         LAUNCHES_BY_SHAPE.clear()
         PLAIN_ON_CUDA.clear()
+        LAUNCHES_BY_ORIGIN.clear()
 
 
 def count(counter: collections.Counter, key, n: int = 1) -> None:
@@ -104,6 +110,17 @@ def tagged(tag: str):
         yield
     finally:
         _tag.value = outer
+
+
+@contextlib.contextmanager
+def origin(name: str):
+    """Count this thread's launches in ``LAUNCHES_BY_ORIGIN`` under ``name``."""
+    outer = getattr(_origin, "value", None)
+    _origin.value = name
+    try:
+        yield
+    finally:
+        _origin.value = outer
 
 
 def nvcc() -> str:
@@ -179,6 +196,7 @@ def launch(source: str, kernel: str, *args, shape: tuple[int, ...] = ()) -> None
     with _count_lock:
         LAUNCHES[kernel] += 1
         LAUNCHES_BY_SHAPE[(kernel, getattr(_tag, "value", None), shape)] += 1
+        LAUNCHES_BY_ORIGIN[(kernel, getattr(_origin, "value", None))] += 1
 
 
 def stream_of(device) -> int:

@@ -68,19 +68,24 @@ MSG_SCHEDULE = message_schedule(MSG_PERMUTATION)
 # --------------------------------------------------------------------------
 
 
-def _rotr(x: torch.Tensor, n: int) -> torch.Tensor:
-    return ((x >> n) | (x << (32 - n))) & MASK
+def _rotr_(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Rotate each 32-bit word right by ``n``, in place."""
+    low = x >> n
+    return x.bitwise_left_shift_(32 - n).bitwise_or_(low).bitwise_and_(MASK)
 
 
 def _g(v, a, b, c, d, mx, my) -> None:
-    v[a] = (v[a] + v[b] + mx) & MASK
-    v[d] = _rotr(v[d] ^ v[a], 16)
-    v[c] = (v[c] + v[d]) & MASK
-    v[b] = _rotr(v[b] ^ v[c], 12)
-    v[a] = (v[a] + v[b] + my) & MASK
-    v[d] = _rotr(v[d] ^ v[a], 8)
-    v[c] = (v[c] + v[d]) & MASK
-    v[b] = _rotr(v[b] ^ v[c], 7)
+    """The G function on the state words ``v`` (tensors the caller owns),
+    in place: no tensor is allocated but one a rotation."""
+    va, vb, vc, vd = v[a], v[b], v[c], v[d]
+    va.add_(vb).add_(mx).bitwise_and_(MASK)
+    _rotr_(vd.bitwise_xor_(va), 16)
+    vc.add_(vd).bitwise_and_(MASK)
+    _rotr_(vb.bitwise_xor_(vc), 12)
+    va.add_(vb).add_(my).bitwise_and_(MASK)
+    _rotr_(vd.bitwise_xor_(va), 8)
+    vc.add_(vd).bitwise_and_(MASK)
+    _rotr_(vb.bitwise_xor_(vc), 7)
 
 
 def compress(cv, m, counter, block_len, flags, counter_hi=None) -> list[torch.Tensor]:
@@ -155,27 +160,44 @@ def chunk_cvs_plain(rows: torch.Tensor, lengths: torch.Tensor, base: torch.Tenso
     _note_plain("blake3_chunk_cvs", rows)
     B, W = rows.shape
     C = W // WORDS_PER_CHUNK
-    words = u32(rows).reshape(B, C, BLOCKS_PER_CHUNK, 16)
+    words = rows.reshape(B * C, BLOCKS_PER_CHUNK, 16)
     first, total = _window(lengths, C, base, total)
     n_chunks = _n_chunks(total)                                     # (B,)
     chunk_idx = first[:, None] + torch.arange(C, dtype=torch.int64, device=rows.device)[None, :]
     chunk_len = (total[:, None] - chunk_idx * CHUNK_LEN).clamp(0, CHUNK_LEN)
-    n_blocks = ((chunk_len + (BLOCK_LEN - 1)) // BLOCK_LEN).clamp_min(1)
     valid = chunk_idx < n_chunks[:, None]
     single = (n_chunks[:, None] == 1) & valid                      # (B, C)
+    out = torch.zeros((B * C, 8), dtype=torch.int64, device=rows.device)
+    # only the chunks that exist are hashed: a batch pads its rows to its
+    # longest window
+    sel = valid.reshape(-1).nonzero().squeeze(1)
+    if sel.numel():
+        out[sel] = _chunk_lanes(words[sel], chunk_len.reshape(-1)[sel],
+                                chunk_idx.reshape(-1)[sel], single.reshape(-1)[sel])
+    return out.reshape(B, C, 8)
+
+
+def _chunk_lanes(words: torch.Tensor, chunk_len: torch.Tensor, chunk_idx: torch.Tensor,
+                 single: torch.Tensor) -> torch.Tensor:
+    """The CVs ``(L, 8)`` of ``L`` existing chunks: their words ``(L, 16,
+    16)`` (any u32 carrier), byte lengths, chunk indices and whether each
+    is a whole one-chunk message; blocks past the longest chunk are not
+    compressed."""
+    words = u32(words)
+    n_blocks = ((chunk_len + (BLOCK_LEN - 1)) // BLOCK_LEN).clamp_min(1)
     counter, counter_hi = chunk_idx & MASK, chunk_idx >> 32
-    cv = [torch.full((B, C), IV[w], dtype=torch.int64, device=rows.device)
+    cv = [torch.full(chunk_len.shape, IV[w], dtype=torch.int64, device=words.device)
           for w in range(8)]
-    for j in range(BLOCKS_PER_CHUNK):
+    for j in range(int(n_blocks.max())):
         block_len = (chunk_len - j * BLOCK_LEN).clamp(0, BLOCK_LEN)
         final = n_blocks == j + 1
         flags = (final.long() * CHUNK_END
                  + (final & single).long() * ROOT + (CHUNK_START if j == 0 else 0))
-        out = compress(cv, [words[:, :, j, w] for w in range(16)],
+        out = compress(cv, [words[:, j, w] for w in range(16)],
                        counter, block_len, flags, counter_hi)
         keep = j < n_blocks
         cv = [torch.where(keep, out[w], cv[w]) for w in range(8)]
-    return torch.where(valid[..., None], torch.stack(cv, dim=-1), 0)
+    return torch.stack(cv, dim=-1)
 
 
 def merge_plain(cvs: torch.Tensor, lengths: torch.Tensor,

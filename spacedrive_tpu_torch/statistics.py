@@ -1,61 +1,24 @@
 """Library statistics (the ``libraries.statistics`` procedure).
 
 Counterpart of ``spacedrive_tpu/statistics.py``: counts from the library
-database, capacity from the volume the data dir lives on, byte counters as
-TEXT as the reference's schema stores them. :func:`compute_statistics` is a
-pure reader over ``(db, data_dir)``; the ``statistics`` table is in the
-schema, but the reference's only writer of its snapshot row (the backup
-job) is not ported. The volume lookup is a trimmed copy of
-``spacedrive_tpu/volumes.py`` (``get_volumes`` :40, ``volume_for_path``
-:84): the longest mounted prefix of the path among the real filesystems
-in ``/proc/mounts``.
+database, capacity from the volume the data dir lives on
+(:func:`..volumes.volume_for_path`), byte counters as TEXT as the
+reference's schema stores them. :func:`compute_statistics` is a pure reader
+over ``(db, data_dir)``; :func:`update_statistics` also writes the snapshot
+row, which a backup takes before it archives the database.
 """
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
-from .models import utc_now
+from .models import Statistics, utc_now
+from .volumes import volume_for_path
 
-_PSEUDO_FS = {
-    "proc", "sysfs", "devtmpfs", "devpts", "tmpfs", "cgroup", "cgroup2",
-    "securityfs", "pstore", "efivarfs", "bpf", "debugfs", "tracefs",
-    "fusectl", "configfs", "ramfs", "autofs", "mqueue", "hugetlbfs",
-    "binfmt_misc", "overlay", "squashfs", "nsfs", "rpc_pipefs", "fuse.lxcfs",
-}
-
-
-def _capacity(mount_point: str) -> tuple[int, int] | None:
-    try:
-        st = os.statvfs(mount_point)
-    except OSError:
-        return None
-    return st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
-
-
-def volume_for_path(path: str | Path) -> dict[str, Any] | None:
-    """``{"mount_point", "total_capacity", "available_capacity"}`` of the
-    longest mounted prefix of ``path`` (``/`` where no mount is listed)."""
-    path = str(Path(path).resolve())
-    mounts: list[str] = []
-    try:
-        with open("/proc/mounts") as fh:
-            for line in fh:
-                parts = line.split()
-                if len(parts) >= 3 and parts[2] not in _PSEUDO_FS and parts[0].startswith("/"):
-                    mounts.append(parts[1].replace("\\040", " "))
-    except OSError:
-        pass
-    best = None
-    for mp in mounts or ["/"]:
-        if path == mp or path.startswith(mp.rstrip("/") + "/") or mp == "/":
-            cap = _capacity(mp)
-            if cap is not None and (best is None or len(mp) > len(best["mount_point"])):
-                best = {"mount_point": mp, "total_capacity": cap[0],
-                        "available_capacity": cap[1]}
-    return best
+if TYPE_CHECKING:
+    from .library import Library
 
 
 def compute_statistics(db, data_dir: str | Path) -> dict[str, Any]:
@@ -82,6 +45,20 @@ def compute_statistics(db, data_dir: str | Path) -> dict[str, Any]:
         "total_bytes_free": str(vol.get("available_capacity", 0)),
         "preview_media_bytes": str(_thumb_dir_size(data_dir)),
     }
+
+
+def update_statistics(library: "Library") -> dict[str, Any]:
+    """Compute the statistics and persist them as the snapshot row (the
+    first row updated, else one inserted)."""
+    db = library.db
+    row = compute_statistics(db, library.node.data_dir)
+    existing = db.find(Statistics, limit=1)
+    if existing:
+        db.update(Statistics, {"id": existing[0]["id"]}, row)
+        row["id"] = existing[0]["id"]
+    else:
+        row["id"] = db.insert(Statistics, row)
+    return row
 
 
 def _thumb_dir_size(data_dir: str | Path) -> int:

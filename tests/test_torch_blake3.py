@@ -21,6 +21,7 @@ from spacedrive_tpu_torch.objects import blake3_ref, cas
 from spacedrive_tpu_torch.objects.hasher import DeviceHasher
 from spacedrive_tpu_torch.ops import blake3 as b3
 from spacedrive_tpu_torch.ops.tables import port_tables, tables_from_reference
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 EDGE_LENGTHS = (0, 1, 63, 64, 65, 1023, 1024, 1025, 2048, 2049, 57352, 102408)
 

@@ -20,6 +20,7 @@ import torch
 
 from spacedrive_tpu.ops import blake3_jax
 from spacedrive_tpu_torch.ops import blake3 as b3
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 # the kernels' launch constants (csrc/blake3.cu)
 CHUNK_THREADS, RUN = 512, 16

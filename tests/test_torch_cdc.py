@@ -14,6 +14,7 @@ import torch
 from spacedrive_tpu.ops import cdc as jax_cdc
 from spacedrive_tpu_torch.ops import cdc
 from tests.torch_gear_edges import edge_plane
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 SMALL = (64, 256, 1024)
 GEOMETRIES = [SMALL, (256, 1024, 4096)]

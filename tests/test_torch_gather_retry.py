@@ -26,6 +26,7 @@ from spacedrive_tpu_torch import retry
 from spacedrive_tpu_torch.objects import cas
 from spacedrive_tpu_torch.objects import manifest
 from tests.test_torch_scan import jax_scan, make_tree, port_scan
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 #: file sizes: whole-file messages, the 100 KiB edge, sampled messages
 SIZES = (10, 5000, 102400, 102401, 300_000)

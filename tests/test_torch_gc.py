@@ -24,6 +24,7 @@ from spacedrive_tpu_torch.models import ChunkManifest, MediaData, Object
 from spacedrive_tpu_torch.node import Node
 from spacedrive_tpu_torch.objects.gc import OrphanRemoverActor, ThumbnailRemoverActor
 from spacedrive_tpu_torch.objects.media.thumbnail import thumbnail_dir, thumbnail_path
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 #: (relative path, is a directory) of the debris and of what must stay
 DEBRIS = [("a.db.sd-tmp.1a2b3c4d", False), ("ab/cafe.webp.sd-tmp.00ff00ff", False),
@@ -59,7 +60,7 @@ def test_cleanup_stale_tmp_sweeps_a_directory_and_one_level_below_as_jax_does(tm
 
 def test_boot_sweeps_the_debris_of_a_killed_write(tmp_path):
     data = tmp_path / "data"
-    Node(data, device="cpu").shutdown()
+    Node(data, device="cpu", watch_locations=False).shutdown()
     stale = [data / "libraries" / "x.sdlibrary.sd-tmp.0badf00d",
              data / "thumbnails" / "ab" / "abcd.webp.sd-tmp.deadbeef",
              data / "backups" / "b.tar.sd-tmp.11111111"]
@@ -67,7 +68,7 @@ def test_boot_sweeps_the_debris_of_a_killed_write(tmp_path):
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_bytes(b"half written")
     atomic_write_bytes(data / "thumbnails" / "ab" / "abcd.webp", b"whole")
-    node = Node(data, device="cpu")
+    node = Node(data, device="cpu", watch_locations=False)
     try:
         assert not any(p.exists() for p in stale)
         assert (data / "thumbnails" / "ab" / "abcd.webp").read_bytes() == b"whole"
@@ -91,7 +92,8 @@ def nodes(tmp_path, monkeypatch):
     tree = write_tree(tmp_path / "tree")
     out = {}
     for pkg, make, create, scan in (
-            ("port", lambda d: Node(d, device="cpu"), create_location, scan_location),
+            ("port", lambda d: Node(d, device="cpu", watch_locations=False), create_location,
+             scan_location),
             ("jax", lambda d: JaxNode(d, probe_accelerator=False, watch_locations=False),
              lambda lib, t: jax_create_location(lib, t, hasher="cpu"), jax_scan_location)):
         node = make(tmp_path / pkg)
@@ -178,7 +180,7 @@ def test_thumbnail_remover_marked_deletion_skips_the_liveness_check(nodes):
 
 
 def test_ephemeral_hook_shields_a_thumbnail_until_its_ttl_lapses(tmp_path):
-    node = Node(tmp_path / "data", device="cpu")
+    node = Node(tmp_path / "data", device="cpu", watch_locations=False)
     try:
         remover = node.thumbnail_remover
         p = thumbnail_path(node.data_dir, "feedface00000000")
@@ -193,7 +195,7 @@ def test_ephemeral_hook_shields_a_thumbnail_until_its_ttl_lapses(tmp_path):
 
 
 def test_actors_stop_cleanly_and_a_cold_cache_sweeps_nothing(tmp_path):
-    node = Node(tmp_path / "data", device="cpu")
+    node = Node(tmp_path / "data", device="cpu", watch_locations=False)
     lib = node.libraries.create("stop")
     try:
         assert node.thumbnail_remover.full_sweep() == 0

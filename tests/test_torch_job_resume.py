@@ -39,7 +39,7 @@ from spacedrive_tpu_torch.node import Node
 from spacedrive_tpu_torch.objects import file_identifier as fi
 from spacedrive_tpu_torch.pipeline import executor
 from tests.crash_harness import make_tree as crash_tree
-from tests.torch_scan_cases import PAGE, make_tree, page_of, rows_of
+from tests.torch_scan_cases import PAGE, make_tree, page_of, rows_of, one_torch_thread  # noqa: F401
 
 CHILD = Path(__file__).resolve().parent / "torch_kill_child.py"
 #: the crash harness's scan shape: 200 files, 24-file pages, 4-page groups
@@ -106,7 +106,7 @@ class HeldScan:
             return real(paths, sizes)
 
         mp.setattr(fi, "read_sampled_batch", held)
-        self.node = Node(data_dir, device="cpu")
+        self.node = Node(data_dir, device="cpu", watch_locations=False)
         self.hashes: list[str] = []
         real_hash = self.node.hasher.hash_gathered
 
@@ -226,7 +226,7 @@ def test_a_killed_scan_cold_resumes_to_the_jax_rows(kill_tree, tmp_path, monkeyp
 
     monkeypatch.setattr(fi, "BATCH_SIZE", KILL_BATCH)
     monkeypatch.setenv("SD_COMMIT_GROUP", str(KILL_GROUP))
-    node = Node(data_dir, device="cpu")  # sweeps, then cold-resumes
+    node = Node(data_dir, device="cpu", watch_locations=False)  # sweeps, then cold-resumes
     try:
         assert not stale[0].exists()
         (lib,) = node.libraries.list()

@@ -41,7 +41,7 @@ from spacedrive_tpu_torch.locations import create_location, scan_location
 from spacedrive_tpu_torch.models import JobRow
 from spacedrive_tpu_torch.node import Node
 from spacedrive_tpu_torch.objects import file_identifier as fi
-from tests.torch_scan_cases import make_tree, rows_of
+from tests.torch_scan_cases import make_tree, rows_of, one_torch_thread  # noqa: F401
 
 PACKAGES = {"jax": (jax_jobs, JaxLibraries, JaxJobRow), "port": (port_jobs, Libraries, JobRow)}
 EXECUTED: dict[str, list] = {"jax": [], "port": []}
@@ -195,6 +195,9 @@ def test_pause_checkpoints_and_resume_runs_every_step_once(libraries):
         assert jobs.pause(jid)
         release.set()
         assert wait_for(lambda: row(pkg, lib, jid).get("status") == mod.JobStatus.PAUSED)
+        # the row says Paused before the worker leaves the running set (in
+        # both packages): a resume before that is refused as a duplicate
+        assert jobs.wait_idle(30)
         paused = row(pkg, lib, jid)
         at_pause = list(EXECUTED[pkg])
         checkpoint = json.loads(paused["data"])
@@ -395,7 +398,7 @@ def test_warm_start_media_lane_matches_the_jax_node(tmp_path, monkeypatch):
         want = media_state(jnode, jlib)
     finally:
         jnode.shutdown()
-    node = Node(tmp_path / "port", device="cpu")
+    node = Node(tmp_path / "port", device="cpu", watch_locations=False)
     try:
         lib = node.libraries.create("port")
         scan_location(lib, create_location(lib, tree)["id"])
@@ -460,7 +463,7 @@ def jax_scan(tree, tmp_path_factory):
 
 
 def test_job_rows_of_a_scan_equal_the_jax_nodes(tree, jax_scan, tmp_path):
-    node = Node(tmp_path / "port", device="cpu")
+    node = Node(tmp_path / "port", device="cpu", watch_locations=False)
     try:
         lib = node.libraries.create("port")
         scan_location(lib, create_location(lib, tree)["id"])
@@ -492,7 +495,7 @@ def test_a_scan_chain_shut_down_mid_identify_cold_resumes_on_a_new_node(tree, ja
 
     monkeypatch.setattr(fi, "read_sampled_batch", held_gather)
     data_dir = tmp_path / "port"
-    node = Node(data_dir, device="cpu")
+    node = Node(data_dir, device="cpu", watch_locations=False)
     lib = node.libraries.create("port")
     lib_id = lib.id
     loc_id = create_location(lib, tree)["id"]
@@ -519,7 +522,7 @@ def test_a_scan_chain_shut_down_mid_identify_cold_resumes_on_a_new_node(tree, ja
     assert 0 < checkpoint["step_number"] < len(checkpoint["steps"]) == 6
     assert checkpoint["data"]["cursor"] > 0
 
-    node2 = Node(data_dir, device="cpu")  # cold resume at boot
+    node2 = Node(data_dir, device="cpu", watch_locations=False)  # cold resume at boot
     try:
         lib2 = node2.libraries.get(lib_id)
         assert node2.locations.is_online(lib_id, loc_id)  # marked at boot

@@ -22,6 +22,7 @@ from spacedrive_tpu.search import kernels as jax_kernels
 from spacedrive_tpu_torch.search import columnar, kernels
 from tests.test_torch_search import LOADER_ROWS, loader_rows
 from tests.torch_search_cases import LEX_BOUND, LEX_BOUNDS, lex_rows, seeded_values, value_rows
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 # the kernel's launch constants (csrc/search.cu)
 KEYED_ROWS = 4

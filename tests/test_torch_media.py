@@ -7,7 +7,7 @@ JPEG with EXIF camera fields and a GPS fix written with PIL, a 2000x1500
 PNG that forces the host box-reduce, a 1x1 image, a 3000x60 strip and a
 corrupt ``.jpg``. The JAX Node scans it with its ``tpuThumbnails`` feature
 on and its sticky resize verdict set to the device (a test-side setting),
-so both packages take the batched route; the port's ``Node(device="cpu")``
+so both packages take the batched route; the port's ``Node(device="cpu", watch_locations=False)``
 scans it too. The pair of scans runs twice: with the native codecs where
 they build, and with both packages' codec probe answered "none", so that
 PIL decodes, reduces (``Image.reduce``) and encodes, as on a host without
@@ -44,6 +44,7 @@ from spacedrive_tpu_torch.locations import create_location, scan_location
 from spacedrive_tpu_torch.node import Node
 from spacedrive_tpu_torch.objects.media import metadata, processor, thumbnail
 from spacedrive_tpu_torch.ops import resize
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 
 def smooth(seed: int, h: int, w: int) -> np.ndarray:
@@ -133,7 +134,7 @@ def jax_scan(data_dir: Path, tree: Path) -> dict:
 def port_scan(data_dir: Path, tree: Path) -> dict:
     with pytest.MonkeyPatch.context() as mp:
         seen = spy_on_encode(mp, thumbnail)
-        node = Node(data_dir, device="cpu")
+        node = Node(data_dir, device="cpu", watch_locations=False)
         try:
             events: list = []
             node.events.on(events.append)
@@ -234,7 +235,7 @@ def test_a_failed_device_resize_fails_the_step(tmp_path, monkeypatch, pipeline):
     monkeypatch.setattr(resize, "resize_batch", lost)
     thumbnail.reset_counts()
     processor.SCALAR_RETRIES.clear()
-    node = Node(tmp_path / "data", device="cpu")
+    node = Node(tmp_path / "data", device="cpu", watch_locations=False)
     try:
         lib = node.libraries.create("port")
         scan_location(lib, create_location(lib, tree)["id"])

@@ -48,6 +48,7 @@ from spacedrive_tpu_torch.node import Node
 from spacedrive_tpu_torch.objects.media import metadata, processor, thumbnail
 from spacedrive_tpu_torch.ops import resize
 from tests.test_torch_media import jax_scan, port_scan, smooth
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 HEICS = {"h_small": (48, 64), "h_mid": (480, 640), "h_big": (1200, 1600)}
 VIDEOS = {"v_tiny.mp4": (64, 48, 10), "v_mkv.mkv": (320, 240, 24), "v_avi.avi": (320, 240, 16)}
@@ -329,7 +330,7 @@ def test_a_failed_device_resize_fails_a_step_with_heif_images(formats_tree, tmp_
     monkeypatch.setattr(resize, "resize_batch", lost)
     thumbnail.reset_counts()
     processor.SCALAR_RETRIES.clear()
-    node = Node(tmp_path / "data", device="cpu")
+    node = Node(tmp_path / "data", device="cpu", watch_locations=False)
     try:
         lib = node.libraries.create("port")
         scan_location(lib, create_location(lib, tree)["id"])

@@ -30,7 +30,7 @@ from spacedrive_tpu_torch.objects.cas import generate_cas_id
 from spacedrive_tpu_torch.objects.hasher import DeviceHasher, ShardedHasher, get_hasher
 from spacedrive_tpu_torch.ops import blake3 as b3
 from spacedrive_tpu_torch.parallel import mesh as tm
-from tests.torch_scan_cases import make_tree, rows_of
+from tests.torch_scan_cases import make_tree, rows_of, one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -148,7 +148,7 @@ def test_sharded_hasher_fused_and_bucket_paths_match_the_device_hasher(tmp_path)
 
 def test_a_tpu_sharded_location_scans_like_a_default_one(tmp_path):
     tree = make_tree(tmp_path / "tree")
-    node = Node(tmp_path / "data", device="cpu", mesh_devices=["cpu"] * 4)
+    node = Node(tmp_path / "data", device="cpu", mesh_devices=["cpu"] * 4, watch_locations=False)
     try:
         rows = {}
         for hasher in (None, "tpu-sharded"):

@@ -33,6 +33,7 @@ from spacedrive_tpu_torch.locations import create_location, scan_location
 from spacedrive_tpu_torch.node import Node
 from spacedrive_tpu_torch.objects import dedup
 from spacedrive_tpu_torch.ops import minhash
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 W = 58368 // 4  # words of a sampled row
 
@@ -216,7 +217,7 @@ def scans(tmp_path_factory):
                    for m in ("all_pairs", "banded")}}
         finally:
             node.shutdown()
-        node = Node(base / "port", device="cpu")
+        node = Node(base / "port", device="cpu", watch_locations=False)
         try:
             lib = node.libraries.create("port")
             loc = create_location(lib, tree)
@@ -268,7 +269,7 @@ def test_find_near_duplicates_matches_the_reference(scans, method):
 
 def test_scan_of_a_sub_path_skips_the_detector(tmp_path):
     tree = make_dedup_tree(tmp_path / "tree")
-    node = Node(tmp_path / "port", device="cpu")
+    node = Node(tmp_path / "port", device="cpu", watch_locations=False)
     try:
         lib = node.libraries.create("port")
         loc = create_location(lib, tree)

@@ -33,7 +33,7 @@ from spacedrive_tpu_torch.native import NativeBuildError, build_shared, cas_nati
 from spacedrive_tpu_torch.objects import cas, hasher
 from spacedrive_tpu_torch.objects.hasher import DeviceHasher
 from tests.test_torch_scan import jax_scan, port_scan
-from tests.torch_scan_cases import make_tree
+from tests.torch_scan_cases import make_tree, one_torch_thread  # noqa: F401
 
 #: the sampling edges: whole-file messages, the 100 KiB switch, a sampled
 #: file whose samples end on an odd tail

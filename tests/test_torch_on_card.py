@@ -310,7 +310,7 @@ def test_pipelined_scan_on_the_card_matches_the_sequential_scan(card, tmp_path, 
     monkeypatch.setenv("SD_COMMIT_GROUP", "4")
 
     def scan(name: str):
-        node = Node(tmp_path / name)
+        node = Node(tmp_path / name, watch_locations=False)
         try:
             lib = node.libraries.create(name)
             scan_location(lib, create_location(lib, tree)["id"])
@@ -355,7 +355,7 @@ def test_pause_and_resume_on_the_card_gives_the_uninterrupted_rows(card, tmp_pat
     monkeypatch.setenv("SD_COMMIT_GROUP", "1")
 
     def scan(name: str, hold: int | None = None):
-        node = Node(tmp_path / name)
+        node = Node(tmp_path / name, watch_locations=False)
         try:
             lib = node.libraries.create(name)
             loc = create_location(lib, tree)
@@ -442,7 +442,7 @@ def test_a_scan_killed_on_the_card_cold_resumes(card, tmp_path, monkeypatch):
     monkeypatch.setattr(fi, "BATCH_SIZE", 24)
     monkeypatch.setenv("SD_COMMIT_GROUP", "4")
     monkeypatch.setenv("SD_SCAN_SHARDS", "1")
-    node = Node(tmp_path / "uninterrupted")
+    node = Node(tmp_path / "uninterrupted", watch_locations=False)
     try:
         lib = node.libraries.create("uninterrupted")
         args = {"location_id": create_location(lib, tree)["id"]}
@@ -465,7 +465,7 @@ def test_a_scan_killed_on_the_card_cold_resumes(card, tmp_path, monkeypatch):
     assert status == JobStatus.RUNNING and json.loads(blob)["step_number"] > 0
     (stale,) = (data / "thumbnails").glob("*/*.sd-tmp*")
     _kernels.reset_counts()
-    node = Node(data)  # sweeps, then cold-resumes on the card
+    node = Node(data, watch_locations=False)  # sweeps, then cold-resumes on the card
     try:
         assert not stale.exists()
         (lib,) = node.libraries.list()
@@ -638,7 +638,7 @@ def test_a_raise_in_the_card_resize_fails_the_media_job(card, tmp_path, monkeypa
 
     monkeypatch.setattr(resize, "_taps", lost)
     processor.SCALAR_RETRIES.clear()
-    node = Node(tmp_path / "data")
+    node = Node(tmp_path / "data", watch_locations=False)
     try:
         lib = node.libraries.create("card")
         scan_location(lib, create_location(lib, tree)["id"])
@@ -830,7 +830,7 @@ def test_the_server_serves_search_from_the_card(card, tmp_path, monkeypatch):
     from tests.torch_serve_client import rspc_get
 
     monkeypatch.setenv("SD_SEARCH_ENGINE", "device")
-    node = Node(tmp_path / "data")
+    node = Node(tmp_path / "data", watch_locations=False)
     server = Server(node, "127.0.0.1", 0)
     try:
         lib = node.libraries.create("served")

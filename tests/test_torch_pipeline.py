@@ -36,7 +36,7 @@ from spacedrive_tpu_torch.models import ALL_MODELS, Database, JobRow
 from spacedrive_tpu_torch.node import Node
 from spacedrive_tpu_torch.objects import file_identifier as fi
 from spacedrive_tpu_torch.pipeline import PipelineExecutor, PipelineSpec, executor
-from tests.torch_scan_cases import PAGE, make_tree, page_of, rows_of
+from tests.torch_scan_cases import PAGE, make_tree, page_of, rows_of, one_torch_thread  # noqa: F401
 
 def jax_scan(data_dir: Path, tree: Path):
     node = JaxNode(data_dir, probe_accelerator=False, watch_locations=False)
@@ -54,7 +54,7 @@ def jax_scan(data_dir: Path, tree: Path):
 
 def port_scan(data_dir: Path, tree: Path):
     """(rows, identify job row, page map) of one port scan on the CPU."""
-    node = Node(data_dir, device="cpu")
+    node = Node(data_dir, device="cpu", watch_locations=False)
     try:
         lib = node.libraries.create("port")
         loc = create_location(lib, tree)
@@ -433,7 +433,7 @@ def test_a_transient_slice_error_pauses_the_job_like_jax(tree, pinned_pages, tmp
     poison_gather(pinned_pages, fi, "f99")
     poison_gather(pinned_pages, jax_fi, "f99")
     jax_rows, jax_status, pages = jax_scan(tmp_path / "jax", tree)
-    node = Node(tmp_path / "port", device="cpu")
+    node = Node(tmp_path / "port", device="cpu", watch_locations=False)
     try:
         lib = node.libraries.create("port")
         loc = create_location(lib, tree)
@@ -457,7 +457,7 @@ def test_a_transient_slice_error_pauses_the_job_like_jax(tree, pinned_pages, tmp
 def test_a_hasher_error_fails_the_job_with_no_cpu_redispatch(tree, pinned_pages, tmp_path):
     pinned_pages.delenv("SD_CHUNK_MANIFESTS")
     pinned_pages.setenv("SD_SCAN_SHARDS", "2")
-    node = Node(tmp_path / "port", device="cpu")
+    node = Node(tmp_path / "port", device="cpu", watch_locations=False)
     calls = []
     orig = node.hasher.hash_gathered
 

@@ -23,6 +23,7 @@ import torch
 
 from spacedrive_tpu.ops import resize_jax
 from spacedrive_tpu_torch.ops import resize
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -6,9 +6,13 @@ Two nodes, the JAX ``Node`` and ``spacedrive_tpu_torch.node.Node(device=
 library_id)`` over the same small tree (one scan each, with chunk manifests
 and the search engine on), and every ported procedure's answer is compared:
 search (paths with the ``tags`` filter, objects, ephemeralPaths with
-thumbnails, duplicates, chunkDuplicates), tags, libraries, locations, jobs
-and notifications (the cold-resume failure notification included), the
-mutations in lockstep, and the subscriptions by the events they deliver.
+thumbnails, duplicates, chunkDuplicates), tags, libraries, locations, jobs,
+notifications (the cold-resume failure notification included), files,
+nodes, volumes, preferences, categories and backups, the mutations in
+lockstep, and the subscriptions by the events they deliver. The files
+mutations that change the disk run on a pair whose nodes each scan their
+own copy of the tree, with each copy's root replaced by ``<tree>`` and
+the ``inode`` keys dropped.
 
 The comparison rule (:func:`norm`): an answer is compared as JSON with
 every ``pub_id`` and ``*_pub_id`` key and every ``date_*`` key dropped,
@@ -20,7 +24,8 @@ have none), and in ``jobs.reports`` the ``metadata`` of each job (the run's
 timings and the reference's telemetry trace; the scan's rows are compared
 in tests/test_torch_scan.py). ``libraries.statistics`` is compared without
 ``total_bytes_free`` (the disk's free bytes move between the two calls) and
-``library_db_size`` (each package's database holds its own tables).
+``library_db_size`` (each package's database holds its own tables), and
+``volumes.list`` without ``available_capacity`` (the same free bytes).
 """
 
 import json
@@ -31,24 +36,32 @@ import numpy as np
 import pytest
 
 from spacedrive_tpu.api import router as jax_router
+from spacedrive_tpu.api.routers import backups as jax_backups
+from spacedrive_tpu.api.routers import categories as jax_categories
+from spacedrive_tpu.api.routers import files as jax_files
 from spacedrive_tpu.api.routers import jobs as jax_jobs
 from spacedrive_tpu.api.routers import libraries as jax_libraries
 from spacedrive_tpu.api.routers import locations as jax_locations
+from spacedrive_tpu.api.routers import nodes as jax_nodes
 from spacedrive_tpu.api.routers import notifications as jax_notifications
+from spacedrive_tpu.api.routers import preferences as jax_preferences
 from spacedrive_tpu.api.routers import root as jax_root
 from spacedrive_tpu.api.routers import search as jax_search
 from spacedrive_tpu.api.routers import tags as jax_tags
+from spacedrive_tpu.api.routers import volumes as jax_volumes
 from spacedrive_tpu.jobs.report import JobReport as JaxJobReport
 from spacedrive_tpu.jobs.report import JobStatus as JaxJobStatus
 from spacedrive_tpu.node import Node as JaxNode
 from spacedrive_tpu_torch.api.router import ApiError
 from spacedrive_tpu_torch.jobs import JobReport, JobStatus
 from spacedrive_tpu_torch.node import Node
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 UUID = re.compile(r"^[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}$")
 
-#: procedures of the mounted JAX routers that the port leaves out
-NOT_PORTED = {"toggleFeatureFlag"}
+#: procedures of the mounted JAX routers that the port leaves out (the two
+#: crypto launchers come with the crypto slice)
+NOT_PORTED = {"toggleFeatureFlag", "files.encryptFiles", "files.decryptFiles"}
 
 
 def norm(value, data_dir: str):
@@ -99,7 +112,7 @@ class Pair:
     def __init__(self, base, **port_kw) -> None:
         self.base = base
         self.jax = JaxNode(base / "jax", probe_accelerator=False, watch_locations=False)
-        self.port = Node(base / "port", device="cpu", **port_kw)
+        self.port = Node(base / "port", device="cpu", **port_kw, watch_locations=False)
         self.libs: tuple = (None, None)
 
     def call(self, key, arg=None, scoped=False, args=None):
@@ -138,12 +151,19 @@ class Pair:
 
 
 @pytest.fixture(scope="module")
-def env():
+def env(tmp_path_factory):
     mp = pytest.MonkeyPatch()
     mp.setenv("SD_P2P_DISABLED", "1")
     mp.setenv("SD_CHUNK_MANIFESTS", "1")
     mp.setenv("SD_CDC_KERNEL", "numpy")
     mp.setenv("SD_SEARCH_ENGINE", "device")
+    # the JAX node's alert rules read the process-wide telemetry registry,
+    # which earlier tests in the same process fill (a corrupt boot's
+    # counter fires an alert into the node notifications); the port has no
+    # telemetry, so the JAX node runs with no rules
+    no_rules = tmp_path_factory.mktemp("alerts") / "rules.json"
+    no_rules.write_text("[]")
+    mp.setenv("SD_ALERT_RULES", str(no_rules))
     yield
     mp.undo()
 
@@ -225,6 +245,15 @@ QUERIES = [
     ("jobs.isActive", None, False),
     ("notifications.get", None, False),
     ("unknown.procedure", None, False),
+    ("files.get", {"object_id": 1}, True),
+    ("files.get", {"file_path_id": 2}, True),
+    ("files.get", {"file_path_id": 999}, True),
+    ("files.getPath", 3, True),
+    ("files.getMediaData", 999, True),
+    ("nodes.listLocations", None, True),
+    ("preferences.get", None, True),
+    ("categories.list", None, True),
+    ("backups.getAll", None, False),
 ]
 
 
@@ -241,6 +270,16 @@ def test_tags_of_an_object_match_jax(scanned):
     for k in range(3):
         got = scanned.same("tags.getForObject", scoped=True, args=[i[k] for i in ids])
         assert [t["name"] for t in got] == [["red"], ["navy"], []][k]
+
+
+def test_volumes_match_jax(scanned):
+    """Compared without ``available_capacity``: the disk's free bytes move
+    between the two calls."""
+    want, got = scanned.call("volumes.list")
+    for answer in (want, got):
+        for volume in answer:
+            assert volume.pop("available_capacity") >= 0
+    assert got == want and got
 
 
 def test_statistics_match_jax(scanned):
@@ -289,8 +328,9 @@ def test_schema_matches_the_jax_routers(scanned):
     """(key, kind, scope) of every procedure, against a JAX router with
     the same sub-routers mounted."""
     ref = jax_router.Router(scanned.jax)
-    for module in (jax_root, jax_libraries, jax_locations, jax_search, jax_jobs, jax_tags,
-                   jax_notifications):
+    for module in (jax_root, jax_libraries, jax_locations, jax_search, jax_files, jax_jobs,
+                   jax_tags, jax_volumes, jax_nodes, jax_notifications, jax_preferences,
+                   jax_backups, jax_categories):
         module.mount(ref)
 
     def procs(router):
@@ -299,7 +339,7 @@ def test_schema_matches_the_jax_routers(scanned):
 
     assert procs(scanned.port.router) == procs(ref)
     pools = {k for k, p in scanned.port.router.procedures.items() if p.pool}
-    assert pools == {k for k, p in ref.procedures.items() if p.pool}
+    assert pools == {k for k, p in ref.procedures.items() if p.pool and k not in NOT_PORTED}
 
 
 def test_subscriptions_deliver_what_jax_delivers(scanned):
@@ -486,7 +526,7 @@ def test_the_cold_resume_failure_notifies_like_jax(env, tmp_path):
             report.create(node.libraries.get(lib).db)
         pair.close()
         pair.jax = JaxNode(tmp_path / "jax", probe_accelerator=False, watch_locations=False)
-        pair.port = Node(tmp_path / "port", device="cpu")
+        pair.port = Node(tmp_path / "port", device="cpu", watch_locations=False)
         got = pair.same("notifications.get")
         assert [n["data"]["kind"] for n in got] == ["job_cold_resume_failed"]
         assert got[0]["data"]["job_name"] == "does_not_exist"
@@ -500,7 +540,7 @@ def test_a_tagged_orphan_object_is_collected(env, tmp_path):
     """The orphan remover deletes an object's tag links with it (the
     tag_on_object foreign key would refuse the object's delete)."""
     tree = make_tree(tmp_path / "tree")
-    node = Node(tmp_path / "port", device="cpu")
+    node = Node(tmp_path / "port", device="cpu", watch_locations=False)
     try:
         lib_id = node.router.resolve("libraries.create", {"name": "l"})["id"]
         node.router.resolve("locations.create", {"path": str(tree)}, lib_id)
@@ -517,3 +557,116 @@ def test_a_tagged_orphan_object_is_collected(env, tmp_path):
     finally:
         node.shutdown()
     shutil.rmtree(tree)
+
+
+def test_files_media_data_and_metadata_mutations_match_jax(scanned):
+    oid = scanned.object_ids(["pic"])
+    scanned.same("files.getMediaData", scoped=True, args=[i[0] for i in oid])
+    scanned.same("files.getEphemeralMediaData", str(scanned.tree / "pic.png"))
+    ids = scanned.object_ids(["note1"])
+    for key, arg in (("files.setNote", {"note": "seen"}), ("files.setFavorite", {"favorite": 1}),
+                     ("files.updateAccessTime", None), ("files.removeAccessTime", None)):
+        scanned.same(key, scoped=True, args=[
+            i[0] if arg is None else {"object_id": i[0], **arg} for i in ids])
+    got = scanned.same("files.get", scoped=True, args=[{"object_id": i[0]} for i in ids])
+    assert got["object"]["note"] == "seen" and got["object"]["favorite"]
+    scanned.same("files.setNote", {"object_id": 999_999, "note": "x"}, scoped=True)
+    scanned.same("search.objects", {"favorite": True}, scoped=True)
+
+
+def test_preferences_nodes_and_backups_match_jax(pair):
+    pair.same("preferences.update", {"explorer": {"view": "grid", "size": 3}, "theme": "dark"},
+              scoped=True)
+    pair.same("preferences.update", {"explorer": {"size": None}}, scoped=True)
+    assert pair.same("preferences.get", scoped=True) == {"explorer": {"view": "grid"},
+                                                        "theme": "dark"}
+    pair.same("preferences.update", {"a.b": 1}, scoped=True)
+    pair.same("nodes.edit", {"name": "renamed-node"})
+    assert pair.same("nodeState")["name"] == "renamed-node"
+    pair.same("backups.backup", args=list(pair.libs))
+    listed = [node.router.resolve("backups.getAll") for node in (pair.jax, pair.port)]
+    for node, got in zip((pair.jax, pair.port), listed):
+        (entry,) = got["backups"]
+        assert entry.pop("timestamp") > 0
+        assert entry.pop("path").startswith(str(node.data_dir / "backups"))
+    assert norm(listed[1], str(pair.port.data_dir)) == norm(listed[0], str(pair.jax.data_dir))
+    paths = [got["backups"][0]["id"] for got in listed]
+    pair.same("backups.restore", args=[str(n.data_dir / "backups" / f"{b}.bkp")
+                                       for n, b in zip((pair.jax, pair.port), paths)])
+    pair.same("search.paths", {}, scoped=True)
+    pair.same("backups.restore", str(pair.base / "missing.bkp"))
+    pair.same("backups.delete", args=paths)
+    assert pair.same("backups.getAll")["backups"] == []
+
+
+@pytest.fixture()
+def fs_pair(env, tmp_path):
+    """Each node scans its own copy of the tree."""
+    pair = Pair(tmp_path)
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    pair.trees = (make_tree(tmp_path / "a" / "tree"), make_tree(tmp_path / "b" / "tree"))
+    pair.libs = tuple(node.router.resolve("libraries.create", {"name": "lib"})["id"]
+                      for node in (pair.jax, pair.port))
+    fs_same(pair, "locations.create", {"path": "<tree>"})
+    pair.wait()
+    yield pair
+    pair.close()
+
+
+def fs_same(pair, key, arg=None, scoped=True):
+    """``pair.same`` with each node's tree root replaced by ``<tree>`` and
+    ``inode`` dropped (the copies' files are different inodes)."""
+    want, got = pair.call(key, scoped=scoped, args=[
+        json.loads(json.dumps(arg).replace("<tree>", str(t))) for t in pair.trees])
+    want, got = (json.loads(json.dumps(a).replace(str(t), "<tree>"))
+                 for a, t in zip((want, got), pair.trees))
+    want, got = (json.loads(json.dumps(a), object_hook=lambda d: {
+        k: v for k, v in d.items() if k != "inode"}) for a in (want, got))
+    assert got == want, f"{key} {arg}"
+    return got
+
+
+def test_files_mutations_and_fs_jobs_match_jax(fs_pair):
+    pair = fs_pair
+    fid = {name: pair.port.libraries.get(pair.libs[1]).db.query(
+        "SELECT id FROM file_path WHERE name = ?", [name])[0]["id"]
+        for name in ("note0", "note1", "note2", "sub", "big_a", "near", "deep")}
+    fs_same(pair, "files.renameFile", {"file_path_id": fid["note0"], "new_name": "Renamed.MD"})
+    fs_same(pair, "files.renameFile", {"file_path_id": fid["sub"], "new_name": "sub2"})
+    fs_same(pair, "files.getPath", fid["deep"])
+    fs_same(pair, "files.renameFile", {"file_path_id": fid["note1"], "new_name": "note2.txt"})
+    fs_same(pair, "files.renameFile", {"file_path_id": fid["note1"], "new_name": "a/b"})
+    for _ in range(2):
+        fs_same(pair, "files.createDirectory", {"location_id": 1, "sub_path": "sub2"})
+    fs_same(pair, "files.createFile", {"location_id": 1, "name": "new.txt"})
+    fs_same(pair, "files.createFile", {"location_id": 1, "name": "new.txt"})
+    fs_same(pair, "files.copyFiles", {"sources": [fid["big_a"], fid["sub"]],
+                                      "target_location_id": 1, "target_dir": ""})
+    pair.wait()
+    fs_same(pair, "files.duplicateFiles", {"sources": [fid["note2"], fid["deep"]]})
+    pair.wait()
+    fs_same(pair, "files.cutFiles", {"sources": [fid["near"]], "target_location_id": 1,
+                                     "target_dir": "sub2/New Folder"})
+    pair.wait()
+    fs_same(pair, "search.paths", {"include_hidden": True, "take": 100})
+    fs_same(pair, "files.deleteFiles", {"sources": [fid["note2"]]})
+    fs_same(pair, "files.eraseFiles", {"sources": [fid["big_a"]], "passes": 1})
+    pair.wait()
+    got = fs_same(pair, "search.paths", {"include_hidden": True, "take": 100})
+    names = {(i["materialized_path"], i["name"]) for i in got["items"]}
+    assert ("/", "Renamed") in names and ("/sub2/", "New Folder (2)") in names
+    assert ("/", "big_a (2)") in names and ("/", "sub2 (2)") in names
+    assert ("/", "note2") not in names and ("/", "big_a") not in names
+    assert not (pair.trees[1] / "big_a.bin").exists()
+    # the fs jobs' reports, each metadata without the reference's telemetry
+    # trace (the scan's reports are compared in test_job_reports_match_jax)
+    want, got = ([r for r in rs if r["name"].startswith("file_")]
+                 for rs in pair.call("jobs.reports", scoped=True))
+    reports = [r for rs in (want, got) for r in rs]
+    while reports:
+        r = reports.pop()
+        r["metadata"].pop("trace", None)
+        reports += r.get("children", [])
+    assert got == want and {r["name"] for r in got} == {
+        "file_copier", "file_cutter", "file_deleter", "file_eraser"}

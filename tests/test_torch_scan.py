@@ -30,6 +30,7 @@ from spacedrive_tpu.objects.file_identifier import FileIdentifierJob as JaxIdent
 from spacedrive_tpu_torch.jobs import JobStatus
 from spacedrive_tpu_torch.locations import create_location, scan_location
 from spacedrive_tpu_torch.node import Node
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -99,7 +100,7 @@ def jax_scan(data_dir, tree):
 
 
 def port_scan(data_dir, tree):
-    node = Node(data_dir, device="cpu")
+    node = Node(data_dir, device="cpu", watch_locations=False)
     try:
         lib = node.libraries.create("port")
         loc = create_location(lib, tree)
@@ -200,14 +201,23 @@ SCAN_MODULES = ("spacedrive_tpu_torch.faults", "spacedrive_tpu_torch.native",
                 "spacedrive_tpu_torch.api.routers.notifications", "spacedrive_tpu_torch.statistics",
                 "spacedrive_tpu_torch.notifications", "spacedrive_tpu_torch.objects.tags",
                 "spacedrive_tpu_torch.locations.non_indexed", "spacedrive_tpu_torch.server.shell",
-                "spacedrive_tpu_torch.server.http")
+                "spacedrive_tpu_torch.server.http",
+                # the live library: the watcher, the fs jobs and their
+                # routers, backups and the boot gate
+                "spacedrive_tpu_torch.locations.watcher", "spacedrive_tpu_torch.objects.fs",
+                "spacedrive_tpu_torch.api.routers.files", "spacedrive_tpu_torch.api.routers.backups",
+                "spacedrive_tpu_torch.api.routers.nodes", "spacedrive_tpu_torch.api.routers.volumes",
+                "spacedrive_tpu_torch.api.routers.preferences",
+                "spacedrive_tpu_torch.api.routers.categories", "spacedrive_tpu_torch.backups",
+                "spacedrive_tpu_torch.recovery", "spacedrive_tpu_torch.volumes",
+                "spacedrive_tpu_torch.preferences")
 
 
 def test_port_scan_loads_no_jax(tmp_path):
     """A whole port scan in a fresh interpreter (its native gather, its
     media processor on a PNG and its near-duplicate job on two copies over
-    100 KiB included), then a search served by the server shell over HTTP,
-    leaves jax unimported."""
+    100 KiB included, the location watched), then a search served by the
+    server shell over HTTP, leaves jax unimported."""
     from PIL import Image
 
     (tmp_path / "t").mkdir()
@@ -223,7 +233,7 @@ def test_port_scan_loads_no_jax(tmp_path):
         "from spacedrive_tpu_torch.native import cas_native\n"
         "from spacedrive_tpu_torch.server import Server\n"
         "import json, urllib.request\n"
-        f"node = Node({str(tmp_path / 'd')!r}, device='cpu')\n"
+        f"node = Node({str(tmp_path / 'd')!r}, device='cpu', watch_locations=True)\n"
         "lib = node.libraries.create('x')\n"
         f"loc = create_location(lib, {str(tmp_path / 't')!r})\n"
         "scan_location(lib, loc['id'])\n"

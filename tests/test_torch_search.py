@@ -41,6 +41,7 @@ from spacedrive_tpu_torch.node import Node
 from spacedrive_tpu_torch.search import columnar, kernels
 from spacedrive_tpu_torch.search.engine import SearchEngine
 from tests.torch_search_cases import seeded_values, value_rows
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 MATRIX = [
     {"search": "file000", "take": 50},
@@ -365,7 +366,7 @@ def both_nodes(tmp_path_factory):
     mp.setenv("SD_P2P_DISABLED", "1")
     base = tmp_path_factory.mktemp("search")
     jax_node = JaxNode(base / "jax", probe_accelerator=False, watch_locations=False)
-    port_node = Node(base / "port", device="cpu")
+    port_node = Node(base / "port", device="cpu", watch_locations=False)
     try:
         jax_lib = jax_node.libraries.create("search")
         seed(jax_lib.db, JaxLocation, JaxObject, JaxFilePath, jax_lib.instance_id)
@@ -422,14 +423,14 @@ def test_port_engine_served_the_matrix(both_nodes):
 @pytest.fixture()
 def port_node(tmp_path, monkeypatch):
     monkeypatch.setenv("SD_SEARCH_ENGINE", "device")
-    node = Node(tmp_path / "data", device="cpu")
+    node = Node(tmp_path / "data", device="cpu", watch_locations=False)
     yield node
     node.shutdown()
 
 
 def test_engine_is_off_unless_armed(tmp_path, monkeypatch):
     monkeypatch.delenv("SD_SEARCH_ENGINE", raising=False)
-    node = Node(tmp_path / "data", device="cpu")
+    node = Node(tmp_path / "data", device="cpu", watch_locations=False)
     try:
         assert node.search_engine is None
     finally:

@@ -30,6 +30,7 @@ from spacedrive_tpu_torch.search import columnar, kernels
 from tests.test_torch_search import LOADER_ROWS, loader_rows
 from tests.torch_search_cases import (WARP, birthday_pair, seeded_values, substring_cases,
                                       value_rows)
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 # the kernels' launch constants (csrc/search.cu)
 MAX_NEEDLE = 48

@@ -32,6 +32,7 @@ from spacedrive_tpu_torch.objects.media.thumbnail import thumbnail_path
 from spacedrive_tpu_torch.server import Server
 from spacedrive_tpu_torch.server import http
 from tests.torch_serve_client import WsClient, get, post, rspc, rspc_get
+from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -173,7 +174,7 @@ def served(tmp_path_factory):
     (tree / "doc.txt").write_bytes(blob(1, 5000))
     pixels = np.frombuffer(blob(2, 600 * 800 * 3), np.uint8).reshape(600, 800, 3)
     Image.fromarray(pixels).save(tree / "photo.png")
-    node = Node(base / "data", device="cpu")
+    node = Node(base / "data", device="cpu", watch_locations=False)
     server = Server(node, "127.0.0.1", 0)
     server.start()
     url = f"http://127.0.0.1:{server.port}"

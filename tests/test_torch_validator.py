@@ -37,7 +37,7 @@ from spacedrive_tpu_torch.objects import blake3_ref
 from spacedrive_tpu_torch.objects.file_identifier import FileIdentifierJob
 from spacedrive_tpu_torch.objects.validator import ObjectValidatorJob, full_file_hashes
 from spacedrive_tpu_torch.ops import blake3 as b3
-from tests.torch_scan_cases import blob
+from tests.torch_scan_cases import blob, one_torch_thread  # noqa: F401
 
 W, F = 4, 4
 K = 1024
@@ -177,7 +177,7 @@ def both(tmp_path_factory):
     base = tmp_path_factory.mktemp("validate")
     tree = make_tree(base / "tree")
     jnode = JaxNode(base / "jax", probe_accelerator=False, watch_locations=False)
-    pnode = Node(base / "port", device="cpu")
+    pnode = Node(base / "port", device="cpu", watch_locations=False)
     jlib, plib = jnode.libraries.create("jax"), pnode.libraries.create("port")
     jloc, ploc = jax_create_location(jlib, tree), create_location(plib, tree)
     for node, lib, loc, jobs in ((jnode, jlib, jloc, (JaxIndexerJob, JaxIdentifierJob)),

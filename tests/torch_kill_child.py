@@ -5,9 +5,9 @@ as a child process (no jax)::
 
     python tests/torch_kill_child.py <data_dir> <tree> <fault spec> <batch> <group> [device]
 
-It boots ``Node(data_dir, device=device)`` (``cpu`` by default; the
-on-card test passes ``cuda``), indexes ``tree`` into a new
-library, plants a stale ``*.sd-tmp`` file in the node's thumbnail cache,
+It boots ``Node(data_dir, device=device, watch_locations=False)``
+(``cpu`` by default; the on-card test passes ``cuda``), indexes ``tree``
+into a new library, plants a stale ``*.sd-tmp`` file in the node's thumbnail cache,
 arms ``<fault spec>`` (a ``kill`` rule) and identifies the location with
 ``<batch>``-file pages and ``<group>``-page commit groups. The armed seam
 SIGKILLs the process mid-identify; if it never fires, the child exits 3.
@@ -32,7 +32,7 @@ def main() -> int:
     from spacedrive_tpu_torch.objects import file_identifier as fi
 
     fi.BATCH_SIZE = int(batch)
-    node = Node(data_dir, device=device)
+    node = Node(data_dir, device=device, watch_locations=False)
     lib = node.libraries.create("kill")
     loc_id = create_location(lib, tree)["id"]
     node.jobs.spawn(lib, [IndexerJob({"location_id": loc_id})])

@@ -4,11 +4,28 @@ scan tests, without jax: the on-card tests import it too.
 ``rows_of`` is the comparison of ``tests/test_torch_scan.py``:
 ``(materialized_path, name, extension, size, cas_id, kind)`` per path, the
 grouping of files into objects, and the manifest rows per cas_id.
+
+``one_torch_thread`` is an autouse module fixture for the modules that
+import it: their tests run torch's CPU ops on one intra-op thread. Under a
+parallel run every worker's OpenMP pool would otherwise spin on every core,
+and a large tensor op then waits on threads the other workers preempted (a
+MinHash comparison that takes 1 s alone took 49 s beside eight busy
+processes).
 """
 
 from pathlib import Path
 
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def blob(seed: int, n: int) -> bytes:
