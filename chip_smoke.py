@@ -176,16 +176,35 @@ no result line):
    pages of its database overwritten: the next boot's gate quarantines the
    file and restores the backup (its rows come back, a notification is
    pushed), and without a backup starts a fresh database;
-11. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
+11. CRDT sync, after phase 10, on two new nodes on the card in one process
+   with the ``syncEmitMessages`` feature flag on (``toggleFeatureFlag``):
+   (a) each scans its own 16 of phase 4's directories (hard links, 4,096
+   files, manifests on, preview media off) at the same time while an
+   ``Actor`` on each pulls the other's operations at 1 lane; the rows of
+   both libraries must be equal, every cas_id phase 4's, and both BLAKE3
+   kernels and Gear must have launched for each scan (counted by origin);
+   every library's orphan remover ticks every ``SYNC_GC_TICK_S`` all
+   phase long, so ticks fall inside the pull rounds, which they must wait
+   for; (b) two fresh libraries pull the whole log, one at 1 lane and one
+   at 4 (``SD_SYNC_INGEST_LANES``), to the same rows, each timed; (c)
+   concurrent edits (a note on both, a tag
+   against a delete, a rename against a favorite) end equal on both, the
+   note the HLC's last write; (d) each node's ``search.paths`` on rows the
+   other scanned equals the SQL answer and launches the three search
+   kernels; the phase fails past 90 s;
+12. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
    the resize's times, calls on the path, CUDA kernels a call, and bounds),
    the card, the ``{"kernels": [...]}`` line (each kernel's
-   ``launches_serving`` counted in phase 9, and the BLAKE3 and Gear
-   kernels' ``launches_watcher`` from the watcher thread in phase 10), then
-   the ``{"ok": true, ...}`` line.
+   ``launches_serving`` counted in phase 9, the BLAKE3 and Gear kernels'
+   ``launches_watcher`` from the watcher thread in phase 10, and every
+   kernel's ``launches_sync`` in phase 11), then the ``{"ok": true, ...}``
+   line.
 
 ``--live`` builds the kernels and runs phase 10 alone: it prints the card
 and a ``{"live_library": {...}}`` line, never the ``{"ok": true, ...}``
-line.
+line. ``--sync`` builds them, writes phase 4's tree, scans it once for its
+cas_ids and runs phase 11 alone: it prints the card and a ``{"sync":
+{...}}`` line, never the ok line.
 """
 
 from __future__ import annotations
@@ -4557,6 +4576,373 @@ def live_library_phase(seed: int, card: str) -> dict:
             "ops_s": op_s, "gate": gate}
 
 
+# --------------------------------------------------------------------------
+# phase 11: CRDT sync between two card nodes
+# --------------------------------------------------------------------------
+
+#: directories a side: A takes the first 16 of the tree's (the one phase 7
+#: changed left out), B the next 16; 4,096 files each, as hard links
+SYNC_DIRS = 16
+#: files in each of the tree's directories
+N_FILES_A_DIR = (N_SMALL + N_MEDIUM + N_LARGE) // N_DIRS
+#: the date range of the cross-search: every date a scan writes
+SYNC_DATES = ["2000-01-01T00:00:00+00:00", "2100-01-01T00:00:00+00:00"]
+#: the orphan removers' tick in phase 11 (a library's default is a minute)
+SYNC_GC_TICK_S = 0.5
+
+
+def sync_tree(tree_dir: Path, side: str, dirs: list[int]) -> Path:
+    root = WORK / "sync" / side
+    for d in dirs:
+        (root / f"d{d:02d}").mkdir(parents=True)
+        for p in (tree_dir / f"d{d:02d}").iterdir():
+            os.link(p, root / f"d{d:02d}" / p.name)
+    return root
+
+
+def sync_pull(libs: dict, lanes: int, live: bool = False) -> dict:
+    """An Actor on each library of ``libs`` ({side: (library, peer)})
+    pulling the peer's operations at ``lanes`` lanes; ``live``: each is
+    woken by its peer's commits."""
+    from spacedrive_tpu_torch.sync import Actor, SyncMessage
+
+    os.environ["SD_SYNC_INGEST_LANES"] = str(lanes)
+    actors = {}
+    for side, (lib, peer) in libs.items():
+        actors[side] = Actor(lib, transport=lambda clocks, n, p=peer: p.sync.get_ops(clocks, n))
+        if live:
+            peer.sync.subscribe(lambda msg, a=actors[side]: (
+                a.notify() if msg == SyncMessage.CREATED else None))
+    return actors
+
+
+def sync_gc(lib, seen: dict) -> None:
+    """Replace ``lib``'s orphan remover by one that ticks every
+    ``SYNC_GC_TICK_S``, its ticks and removals summed into ``seen``."""
+    from spacedrive_tpu_torch.objects.gc import OrphanRemoverActor
+
+    lib.orphan_remover.stop()
+    remover = OrphanRemoverActor(lib, tick_interval=SYNC_GC_TICK_S, debounce=0.0)
+    clean_up = remover.process_clean_up
+
+    def counted() -> int:
+        removed = clean_up()
+        seen["ticks"] += 1
+        seen["removed"] += removed
+        return removed
+
+    remover.process_clean_up = counted
+    lib.orphan_remover = remover
+
+
+def sync_settle(actors: dict, what: str) -> None:
+    for side, actor in actors.items():
+        actor.notify()
+    for side, actor in actors.items():
+        try:
+            if not actor.wait_idle(120):
+                fail(f"sync: {what}: the actor of {side} did not settle within 120 s")
+        except RuntimeError as e:
+            fail(f"sync: {what}: the actor of {side} raised: {e.__cause__!r}")
+
+
+def sync_compare(a, b, what: str) -> dict:
+    from tests.torch_sync_cases import synced_rows
+
+    ra, rb = synced_rows(a.db), synced_rows(b.db)
+    if ra != rb:
+        only_a, only_b = sorted(ra.keys() - rb.keys()), sorted(rb.keys() - ra.keys())
+        differ = sorted(k for k in ra.keys() & rb.keys() if ra[k] != rb[k])
+        fail(f"sync: {what}: rows differ: {len(only_a)} only in {a.name} (e.g. {only_a[:2]}), "
+             f"{len(only_b)} only in {b.name} (e.g. {only_b[:2]}), {len(differ)} differ "
+             f"(e.g. {[(k, ra[k], rb[k]) for k in differ[:1]]})")
+    return ra
+
+
+def sync_ops(lib) -> int:
+    """Operations this library's own instance logged."""
+    return sum(lib.db.query(f"SELECT COUNT(*) AS n FROM {t} WHERE instance_id = ?",
+                            [lib.instance_id])[0]["n"]
+               for t in ("shared_operation", "relation_operation"))
+
+
+def sync_reference(seed: int) -> tuple[dict, int]:
+    """``--sync`` alone: phase 4's tree and its cas_ids from one scan on a
+    card node (no directory left out)."""
+    from spacedrive_tpu_torch.node import Node
+
+    write_tree(WORK / "tree", seed)
+    os.environ["SD_CHUNK_MANIFESTS"] = "1"
+    node = Node(WORK / "reference", watch_locations=False)
+    try:
+        from spacedrive_tpu_torch.locations import scan_location
+
+        lib = node.libraries.create("reference")
+        scan_location(lib, identify_location(lib, WORK / "tree")["id"])
+        if not node.jobs.wait_idle(600):
+            fail("sync: the reference scan did not finish")
+        rows = {(r["materialized_path"], r["name"], r["extension"]): dict(r) for r in lib.db.query(
+            "SELECT * FROM file_path WHERE is_dir = 0")}
+    finally:
+        node.shutdown()
+    return rows, -1
+
+
+def sync_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str) -> dict:
+    """Phase 11: two nodes on the card, emission on through the
+    ``syncEmitMessages`` feature flag, scan their halves at once while
+    each pulls the other's operations (1 lane), the orphan removers
+    ticking; then two fresh libraries pull the whole log, at 1 lane and at
+    4; then concurrent edits; then each node searches the rows the other
+    scanned."""
+    import torch
+
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.models import FilePath, Location, Object
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects.file_identifier import FileIdentifierJob
+    from spacedrive_tpu_torch.ops import _kernels
+    from spacedrive_tpu_torch.p2p import identity
+    from tests.torch_sync_cases import pair_libraries
+
+    t_phase = time.perf_counter()
+    dirs = [d for d in range(N_DIRS) if d != skip_dir]
+    halves = {"A": dirs[:SYNC_DIRS], "B": dirs[SYNC_DIRS:2 * SYNC_DIRS]}
+    roots = {side: sync_tree(tree_dir, side, ds) for side, ds in halves.items()}
+    link_s = time.perf_counter() - t_phase
+    os.environ["SD_CHUNK_MANIFESTS"] = "1"
+    os.environ["SD_SEARCH_ENGINE"] = "device"
+    for knob in ("SD_PIPELINE", "SD_PIPELINE_DEPTH", "SD_SCAN_SHARDS", "SD_COMMIT_GROUP",
+                 "SD_SCAN_BATCH", "SD_SCAN_ADAPT", "SD_SYNC_INGEST_LANES"):
+        os.environ.pop(knob, None)
+    # each identify batch's launches counted under its library's name
+    process = FileIdentifierJob.pipeline_process
+
+    def counted_process(self, ctx, data, batch):
+        with _kernels.origin(f"scan:{ctx.library.name}"):
+            return process(self, ctx, data, batch)
+
+    FileIdentifierJob.pipeline_process = counted_process
+    nodes: dict = {}
+    actors: list = []
+    gc_seen = {"ticks": 0, "removed": 0}
+    try:
+        for side in halves:
+            node = Node(WORK / "sync" / f"data-{side}", watch_locations=False)
+            if node.router.resolve("toggleFeatureFlag", "syncEmitMessages") is not True:
+                fail("sync: toggleFeatureFlag did not turn syncEmitMessages on")
+            nodes[side] = node
+        libs = {side: nodes[side].libraries.create(side) for side in halves}
+        for lib in libs.values():
+            if not lib.sync.emit_messages:
+                fail(f"sync: library {lib.name} does not emit with the feature flag on")
+            sync_gc(lib, gc_seen)
+        pair_libraries(libs["A"], libs["B"])
+        locs = {}
+        for side, lib in libs.items():
+            loc = create_location(lib, roots[side])
+            lib.sync.write_ops(
+                [lib.sync.shared_update(Location, loc["pub_id"], "generate_preview_media", False)],
+                lambda db, i=loc["id"]: db.update(Location, {"id": i},
+                                                  {"generate_preview_media": False}))
+            locs[side] = loc
+
+        # (a) the concurrent scans, each side pulling the other's operations live
+        pull1 = sync_pull({"A": (libs["A"], libs["B"]), "B": (libs["B"], libs["A"])}, 1,
+                          live=True)
+        actors += pull1.values()
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        t0 = time.perf_counter()
+        for side, lib in libs.items():
+            scan_location(lib, locs[side]["id"])
+        for side, node in nodes.items():
+            if not node.jobs.wait_idle(300):
+                fail(f"sync: the scan of {side} did not finish")
+        t_scans = time.perf_counter()
+        scans_s = t_scans - t0
+        sync_settle(pull1, "after the scans")
+        converge_1 = time.perf_counter() - t_scans
+        torch.cuda.synchronize()
+        launches_scan = {side: {k: _kernels.LAUNCHES_BY_ORIGIN.get((k, f"scan:{side}"), 0)
+                                for k in SCAN_KERNELS} for side in halves}
+        scan_totals = kernel_counts(SCAN_KERNELS)
+        for side, counts in launches_scan.items():
+            for k, n in counts.items():
+                if not n:
+                    fail(f"sync: the scan of {side} never launched {k}")
+        if any(_kernels.PLAIN_ON_CUDA.values()):
+            fail(f"sync: plain versions ran on the card: {dict(_kernels.PLAIN_ON_CUDA)}")
+        jobs = [dict(r) for lib in libs.values() for r in lib.db.query(
+            "SELECT name, status, errors_text FROM job")]
+        if any(j["status"] not in (2, 6) for j in jobs):
+            fail(f"sync: scan jobs ended {[j for j in jobs if j['status'] not in (2, 6)]}")
+        logged = {side: sync_ops(lib) for side, lib in libs.items()}
+        pulled_1 = {side: a.pulled for side, a in pull1.items()}
+        rate_1 = {side: a.pulled / a.ingest_s if a.ingest_s else None for side, a in pull1.items()}
+        rows = sync_compare(libs["A"], libs["B"], "after the scans, 1 lane")
+        files = {k: r for k, r in rows.items() if k[0] == "file_path" and not r["is_dir"]}
+        by_path = {(r["materialized_path"], r["name"], r["extension"]): r["cas_id"]
+                   for r in files.values()}
+        differ = [k for k, cas in by_path.items() if phase4_rows[k]["cas_id"] != cas]
+        if len(files) != 2 * SYNC_DIRS * N_FILES_A_DIR or differ:
+            fail(f"sync: {len(files)} files after the scans, {len(differ)} cas_ids differ from "
+                 f"phase 4's, e.g. {differ[:2]}")
+        gc_scans = dict(gc_seen)
+        log(f"sync (phase 11a) on {card}: instance identities by {identity.ROUTE}; "
+            f"{SYNC_DIRS} directories a side as hard links ({link_s:.2f} s); both scans "
+            f"{scans_s:.2f} s at once; operations logged A {logged['A']}, B {logged['B']}; "
+            f"ingested live, 1 lane: A {pulled_1['A']} from B, B {pulled_1['B']} from A, "
+            f"{json.dumps({s: None if r is None else round(r) for s, r in rate_1.items()})} "
+            f"ops/s of ingest; rows equal {converge_1:.2f} s after both scans ended; "
+            f"{len(files)} files, every cas_id equal to phase 4's; launches by origin "
+            f"{json.dumps(launches_scan)} (all {json.dumps(scan_totals)}); orphan removers "
+            f"ticked {gc_scans['ticks']} times, removed {gc_scans['removed']}")
+
+        # (b) two fresh libraries on A's node pull the whole log from B, at 1
+        # lane and at 4
+        catch_up = {}
+        for lanes in (1, 4):
+            fresh = nodes["A"].libraries.create(f"A{lanes}")
+            sync_gc(fresh, gc_seen)
+            pair_libraries(fresh, libs["B"])
+            fresh.add_remote_instance(libs["A"].instance())
+            t0 = time.perf_counter()
+            pull = sync_pull({f"A{lanes}": (fresh, libs["B"])}, lanes)
+            actor = pull[f"A{lanes}"]
+            actors.append(actor)
+            sync_settle(pull, f"{lanes} lanes")
+            catch_up[lanes] = {"ops": actor.pulled, "converge_s": time.perf_counter() - t0,
+                               "ops_s": actor.pulled / actor.ingest_s if actor.ingest_s else None}
+            pool = fresh.__dict__.get("_ingest_lanes")
+            if lanes == 4 and (pool is None or pool.lanes != 4 or not all(pool.ops_by_lane)):
+                fail(f"sync: the 4-lane pull did not spread over 4 lanes: "
+                     f"{pool and pool.ops_by_lane}")
+            if lanes == 1 and pool is not None:
+                fail("sync: the 1-lane pull made a lane pool")
+            catch_up[lanes]["ops_by_lane"] = pool.ops_by_lane if pool else [actor.pulled]
+            sync_compare(fresh, libs["B"], f"the {lanes}-lane library")
+        pulled_4, rate_4, converge_4 = (catch_up[4][k] for k in ("ops", "ops_s", "converge_s"))
+        if catch_up[1]["ops"] != pulled_4:
+            fail(f"sync: the 1-lane and 4-lane libraries pulled {catch_up[1]['ops']} and "
+                 f"{pulled_4} ops of one log")
+        log(f"sync (phase 11b): two fresh libraries on A's node pull the whole log from B, "
+            f"{pulled_4} ops each: 1 lane {round(catch_up[1]['ops_s'] or 0)} ops/s of ingest, "
+            f"rows equal B's {catch_up[1]['converge_s']:.2f} s after its pull began; 4 lanes "
+            f"{round(rate_4 or 0)} ops/s, {converge_4:.2f} s, ops by lane "
+            f"{json.dumps(catch_up[4]['ops_by_lane'])}")
+        os.environ["SD_SYNC_INGEST_LANES"] = "1"
+
+        # (c) concurrent edits, then the same pull loops
+        a, b = libs["A"], libs["B"]
+
+        def local_id(lib, model, pub: str) -> int:
+            return lib.db.find_one(model, {"pub_id": pub})["id"]
+
+        singles = [dict(r) for r in a.db.query(
+            "SELECT fp.pub_id AS fp_pub, fp.location_id AS loc, o.pub_id AS obj_pub "
+            "FROM file_path fp JOIN object o ON fp.object_id = o.id WHERE fp.is_dir = 0 "
+            "AND (SELECT COUNT(*) FROM file_path x WHERE x.object_id = o.id) = 1 "
+            "ORDER BY fp.materialized_path, fp.name")]
+        mine = {side: [s for s in singles if s["loc"] == local_id(a, Location, locs[side]["pub_id"])]
+                for side in halves}
+        noted, doomed, renamed = mine["A"][0], mine["B"][1], mine["A"][2]
+        t0 = time.perf_counter()
+        for lib, text in ((a, "note from A"), (b, "note from B")):
+            lib.node.router.resolve("files.setNote", {"object_id": local_id(
+                lib, Object, noted["obj_pub"]), "note": text}, lib.id)
+        tag = a.node.router.resolve("tags.create", {"name": "synced-red", "color": "#f00"}, a.id)
+        a.node.router.resolve("tags.assign", {"tag_id": tag["id"], "object_ids": [
+            local_id(a, Object, doomed["obj_pub"])]}, a.id)
+        b.node.router.resolve("files.deleteFiles", {"sources": [
+            local_id(b, FilePath, doomed["fp_pub"])]}, b.id)
+        a.node.router.resolve("files.renameFile", {"file_path_id": local_id(
+            a, FilePath, renamed["fp_pub"]), "new_name": "renamed-by-A.bin"}, a.id)
+        b.node.router.resolve("files.setFavorite", {"object_id": local_id(
+            b, Object, renamed["obj_pub"]), "favorite": True}, b.id)
+        for node in nodes.values():
+            if not node.jobs.wait_idle(60):
+                fail("sync: the edits' jobs did not finish")
+        sync_settle(pull1, "after the edits")
+        gc = {side: lib.orphan_remover.process_clean_up() for side, lib in libs.items()}
+        edits_s = time.perf_counter() - t0
+        rows = sync_compare(a, b, "after the concurrent edits")
+        notes = [dict(r) for lib in (a, b) for r in lib.db.query(
+            "SELECT timestamp, id, data FROM shared_operation WHERE model = 'object' AND "
+            "record_id = ? AND kind = 'u:note' AND instance_id = (SELECT id FROM instance "
+            "WHERE id = ?)", [noted["obj_pub"], lib.instance_id])]
+        winner = json.loads(max(notes, key=lambda r: (r["timestamp"], r["id"]))["data"])
+        obj = rows[("object", noted["obj_pub"])]
+        if len(notes) != 2 or obj["note"] != winner:
+            fail(f"sync: the concurrent notes ended {obj['note']!r}; the HLC's last write is "
+                 f"{winner!r} ({len(notes)} notes logged)")
+        if ("object", doomed["obj_pub"]) in rows or ("file_path", doomed["fp_pub"]) in rows:
+            fail("sync: the object B deleted while A tagged it survived")
+        tags = [r for k, r in rows.items() if k[0] == "tag" and r["name"] == "synced-red"]
+        links = [k for k in rows if k[0] == "tag_on_object"]
+        if len(tags) != 1 or links:
+            fail(f"sync: the tag on the deleted object ended {tags} with links {links}")
+        fp = rows[("file_path", renamed["fp_pub"])]
+        if (fp["name"], fp["extension"]) != ("renamed-by-A", "bin") or \
+                not rows[("object", renamed["obj_pub"])]["favorite"]:
+            fail(f"sync: the renamed file ended {fp['name']}.{fp['extension']}, favorite "
+                 f"{rows[('object', renamed['obj_pub'])]['favorite']}")
+        log(f"sync (phase 11c): concurrent edits converged in {edits_s:.2f} s (pulled, a last "
+            f"GC tick removed {json.dumps(gc)}; every tick of the phase removed "
+            f"{gc_seen['removed']} in {gc_seen['ticks']}): the note is {winner!r} on both (the later HLC stamp), "
+            f"the object B deleted is gone on both with its tag link, A's rename and B's "
+            f"favorite both kept")
+
+        # (d) each node searches the rows the other scanned
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        searched = {}
+        for side, other in (("A", "B"), ("B", "A")):
+            node, lib = nodes[side], libs[side]
+            other_loc = local_id(lib, Location, locs[other]["pub_id"])
+            name = min(k[1] for k in by_path if k[0] == f"/d{halves[other][1]:02d}/")
+            queries = [{"search": name, "take": 100},
+                       {"location_id": other_loc, "materialized_path": f"/d{halves[other][0]:02d}/",
+                        "date_range": SYNC_DATES, "take": 500}]
+            node.search_engine.refresh_now(lib)
+            for arg in queries:
+                node.search_engine.set_enabled(False)
+                sql = node.router.resolve("search.paths", arg, lib.id)
+                node.search_engine.set_enabled(True)
+                got = node.router.resolve("search.paths", arg, lib.id)
+                if got != sql or not sql["items"] or any(
+                        i["location_id"] != other_loc for i in sql["items"]):
+                    fail(f"sync: {side}'s search.paths {arg} on {other}'s rows: "
+                         f"{len(got['items'])} items against SQL's {len(sql['items'])}")
+                searched[f"{side}:{'name' if 'search' in arg else 'directory'}"] = len(sql["items"])
+        torch.cuda.synchronize()
+        launches_search = kernel_counts(SEARCH_KERNELS)
+        for k, n in launches_search.items():
+            if not n:
+                fail(f"sync: the cross-search never launched {k}")
+        log(f"sync (phase 11d): each node's search.paths on the other's rows equals SQL "
+            f"({json.dumps(searched)} items); launches {json.dumps(launches_search)}")
+        for actor in actors:
+            actor.stop()
+    finally:
+        FileIdentifierJob.pipeline_process = process
+        os.environ.pop("SD_SYNC_INGEST_LANES", None)
+        for node in nodes.values():
+            node.shutdown()
+        shutil.rmtree(WORK / "sync", ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 11 (sync): {seconds:.1f} s")
+    if seconds > 90:
+        fail(f"phase 11 took {seconds:.1f} s, over its 90 s budget")
+    launches = {**{k: launches_scan["A"][k] + launches_scan["B"][k] for k in SCAN_KERNELS},
+                **launches_search}
+    return {"seconds": seconds, "launches": launches, "launches_scan": launches_scan,
+            "logged": logged, "pulled_1": pulled_1, "pulled_4": pulled_4,
+            "rate_1": rate_1, "rate_4": rate_4, "converge_1_s": converge_1,
+            "converge_4_s": converge_4, "catch_up": catch_up, "gc": gc_seen,
+            "scans_s": scans_s, "identity": identity.ROUTE}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of all generated data")
@@ -4564,6 +4950,9 @@ def main() -> int:
                         help="build, parity and timing only; no main path, no ok line")
     parser.add_argument("--live", action="store_true",
                         help="build, then phase 10 (the live library) only; no ok line")
+    parser.add_argument("--sync", action="store_true",
+                        help="build, write and scan phase 4's tree, then phase 11 (sync) "
+                             "only; no ok line")
     parser.add_argument("--kill-child", nargs=2, metavar=("DATA_DIR", "TREE"),
                         help="phase 8's child process: scan TREE into a Node on DATA_DIR "
                              "until the armed commit seam kills it")
@@ -4627,6 +5016,14 @@ def main() -> int:
         print(card, flush=True)
         print(json.dumps({"live_library": live}), flush=True)
         return 0
+    if args.sync:
+        try:
+            synced = sync_phase(WORK / "tree", *sync_reference(args.seed), card)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        print(card, flush=True)
+        print(json.dumps({"sync": synced}), flush=True)
+        return 0
     try:
         t0 = time.perf_counter()
         corpus = search_corpus()
@@ -4645,6 +5042,8 @@ def main() -> int:
         served = (None if args.kernels else
                   serve_scan_phase(WORK / "tree", main["rows"], main["tampered_dir"], card))
         live = None if args.kernels else live_library_phase(args.seed, card)
+        synced = (None if args.kernels else
+                  sync_phase(WORK / "tree", main["rows"], main["tampered_dir"], card))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -4703,6 +5102,10 @@ def main() -> int:
                 kernels[-1]["launches_by_shape_validator"] = main["validator"]["by_shape"].get(name, {})
             # phase 10: the watcher thread's identify passes
             kernels[-1]["launches_watcher"] = live["launches"].get(name, 0)
+        if main is not None:
+            # phase 11: both nodes' scans (BLAKE3, Gear) and the searches
+            # of the rows the other node's operations brought in
+            kernels[-1]["launches_sync"] = synced["launches"][name]
         if "sass" in t:
             sass = t["sass"] or {}
             kernels[-1]["sass_instructions_per_block"] = sass.get("per_block")

@@ -1,9 +1,11 @@
 """files.* procedures (``spacedrive_tpu/api/routers/files.py``): the object
 and file_path getters, the note, favorite and access-time mutations, rename,
 create, and the launchers of the fs jobs (copy, cut, duplicate, delete,
-erase). ``encryptFiles`` and ``decryptFiles`` are not ported: their jobs
-come with the crypto slice. No sync operation is emitted: the port has no
-sync yet."""
+erase). With sync emitting, ``setNote`` and ``setFavorite`` log the
+object's field update and ``renameFile`` the row's name and extension (and
+each descendant's materialized_path), in the transaction of the write.
+``encryptFiles`` and ``decryptFiles`` are not ported: their jobs come with
+the crypto slice."""
 
 from __future__ import annotations
 
@@ -13,8 +15,17 @@ from ...models import FilePath, MediaData, Object, utc_now
 from ...objects.fs import (FileCopierJob, FileCutterJob, FileDeleterJob, FileEraserJob,
                            create_directory, create_file, file_path_abs, location_path_of)
 from ...objects.media.metadata import extract_media_data
+from ...sync.manager import emitter
 from ..invalidate import invalidate_query
 from ..router import ApiError
+
+
+def _set_object_field(library, object_id: int, field: str, value) -> None:
+    """One object field, with its sync update when sync emits."""
+    obj = _object_of(library, object_id)
+    sync = emitter(library)
+    ops = [] if sync is None else [sync.shared_update(Object, obj["pub_id"], field, value)]
+    library.sync.write_ops(ops, lambda db: db.update(Object, {"id": obj["id"]}, {field: value}))
 
 
 def _object_of(library, object_id: int) -> dict:
@@ -55,15 +66,13 @@ def mount(router) -> None:
 
     @router.library_mutation("files.setNote")
     def set_note(node, library, arg):
-        obj = _object_of(library, arg["object_id"])
-        library.db.update(Object, {"id": obj["id"]}, {"note": arg.get("note")})
+        _set_object_field(library, arg["object_id"], "note", arg.get("note"))
         invalidate_query(library, "search.paths")
         return None
 
     @router.library_mutation("files.setFavorite")
     def set_favorite(node, library, arg):
-        obj = _object_of(library, arg["object_id"])
-        library.db.update(Object, {"id": obj["id"]}, {"favorite": bool(arg.get("favorite"))})
+        _set_object_field(library, arg["object_id"], "favorite", bool(arg.get("favorite")))
         invalidate_query(library, "search.paths")
         return None
 
@@ -95,20 +104,32 @@ def mount(router) -> None:
         stem, dot, ext = new_name.rpartition(".")
         if row["is_dir"] or not dot or not stem:
             stem, ext = new_name, ""
+        sync = emitter(library)
+        ops = []
         with db.transaction():
             db.update(FilePath, {"id": row["id"]}, {"name": stem, "extension": ext.lower()})
+            if sync is not None:
+                ops = [sync.shared_update(FilePath, row["pub_id"], "name", stem),
+                       sync.shared_update(FilePath, row["pub_id"], "extension", ext.lower())]
             if row["is_dir"]:
                 old_prefix = f"{row['materialized_path'] or '/'}{row['name']}/"
                 new_prefix = f"{row['materialized_path'] or '/'}{stem}/"
                 like = (old_prefix.replace("\\", "\\\\")
                         .replace("%", "\\%").replace("_", "\\_")) + "%"
                 children = db.query(
-                    "SELECT id, materialized_path FROM file_path "
+                    "SELECT id, pub_id, materialized_path FROM file_path "
                     "WHERE location_id = ? AND materialized_path LIKE ? ESCAPE '\\'",
                     (row["location_id"], like))
                 for child in children:
                     new_mp = new_prefix + child["materialized_path"][len(old_prefix):]
                     db.update(FilePath, {"id": child["id"]}, {"materialized_path": new_mp})
+                    if sync is not None:
+                        ops.append(sync.shared_update(FilePath, child["pub_id"],
+                                                      "materialized_path", new_mp))
+            if ops:
+                sync.log_ops(ops)
+        if ops:
+            sync.created()
         invalidate_query(library, "search.paths")
         return None
 

@@ -1,6 +1,6 @@
 """libraries.* procedures (``spacedrive_tpu/api/routers/libraries.py``):
-list, statistics, create, edit, delete. A library of the port has no
-instance identity: ``instance_id`` and ``instance_pub_id`` are None."""
+list (with each library's own instance id and pub_id), statistics,
+create, edit, delete."""
 
 from __future__ import annotations
 
@@ -12,7 +12,8 @@ def mount(router) -> None:
     @router.query("libraries.list")
     def list_libraries(node, _arg):
         return [{"id": lib.id, "name": lib.name, "description": lib.description,
-                 "instance_id": None, "instance_pub_id": None}
+                 "instance_id": lib.instance_id,
+                 "instance_pub_id": (lib.instance() or {}).get("pub_id")}
                 for lib in node.libraries.list()]
 
     @router.library_query("libraries.statistics", pool=True)

@@ -1,6 +1,5 @@
 """Root procedures (``spacedrive_tpu/api/routers/root.py``): buildInfo,
-nodeState and the invalidation feed. ``toggleFeatureFlag`` is not ported:
-the port's node config holds no feature flags."""
+nodeState, the invalidation feed and toggleFeatureFlag."""
 
 from __future__ import annotations
 
@@ -31,3 +30,16 @@ def mount(router) -> None:
         """Stream of invalidate_query events, the frontend cache-refresh
         feed."""
         return filtered_subscription(node, {"invalidate_query"})
+
+    @router.mutation("toggleFeatureFlag")
+    def toggle_feature_flag(node, feature: str):
+        """Flip a BackendFeature; returns the new enabled state. The sync
+        flag turns every open library's emission on or off."""
+        from ...config import BackendFeature
+
+        enabled = node.config.toggle_feature(feature)
+        if feature == BackendFeature.SYNC_EMIT_MESSAGES:
+            for library in node.libraries.list():
+                library.sync.emit_messages = enabled
+        node.emit("feature_flags", node.config.get().get("features", []))
+        return enabled

@@ -5,8 +5,11 @@ Counterpart of ``spacedrive_tpu/config.py`` (``NodeConfig`` and
 data dir, holding the node's identity and name, the device inventory the
 node records at boot (``accelerator``: the card's kind and count, or none
 on a CPU node, as the reference records its probe) and the node-level
-notifications. :class:`ConfigManager` reads it under a lock and writes it
-through atomically. p2p keys and the feature flags are not ported.
+notifications, and the runtime feature flags that survive restarts
+(``features``, the reference's :43-115: :class:`BackendFeature`,
+:meth:`ConfigManager.toggle_feature`, :meth:`ConfigManager.has_feature`).
+:class:`ConfigManager` reads it under a lock and writes it through
+atomically. The p2p keys and the config migrator are not ported.
 """
 
 from __future__ import annotations
@@ -27,6 +30,15 @@ FILENAME = "node_state.sdconfig"
 NO_ACCELERATOR = {"kind": None, "devices": 0, "mesh": []}
 
 
+class BackendFeature:
+    """Runtime-toggleable feature flags (the reference's names), each added
+    with the slice that reads it: the reference's ``filesOverP2P`` waits for
+    p2p, and the port has no ``tpuThumbnails`` gate."""
+
+    SYNC_EMIT_MESSAGES = "syncEmitMessages"
+    ALL = (SYNC_EMIT_MESSAGES,)
+
+
 def load_node_config(data_dir: str | Path) -> dict[str, Any]:
     """Read the node config, creating it with defaults on first boot."""
     path = Path(data_dir) / FILENAME
@@ -34,6 +46,7 @@ def load_node_config(data_dir: str | Path) -> dict[str, Any]:
         return json.loads(path.read_text())
     config = {"version": VERSION, "id": str(uuid.uuid4()),
               "name": os.uname().nodename if hasattr(os, "uname") else "spacedrive",
+              "features": [],
               "accelerator": dict(NO_ACCELERATOR)}
     atomic_write_text(path, json.dumps(config, indent=2))
     return config
@@ -54,5 +67,24 @@ class ConfigManager:
     def write(self, **updates: Any) -> dict[str, Any]:
         with self._lock:
             self._data.update(updates)
-            atomic_write_text(self._path, json.dumps(self._data, indent=2))
+            self._save()
             return dict(self._data)
+
+    def _save(self) -> None:
+        atomic_write_text(self._path, json.dumps(self._data, indent=2))
+
+    def toggle_feature(self, feature: str) -> bool:
+        """Flip ``feature``; returns its new state (``toggleFeatureFlag``)."""
+        if feature not in BackendFeature.ALL:
+            raise ValueError(f"unknown feature flag: {feature}")
+        with self._lock:
+            features = set(self._data.get("features", []))
+            enabled = feature not in features
+            (features.add if enabled else features.discard)(feature)
+            self._data["features"] = sorted(features)
+            self._save()
+            return enabled
+
+    def has_feature(self, feature: str) -> bool:
+        with self._lock:
+            return feature in self._data.get("features", [])

@@ -1,34 +1,50 @@
 """Libraries: one SQLite database per library under ``<data_dir>/libraries/``.
 
 Counterpart of ``spacedrive_tpu/library.py`` (``Libraries.create`` :288,
-``edit`` :334, ``delete`` :350), trimmed to what a scan, a search and the
-``libraries.*`` procedures need: the ``<uuid>.sdlibrary`` JSON sidecar with
-the name and description, the ``<uuid>.db`` database with the port's tables,
-``Library.emit`` onto the node's event bus, and each library's
-:class:`.objects.gc.OrphanRemoverActor` (``library.py`` :278-286).
+``edit`` :334, ``delete`` :350), trimmed to what a scan, a search, sync and
+the ``libraries.*`` procedures need: the ``<uuid>.sdlibrary`` JSON sidecar
+with the name, the description and the library's own ``instance_id``, the
+``<uuid>.db`` database with the port's tables, ``Library.emit`` onto the
+node's event bus, and each library's services (``_attach_services``,
+:278-286): its :class:`.sync.SyncManager` (``library.sync``, emitting when
+the node's ``syncEmitMessages`` feature flag is on) and its
+:class:`.objects.gc.OrphanRemoverActor`.
+
+Each library has an ``instance`` row of its own, made at create with a
+fresh ed25519 identity (:mod:`.p2p.identity`); :meth:`Library.instance`
+reads it, and :meth:`Library.add_remote_instance` registers a paired
+peer's (the reference's two-instance tests pair libraries so, by hand).
 :meth:`Libraries.init` sweeps the ``*.sd-tmp*`` debris a kill left in the
 libraries directory and in the node's ``thumbnails`` and ``backups``
 directories before it opens anything (:204-212). Before a database opens,
 the boot gate (:func:`.recovery.ensure_library_integrity`, :219-231) checks
 it and repairs a corrupt one from the newest valid backup under
-``<data_dir>/backups`` (or starts it fresh). Sync, instance identities (a
-library has no ``instance_id``) and the library-manager events are not
-ported.
+``<data_dir>/backups`` (or starts it fresh); a database without the row
+its sidecar's ``instance_id`` names (a fresh repair) gets a new instance
+row and the sidecar is repointed (``_ensure_instance_row``, :242-274). The
+library-manager events are not ported.
 """
 
 from __future__ import annotations
 
 import json
+import logging
+import platform
 import threading
 import uuid
 from pathlib import Path
 from typing import TYPE_CHECKING, Any
 
 from .atomic import atomic_write_text, cleanup_stale_tmp
-from .models import ALL_MODELS, Database
+from .models import ALL_MODELS, Database, Instance, utc_now
 
 if TYPE_CHECKING:
     from .node import Node
+
+logger = logging.getLogger(__name__)
+
+#: an instance row's ``node_platform``: the reference's Platform enum
+_PLATFORMS = {"Windows": 1, "Darwin": 2, "Linux": 3}
 
 
 def validate_library_name(name: str) -> str:
@@ -40,15 +56,16 @@ def validate_library_name(name: str) -> str:
 
 class Library:
     def __init__(self, lib_id: str, name: str, db: Database, node: "Node | None",
-                 description: str = "") -> None:
-        from .objects.gc import OrphanRemoverActor
-
+                 description: str = "", instance_id: int = 0) -> None:
         self.id = lib_id
         self.name = name
         self.description = description
         self.db = db
         self.node = node
-        self.orphan_remover = OrphanRemoverActor(self)
+        #: the id of this library's own row in ``instance``
+        self.instance_id = instance_id
+        self.sync = None  # attached by Libraries._attach_services
+        self.orphan_remover = None
 
     def emit(self, kind: str, payload: Any = None) -> None:
         """An event scoped to this library on the node's bus (none when the
@@ -56,8 +73,27 @@ class Library:
         if self.node is not None:
             self.node.events.emit_kind(kind, payload, library_id=self.id)
 
+    def instance(self) -> dict[str, Any] | None:
+        """This library's own instance row."""
+        return self.db.find_one(Instance, {"id": self.instance_id})
+
+    def add_remote_instance(self, instance_row: dict[str, Any]) -> int:
+        """Register a paired peer's instance row (its local id is dropped);
+        returns the row's id here. An instance already known keeps its row."""
+        row = {k: v for k, v in instance_row.items() if k != "id"}
+        row.setdefault("last_seen", utc_now())
+        row.setdefault("date_created", utc_now())
+        existing = self.db.find_one(Instance, {"pub_id": row["pub_id"]})
+        if existing is not None:
+            return existing["id"]
+        return self.db.insert(Instance, row)
+
     def close(self) -> None:
-        self.orphan_remover.stop()
+        if self.orphan_remover is not None:
+            self.orphan_remover.stop()
+        pool = self.__dict__.pop("_ingest_lanes", None)
+        if pool is not None:  # the partitioned ingest lanes (sync/lanes.py)
+            pool.close()
         self.db.close()
 
 
@@ -108,11 +144,60 @@ class Libraries:
             self.dir, lib_id,
             backups_path=self.node.data_dir / "backups" if self.node is not None else None,
             node=self.node)
-        library = Library(lib_id, name, Database(self.dir / f"{lib_id}.db", ALL_MODELS),
-                          self.node, description)
+        db = Database(self.dir / f"{lib_id}.db", ALL_MODELS)
+        cfg_path = self.dir / f"{lib_id}.sdlibrary"
+        cfg = json.loads(cfg_path.read_text()) if cfg_path.exists() else {}
+        instance_id = self._ensure_instance_row(lib_id, name, description,
+                                                cfg.get("instance_id", 0), db)
+        library = Library(lib_id, name, db, self.node, description, instance_id)
+        self._attach_services(library)
         with self._lock:
             self._libraries[lib_id] = library
         return library
+
+    def _new_instance_row(self, db: Database) -> int:
+        """This node's instance row in ``db``, with a fresh identity."""
+        from .p2p.identity import Identity, encode_identity
+
+        node_cfg = self.node.config.get() if self.node is not None else {}
+        seed = node_cfg.get("keypair_seed")
+        return db.insert(Instance, {
+            "pub_id": str(uuid.uuid4()),
+            "identity": encode_identity(Identity()),
+            "node_remote_identity": (Identity.from_seed(seed).to_remote_identity().encode()
+                                     if seed else None),
+            "node_id": node_cfg.get("id", str(uuid.uuid4())),
+            "node_name": node_cfg.get("name", "node"),
+            "node_platform": _PLATFORMS.get(platform.system(), 0),
+            "last_seen": utc_now(),
+            "date_created": utc_now(),
+        })
+
+    def _ensure_instance_row(self, lib_id: str, name: str, description: str,
+                             instance_id: int, db: Database) -> int:
+        """The sidecar's ``instance_id`` when the database has that row;
+        else (a fresh database after a repair, a sidecar from before sync)
+        a new row, and the sidecar points at it."""
+        if instance_id and db.find_one(Instance, {"id": instance_id}) is not None:
+            return instance_id
+        had = instance_id
+        instance_id = self._new_instance_row(db)
+        self._write_config(lib_id, name, description, instance_id)
+        if had:
+            logger.warning("library %s had no instance row %d (a fresh database?); "
+                           "made instance %d", lib_id[:8], had, instance_id)
+        return instance_id
+
+    def _attach_services(self, library: Library) -> None:
+        from .config import BackendFeature
+        from .objects.gc import OrphanRemoverActor
+        from .sync.manager import SyncManager
+
+        library.sync = SyncManager(library)
+        if self.node is not None:
+            library.sync.emit_messages = self.node.config.has_feature(
+                BackendFeature.SYNC_EMIT_MESSAGES)
+        library.orphan_remover = OrphanRemoverActor(library)
 
     def list(self) -> list[Library]:
         with self._lock:
@@ -123,15 +208,18 @@ class Libraries:
         with self._lock:
             return self._libraries[lib_id]
 
-    def _write_config(self, library_id: str, name: str, description: str) -> None:
+    def _write_config(self, library_id: str, name: str, description: str,
+                      instance_id: int) -> None:
         atomic_write_text(self.dir / f"{library_id}.sdlibrary", json.dumps(
-            {"version": 1, "name": name, "description": description}))
+            {"version": 1, "name": name, "description": description,
+             "instance_id": instance_id}))
 
     def create(self, name: str, description: str = "") -> Library:
+        """A new library with its own instance row (made by the open)."""
         name = validate_library_name(name)
         lib_id = str(uuid.uuid4())
         self.dir.mkdir(parents=True, exist_ok=True)
-        self._write_config(lib_id, name, description)
+        self._write_config(lib_id, name, description, 0)
         return self._open(lib_id, name, description)
 
     def edit(self, lib_id: str, name: str | None = None,
@@ -141,7 +229,7 @@ class Libraries:
             library.name = validate_library_name(name)
         if description is not None:
             library.description = description
-        self._write_config(lib_id, library.name, library.description)
+        self._write_config(lib_id, library.name, library.description, library.instance_id)
         return library
 
     def delete(self, lib_id: str) -> None:

@@ -11,7 +11,9 @@ MinHash near-duplicate detector (DedupDetectorJob). The location's
 (``objects.hasher.get_hasher``): ``"tpu-sharded"`` hashes over the node's
 device mesh, any other name on the node's device, whose type it records
 when the caller names none. The ``.spacedrive`` sidecar in a location's
-root binds the directory to ``{library id: location id}`` for relink.
+root binds the directory to ``{library id: location id}`` for relink. With
+sync emitting, ``create_location`` logs the new row's create operation in
+the transaction that inserts it (reference :74-77).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from pathlib import Path
 from typing import TYPE_CHECKING, Any
 
 from ..models import FilePath, IndexerRule, IndexerRulesInLocation, Location, utc_now
+from ..sync.manager import emitter
 from .rules import SYSTEM_RULES, seed_rules
 
 if TYPE_CHECKING:
@@ -56,13 +59,20 @@ def create_location(library: "Library", path: str | Path, name: str | None = Non
     if dry_run:
         return {"path": str(path), "name": name or path.name}
     seed_rules(db)
-    location_id = db.insert(Location, {
-        "pub_id": str(uuid.uuid4()),
-        "name": name or path.name,
-        "path": str(path),
-        "date_created": utc_now(),
-        "hasher": hasher or library.node.device.type,
-    })
+    sync = emitter(library)
+    with db.transaction():
+        location_id = db.insert(Location, {
+            "pub_id": str(uuid.uuid4()),
+            "name": name or path.name,
+            "path": str(path),
+            "date_created": utc_now(),
+            "instance_id": library.instance_id,
+            "hasher": hasher or library.node.device.type,
+        })
+        if sync is not None:
+            sync.shared_create_many(Location, [db.find_one(Location, {"id": location_id})])
+    if sync is not None:
+        sync.created()
     wanted = indexer_rule_names if indexer_rule_names is not None else [
         spec.name for spec in SYSTEM_RULES if spec.default]
     for rule_name in wanted:

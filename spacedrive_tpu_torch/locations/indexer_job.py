@@ -3,7 +3,11 @@
 Counterpart of ``spacedrive_tpu/locations/indexer_job.py`` (which mirrors
 core/src/location/indexer/indexer_job.rs): steps are Save(batch),
 Update(batch), Remove(batch) and Walk(dir) continuations; BATCH_SIZE = 1000,
-initial walk budget 50,000 entries. Sync op emission is not ported.
+initial walk budget 50,000 entries. With sync emitting, each step logs its
+operations in the transaction of its writes (reference :106-168): a save
+the rows' creates, an update the changed fields of each row, a remove its
+deletes. An update's operations name the row's own pub_id; the reference
+names the fresh pub_id its walker made for the entry, which no row has.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from typing import Any
 
 from ..jobs import EarlyFinish, JobContext, JobError, StatefulJob, StepResult
 from ..models import FilePath, Location, utc_now
+from ..sync.manager import emitter
 from .rules import CompiledRules, rules_for_location
 from .walker import WalkedEntry, WalkResult, db_fetcher_for, walk
 
@@ -106,9 +111,16 @@ class IndexerJob(StatefulJob):
         db = ctx.library.db
         kind = step["kind"]
         t0 = time.perf_counter()
+        sync = emitter(ctx.library)
+        ops: list = []
         if kind == "save":
-            # or_ignore: a row another scan already saved keeps its identity
-            db.insert_many(FilePath, step["rows"], or_ignore=True)
+            with db.transaction():
+                # or_ignore: a row another scan already saved keeps its identity
+                db.insert_many(FilePath, step["rows"], or_ignore=True)
+                if sync is not None:
+                    ops = sync.shared_create_many(FilePath, step["rows"])
+            if ops:
+                sync.created()
             return StepResult(metadata={"db_write_time": time.perf_counter() - t0,
                                         "saved_rows": len(step["rows"])})
         if kind == "update":
@@ -129,12 +141,31 @@ class IndexerJob(StatefulJob):
                         values["cas_id"] = None
                         values["object_id"] = None
                     db.update(FilePath, {"id": row["row_id"]}, values)
+                    if sync is not None:
+                        pub_id = db.find_one(FilePath, {"id": row["row_id"]})["pub_id"]
+                        for field in ("materialized_path", "name", "extension",
+                                      "size_in_bytes", "date_modified", "cas_id"):
+                            if field in values:
+                                ops.append(sync.shared_update(FilePath, pub_id, field,
+                                                              values[field]))
+                if ops:
+                    sync.log_ops(ops)
+            if ops:
+                sync.created()
             return StepResult(metadata={"db_write_time": time.perf_counter() - t0,
                                         "updated_rows": len(step["rows"])})
         if kind == "remove":
             with db.transaction():
                 for fp_id in step["ids"]:
+                    if sync is not None:
+                        row = db.find_one(FilePath, {"id": fp_id})
+                        if row is not None:
+                            ops.append(sync.shared_delete(FilePath, row["pub_id"]))
                     db.delete(FilePath, {"id": fp_id})
+                if ops:
+                    sync.log_ops(ops)
+            if ops:
+                sync.created()
             return StepResult(metadata={"db_write_time": time.perf_counter() - t0})
         if kind == "walk":
             location = self._location(ctx)

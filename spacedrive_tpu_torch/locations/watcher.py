@@ -15,8 +15,11 @@ orphan rows, inline on this thread: on a card node the BLAKE3 kernels (and,
 with chunk manifests on, the Gear kernel) launch from here. Those launches
 are counted under the origin ``"watcher"`` (:func:`..ops._kernels.origin`).
 
-The port has no sync yet, so no CRDT operation is emitted, as in the
-reference when a library has no sync. ``STATS`` counts, over every watcher,
+With sync emitting, each row helper logs its CRDT operations in the
+transaction of its writes, as the reference's do (:278-422, :569): a
+create's row, an update's size, mtime and cleared cas_id, a rename's new
+path fields (and each descendant's materialized_path), a remove's deletes
+(:func:`..objects.fs._remove_rows`). ``STATS`` counts, over every watcher,
 the events applied, the shallow identify passes (and those that raised:
 the pass is logged and the watcher goes on, as in the reference) and the
 overflow rescans.
@@ -43,6 +46,7 @@ from typing import TYPE_CHECKING, Any, Callable
 
 from ..models import FilePath, Location, utc_now
 from ..ops import _kernels
+from ..sync.manager import emitter
 from .paths import FilePathMetadata, IsolatedFilePathData
 from .rules import CompiledRules, rules_for_location
 
@@ -322,7 +326,14 @@ def apply_create(library: "Library", location: dict[str, Any],
         "date_modified": _iso_ts(meta.modified_at),
         "date_indexed": utc_now().isoformat(),
     }
-    library.db.insert_many(FilePath, [row], or_ignore=True)
+    db = library.db
+    sync = emitter(library)
+    with db.transaction():
+        db.insert_many(FilePath, [row], or_ignore=True)
+        if sync is not None:
+            sync.shared_create_many(FilePath, [row])
+    if sync is not None:
+        sync.created()
     library.emit("invalidate_query", {"key": "search.paths"})
     return True
 
@@ -356,7 +367,18 @@ def apply_update(library: "Library", location: dict[str, Any],
     if content_changed and not is_dir:
         values["cas_id"] = None
         values["object_id"] = None
-    library.db.update(FilePath, {"id": row["id"]}, values)
+    db = library.db
+    sync = emitter(library)
+    ops = []
+    with db.transaction():
+        db.update(FilePath, {"id": row["id"]}, values)
+        if sync is not None:
+            ops = [sync.shared_update(FilePath, row["pub_id"], field, values[field])
+                   for field in ("size_in_bytes", "date_modified", "cas_id")
+                   if field in values]
+            sync.log_ops(ops)
+    if ops:
+        sync.created()
     library.emit("invalidate_query", {"key": "search.paths"})
     return content_changed or (not is_dir and row.get("object_id") is None)
 
@@ -377,22 +399,36 @@ def apply_rename(library: "Library", location: dict[str, Any],
     clash = _row_for(library, location["id"], to_iso)
     if clash is not None and clash["id"] != row["id"]:
         apply_remove_row(library, clash)
+    sync = emitter(library)
+    ops = []
     with db.transaction():
         db.update(FilePath, {"id": row["id"]}, {
             "materialized_path": to_iso.materialized_path,
             "name": to_iso.name, "extension": to_iso.extension,
             "date_modified": utc_now().isoformat(),
         })
+        if sync is not None:
+            ops = [sync.shared_update(FilePath, row["pub_id"], field, value)
+                   for field, value in (("materialized_path", to_iso.materialized_path),
+                                        ("name", to_iso.name),
+                                        ("extension", to_iso.extension))]
         if is_dir:
             old_prefix = from_iso.child_materialized_path()
             new_prefix = to_iso.child_materialized_path()
             descendants = db.query(
-                "SELECT id, materialized_path FROM file_path "
+                "SELECT id, pub_id, materialized_path FROM file_path "
                 "WHERE location_id = ? AND materialized_path LIKE ?",
                 [location["id"], old_prefix + "%"])
             for d in descendants:
                 new_mp = new_prefix + d["materialized_path"][len(old_prefix):]
                 db.update(FilePath, {"id": d["id"]}, {"materialized_path": new_mp})
+                if sync is not None:
+                    ops.append(sync.shared_update(FilePath, d["pub_id"], "materialized_path",
+                                                  new_mp))
+        if ops:
+            sync.log_ops(ops)
+    if ops:
+        sync.created()
     library.emit("invalidate_query", {"key": "search.paths"})
 
 
@@ -537,7 +573,13 @@ class EventHandler:
                       sub_path=rel_path, include_root=False)
         rows = [_entry_to_row(e) for e in result.walked]
         if rows:
-            db.insert_many(FilePath, rows, or_ignore=True)
+            sync = emitter(self.library)
+            with db.transaction():
+                db.insert_many(FilePath, rows, or_ignore=True)
+                if sync is not None:
+                    sync.shared_create_many(FilePath, rows)
+            if sync is not None:
+                sync.created()
             self.need_identify = True
         self.library.emit("invalidate_query", {"key": "search.paths"})
 

@@ -1,14 +1,15 @@
-"""Library database: the trimmed model layer and the scan's tables."""
+"""Library database: the trimmed model layer and the library's tables."""
 
-from .base import Database, Field, Model, utc_now
-from .schema import (ALL_MODELS, ChunkManifest, FilePath, IndexerRule,
-                     IndexerRulesInLocation, JobRow, Location, MediaData, NearDuplicate,
-                     Notification, Object, Preference, Statistics, Tag,
-                     TagOnObject)
+from .base import MODEL_REGISTRY, Database, Field, Model, Relation, Shared, utc_now
+from .schema import (ALL_MODELS, SYNCED_MODELS, ChunkManifest, FilePath, IndexerRule,
+                     IndexerRulesInLocation, Instance, JobRow, Location, MediaData,
+                     NearDuplicate, NodeRow, Notification, Object, Preference,
+                     RelationOperationRow, SharedOperationRow, Statistics, Tag, TagOnObject)
 
 __all__ = [
-    "ALL_MODELS", "ChunkManifest", "Database", "Field", "FilePath",
-    "IndexerRule", "IndexerRulesInLocation", "JobRow", "Location", "MediaData",
-    "Model", "NearDuplicate", "Notification", "Object", "Preference", "Statistics", "Tag",
-    "TagOnObject", "utc_now",
+    "ALL_MODELS", "ChunkManifest", "Database", "Field", "FilePath", "IndexerRule",
+    "IndexerRulesInLocation", "Instance", "JobRow", "Location", "MODEL_REGISTRY", "MediaData",
+    "Model", "NearDuplicate", "NodeRow", "Notification", "Object", "Preference", "Relation",
+    "RelationOperationRow", "SYNCED_MODELS", "Shared", "SharedOperationRow", "Statistics",
+    "Tag", "TagOnObject", "utc_now",
 ]

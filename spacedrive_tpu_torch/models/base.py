@@ -12,8 +12,17 @@ journal the search engine refreshes from (:class:`RowJournal`, attached with
 and sees its own uncommitted rows; every other thread reads the last
 committed snapshot through a ``PRAGMA query_only=ON`` reader with its own
 lock, so the scan pipeline's prefetch never waits behind a group commit.
-Sync annotations and the transaction's busy retry are not ported; the
-``commit`` fault seam is (:class:`_Txn`).
+
+The sync annotations are the reference's (:79-110): a model's ``SYNC`` is
+``None`` (local only), :class:`Shared` (record-level last-write-wins
+replication keyed by a sync id) or :class:`Relation` (a many-many link
+replicated by its two endpoints), and ``SYNC_SKIP`` names the fields that
+never cross the wire; every model registers in :data:`MODEL_REGISTRY` by
+table, which the CRDT applier (:mod:`..sync.apply`) resolves op targets
+through. The applier writes through :meth:`Database.insert_ignore` and the
+rowcount of :meth:`Database.update`, both of which note their rows in the
+journal, so the search engine sees ingested rows. The transaction's busy
+retry is not ported; the ``commit`` fault seam is (:class:`_Txn`).
 """
 
 from __future__ import annotations
@@ -52,13 +61,39 @@ class Field:
     }
 
 
+@dataclasses.dataclass(frozen=True)
+class Shared:
+    """Record-level last-write-wins replication (``/// @shared(id: ...)``)."""
+
+    id: str = "pub_id"
+
+
+@dataclasses.dataclass(frozen=True)
+class Relation:
+    """Many-many link replication (``/// @relation(item, group)``)."""
+
+    item: str
+    group: str
+
+
+MODEL_REGISTRY: dict[str, type["Model"]] = {}
+
+
 class Model:
-    """Base class. Subclasses set TABLE, FIELDS, optional UNIQUES/INDEXES."""
+    """Base class. Subclasses set TABLE, FIELDS, optional UNIQUES/INDEXES/SYNC."""
 
     TABLE: ClassVar[str]
     FIELDS: ClassVar[dict[str, Field]]
     UNIQUES: ClassVar[tuple[tuple[str, ...], ...]] = ()
     INDEXES: ClassVar[tuple[tuple[str, ...], ...]] = ()
+    SYNC: ClassVar[Shared | Relation | None] = None
+    #: fields never replicated, even on shared models (local ids)
+    SYNC_SKIP: ClassVar[tuple[str, ...]] = ("id",)
+
+    def __init_subclass__(cls, **kw: Any) -> None:
+        super().__init_subclass__(**kw)
+        if hasattr(cls, "TABLE"):
+            MODEL_REGISTRY[cls.TABLE] = cls
 
     @classmethod
     def ddl(cls) -> list[str]:
@@ -398,6 +433,17 @@ class Database:
         if cur.rowcount > 0:
             self._journal_note(model.TABLE, "id", cur.lastrowid)
         return cur.lastrowid
+
+    def insert_ignore(self, model: type[Model], row: dict[str, Any]) -> bool:
+        """INSERT OR IGNORE; True iff a row was inserted (the one-statement
+        half of the applier's rowcount upsert)."""
+        cols = [c for c in row if c in model.FIELDS]
+        cur = self.execute(self._insert_sql(model, cols, True),
+                           [model.encode(c, row[c]) for c in cols], _noted=True)
+        inserted = cur.rowcount > 0
+        if inserted:
+            self._journal_note(model.TABLE, "id", cur.lastrowid)
+        return inserted
 
     def insert_many(self, model: type[Model], rows: list[dict[str, Any]],
                     or_ignore: bool = False) -> int:

@@ -1,18 +1,19 @@
-"""The library tables the scan writes, column for column as
-``spacedrive_tpu/models/schema.py`` declares them (location :149,
-file_path :174, object :216, job :348, indexer_rule :375,
+"""The library tables, column for column as
+``spacedrive_tpu/models/schema.py`` declares them (the sync op log
+shared_operation :43 and relation_operation :59, node :78, instance :92,
+location :149, file_path :174, object :216, job :348, indexer_rule :375,
 indexer_rule_in_location :388, near_duplicate :420, chunk_manifest :439,
 media_data :233, statistics :114, tag :257, tag_on_object :271,
-notification :410, preference :400), so rows written by the two packages compare directly.
-
-One difference in constraints, none in columns: ``location.instance_id``
-keeps its column but not its foreign key, because the port has no
-``instance`` table (sync identity is not ported).
+notification :410, preference :400), so rows written by the two packages
+compare directly, with the reference's ``SYNC`` annotations: location,
+file_path, object, tag and preference are :class:`Shared`, tag_on_object is
+a :class:`Relation` of tag and object, instance is local.
+:data:`SYNCED_MODELS` maps their tables to them (:489).
 """
 
 from __future__ import annotations
 
-from .base import Field, Model
+from .base import Field, Model, Relation, Shared
 
 _I = "INTEGER"
 _T = "TEXT"
@@ -30,8 +31,83 @@ def _pub_id() -> Field:
     return Field(_T, nullable=False, unique=True)
 
 
+# ---- sync op log -----------------------------------------------------------
+
+
+class SharedOperationRow(Model):
+    TABLE = "shared_operation"
+    FIELDS = {
+        "id": Field(_T, primary_key=True),  # op uuid
+        "timestamp": Field(_I, nullable=False),  # NTP64 HLC
+        "model": Field(_T, nullable=False),
+        "record_id": Field(_T, nullable=False),
+        "kind": Field(_T, nullable=False),  # c | u:<field> | d
+        "data": Field(_J),
+        "instance_id": Field(_I, nullable=False, references="instance.id", on_delete="RESTRICT"),
+    }
+    #: (timestamp, id) serves get_ops' ORDER BY + LIMIT without a sort
+    INDEXES = (("instance_id", "timestamp"), ("model", "record_id"), ("timestamp", "id"))
+
+
+class RelationOperationRow(Model):
+    TABLE = "relation_operation"
+    FIELDS = {
+        "id": Field(_T, primary_key=True),
+        "timestamp": Field(_I, nullable=False),
+        "relation": Field(_T, nullable=False),
+        "item_id": Field(_T, nullable=False),
+        "group_id": Field(_T, nullable=False),
+        "kind": Field(_T, nullable=False),
+        "data": Field(_J),
+        "instance_id": Field(_I, nullable=False, references="instance.id", on_delete="RESTRICT"),
+    }
+    INDEXES = (("instance_id", "timestamp"), ("relation", "item_id", "group_id"),
+               ("timestamp", "id"))
+
+
+# ---- identity ---------------------------------------------------------------
+
+
+class NodeRow(Model):
+    """Deprecated in the reference's schema, kept for parity."""
+
+    TABLE = "node"
+    FIELDS = {
+        "id": _pk(),
+        "pub_id": _pub_id(),
+        "name": Field(_T, nullable=False),
+        "platform": Field(_I, nullable=False),
+        "date_created": Field(_D, nullable=False),
+        "identity": Field(_BY),
+    }
+
+
+class Instance(Model):
+    """A paired instance of this library; ``timestamp`` persists the
+    per-instance HLC floor that ingest has applied."""
+
+    TABLE = "instance"
+    SYNC = None  # @local(id: pub_id)
+    FIELDS = {
+        "id": _pk(),
+        "pub_id": _pub_id(),
+        "identity": Field(_T, nullable=False),  # the tagged I:/R: encoding
+        "node_remote_identity": Field(_T),
+        "node_id": Field(_T, nullable=False),
+        "node_name": Field(_T, nullable=False),
+        "node_platform": Field(_I, nullable=False),
+        "last_seen": Field(_D, nullable=False),
+        "date_created": Field(_D, nullable=False),
+        "timestamp": Field(_I),
+    }
+
+
+# ---- core domain --------------------------------------------------------------
+
+
 class Location(Model):
     TABLE = "location"
+    SYNC = Shared(id="pub_id")
     FIELDS = {
         "id": _pk(),
         "pub_id": _pub_id(),
@@ -44,7 +120,8 @@ class Location(Model):
         "sync_preview_media": Field(_B),
         "hidden": Field(_B),
         "date_created": Field(_D),
-        "instance_id": Field(_I),
+        # a declared FK, so emission sends it as the instance's pub_id
+        "instance_id": Field(_I, references="instance.id", on_delete="SET NULL"),
         #: which hasher identified files here; the port writes its device
         "hasher": Field(_T, default="tpu"),
     }
@@ -52,6 +129,7 @@ class Location(Model):
 
 class FilePath(Model):
     TABLE = "file_path"
+    SYNC = Shared(id="pub_id")
     FIELDS = {
         "id": _pk(),
         "pub_id": _pub_id(),
@@ -85,6 +163,7 @@ class FilePath(Model):
 
 class Object(Model):
     TABLE = "object"
+    SYNC = Shared(id="pub_id")
     FIELDS = {
         "id": _pk(),
         "pub_id": _pub_id(),
@@ -222,6 +301,7 @@ class Statistics(Model):
 
 class Tag(Model):
     TABLE = "tag"
+    SYNC = Shared(id="pub_id")
     FIELDS = {
         "id": _pk(),
         "pub_id": _pub_id(),
@@ -235,6 +315,7 @@ class Tag(Model):
 
 class TagOnObject(Model):
     TABLE = "tag_on_object"
+    SYNC = Relation(item="tag", group="object")
     FIELDS = {
         "tag_id": Field(_I, nullable=False, references="tag.id", on_delete="RESTRICT"),
         "object_id": Field(_I, nullable=False, references="object.id", on_delete="RESTRICT"),
@@ -246,6 +327,8 @@ class Preference(Model):
     """One leaf of the library's preference tree, by its dotted key."""
 
     TABLE = "preference"
+    SYNC = Shared(id="key")
+    SYNC_SKIP = ()
     FIELDS = {
         "key": Field(_T, primary_key=True),
         "value": Field(_J),
@@ -266,7 +349,10 @@ class Notification(Model):
 
 
 ALL_MODELS: tuple[type[Model], ...] = (
-    Statistics, Location, FilePath, Object, MediaData, Tag, TagOnObject, JobRow,
+    Instance,  # the op-log tables reference it: created first
+    SharedOperationRow, RelationOperationRow, NodeRow, Statistics, Location, FilePath, Object, MediaData, Tag, TagOnObject, JobRow,
     IndexerRule, IndexerRulesInLocation, Notification, ChunkManifest, NearDuplicate,
     Preference,
 )
+
+SYNCED_MODELS: dict[str, type[Model]] = {m.TABLE: m for m in ALL_MODELS if m.SYNC is not None}

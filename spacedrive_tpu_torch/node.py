@@ -1,8 +1,9 @@
 """Node: the runtime a scan runs in.
 
 Counterpart of ``spacedrive_tpu/node.py`` (``Node`` :75), trimmed to the node
-config, the event bus, the libraries under ``<data_dir>/libraries/``, the job
-manager, the locations actor, the thumbnail remover, the search engine
+config, the event bus, the libraries under ``<data_dir>/libraries/`` (each
+with its sync manager), the node's sync ingest budget (``ingest_budget``,
+:107-110), the job manager, the locations actor, the thumbnail remover, the search engine
 (armed by ``SD_SEARCH_ENGINE=device``, as in the JAX package), the rspc
 router (``node.router``, mounted last, as at :271-273) and the device,
 whose kind and count the node records in its config at boot. The boot order is the reference's (:191-199): every job type is
@@ -37,6 +38,7 @@ from .locations.manager import LocationsActor
 from .objects.gc import ThumbnailRemoverActor
 from .objects.hasher import DeviceHasher
 from .search.engine import SearchEngine
+from .sync.admission import IngestBudget
 
 logger = logging.getLogger(__name__)
 
@@ -65,6 +67,8 @@ class Node:
         self.config.write(accelerator=_accelerator(self.device))
         self.p2p = None
         self.events = EventBus()
+        # every ingest source of the node admits through it
+        self.ingest_budget = IngestBudget()
         self.hasher = DeviceHasher(self.device)
         self.jobs = Jobs()
         self.libraries = Libraries(self.data_dir, node=self)

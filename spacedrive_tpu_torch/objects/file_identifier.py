@@ -9,7 +9,11 @@ native gather, as the reference's identifier imports
 device, or its mesh for a ``tpu-sharded`` location), and
 ``pipeline_commit`` writes, in one transaction, the cas_ids, links to
 existing objects sharing a cas_id, one new object per new cas_id and per
-empty file, and (with ``SD_CHUNK_MANIFESTS=1``) chunk manifests. The job
+empty file, and (with ``SD_CHUNK_MANIFESTS=1``) chunk manifests; with
+sync emitting it logs, in the same transaction, each file's ``cas_id`` and
+``object_id`` updates and each new object's create (reference :445-545;
+the object's create carries the row's ``date_created``, where the
+reference's carries the time of the commit, which no row has). The job
 runs them on the streaming executor (:mod:`..pipeline`: sharded gather,
 group commit, adaptive pages) unless ``SD_PIPELINE=0``, when
 ``execute_step`` runs the same three back to back: one implementation, two
@@ -39,7 +43,9 @@ from typing import Any
 
 from .. import faults
 from ..jobs import EarlyFinish, JobContext, JobError, StatefulJob, StepResult
-from ..models import Location, Object, utc_now
+from ..models import FilePath, Location, Object, utc_now
+from ..sync.crdt import ref
+from ..sync.manager import emitter
 from . import manifest as chunk_manifest
 from .cas import read_sampled_batch_fast as read_sampled_batch
 from .hasher import get_hasher
@@ -118,6 +124,11 @@ def _orphan_where(location_id: int, sub_path: str | None) -> tuple[str, list]:
 #: the columns a page reads (undecoded: date_created stays an ISO string)
 _PAGE_COLUMNS = ("SELECT id, pub_id, name, extension, materialized_path, is_dir, "
                  "size_in_bytes, date_created FROM file_path")
+
+
+def _iso(value) -> str:
+    """A row's date as the wire carries it."""
+    return value.isoformat() if hasattr(value, "isoformat") else value
 
 
 def abs_path(location_path: str, row: dict) -> str:
@@ -300,27 +311,36 @@ class FileIdentifierJob(StatefulJob):
             chunk_errors = chunk_manifest.quarantine_errors(hashable, location_path)
             errors.extend(chunk_errors)
 
+        sync = emitter(ctx.library)
+        ops: list = []  # logged in the transaction of the writes they describe
         with db.transaction():
             # 1. write cas_ids
             db.executemany("UPDATE file_path SET cas_id = ? WHERE id = ?",
                            [(cas, row["id"]) for row, cas in identified])
+            if sync is not None:
+                ops += [sync.shared_update(FilePath, row["pub_id"], "cas_id", cas)
+                        for row, cas in identified]
 
             # 2. link to existing objects owning these cas_ids
             cas_ids = sorted({cas for _, cas in identified})
-            existing: dict[str, int] = {}
+            existing: dict[str, tuple[int, str]] = {}
             for start in range(0, len(cas_ids), 500):
                 chunk = cas_ids[start : start + 500]
                 marks = ",".join("?" for _ in chunk)
                 for r in db.query(
-                        f"SELECT fp.cas_id AS cas_id, o.id AS oid "
+                        f"SELECT fp.cas_id AS cas_id, o.id AS oid, o.pub_id AS opub "
                         f"FROM file_path fp JOIN object o ON fp.object_id = o.id "
                         f"WHERE fp.cas_id IN ({marks})", chunk):
-                    existing.setdefault(r["cas_id"], r["oid"])
+                    existing.setdefault(r["cas_id"], (r["oid"], r["opub"]))
             link_rows: list[tuple[int, int]] = []  # (object_id, file_path_id)
             need_object: dict[str, list[dict]] = {}
             for row, cas in identified:
                 if cas in existing:
-                    link_rows.append((existing[cas], row["id"]))
+                    oid, opub = existing[cas]
+                    link_rows.append((oid, row["id"]))
+                    if sync is not None:
+                        ops.append(sync.shared_update(FilePath, row["pub_id"], "object_id",
+                                                      ref(Object.TABLE, opub)))
                 else:
                     need_object.setdefault(cas, []).append(row)
             linked = len(link_rows)
@@ -339,8 +359,15 @@ class FileIdentifierJob(StatefulJob):
                                       [c["pub_id"] for c in chunk]):
                         oid_of[r["pub_id"]] = r["id"]
                 for obj, (_rep, members) in zip(obj_rows, creations):
+                    if sync is not None:
+                        ops.append(sync.shared_create(Object, obj["pub_id"], {
+                            "kind": obj["kind"],
+                            "date_created": _iso(obj["date_created"])}))
                     for row in members:
                         link_rows.append((oid_of[obj["pub_id"]], row["id"]))
+                        if sync is not None:
+                            ops.append(sync.shared_update(FilePath, row["pub_id"], "object_id",
+                                                          ref(Object.TABLE, obj["pub_id"])))
             db.executemany("UPDATE file_path SET object_id = ? WHERE id = ?", link_rows)
 
             # 4. chunk manifests, in the same transaction
@@ -357,11 +384,16 @@ class FileIdentifierJob(StatefulJob):
                     seen_oids.add(oid)
                     items.append((oid, m))
                 chunked = chunk_manifest.commit_manifest_rows(db, items)
+            if ops:
+                sync.log_ops(ops)
         # the cursor advances only after the transaction committed
         data["cursor"] = batch["cursor"]
         # best effort from here on: the batch is durable, and an exception
-        # out of this call would make the committer retry it
+        # out of this call would make the committer retry it (and log every
+        # operation of the batch again)
         try:
+            if ops:
+                sync.created()
             self._media_warm_start(ctx, data, identified)
             ctx.progress(message=f"identified {len(identified)} files ({len(creations)} new "
                                  f"objects, {linked} linked)")

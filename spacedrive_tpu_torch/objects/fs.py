@@ -16,8 +16,9 @@ resumes where it left off:
 
 The copier and the cutter end with a light rescan of the directories they
 touched (the reference leans on the watcher, and a node without one needs
-the rescan). :func:`_remove_rows` drops rows and wakes the library's orphan
-remover. No sync operation is emitted: the port has no sync yet.
+the rescan). :func:`_remove_rows` drops rows (with sync emitting, logging
+their deletes in the same transaction, reference :286-306) and wakes the
+library's orphan remover.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from typing import Any
 
 from ..jobs import EarlyFinish, JobContext, JobError, StatefulJob, StepResult
 from ..models import FilePath, Location
+from ..sync.manager import emitter
 
 logger = logging.getLogger(__name__)
 
@@ -280,17 +282,22 @@ class FileEraserJob(_FsJob):
 
 def _remove_rows(library, row: dict[str, Any]) -> None:
     """Drop the file_path row (and a directory's subtree) in one
-    transaction, then wake the orphan remover: the paths may have been
-    their objects' last."""
+    transaction, with its sync deletes, then wake the orphan remover: the
+    paths may have been their objects' last."""
     db = library.db
     rows = [row]
     if row["is_dir"]:
         prefix = f"{(row['materialized_path'] or '/')}{row['name']}/"
         rows += [r for r in db.find(FilePath, {"location_id": row["location_id"]})
                  if (r["materialized_path"] or "").startswith(prefix)]
+    sync = emitter(library)
     with db.transaction():
         for r in rows:
             db.delete(FilePath, {"id": r["id"]})
+        if sync is not None:
+            sync.log_ops([sync.shared_delete(FilePath, r["pub_id"]) for r in rows])
+    if sync is not None:
+        sync.created()
     remover = getattr(library, "orphan_remover", None)
     if remover is not None:
         remover.invoke()

@@ -10,7 +10,10 @@ whose ticks are constructor arguments, so tests tick them at will:
   ``chunk_manifest`` rows (the port's tables that hang off an object; the
   reference's label, space and album links are not in the port's schema). A cancelled or killed scan
   leaves no orphan of its own (an object is created in the transaction that
-  links it), but a rescan that re-identifies a changed file does.
+  links it), but a rescan that re-identifies a changed file does. Unlike
+  the reference's, it never runs inside a sync pull round, which can apply
+  an object's create before its files' links: there, a tick between the
+  two deleted the object, and the files lost their link on that node only.
 - :class:`ThumbnailRemoverActor`, one a node: every ``batch_interval`` (30
   s) deletes the thumbnails marked for deletion, and every
   ``full_interval`` (half an hour) every cached thumbnail whose cas_id no
@@ -86,7 +89,12 @@ class OrphanRemoverActor:
             self._last_checked = time.monotonic()
 
     def process_clean_up(self) -> int:
-        """The batched delete loop; returns the objects removed."""
+        """The batched delete loop; returns the objects removed. It waits
+        for a running sync pull round to end (``sync.ingest_round``)."""
+        with self.library.sync.ingest_round:
+            return self._clean_up()
+
+    def _clean_up(self) -> int:
         db = self.library.db
         removed = 0
         while True:

@@ -1,8 +1,9 @@
 """Library preferences: a nested tree kept as dotted-key ``preference`` rows.
 
 Counterpart of ``spacedrive_tpu/preferences.py``: a partial update touches
-only the keys it names, a ``None`` leaf deletes its key. No sync operation
-is emitted: the port has no sync yet.
+only the keys it names, a ``None`` leaf deletes its key. Preference rows
+sync by their key (``SYNC = Shared(id="key")``): with sync emitting, an
+update logs each key's value update or delete in its transaction.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from __future__ import annotations
 from typing import TYPE_CHECKING, Any
 
 from .models import Preference
+from .sync.manager import emitter
 
 if TYPE_CHECKING:
     from .library import Library
@@ -46,12 +48,22 @@ def update_preferences(library: "Library", tree: dict[str, Any]) -> None:
     """Merge a (partial) preference tree; ``None`` leaves delete keys."""
     flat = _flatten(tree)
     db = library.db
+    sync = emitter(library)
+    ops = []
     with db.transaction():
         for key, value in flat.items():
             if value is None:
                 db.delete(Preference, {"key": key})
+                if sync is not None:
+                    ops.append(sync.shared_delete(Preference, key))
             else:
                 db.upsert(Preference, {"key": key}, {"value": value}, {"value": value})
+                if sync is not None:
+                    ops.append(sync.shared_update(Preference, key, "value", value))
+        if ops:
+            sync.log_ops(ops)
+    if ops:
+        sync.created()
     library.emit("invalidate_query", {"key": "preferences.get"})
 
 

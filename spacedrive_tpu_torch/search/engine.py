@@ -14,7 +14,8 @@ Correctness ladder (SQLite stays the oracle):
    over-long needles stay on SQLite.
 2. **Freshness** — a synchronous bus hook on ``db.commit`` (emitted by the
    jobs after every committed step and at exit), ``invalidate_query``
-   (emitted by the API's mutations and at the end of the scan's jobs) and
+   (emitted by the API's mutations and at the end of the scan's jobs),
+   ``sync.newMessage`` (emitted when sync logs or ingests operations) and
    ``job_progress`` bumps a per-library ``pending`` counter, a refresh stamps the index
    with the watermark it read under, and a query is served from the index
    ONLY when the two are equal. A post-commit query therefore never sees
@@ -59,10 +60,12 @@ if TYPE_CHECKING:
 
 logger = logging.getLogger(__name__)
 
-#: the events that move a library's watermark, the reference's set without
-#: the sync messages the port does not have (over-bumping costs a refresh,
-#: under-bumping would serve stale rows)
-BUMP_KINDS = frozenset({"db.commit", "invalidate_query", "job_progress"})
+#: the events that move a library's watermark, the reference's set
+#: (``sync.newMessage``: a peer's operations were ingested, or this
+#: library logged its own); over-bumping costs a refresh, under-bumping
+#: would serve stale rows
+BUMP_KINDS = frozenset({"db.commit", "invalidate_query", "sync.newMessage",
+                        "job_progress"})
 
 
 class _LibState:

@@ -258,7 +258,7 @@ class Server:
         location = db.find_one(Location, {"id": row["location_id"]})
         if location is None:
             raise HttpError(404, "no such location")
-        if location.get("instance_id") is not None:
+        if location.get("instance_id") not in (None, library.instance_id):
             # another instance's location: its bytes come over p2p, which
             # the port does not have (the reference's answer with p2p off)
             raise HttpError(404, "remote file and p2p is offline")

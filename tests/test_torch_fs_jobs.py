@@ -10,7 +10,10 @@ a directory each). After each job the two trees hold the same paths with
 the same bytes, the rows (path, name, extension, size, cas_id, kind) and
 their grouping into objects are equal, and so are the job reports (status,
 metadata, error lines with each tree's root replaced). An erase leaves no
-file and no row; a cold resume finds every fs job by name.
+file and no row; a cold resume finds every fs job by name. With sync
+emitting (``toggleFeatureFlag``), a copy, a move and a delete log the
+operations the JAX package's log (``tests/torch_sync_cases.op_log``): the
+deletes, and nothing for the rows the light rescan writes.
 """
 
 import json
@@ -30,6 +33,7 @@ from spacedrive_tpu_torch.node import Node
 from spacedrive_tpu_torch.objects import fs
 from spacedrive_tpu_torch.objects.file_identifier import FileIdentifierJob
 from tests.torch_scan_cases import blob, rows_of, one_torch_thread  # noqa: F401
+from tests.torch_sync_cases import op_log, pub_keys
 
 
 def make_tree(root):
@@ -156,3 +160,22 @@ def test_create_helpers_and_registry_match_jax(tmp_path):
         assert mod.find_available_name(root / "none.bin") == root / "none.bin"
     for job in ("file_copier", "file_cutter", "file_deleter", "file_eraser"):
         assert job in JOB_REGISTRY
+
+
+def test_fs_jobs_log_the_ops_jax_logs(sides):
+    keys = {}
+    for pkg, (node, lib, _loc, _tree, _mod) in sides.items():
+        assert node.router.resolve("toggleFeatureFlag", "syncEmitMessages") is True
+        keys[pkg] = pub_keys(lib.db)
+    run_job(sides, "FileCopierJob", [("d0/f0.bin", False), ("d1", True)], target_dir="d3")
+    run_job(sides, "FileCutterJob", [("d0/f1.bin", False), ("d2/sub", True)], target_dir="d3/d1")
+    run_job(sides, "FileDeleterJob", [("d0/f2.bin", False), ("d1", True)])
+    logs = {}
+    for pkg, (_node, lib, _loc, tree, _mod) in sides.items():
+        logs[pkg] = op_log(lib.db, {**pub_keys(lib.db), **keys[pkg]}, roots=(tree,),
+                           drop=("inode",))
+    assert logs["port"] == logs["jax"]
+    kinds = [json.loads(k)[3] for k in logs["port"] for _ in range(logs["port"][k])]
+    # the deletes of a file and of d1's subtree; the copies' and the moves'
+    # rows come from the light rescan, which logs nothing in either package
+    assert kinds == ["d"] * 7

@@ -858,3 +858,77 @@ def test_the_server_serves_search_from_the_card(card, tmp_path, monkeypatch):
     finally:
         server.stop()
         node.shutdown()
+
+
+def test_two_card_nodes_scan_sync_and_search_each_other(card, tmp_path, monkeypatch):
+    """Two nodes on the card, emission on through the feature flag, each
+    scan their own half of a seeded tree at once; each pulls the other's
+    operations through an Actor (4 lanes on one side); both end with equal
+    rows, the BLAKE3 and Gear kernels launched for both scans, and each
+    node's search.paths on the rows the other scanned equals the SQL
+    answer and launched the substring kernel."""
+    import threading
+
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.models import Location
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.sync import Actor
+    from tests.torch_sync_cases import pair_libraries, synced_rows
+
+    monkeypatch.setenv("SD_CHUNK_MANIFESTS", "1")
+    monkeypatch.setenv("SD_SEARCH_ENGINE", "device")
+    halves = []
+    for side in ("a", "b"):
+        root = tmp_path / f"tree_{side}"
+        for d in range(4):
+            (root / f"{side}{d}").mkdir(parents=True)
+            for i in range(32):
+                (root / f"{side}{d}" / f"{side}file{d}-{i:03d}.bin").write_bytes(
+                    blob(1000 * d + i + (7 if side == "b" else 0), 200 + 9000 * (i % 9)))
+        halves.append(root)
+    nodes = []
+    try:
+        for side in ("a", "b"):
+            node = Node(tmp_path / f"data_{side}", watch_locations=False)
+            assert node.config.toggle_feature("syncEmitMessages")
+            nodes.append(node)
+        libs = [n.libraries.create(f"pair-{i}") for i, n in enumerate(nodes)]
+        pair_libraries(*libs)
+        before = dict(_kernels.LAUNCHES)
+        locs = []
+        for lib, root in zip(libs, halves):
+            loc = create_location(lib, root)
+            lib.sync.write_ops(
+                [lib.sync.shared_update(Location, loc["pub_id"], "generate_preview_media", False)],
+                lambda db, i=loc["id"]: db.update(Location, {"id": i},
+                                                  {"generate_preview_media": False}))
+            locs.append(loc)
+        scans = [threading.Thread(target=scan_location, args=(lib, loc["id"]))
+                 for lib, loc in zip(libs, locs)]
+        for t in scans:
+            t.start()
+        for t in scans:
+            t.join()
+        assert all(n.jobs.wait_idle(300) for n in nodes)
+        for kernel in ("blake3_chunk_cvs", "blake3_merge", "gear_candidates"):
+            assert _kernels.LAUNCHES[kernel] > before.get(kernel, 0), kernel
+        for i, lanes in ((0, "1"), (1, "4")):
+            monkeypatch.setenv("SD_SYNC_INGEST_LANES", lanes)
+            peer = libs[1 - i]
+            actor = Actor(libs[i], transport=lambda c, n, p=peer: p.sync.get_ops(c, n))
+            actor.notify()
+            assert actor.wait_idle(120)
+            actor.stop()
+        assert synced_rows(libs[0].db) == synced_rows(libs[1].db)
+        for node, lib, needle in ((nodes[1], libs[1], "afile2-"), (nodes[0], libs[0], "bfile3-")):
+            node.search_engine.refresh_now(lib)
+            node.search_engine.set_enabled(False)
+            sql = node.router.resolve("search.paths", {"search": needle, "take": 100}, lib.id)
+            node.search_engine.set_enabled(True)
+            launched = _kernels.LAUNCHES["search_substring"]
+            got = node.router.resolve("search.paths", {"search": needle, "take": 100}, lib.id)
+            assert got == sql and len(sql["items"]) == 32
+            assert _kernels.LAUNCHES["search_substring"] > launched
+    finally:
+        for node in nodes:
+            node.shutdown()

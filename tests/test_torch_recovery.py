@@ -202,6 +202,42 @@ def test_a_corrupt_database_is_repaired_like_jax(tmp_path, tree, with_backup):
     assert recovery.BOOT_CHECKS["corrupt"] == 1
 
 
+def instance_after_repair(pkg, data_dir, tree, with_backup):
+    """The library's own instance row across a repaired boot: (the same
+    pub_id as before, the same row id, a row at all)."""
+    node, lib = scanned(pkg, data_dir, tree)
+    lib_id, before, before_id = lib.id, lib.instance()["pub_id"], lib.instance_id
+    if with_backup:
+        PKGS[pkg][3].do_backup(node, lib_id)
+    node.shutdown()
+    corrupt(data_dir / "libraries" / f"{lib_id}.db")
+    node = PKGS[pkg][0](data_dir)
+    try:
+        lib = node.libraries.get(lib_id)
+        row = lib.instance()
+        out = (row is not None and row["pub_id"] == before, lib.instance_id == before_id,
+               row is not None, lib.sync.instance_pub_id == (row or {}).get("pub_id"))
+    finally:
+        node.shutdown()
+    # the next boot reads the sidecar the repair left: the same row again
+    node = PKGS[pkg][0](data_dir)
+    try:
+        again = node.libraries.get(lib_id).instance()
+        return out + (again is not None and again["pub_id"] == row["pub_id"],)
+    finally:
+        node.shutdown()
+
+
+@pytest.mark.parametrize("with_backup", [True, False], ids=["restored", "fresh"])
+def test_the_instance_row_survives_a_repair_like_jax(tmp_path, tree, with_backup):
+    """A restored backup keeps the library's instance row; a fresh database
+    gets a new one, which the sidecar then names."""
+    out = {pkg: instance_after_repair(pkg, tmp_path / pkg, tree, with_backup) for pkg in PKGS}
+    assert out["port"] == out["jax"]
+    assert out["port"] == ((True, True, True, True, True) if with_backup
+                           else (False, True, True, True, True))
+
+
 def test_gate_outcomes_match_the_reference(tmp_path):
     from spacedrive_tpu import recovery as jax_recovery
 

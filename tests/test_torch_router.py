@@ -18,11 +18,16 @@ The comparison rule (:func:`norm`): an answer is compared as JSON with
 every ``pub_id`` and ``*_pub_id`` key and every ``date_*`` key dropped,
 every uuid string (library, job and node ids) replaced by ``<uuid>``, and
 each node's own data dir replaced by ``<data>``; everything else must be
-equal. Two keys more are dropped because the port does not have what they
-name: ``instance_id`` (the library's sync instance; the port's libraries
-have none), and in ``jobs.reports`` the ``metadata`` of each job (the run's
-timings and the reference's telemetry trace; the scan's rows are compared
-in tests/test_torch_scan.py). ``libraries.statistics`` is compared without
+equal. One key more is dropped because the port does not have what it
+names: in ``jobs.reports`` the ``metadata`` of each job (the run's timings
+and the reference's telemetry trace; the scan's rows are compared in
+tests/test_torch_scan.py).
+
+With sync emitting (``toggleFeatureFlag``), the tag, note, favorite,
+preference and rename mutations log the operations the JAX package's log
+(``tests/torch_sync_cases.op_log``, a multiset with pub_ids mapped to what
+their rows are), and ``sync.messages`` and ``sync.fleetStatus`` answer as
+the JAX router's do. ``libraries.statistics`` is compared without
 ``total_bytes_free`` (the disk's free bytes move between the two calls) and
 ``library_db_size`` (each package's database holds its own tables), and
 ``volumes.list`` without ``available_capacity`` (the same free bytes).
@@ -47,6 +52,7 @@ from spacedrive_tpu.api.routers import notifications as jax_notifications
 from spacedrive_tpu.api.routers import preferences as jax_preferences
 from spacedrive_tpu.api.routers import root as jax_root
 from spacedrive_tpu.api.routers import search as jax_search
+from spacedrive_tpu.api.routers import sync as jax_sync_router
 from spacedrive_tpu.api.routers import tags as jax_tags
 from spacedrive_tpu.api.routers import volumes as jax_volumes
 from spacedrive_tpu.jobs.report import JobReport as JaxJobReport
@@ -56,20 +62,20 @@ from spacedrive_tpu_torch.api.router import ApiError
 from spacedrive_tpu_torch.jobs import JobReport, JobStatus
 from spacedrive_tpu_torch.node import Node
 from tests.torch_scan_cases import one_torch_thread  # noqa: F401
+from tests.torch_sync_cases import op_log, pub_keys
 
 UUID = re.compile(r"^[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}$")
 
 #: procedures of the mounted JAX routers that the port leaves out (the two
 #: crypto launchers come with the crypto slice)
-NOT_PORTED = {"toggleFeatureFlag", "files.encryptFiles", "files.decryptFiles"}
+NOT_PORTED = {"files.encryptFiles", "files.decryptFiles"}
 
 
 def norm(value, data_dir: str):
     """The comparison rule of the module docstring."""
     if isinstance(value, dict):
         return {k: norm(v, data_dir) for k, v in value.items()
-                if not (k == "pub_id" or k.endswith("_pub_id") or k.startswith("date_")
-                        or k == "instance_id")}
+                if not (k == "pub_id" or k.endswith("_pub_id") or k.startswith("date_"))}
     if isinstance(value, list):
         return [norm(v, data_dir) for v in value]
     if isinstance(value, str):
@@ -330,7 +336,7 @@ def test_schema_matches_the_jax_routers(scanned):
     ref = jax_router.Router(scanned.jax)
     for module in (jax_root, jax_libraries, jax_locations, jax_search, jax_files, jax_jobs,
                    jax_tags, jax_volumes, jax_nodes, jax_notifications, jax_preferences,
-                   jax_backups, jax_categories):
+                   jax_backups, jax_categories, jax_sync_router):
         module.mount(ref)
 
     def procs(router):
@@ -670,3 +676,66 @@ def test_files_mutations_and_fs_jobs_match_jax(fs_pair):
         reports += r.get("children", [])
     assert got == want and {r["name"] for r in got} == {
         "file_copier", "file_cutter", "file_deleter", "file_eraser"}
+
+
+def emitted(pair, roots=(), drop=()):
+    """Each node's op log (``op_log``), pub_ids keyed by the rows as they
+    stand and as ``before`` saw them."""
+    out = []
+    for i, node in enumerate((pair.jax, pair.port)):
+        db = node.libraries.get(pair.libs[i]).db
+        keys = {**pub_keys(db), **pair.keys[i]}
+        out.append(op_log(db, keys, roots=roots[i:i + 1] if roots else (), drop=drop))
+    return out
+
+
+def start_emitting(pair) -> None:
+    """``toggleFeatureFlag`` on both nodes; the rows' keys as they are."""
+    assert pair.same("toggleFeatureFlag", "syncEmitMessages") is True
+    pair.keys = [pub_keys(node.libraries.get(lib).db)
+                 for node, lib in zip((pair.jax, pair.port), pair.libs)]
+
+
+def test_tag_note_favorite_and_preference_ops_match_jax(pair):
+    start_emitting(pair)
+    pair.same("tags.create", {"name": "red", "color": "#f00"}, scoped=True)
+    pair.same("tags.create", {"name": "blue"}, scoped=True)
+    ids = pair.object_ids(["big_a", "pic", "note2"])
+    pair.same("tags.assign", scoped=True, args=[{"tag_id": 1, "object_ids": i} for i in ids])
+    pair.same("tags.assign", scoped=True,
+              args=[{"tag_id": 1, "object_ids": i[2:], "unassign": True} for i in ids])
+    pair.same("tags.update", {"id": 2, "name": "navy", "color": "#00f"}, scoped=True)
+    pair.same("files.setNote", scoped=True, args=[{"object_id": i[0], "note": "n"} for i in ids])
+    pair.same("files.setFavorite", scoped=True,
+              args=[{"object_id": i[1], "favorite": True} for i in ids])
+    pair.same("preferences.update", {"explorer": {"view": "grid", "size": 3}}, scoped=True)
+    pair.same("preferences.update", {"explorer": {"size": None}}, scoped=True)
+    pair.same("tags.delete", 2, scoped=True)
+    # the port's tag creates carry date_modified, the reference's do not
+    want, got = emitted(pair, drop=("date_modified",))
+    assert got == want and sum(want.values()) == 15
+    # the op log feed, without the HLC stamps (and the port's date_modified)
+    feeds = pair.call("sync.messages", {"count": 5}, scoped=True)
+    for answer in feeds:
+        for op in answer["ops"]:
+            assert op.pop("timestamp") > 0
+            if isinstance(op["typ"]["data"], dict):
+                op["typ"]["data"].pop("date_modified", None)
+    assert feeds[1] == feeds[0] and len(feeds[1]["ops"]) == 5 and feeds[1]["has_more"] is True
+    pair.same("sync.fleetStatus")
+    assert pair.same("toggleFeatureFlag", "syncEmitMessages") is False
+    pair.same("tags.create", {"name": "unlogged"}, scoped=True)
+    assert emitted(pair, drop=("date_modified",)) == [want, got]
+    pair.same("toggleFeatureFlag", "noSuchFlag")
+
+
+def test_rename_ops_match_jax(fs_pair):
+    pair = fs_pair
+    start_emitting(pair)
+    fid = {name: pair.port.libraries.get(pair.libs[1]).db.query(
+        "SELECT id FROM file_path WHERE name = ?", [name])[0]["id"]
+        for name in ("note0", "sub")}
+    fs_same(pair, "files.renameFile", {"file_path_id": fid["note0"], "new_name": "Renamed.MD"})
+    fs_same(pair, "files.renameFile", {"file_path_id": fid["sub"], "new_name": "sub2"})
+    want, got = emitted(pair, roots=pair.trees, drop=("inode",))
+    assert got == want and sum(want.values()) == 5

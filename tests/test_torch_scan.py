@@ -176,7 +176,8 @@ def _imports(path: Path) -> set[str]:
 
 PORT_FILES = sorted((REPO / "spacedrive_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "torch_multihost_worker.py",
-    REPO / "tests" / "torch_kill_child.py", REPO / "tests" / "torch_serve_client.py"]
+    REPO / "tests" / "torch_kill_child.py", REPO / "tests" / "torch_serve_client.py",
+    REPO / "tests" / "torch_sync_cases.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -210,14 +211,21 @@ SCAN_MODULES = ("spacedrive_tpu_torch.faults", "spacedrive_tpu_torch.native",
                 "spacedrive_tpu_torch.api.routers.preferences",
                 "spacedrive_tpu_torch.api.routers.categories", "spacedrive_tpu_torch.backups",
                 "spacedrive_tpu_torch.recovery", "spacedrive_tpu_torch.volumes",
-                "spacedrive_tpu_torch.preferences")
+                "spacedrive_tpu_torch.preferences",
+                # sync: the scan logs its operations, the instance identity
+                "spacedrive_tpu_torch.sync", "spacedrive_tpu_torch.sync.manager",
+                "spacedrive_tpu_torch.sync.crdt", "spacedrive_tpu_torch.sync.hlc",
+                "spacedrive_tpu_torch.sync.apply", "spacedrive_tpu_torch.sync.ingest",
+                "spacedrive_tpu_torch.sync.lanes", "spacedrive_tpu_torch.sync.admission",
+                "spacedrive_tpu_torch.p2p.identity", "spacedrive_tpu_torch.api.routers.sync")
 
 
 def test_port_scan_loads_no_jax(tmp_path):
     """A whole port scan in a fresh interpreter (its native gather, its
     media processor on a PNG and its near-duplicate job on two copies over
-    100 KiB included, the location watched), then a search served by the
-    server shell over HTTP, leaves jax unimported."""
+    100 KiB included, the location watched, sync logging its operations),
+    then a search served by the server shell over HTTP, leaves jax
+    unimported."""
     from PIL import Image
 
     (tmp_path / "t").mkdir()
@@ -234,10 +242,13 @@ def test_port_scan_loads_no_jax(tmp_path):
         "from spacedrive_tpu_torch.server import Server\n"
         "import json, urllib.request\n"
         f"node = Node({str(tmp_path / 'd')!r}, device='cpu', watch_locations=True)\n"
+        "assert node.config.toggle_feature('syncEmitMessages')\n"
         "lib = node.libraries.create('x')\n"
         f"loc = create_location(lib, {str(tmp_path / 't')!r})\n"
         "scan_location(lib, loc['id'])\n"
         "assert node.jobs.wait_idle(60)\n"
+        "ops = lib.sync.get_ops({}, 1000)[0]\n"
+        "assert {o['typ']['kind'] for o in ops} >= {'c', 'u:cas_id', 'u:object_id'}, ops\n"
         "n = lib.db.query('SELECT COUNT(*) AS n FROM chunk_manifest')[0]['n']\n"
         "pairs = lib.db.query('SELECT COUNT(*) AS n FROM near_duplicate')[0]['n']\n"
         "thumbs = len(list(node.data_dir.glob('thumbnails/*/*.webp')))\n"

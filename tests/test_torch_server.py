@@ -288,9 +288,14 @@ def test_ranged_thumbnail_and_file(served):
 
 def test_a_file_another_instance_owns_is_a_404(served):
     node, _server, url, lib, _tree = served
-    db = node.libraries.get(lib).db
+    library = node.libraries.get(lib)
+    db = library.db
+    # a paired peer's instance (location.instance_id is a foreign key)
+    peer = library.add_remote_instance({"pub_id": "remote-instance", "identity": "R:peer",
+                                        "node_id": "peer-node", "node_name": "peer",
+                                        "node_platform": 3})
     loc = db.insert(Location, {"pub_id": "remote-loc", "name": "r", "path": "/elsewhere",
-                               "instance_id": 7})
+                               "instance_id": peer})
     fp = db.insert(FilePath, {"pub_id": "remote-fp", "location_id": loc, "name": "x",
                               "extension": "bin", "materialized_path": "/", "is_dir": 0})
     status, _h, body = get(url, f"/spacedrive/file/{lib}/{loc}/{fp}")

@@ -19,8 +19,13 @@ against the JAX package's, on the CPU.
   and ``_make_backend`` falls back to polling when inotify is refused.
 - A Node with the watcher on starts one a location, answers
   ``watcher_for`` and stops them at shutdown; ``SD_NO_WATCHER`` gates it.
+- With sync emitting (``toggleFeatureFlag``), the event scripts log the
+  operations the JAX package's log (``tests/torch_sync_cases.op_log``):
+  creates, the indexed subtree, updates, renames, removes and the
+  identify passes that follow them.
 """
 
+import json
 import os
 import shutil
 import time
@@ -41,6 +46,7 @@ from spacedrive_tpu_torch.node import Node
 from spacedrive_tpu_torch.objects.cas import generate_cas_id
 from spacedrive_tpu_torch.objects.file_identifier import FileIdentifierJob
 from tests.torch_scan_cases import blob, rows_of, one_torch_thread  # noqa: F401
+from tests.torch_sync_cases import op_log, pub_keys
 
 MODS = {"jax": jax_watcher, "port": watcher}
 
@@ -244,6 +250,40 @@ def test_event_scripts_match_jax(pair):
                       ("create", str(pair.outside / "elsewhere.txt"), False, 0)])])
     settle(pair)
     assert assert_same(pair, "rules") == before
+
+
+def test_event_scripts_log_the_ops_jax_logs(pair):
+    tree = pair.tree
+    keys = {}
+    for pkg, side in pair.sides.items():
+        assert side.node.router.resolve("toggleFeatureFlag", "syncEmitMessages") is True
+        keys[pkg] = pub_keys(side.lib.db)
+    (tree / "d0" / "new1.txt").write_bytes(blob(500, 200))
+    shutil.copy(tree / "d1" / "f3.bin", tree / "d0" / "copy_of_f3.bin")
+    (tree / "fresh" / "inner").mkdir(parents=True)
+    (tree / "fresh" / "inner" / "x.txt").write_bytes(blob(700, 50))
+    run(pair, [(0.0, [("create", "d0/new1.txt", False, 0),
+                      ("create", "d0/copy_of_f3.bin", False, 0),
+                      ("create", "fresh", True, 0)])])
+    settle(pair)
+    with open(tree / "d1" / "sub" / "deep.txt", "ab") as fh:
+        fh.write(blob(800, 4000))
+    (tree / "d2" / "f0.bin").unlink()
+    os.rename(tree / "d0" / "f1.bin", tree / "d0" / "renamed.dat")
+    os.rename(tree / "d3", tree / "d3_moved")
+    run(pair, [(0.0, [("modify", "d1/sub/deep.txt", False, 0),
+                      ("delete", "d2/f0.bin", False, 0),
+                      ("moved_from", "d0/f1.bin", False, 7),
+                      ("moved_to", "d0/renamed.dat", False, 7),
+                      ("moved_from", "d3", True, 8), ("moved_to", "d3_moved", True, 8)])])
+    settle(pair)
+    assert_same(pair, "scripts with sync on")
+    logs = {pkg: op_log(side.lib.db, {**pub_keys(side.lib.db), **keys[pkg]})
+            for pkg, side in pair.sides.items()}
+    assert logs["port"] == logs["jax"]
+    kinds = {json.loads(k)[3] for k in logs["port"]}
+    assert {"c", "d", "u:cas_id", "u:object_id", "u:size_in_bytes", "u:name",
+            "u:materialized_path"} <= kinds
 
 
 def test_a_row_the_light_rescan_inserted_is_identified(pair):
