@@ -66,10 +66,11 @@ no result line):
    persisted groups), run it once more with ``method="all_pairs"``, hold the
    MinHash programs on 2,048 gathered rows of the tree against their CPU
    runs and time them; hash the tree's files through the fused
-   ``node.hasher.hash_batch`` (its cas_ids must equal the scan's); scan the
-   tree into a third library under ``SD_PIPELINE=0`` (the sequential step
-   loop), whose rows must equal the pipelined scan's, and print both
-   identify rates; then scan the tree again, pipelined, under
+   ``node.hasher.hash_batch`` (its cas_ids must equal the scan's); scan
+   the tree's first ``RESCAN_DIRS`` directories (4,096 files, hard links)
+   into a third library under ``SD_PIPELINE=0`` (the sequential step
+   loop), whose rows must equal the pipelined scan's rows of those files,
+   and print both identify rates; then scan them again, pipelined, under
    torch.profiler for the device's busy share;
 5. the search path: serve ``search.paths`` / ``search.pathsCount`` from the
    device index of the scanned library and of a 1,000,000-row library built
@@ -161,11 +162,11 @@ no result line):
    the same tree, and an exit 0 within 10 s of SIGTERM;
 10. the live library, after phase 9, on a new node on the card with the
    watcher on (it logs which backend ran, inotify or polling): a seeded
-   location of 2,048 files in 16 directories (phase 4's small and medium
-   mix, manifests on, preview media off) is scanned, then a burst (1,024
-   files of 100-512 KiB imported into 4 new directories, 256 appended to, a
-   directory of 128 renamed, one of 256 moved in from outside, 128
-   deleted, one of 64 moved out) settles, bounded at 60 s; its rows (each
+   location of 1,024 files in 16 directories (phase 4's small and medium
+   mix, manifests on, preview media off) is scanned, then a burst (512
+   files of 100-512 KiB imported into 4 new directories, 128 appended to, a
+   directory of 64 renamed, one of 128 moved in from outside, 64
+   deleted, one of 32 moved out) settles, bounded at 60 s; its rows (each
    file's path, name, extension, size and cas_id, the directories, the
    files sharing an object) must equal a fresh scan's on a second node on
    the card, and both BLAKE3 kernels must have launched from the watcher
@@ -178,7 +179,7 @@ no result line):
    pushed), and without a backup starts a fresh database;
 11. CRDT sync, after phase 10, on two new nodes on the card in one process
    with the ``syncEmitMessages`` feature flag on (``toggleFeatureFlag``):
-   (a) each scans its own 16 of phase 4's directories (hard links, 4,096
+   (a) each scans its own 8 of phase 4's directories (hard links, 2,048
    files, manifests on, preview media off) at the same time while an
    ``Actor`` on each pulls the other's operations at 1 lane; the rows of
    both libraries must be equal, every cas_id phase 4's, and both BLAKE3
@@ -192,19 +193,36 @@ no result line):
    note the HLC's last write; (d) each node's ``search.paths`` on rows the
    other scanned equals the SQL answer and launches the three search
    kernels; the phase fails past 90 s;
-12. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
+12. p2p, after phase 11, between two processes on the card: node A here
+   and node B in a child (``tests/torch_p2p_peer.py``, JSON commands on
+   stdin), each with 4,096 of phase 4's files (16 directories, hard links,
+   manifests on, preview media off), emission and ``filesOverP2P`` on. A
+   connects to B over loopback TCP (``p2p.debugConnect``; ``p2p.peers``
+   lists B's card), pairs B's library (``p2p.pair``), and both scan at
+   once, A's location ``hasher="remote"``: A's cas messages are hashed on
+   B's card over ``H_HASH`` (no fallback, A's own cas launches none, B's
+   BLAKE3 launches counted under ``hash-serve``); the sync sessions bring
+   both libraries to equal rows with every cas_id phase 4's; A sends B a
+   64 MiB file by delta against a base copy sharing every other 1 MiB
+   block (under 60% shipped, rebuilt exactly, Gear and BLAKE3 in both
+   processes), again once B holds it (nothing shipped), and by a plain
+   spacedrop; B's server answers a ranged GET of one of A's files over
+   ``H_FILE``; Gear is timed on the delta plane; it prints a ``{"p2p":
+   ...}`` line and fails past 120 s;
+13. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
    the resize's times, calls on the path, CUDA kernels a call, and bounds),
-   the card, the ``{"kernels": [...]}`` line (each kernel's
-   ``launches_serving`` counted in phase 9, the BLAKE3 and Gear kernels'
-   ``launches_watcher`` from the watcher thread in phase 10, and every
-   kernel's ``launches_sync`` in phase 11), then the ``{"ok": true, ...}``
-   line.
+   the ``{"p2p": ...}`` line, the card, the ``{"kernels": [...]}`` line
+   (each kernel's ``launches_serving`` counted in phase 9, the BLAKE3 and
+   Gear kernels' ``launches_watcher`` from the watcher thread in phase 10,
+   every kernel's ``launches_sync`` in phase 11 and ``launches_p2p`` in
+   phase 12, by origin), then the ``{"ok": true, ...}`` line.
 
 ``--live`` builds the kernels and runs phase 10 alone: it prints the card
 and a ``{"live_library": {...}}`` line, never the ``{"ok": true, ...}``
 line. ``--sync`` builds them, writes phase 4's tree, scans it once for its
 cas_ids and runs phase 11 alone: it prints the card and a ``{"sync":
-{...}}`` line, never the ok line.
+{...}}`` line, never the ok line. ``--p2p`` does the same for phase 12 and
+prints a ``{"p2p": {...}}`` line.
 """
 
 from __future__ import annotations
@@ -258,8 +276,10 @@ GEAR_MASKS = (0, 255, 8191, 0xFF000000)
 #: is device time, every row read whole (search), the device time with the
 #: L2 cleared before each call (BLAKE3, Gear), the merge's levels times one
 #: level's device time, the device time from CUDA events behind a spin
-#: kernel (``event_ms``, the fallback of ``device_ms``; BLAKE3 chunks, search)
-EXTRA_TIMES = ("call_ms", "full_row_bound_ms", "cold_ms", "latency_floor_ms", "event_ms")
+#: kernel (``event_ms``, the fallback of ``device_ms``; BLAKE3 chunks, search),
+#: the bound of the padded plane Gear runs over for one delta file
+EXTRA_TIMES = ("call_ms", "full_row_bound_ms", "cold_ms", "latency_floor_ms", "event_ms",
+               "padded_bound_ms")
 #: BLAKE3 rotates per compression (7 rounds x 8 G x 4), used to find how many
 #: compressions the compiler put in one pass of the chunk loop
 ROTATES_PER_COMPRESSION = 224
@@ -1302,8 +1322,34 @@ def identify_location(lib, tree_dir: Path) -> dict:
     return loc
 
 
+#: directories of phase 4's tree (4,096 files) that the sequential and the
+#: profiled rescans read: two more scans of the whole tree took 130 s of a
+#: run that came within 120 s of the script's limit
+RESCAN_DIRS = 16
+
+
+def rescan_tree(tree_dir: Path) -> Path:
+    """Hard links to the first :data:`RESCAN_DIRS` directories of phase
+    4's tree, under the same names."""
+    root = WORK / "rescan"
+    for d in range(RESCAN_DIRS):
+        (root / f"d{d:02d}").mkdir(parents=True)
+        for p in (tree_dir / f"d{d:02d}").iterdir():
+            os.link(p, root / f"d{d:02d}" / p.name)
+    return root
+
+
+def rows_under(rows: tuple, paths: set) -> tuple:
+    """:func:`scan_rows` of a scan restricted to ``paths``: their cas_ids,
+    their grouping into objects, and the manifests of their cas_ids."""
+    cas, groups, manifests = rows
+    cas = {k: v for k, v in cas.items() if k in paths}
+    groups = sorted(g for g in ([k for k in group if k in paths] for group in groups) if g)
+    return cas, groups, {c: m for c, m in manifests.items() if c in set(cas.values())}
+
+
 def profiled_scan(node, tree_dir: Path) -> None:
-    """Scan the tree again into a second library under torch.profiler
+    """Scan ``tree_dir`` into a second library under torch.profiler
     (CUDA activity only) and print the device's busy share of the scan and
     its time by kernel. The end-to-end numbers come from the unprofiled scan
     before it."""
@@ -1330,7 +1376,8 @@ def profiled_scan(node, tree_dir: Path) -> None:
     top = [kv for i, kv in enumerate(ranked)
            if i < 8 or any(k in kv[0] for k in SCAN_KERNEL_SYMBOLS)]
     _job, meta, _seconds = identify_job(lib.db)
-    log(f"main path (profiled pipelined rescan into a second library): wall {wall_s:.2f} s, "
+    log(f"main path (profiled pipelined rescan of {RESCAN_DIRS} directories into a second "
+        f"library): wall {wall_s:.2f} s, "
         f"device busy {busy_s:.3f} s = {100 * busy_s / wall_s:.2f}% (idle "
         f"{100 - 100 * busy_s / wall_s:.2f}%); pipeline {pipeline_line(meta)}; "
         "device time by activity: " + "; ".join(f"{k[:60]} {v / 1e3:.1f} ms" for k, v in top))
@@ -1377,9 +1424,10 @@ def pipeline_line(meta: dict) -> str:
             f"{meta['pipeline_shards']} gather shards; gather {meta['gather_s']:.2f} s")
 
 
-def sequential_scan(node, tree_dir: Path, pipelined: tuple, n: int) -> float:
-    """Scan the tree into a third library with the pipeline off; its rows
-    must equal the pipelined scan's. Returns the identify job's seconds."""
+def sequential_scan(node, tree_dir: Path, pipelined: tuple) -> tuple[float, int]:
+    """Scan ``tree_dir`` into a third library with the pipeline off; its
+    rows must equal the pipelined scan's rows of the same files. Returns
+    the identify job's seconds and its files."""
     from spacedrive_tpu_torch.jobs import JobStatus
     from spacedrive_tpu_torch.locations import scan_location
 
@@ -1396,14 +1444,16 @@ def sequential_scan(node, tree_dir: Path, pipelined: tuple, n: int) -> float:
     if job["status"] != JobStatus.COMPLETED or "pipeline_batches" in meta:
         fail(f"sequential identify job ended {job['status']} with {meta}")
     rows = scan_rows(lib.db)
-    for what, a, b in zip(("cas_ids", "object grouping", "manifests"), rows, pipelined):
+    n = len(rows[0])
+    for what, a, b in zip(("cas_ids", "object grouping", "manifests"), rows,
+                          rows_under(pipelined, set(rows[0]))):
         if a != b:
             fail(f"the sequential scan's {what} differ from the pipelined scan's")
     log(f"main path: the sequential scan (SD_PIPELINE=0) gives the pipelined scan's rows: "
         f"cas_ids of {len(rows[0])} paths, {len(rows[1])} objects, {len(rows[2])} manifests equal; "
         f"identify job {seconds:.2f} s = {n / seconds:.1f} files/s; process stage "
         f"{meta['hash_time']:.2f} s, gather {meta['gather_s']:.2f} s")
-    return seconds
+    return seconds, n
 
 
 def check_manifests(db, tree: dict, row_of, seed: int, n_files: int = 16) -> int:
@@ -1762,9 +1812,10 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
             fail(f"the scan's job commits did not move the search watermark "
                  f"({pending0} -> {pending})")
         pipelined_rows = scan_rows(db)
-        seq_s = sequential_scan(node, tree_dir, pipelined_rows, n)
+        rescan_dir = rescan_tree(tree_dir)
+        seq_s, n_seq = sequential_scan(node, rescan_dir, pipelined_rows)
         del pipelined_rows
-        profiled_scan(node, tree_dir)
+        profiled_scan(node, rescan_dir)
         search = search_phase(node, lib, corpus, card)
         validated = validator_phase(node, lib, loc, tree, tree_dir, rows, seed, int32_ops_per_s)
         jobs = job_control_phase(node, tree_dir, db, rows, validated["tampered_dir"])
@@ -1783,7 +1834,7 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
         f"{cdc_bytes / 1e9:.3f} GB = {cdc_bytes / ident_s / 1e9:.3f} GB/s; device hash+chunk "
         f"stage {meta['hash_time']:.2f} s, gather {meta['gather_s']:.2f} s")
     log(f"main path: identify pipelined {meta['total_orphan_paths'] / ident_s:.1f} files/s "
-        f"({ident_s:.2f} s), sequential {n / seq_s:.1f} files/s ({seq_s:.2f} s); pipeline "
+        f"({ident_s:.2f} s), sequential {n_seq / seq_s:.1f} files/s ({seq_s:.2f} s, {n_seq} files); pipeline "
         f"{pipeline_line(meta)}")
     log(f"main path: {n_objects} objects, {n_cas} distinct cas_ids, {n_empty} empty files, "
         f"{len(tree['copy_of'])} planted copies share their originals' objects, "
@@ -3375,22 +3426,36 @@ def resize_bounds(B: int, h_in: int, w_in: int, fp32_ops_per_s: float) -> dict:
 
 def program_profile(fn, reps: int = 3) -> dict:
     """Device time per call of ``fn`` from torch.profiler (its kernels,
-    copies and memsets apart) and the kernels a call launches."""
+    copies and memsets apart) and the kernels a call launches.
+
+    The profiler now and then drops records (see ``device_ms``), so a
+    window counts only if it saw kernels and the same number for each
+    call. After three windows without one, the time comes from
+    ``event_ms`` (a call's kernels and copies together; no kernel count)
+    and the log says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernel_us = sum(e.self_device_time_total for e in prof.key_averages()
-                    if not e.key.startswith(("Memcpy", "Memset")))
-    kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
-                  and not e.name.startswith(("Memcpy", "Memset")))
-    return {"ms": kernel_us / reps / 1e3, "kernels_per_call": kernels // reps}
+    seen = []
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernel_us = sum(e.self_device_time_total for e in prof.key_averages()
+                        if not e.key.startswith(("Memcpy", "Memset")))
+        kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                      and not e.name.startswith(("Memcpy", "Memset")))
+        if kernels and kernels % reps == 0 and kernel_us > 0:
+            return {"ms": kernel_us / reps / 1e3, "kernels_per_call": kernels // reps}
+        seen.append(kernels)
+    ms = event_ms(fn, reps, None)
+    log(f"time: the profiler saw {seen} kernels in {len(seen)} windows of {reps} calls; "
+        f"{ms:.4f} ms per call from CUDA events instead")
+    return {"ms": ms, "kernels_per_call": None}
 
 
 def interpolate_loop(images, src, tgt):
@@ -4246,15 +4311,16 @@ def media_phase(seed: int, card: str, fp32_ops_per_s: float) -> dict:
 # phase 10: the live library (the watcher, the file operations, backups)
 # --------------------------------------------------------------------------
 
-#: the watched location: phase 4's small and medium mix at 2,048 files in
-#: 16 directories of 128 (the last one's 128 split 64 / 64 with an
-#: ``export`` subdirectory)
-LIVE_FILES, LIVE_DIRS = 2048, 16
-#: the burst: a camera import of 1,024 files of 100-512 KiB into 4 new
-#: directories; 256 files appended to; a directory of 128 renamed; one of
-#: 256 moved in from outside the location; 128 files deleted; the 64-file
+#: the watched location: phase 4's small and medium mix at 1,024 files in
+#: 16 directories of 64 (the last one's 64 split 32 / 32 with an
+#: ``export`` subdirectory); half the size of the first runs of this
+#: phase, which came within 9 s of its 90 s budget on a loaded host
+LIVE_FILES, LIVE_DIRS = 1024, 16
+#: the burst: a camera import of 512 files of 100-512 KiB into 4 new
+#: directories; 128 files appended to; a directory of 64 renamed; one of
+#: 128 moved in from outside the location; 64 files deleted; the 32-file
 #: ``export`` directory moved out (a rename whose other half never comes)
-LIVE_IMPORT_DIRS, LIVE_IMPORTS, LIVE_APPENDS, LIVE_MOVED_IN, LIVE_DELETES = 4, 1024, 256, 256, 128
+LIVE_IMPORT_DIRS, LIVE_IMPORTS, LIVE_APPENDS, LIVE_MOVED_IN, LIVE_DELETES = 4, 512, 128, 128, 64
 #: seconds the watcher gets to settle after a change, at most
 LIVE_SETTLE_S = 60.0
 
@@ -4487,7 +4553,8 @@ def live_library_phase(seed: int, card: str) -> dict:
         live_compare(rows_a, live_fresh(fresh, root, "fresh-burst"), "after the burst")
         fresh_s = time.perf_counter() - t0
         log(f"live library (phase 10a) on {card}: watcher backend {backend}; wrote "
-            f"{LIVE_FILES} files ({tree['bytes'] / 1e9:.3f} GB with the 256 to move in) in "
+            f"{LIVE_FILES} files ({tree['bytes'] / 1e9:.3f} GB with the {LIVE_MOVED_IN} to move "
+            f"in) in "
             f"{write_s:.1f} s, first scan {scan_s:.2f} s; burst {burst_s:.2f} s "
             f"({burst['imported']} imported, {burst['bytes'] / 1e9:.3f} GB; {burst['appended']} "
             f"appended; a directory of {burst['renamed']} renamed; {LIVE_MOVED_IN} moved in; "
@@ -4580,9 +4647,11 @@ def live_library_phase(seed: int, card: str) -> dict:
 # phase 11: CRDT sync between two card nodes
 # --------------------------------------------------------------------------
 
-#: directories a side: A takes the first 16 of the tree's (the one phase 7
-#: changed left out), B the next 16; 4,096 files each, as hard links
-SYNC_DIRS = 16
+#: directories a side: A takes the first 8 of the tree's (the one phase 7
+#: changed left out), B the next 8; 2,048 files each, as hard links (half
+#: the first runs' depth, which came within 4 s of the 90 s budget and
+#: over it on a loaded host)
+SYNC_DIRS = 8
 #: files in each of the tree's directories
 N_FILES_A_DIR = (N_SMALL + N_MEDIUM + N_LARGE) // N_DIRS
 #: the date range of the cross-search: every date a scan writes
@@ -4659,13 +4728,6 @@ def sync_compare(a, b, what: str) -> dict:
     return ra
 
 
-def sync_ops(lib) -> int:
-    """Operations this library's own instance logged."""
-    return sum(lib.db.query(f"SELECT COUNT(*) AS n FROM {t} WHERE instance_id = ?",
-                            [lib.instance_id])[0]["n"]
-               for t in ("shared_operation", "relation_operation"))
-
-
 def sync_reference(seed: int) -> tuple[dict, int]:
     """``--sync`` alone: phase 4's tree and its cas_ids from one scan on a
     card node (no directory left out)."""
@@ -4703,7 +4765,7 @@ def sync_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str) -> d
     from spacedrive_tpu_torch.objects.file_identifier import FileIdentifierJob
     from spacedrive_tpu_torch.ops import _kernels
     from spacedrive_tpu_torch.p2p import identity
-    from tests.torch_sync_cases import pair_libraries
+    from tests.torch_sync_cases import pair_libraries, sync_ops
 
     t_phase = time.perf_counter()
     dirs = [d for d in range(N_DIRS) if d != skip_dir]
@@ -4943,6 +5005,384 @@ def sync_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str) -> d
             "scans_s": scans_s, "identity": identity.ROUTE}
 
 
+# --------------------------------------------------------------------------
+# phase 12: p2p between two processes on the card
+# --------------------------------------------------------------------------
+
+#: directories a side (4,096 files each), as hard links
+P2P_DIRS = 16
+#: the delta spacedrop's file, and the blocks its base copy shares or not
+DELTA_BYTES = 64 << 20
+DELTA_BLOCK = 1 << 20
+#: the phase fails past this, the child's boot included
+P2P_BUDGET_S = 120.0
+#: the child's READY and each of its answers
+P2P_ANSWER_S = 300.0
+
+
+def delta_files(seed: int, outbox: Path, inbox: Path) -> tuple[Path, bytes]:
+    """The 64 MiB file at ``outbox`` and, in ``inbox`` under the same name,
+    a base copy with every other 1 MiB block the same (about half the
+    chunks shared): a large project file edited in place between sends."""
+    data = RandomBytes(seed, block=DELTA_BYTES)
+    blocks = [data.take(DELTA_BLOCK) for _ in range(DELTA_BYTES // DELTA_BLOCK)]
+    other = [data.take(DELTA_BLOCK) for _ in range(len(blocks))]
+    fresh = b"".join(blocks)
+    base = b"".join(b if i % 2 == 0 else o for i, (b, o) in enumerate(zip(blocks, other)))
+    outbox.mkdir(parents=True, exist_ok=True)
+    inbox.mkdir(parents=True, exist_ok=True)
+    (outbox / "project.bin").write_bytes(fresh)
+    (inbox / "project.bin").write_bytes(base)
+    return outbox / "project.bin", fresh
+
+
+def p2p_drop(node, key: str, peer: str, path: Path, done: list) -> tuple[dict, float]:
+    """One spacedrop (``p2p.spacedrop`` or ``p2p.spacedropDelta``) from
+    ``node``; the sender's Done event and its seconds."""
+    t0 = time.perf_counter()
+    drop_id = node.router.resolve(key, {"peer_id": peer, "paths": [str(path)]})[0]
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        ev = next((e for e in list(done) if e.get("id") == drop_id), None)
+        if ev is not None:
+            if ev["type"] != "SpacedropDone":
+                fail(f"p2p: {key} ended {ev}")
+            return ev, time.perf_counter() - t0
+        time.sleep(0.01)
+    fail(f"p2p: {key} did not finish within 120 s")
+    return {}, 0.0
+
+
+def delta_plane_timing(fresh: bytes, int32_ops_per_s: float) -> dict:
+    """Gear over the one 64 MiB delta file, timed as phase 3 times it on
+    the plane ``_plane`` makes (batch tier 8, seven rows of padding). Its
+    bound is from the bytes the function must move: the file read once and
+    its flags written once; beside it, the bound of the padded plane (its
+    flags all written)."""
+    import torch
+
+    from spacedrive_tpu_torch.ops import cdc
+
+    plane, plens = cdc._plane([fresh], torch.device("cuda"))
+    mask = cdc.DEFAULT_PARAMS.mask
+    Bp, L = plane.shape
+    n = len(fresh)
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    want = cdc.gear_candidates_plain(plane[:1], plens[:1], mask)
+    got = cdc.gear_candidates(plane, plens, mask)
+    if not torch.equal(got[:1], want) or got[1:].any():
+        fail("p2p: gear_candidates on the delta plane differs from its plain version")
+    del want, got
+    out = {"ms": device_ms(lambda: cdc.gear_candidates(plane, plens, mask),
+                           "gear_candidates_kernel", reps=10),
+           "cold_ms": device_ms(lambda: cdc.gear_candidates(plane, plens, mask),
+                                "gear_candidates_kernel", reps=10, between=flush.zero_),
+           "call_ms": time_ms(lambda: cdc.gear_candidates(plane, plens, mask), 10),
+           "plain_ms": time_ms(lambda: cdc.gear_candidates_plain(plane, plens, mask), 1,
+                               warmup=0),
+           "bound": bound_ms(2 * n + 4 + 256 * 4, n * OPS_PER_GEAR_POSITION,
+                             int32_ops_per_s),
+           "padded_bound_ms": bound_ms(n + Bp * 4 + 256 * 4 + Bp * L,
+                                       n * OPS_PER_GEAR_POSITION, int32_ops_per_s)[0],
+           "shape": f"plane ({Bp}, {L}) u8, 1 file, {n} B"}
+    torch.cuda.empty_cache()
+    b, by = out["bound"]
+    log(f"time: gear_candidates@delta64MiB {out['shape']}: {out['ms']:.4f} ms device time "
+        f"(a wrapper call {out['call_ms']:.4f} ms; L2 cleared {out['cold_ms']:.4f} ms), plain "
+        f"{out['plain_ms']:.2f} ms; bound {b:.4f} ms by {by} ({100 * b / out['ms']:.1f}%), "
+        f"the padded plane's {out['padded_bound_ms']:.4f} ms")
+    return out
+
+
+def p2p_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str,
+              seed: int, int32_ops_per_s: float) -> dict:
+    """Phase 12: node A here and node B in a child process on the same
+    card pair over the encrypted wire, scan their halves at once (A's cas
+    messages hashed on B's card over ``H_HASH``), converge over the network,
+    send a file by delta and serve a ranged remote GET."""
+    import hashlib
+    import urllib.request
+
+    import torch
+
+    from spacedrive_tpu_torch.locations import scan_location
+    from spacedrive_tpu_torch.models import FilePath
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects.hasher import RemoteHasher
+    from spacedrive_tpu_torch.ops import _kernels
+    from spacedrive_tpu_torch.p2p import identity
+    from tests.torch_p2p_cases import (PeerError, PeerProcess, count_scans, p2p_counts,
+                                       p2p_debug_log, p2p_location, p2p_reset, rows_digest)
+    from tests.torch_sync_cases import sync_ops
+
+    t_phase = time.perf_counter()
+    work = WORK / "p2p"
+    dirs = [d for d in range(N_DIRS) if d != skip_dir]
+    halves = {"A": dirs[:P2P_DIRS], "B": dirs[P2P_DIRS:2 * P2P_DIRS]}
+    roots = {}
+    for side, ds in halves.items():
+        roots[side] = work / side
+        for d in ds:
+            (roots[side] / f"d{d:02d}").mkdir(parents=True)
+            for p in (tree_dir / f"d{d:02d}").iterdir():
+                os.link(p, roots[side] / f"d{d:02d}" / p.name)
+    link_s = time.perf_counter() - t_phase
+    os.environ["SD_CHUNK_MANIFESTS"] = "1"
+    for knob in ("SD_PIPELINE", "SD_PIPELINE_DEPTH", "SD_SCAN_SHARDS", "SD_COMMIT_GROUP",
+                 "SD_SCAN_BATCH", "SD_SCAN_ADAPT", "SD_SYNC_INGEST_LANES", "SD_SEARCH_ENGINE",
+                 "SD_P2P_DISABLED"):
+        os.environ.pop(knob, None)
+    p2p_debug_log(work / "A-debug.log")
+    t0 = time.perf_counter()
+    child = PeerProcess(work / "data-B", roots["B"], "cuda", work / "child-B.log",
+                        work / "B-debug.log", timeout=P2P_ANSWER_S)
+    undo = count_scans("A")
+    node = None
+    try:
+        node = Node(work / "data-A", watch_locations=False)
+        for feature in ("syncEmitMessages", "filesOverP2P"):
+            node.router.resolve("toggleFeatureFlag", feature)
+        ready = child.wait_ready()
+        boot_s = time.perf_counter() - t0
+        if node.p2p is None:
+            child.fail("A started no p2p manager")
+        peer_b = ready["identity"]
+        done: list = []
+        node.events.on(lambda ev: done.append(ev.payload) if ev.kind == "p2p" and (
+            ev.payload or {}).get("type") in ("SpacedropDone", "SpacedropFailed") else None)
+
+        # 1. connect and 2. pair
+        t0 = time.perf_counter()
+        got = node.router.resolve("p2p.debugConnect", {"addr": f"127.0.0.1:{ready['port']}"})
+        connect_s = time.perf_counter() - t0
+        peers = node.router.resolve("p2p.peers", None)
+        rec = next((p for p in peers if p["identity"] == peer_b), None)
+        kind = torch.cuda.get_device_name(0)
+        if got != peer_b or rec is None or not rec["connected"] or \
+                (rec.get("accelerator") or {}).get("kind") != kind:
+            child.fail(f"p2p.peers after debugConnect: {peers} (want {peer_b} on {kind})")
+        t0 = time.perf_counter()
+        node.router.resolve("p2p.pair", {"peer_id": peer_b})
+        deadline = time.monotonic() + 60
+        lib = None
+        while lib is None and time.monotonic() < deadline:
+            lib = next((x for x in node.libraries.list() if x.id == ready["library_id"]), None)
+            time.sleep(0.01)
+        if lib is None:
+            child.fail("A has no mirror of B's library 60 s after p2p.pair")
+        while time.monotonic() < deadline and RemoteHasher(node)._pick_peer() != peer_b:
+            time.sleep(0.01)
+        pair_s = time.perf_counter() - t0
+        members = node.p2p.nlm.member_nodes(lib)
+        if not lib.sync.emit_messages or peer_b not in members or \
+                RemoteHasher(node)._pick_peer() != peer_b:
+            child.fail(f"after pairing: emit {lib.sync.emit_messages}, members {members}, "
+                       f"remote hasher peer {RemoteHasher(node)._pick_peer()}")
+        loc = p2p_location(lib, roots["A"], hasher="remote")
+        log(f"p2p (phase 12) on {card}: identity route {identity.ROUTE}; links {link_s:.2f} s; "
+            f"B's process READY {boot_s:.2f} s after its start (A booted beside it); "
+            f"connected {connect_s:.3f} s, B on {rec['accelerator']['kind']}; paired "
+            f"{pair_s:.3f} s")
+
+        # 3. both scans at once, A's cas messages hashed on B's card
+        p2p_reset()
+        child.ask("reset")
+        logged_before = {"A": sync_ops(lib), "B": child.ask("ops")["logged"]}
+        t0 = time.perf_counter()
+        child.ask("scan")
+        scan_location(lib, loc["id"])
+        if not node.jobs.wait_idle(600):
+            child.fail("the scan of A did not finish")
+        a_s = time.perf_counter() - t0
+        b_scan = child.ask("wait_scan")
+        scans_s = time.perf_counter() - t0
+        t_scans = time.perf_counter()
+        torch_sync()
+        jobs = [dict(r) for r in lib.db.query("SELECT name, status, errors_text FROM job")]
+        jobs += b_scan["jobs"]
+        if not b_scan["idle"] or any(j["status"] not in (2, 6) for j in jobs):
+            child.fail(f"scan jobs ended {[j for j in jobs if j['status'] not in (2, 6)]}")
+
+        # 4. the rows converge over the network
+        want = None
+        digest = None
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            digest, n_rows = rows_digest(lib.db)
+            want = child.ask("rows")
+            if want["digest"] == digest:
+                break
+            time.sleep(0.5)
+        converge_s = time.perf_counter() - t_scans
+        if want is None or want["digest"] != digest:
+            b_now = child.ask("counts")
+            child.fail(f"the rows of A and B differ 120 s after the scans ({n_rows} and "
+                       f"{want and want['rows']}); logged A {sync_ops(lib)}, B "
+                       f"{child.ask('ops')['logged']}; A's sessions {dict(p2p_counts()['nlm'])}, "
+                       f"budget {node.ingest_budget.status()}; B's sessions {b_now['nlm']}, "
+                       f"budget {b_now['fleet']['budget']}")
+        files = {(r["materialized_path"], r["name"], r["extension"]): r["cas_id"]
+                 for r in lib.db.query("SELECT * FROM file_path WHERE is_dir = 0")}
+        differ = [k for k, cas in files.items() if phase4_rows[k]["cas_id"] != cas]
+        if len(files) != 2 * P2P_DIRS * N_FILES_A_DIR or differ:
+            child.fail(f"{len(files)} files after the scans, {len(differ)} cas_ids differ "
+                       f"from phase 4's, e.g. {differ[:2]}")
+        a_scan = p2p_counts()
+        b_counts = child.ask("counts")
+        logged = {"A": sync_ops(lib), "B": child.ask("ops")["logged"]}
+        hashed = dict(a_scan["p2p"])
+        served = {k: b_counts["p2p"].get(k, 0) for k in
+                  ("hash_served", "hash_served_messages", "hash_served_bytes")}
+        a_cas = a_scan["by_tag"].get("cas", {})
+        serve_launches = b_counts["by_origin"].get("hash-serve", {})
+        if a_scan["fallbacks"] or not hashed.get("hash_requests") or \
+                hashed.get("hash_request_messages") != served["hash_served_messages"] or \
+                any(a_cas.values()):
+            child.fail(f"A's cas messages: {hashed}, fallbacks {a_scan['fallbacks']}, A's own "
+                       f"cas launches {a_cas}; B served {served}")
+        for k in ("blake3_chunk_cvs", "blake3_merge"):
+            if not serve_launches.get(k):
+                child.fail(f"B's card never launched {k} for A's H_HASH batches: "
+                           f"{b_counts['by_origin']}")
+        for side, counts in (("A", a_scan), ("B", b_counts)):
+            scan = counts["by_origin"].get(f"scan:{side}", {})
+            need = SCAN_KERNELS if side == "B" else ("blake3_chunk_cvs", "gear_candidates")
+            if any(not scan.get(k) for k in need) or counts["plain_on_cuda"]:
+                child.fail(f"the scan of {side} launched {scan}; plain versions on the card "
+                           f"{counts['plain_on_cuda']}")
+        ingested = {"A": a_scan["nlm"].get("pulled_ops", 0),
+                    "B": b_counts["nlm"].get("pulled_ops", 0)}
+        # each side ingests at least what the other logged in the phase
+        if ingested["A"] < logged["B"] - logged_before["B"] or \
+                ingested["B"] < logged["A"] - logged_before["A"]:
+            child.fail(f"ops logged {logged} ({logged_before} before the scans), ingested "
+                       f"over the wire {ingested}")
+        log(f"p2p (phase 12, scans): both scans {scans_s:.2f} s at once (A {a_s:.2f} s, B "
+            f"{b_scan['seconds']:.2f} s); A's H_HASH {hashed.get('hash_requests')} batches, "
+            f"{hashed.get('hash_request_messages')} messages, "
+            f"{hashed.get('hash_request_bytes')} B, fallbacks 0, hashed on B's card "
+            f"{json.dumps(serve_launches)}; logged {json.dumps(logged)}, ingested over the "
+            f"wire {json.dumps(ingested)}; rows equal {converge_s:.2f} s after both scans "
+            f"({len(files)} files, every cas_id equal to phase 4's); B's budget "
+            f"{json.dumps(b_counts['fleet']['budget'])}; launches by origin A "
+            f"{json.dumps(a_scan['by_origin'])}, B "
+            f"{json.dumps(b_counts['by_origin'])}")
+
+        # 5. a 64 MiB file by delta, again, and by a plain spacedrop
+        inbox = Path(ready["inbox"])
+        src, fresh = delta_files(seed + 12, work / "outbox", inbox)
+        want_sha = hashlib.sha256(fresh).hexdigest()
+
+        def received(ev: dict, what: str) -> Path:
+            path = Path(ev.get("path") or "")
+            if not path.is_file() or hashlib.sha256(path.read_bytes()).hexdigest() != want_sha:
+                child.fail(f"{what}: B's file {path} is not A's")
+            return path
+
+        from spacedrive_tpu_torch.p2p import delta
+
+        drops = {}
+        delta.reset_counts()
+        ev, secs = p2p_drop(node, "p2p.spacedropDelta", peer_b, src, done)
+        got = received(ev, "the delta")
+        shipped = dict(delta.BYTES)
+        drops["delta"] = {"seconds": secs, "file_bytes": len(fresh),
+                          "bytes_shipped": shipped.get("sent", 0),
+                          "bytes_reused": shipped.get("reused", 0),
+                          "chunks_sent": ev["chunks_sent"], "chunks_reused": ev["chunks_reused"],
+                          "busy_windows": dict(delta.BUSY)}
+        if not 0 < shipped.get("sent", 0) < 0.6 * len(fresh) or not ev["chunks_reused"]:
+            child.fail(f"the delta shipped {shipped} of {len(fresh)} B")
+        os.replace(got, inbox / "project.bin")  # B keeps it under its name
+        delta.reset_counts()
+        ev, secs = p2p_drop(node, "p2p.spacedropDelta", peer_b, src, done)
+        received(ev, "the second delta")
+        drops["again"] = {"seconds": secs, "bytes_shipped": dict(delta.BYTES).get("sent", 0),
+                          "chunks_sent": ev["chunks_sent"], "chunks_reused": ev["chunks_reused"]}
+        if ev["chunks_sent"] or drops["again"]["bytes_shipped"]:
+            child.fail(f"the second delta of a file B holds shipped {drops['again']}")
+        plain_events = len(child.ask("done")["events"])
+        ev, secs = p2p_drop(node, "p2p.spacedrop", peer_b, src, done)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            theirs = child.ask("done")["events"][plain_events:]
+            if theirs:
+                break
+            time.sleep(0.05)
+        if not theirs or theirs[0]["type"] != "SpacedropDone":
+            child.fail(f"B's end of the plain spacedrop: {theirs}")
+        received(theirs[0], "the plain spacedrop")
+        drops["plain"] = {"seconds": secs, "bytes_shipped": ev["bytes"]}
+        delta_counts = {"A": p2p_counts()["by_origin"].get("delta", {}),
+                        "B": child.ask("counts")["by_origin"].get("delta", {})}
+        for side, counts in delta_counts.items():
+            if any(not counts.get(k) for k in SCAN_KERNELS):
+                child.fail(f"the delta's chunking on {side} launched {counts}")
+        log(f"p2p (phase 12, delta): {json.dumps(drops)}; launches by origin 'delta' "
+            f"{json.dumps(delta_counts)}")
+
+        # 6. a ranged GET of one of A's files from B's server
+        big = next(r for r in lib.db.query(
+            "SELECT * FROM file_path WHERE is_dir = 0 AND size_in_bytes > ? "
+            "AND size_in_bytes <= ? ORDER BY materialized_path, name", [256 << 10, 512 << 10])
+            if (roots["A"] / r["materialized_path"].strip("/")).is_dir())
+        path = roots["A"] / big["materialized_path"].strip("/") / f"{big['name']}.{big['extension']}"
+        body = path.read_bytes()
+        ids = child.ask("ids", pub_id=big["pub_id"])
+        start, end = 4096, len(body) - 4097
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{ready['http']}/spacedrive/file/{ready['library_id']}/"
+            f"{ids['location_id']}/{ids['file_path_id']}", headers={"Range": f"bytes={start}-{end}"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            status, got_body = resp.status, resp.read()
+        get_s = time.perf_counter() - t0
+        get_equal = status == 206 and got_body == body[start:end + 1]
+        if not get_equal:
+            child.fail(f"the ranged remote GET answered {status} with {len(got_body)} B, not "
+                       f"bytes {start}-{end} of {path}")
+        log(f"p2p (phase 12, serve): B's server answered a ranged GET ({end - start + 1} B) of "
+            f"A's {path.name} over H_FILE in {get_s * 1e3:.1f} ms, bytes equal")
+
+        b_end = child.ask("counts")
+        a_end = p2p_counts()
+        rc = child.quit()
+        if rc != 0:
+            child.fail(f"the p2p child exited {rc}")
+        gear_plane = delta_plane_timing(fresh, int32_ops_per_s)
+        del fresh
+    except PeerError as exc:
+        a_log = work / "A-debug.log"
+        fail(f"p2p: {exc}\nA's p2p debug log ends:\n"
+             f"{a_log.read_text()[-6000:] if a_log.exists() else ''}")
+    finally:
+        undo()
+        if node is not None:
+            node.shutdown()
+        child.close()
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 12 (p2p): {seconds:.1f} s")
+    if seconds > P2P_BUDGET_S:
+        fail(f"phase 12 took {seconds:.1f} s, over its {P2P_BUDGET_S:.0f} s budget")
+    launches = {k: a_end["launches"].get(k, 0) + b_end["launches"].get(k, 0)
+                for k in SCAN_KERNELS}
+    return {"card": card, "seconds": seconds, "identity": identity.ROUTE, "link_s": link_s,
+            "boot_s": boot_s, "connect_s": connect_s, "pair_s": pair_s, "scans_s": scans_s,
+            "scan_s": {"A": a_s, "B": b_scan["seconds"]}, "logged": logged,
+            "ingested": ingested, "converge_s": converge_s,
+            "hash": {"batches": hashed.get("hash_requests", 0),
+                     "messages": hashed.get("hash_request_messages", 0),
+                     "bytes": hashed.get("hash_request_bytes", 0), "served": served},
+            "fallbacks": a_scan["fallbacks"], "admission": b_counts["fleet"]["budget"],
+            "drops": drops, "get_s": get_s,
+            "get_bytes": end - start + 1, "get_equal": get_equal,
+            "launches": launches,
+            "launches_by_origin": {"A": a_end["by_origin"], "B": b_end["by_origin"]},
+            "launches_by_tag": {"A": a_end["by_tag"], "B": b_end["by_tag"]},
+            "gear_delta_plane": gear_plane}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of all generated data")
@@ -4952,6 +5392,9 @@ def main() -> int:
                         help="build, then phase 10 (the live library) only; no ok line")
     parser.add_argument("--sync", action="store_true",
                         help="build, write and scan phase 4's tree, then phase 11 (sync) "
+                             "only; no ok line")
+    parser.add_argument("--p2p", action="store_true",
+                        help="build, write and scan phase 4's tree, then phase 12 (p2p) "
                              "only; no ok line")
     parser.add_argument("--kill-child", nargs=2, metavar=("DATA_DIR", "TREE"),
                         help="phase 8's child process: scan TREE into a Node on DATA_DIR "
@@ -5024,6 +5467,15 @@ def main() -> int:
         print(card, flush=True)
         print(json.dumps({"sync": synced}), flush=True)
         return 0
+    if args.p2p:
+        try:
+            paired = p2p_phase(WORK / "tree", *sync_reference(args.seed), card, args.seed,
+                               int32_ops_per_s)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        print(card, flush=True)
+        print(json.dumps({"p2p": paired}), flush=True)
+        return 0
     try:
         t0 = time.perf_counter()
         corpus = search_corpus()
@@ -5044,6 +5496,9 @@ def main() -> int:
         live = None if args.kernels else live_library_phase(args.seed, card)
         synced = (None if args.kernels else
                   sync_phase(WORK / "tree", main["rows"], main["tampered_dir"], card))
+        paired = (None if args.kernels else
+                  p2p_phase(WORK / "tree", main["rows"], main["tampered_dir"], card,
+                            args.seed, int32_ops_per_s))
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -5065,6 +5520,8 @@ def main() -> int:
                "search_lex": "spacedrive_tpu_torch/csrc/search.cu"}
     if main is not None:
         times.update(main["validator"]["times"])
+        # phase 12: Gear over the one 64 MiB file of the delta spacedrop
+        times["gear_candidates@delta64MiB"] = paired["gear_delta_plane"]
     kernels = []
     for name, key in timed.items():
         t = times[key]
@@ -5106,6 +5563,12 @@ def main() -> int:
             # phase 11: both nodes' scans (BLAKE3, Gear) and the searches
             # of the rows the other node's operations brought in
             kernels[-1]["launches_sync"] = synced["launches"][name]
+            # phase 12: both processes (the scans, B's H_HASH service for
+            # A's cas messages, the delta's chunking on both ends), by origin
+            kernels[-1]["launches_p2p"] = paired["launches"].get(name, 0)
+            kernels[-1]["launches_p2p_by_origin"] = {
+                side: {o: c[name] for o, c in by.items() if c.get(name)}
+                for side, by in paired["launches_by_origin"].items()}
         if "sass" in t:
             sass = t["sass"] or {}
             kernels[-1]["sass_instructions_per_block"] = sass.get("per_block")
@@ -5156,6 +5619,7 @@ def main() -> int:
                 "ms_by_mesh": {m["mesh"]: m["ms"][name] for m in mesh["meshes"]},
                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None})
         print(json.dumps({"device_programs": programs}), flush=True)
+        print(json.dumps({"p2p": paired}), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -140,11 +140,11 @@ def mount(node: "Node") -> Router:
     invalidation-key contract."""
     from . import invalidate
     from .routers import (backups, categories, files, jobs, libraries, locations, nodes,
-                          notifications, preferences, root, search, sync, tags, volumes)
+                          notifications, p2p, preferences, root, search, sync, tags, volumes)
 
     router = Router(node)
     for module in (root, libraries, locations, search, files, jobs, tags, volumes, nodes,
-                   notifications, preferences, backups, categories, sync):
+                   notifications, preferences, backups, categories, sync, p2p):
         module.mount(router)
     invalidate.validate(router)
     return router

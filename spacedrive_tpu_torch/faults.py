@@ -11,16 +11,20 @@ disk; ``hash`` (before each hash dispatch of the identify job,
 :mod:`.objects.file_identifier`); ``commit`` (at the BEGIN and the
 COMMIT of every outermost database transaction, :mod:`.models.base`);
 ``rspc`` (before each procedure the router resolves, :mod:`.api.router`);
-and ``backup`` (before a backup's archive is built and before it is
+``backup`` (before a backup's archive is built and before it is
 written) and ``restore`` (before a restore renames the extracted files
-over the live ones), :mod:`.backups`.
+over the live ones), :mod:`.backups`; ``sync_ingest`` (the ingest
+budget's admission check, :mod:`.sync.admission`: any kind sheds the
+window, ``overload`` is the canonical one) and ``p2p_send`` (before each
+outbound sync session, hash batch and delta transfer, :mod:`.p2p`).
 
 A plan is a ``;``-separated list of ``seam:kind[:trigger]`` rules, armed by
 :func:`install`, never from the environment: a child process that a test or
 ``chip_smoke.py`` starts to be killed reads its plan from its arguments and
 installs it. The kinds are ``eio`` (``OSError(EIO)``), ``enospc``
-(``OSError(ENOSPC)``) and ``kill``, which SIGKILLs the process at the seam
-(no atexit, no flush: what the OOM killer or a power cut does). The trigger
+(``OSError(ENOSPC)``), ``overload`` (:class:`IngestOverloadError`) and
+``kill``, which SIGKILLs the process at the seam (no atexit, no flush: what
+the OOM killer or a power cut does). The trigger
 is absent (every hit), ``once`` (the first hit) or ``skipN`` (every hit
 after the first N: ``commit:kill:skip3`` dies at the fourth transaction
 seam hit). At most one rule fires per hit, the first in spec order.
@@ -41,6 +45,26 @@ from dataclasses import dataclass
 
 class FaultSpecError(ValueError):
     """A malformed spec, raised at :func:`install`, never at a seam."""
+
+
+class PeerBusyError(RuntimeError):
+    """A peer shed our request with an explicit BUSY answer (admission
+    control). The caller backs off ``retry_after_ms`` and resumes from its
+    acknowledged watermark; BUSY never means a dead peer. Not a fault kind:
+    only a peer's answer raises it."""
+
+    sd_transient = True
+    sd_busy = True
+
+    def __init__(self, msg: str, retry_after_ms: int = 250) -> None:
+        super().__init__(msg)
+        self.retry_after_ms = retry_after_ms
+
+
+class IngestOverloadError(RuntimeError):
+    """Injected admission-budget exhaustion (kind ``overload``)."""
+
+    sd_transient = True
 
 
 @dataclass
@@ -72,8 +96,13 @@ def _kill(key: str):
     threading.Event().wait(3600.0)  # never reached
 
 
+def _raise(cls, msg: str):
+    return lambda key: cls(f"{msg} [injected{': ' + key if key else ''}]")
+
+
 KINDS = {"eio": _oserror(errno.EIO, "I/O error"),
          "enospc": _oserror(errno.ENOSPC, "no space left on device"),
+         "overload": _raise(IngestOverloadError, "ingest overload"),
          "kill": _kill}
 
 

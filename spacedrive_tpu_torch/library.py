@@ -21,21 +21,30 @@ the boot gate (:func:`.recovery.ensure_library_integrity`, :219-231) checks
 it and repairs a corrupt one from the newest valid backup under
 ``<data_dir>/backups`` (or starts it fresh); a database without the row
 its sidecar's ``instance_id`` names (a fresh repair) gets a new instance
-row and the sidecar is repointed (``_ensure_instance_row``, :242-274). The
-library-manager events are not ported.
+row and the sidecar is repointed (``_ensure_instance_row``, :242-274).
+
+The library-manager events (:class:`LibraryManagerEvent`: load, edit,
+delete, instances modified) reach :meth:`Libraries.subscribe`'s callbacks
+synchronously, on the thread that caused them; a new subscriber first gets
+a load for every open library. The p2p layer's
+:class:`~.p2p.nlm.NetworkedLibraries` rebuilds its per-library peer state
+from them. :meth:`Libraries.create` takes the pairing path's ``lib_id``,
+``instance_pub_id`` and ``instance_identity`` (reference :288-333): a
+paired node mirrors the library under the same uuid, with the instance its
+pairing request announced.
 """
 
 from __future__ import annotations
 
 import json
 import logging
-import platform
 import threading
 import uuid
 from pathlib import Path
-from typing import TYPE_CHECKING, Any
+from typing import TYPE_CHECKING, Any, Callable
 
 from .atomic import atomic_write_text, cleanup_stale_tmp
+from .config import PLATFORM
 from .models import ALL_MODELS, Database, Instance, utc_now
 
 if TYPE_CHECKING:
@@ -43,8 +52,11 @@ if TYPE_CHECKING:
 
 logger = logging.getLogger(__name__)
 
-#: an instance row's ``node_platform``: the reference's Platform enum
-_PLATFORMS = {"Windows": 1, "Darwin": 2, "Linux": 3}
+class LibraryManagerEvent:
+    LOAD = "load"
+    EDIT = "edit"
+    DELETE = "delete"
+    INSTANCES_MODIFIED = "instances_modified"
 
 
 def validate_library_name(name: str) -> str:
@@ -105,6 +117,29 @@ class Libraries:
         self.node = node
         self._lock = threading.Lock()
         self._libraries: dict[str, Library] = {}
+        self._subscribers: list[Callable[[str, Library], None]] = []
+
+    def subscribe(self, fn: Callable[[str, Library], None]) -> None:
+        """Call ``fn(event, library)`` on every library-manager event; a load
+        for each open library first."""
+        with self._lock:
+            self._subscribers.append(fn)
+            current = list(self._libraries.values())
+        for library in current:
+            fn(LibraryManagerEvent.LOAD, library)
+
+    def _emit(self, event: str, library: Library) -> None:
+        with self._lock:
+            subs = list(self._subscribers)
+        for fn in subs:
+            try:
+                fn(event, library)
+            except Exception:
+                logger.exception("library %s event subscriber failed", event)
+
+    def notify_instances_modified(self, library: Library) -> None:
+        """Pairing added instance rows: the subscribers rebuild."""
+        self._emit(LibraryManagerEvent.INSTANCES_MODIFIED, library)
 
     def init(self) -> None:
         """Sweep the temporaries a killed write left, then open every
@@ -153,22 +188,25 @@ class Libraries:
         self._attach_services(library)
         with self._lock:
             self._libraries[lib_id] = library
+        self._emit(LibraryManagerEvent.LOAD, library)
         return library
 
-    def _new_instance_row(self, db: Database) -> int:
-        """This node's instance row in ``db``, with a fresh identity."""
+    def _new_instance_row(self, db: Database, pub_id: str | None = None,
+                          identity: str | None = None) -> int:
+        """This node's instance row in ``db``: ``pub_id`` and the encoded
+        ``identity`` when pairing chose them, else fresh ones."""
         from .p2p.identity import Identity, encode_identity
 
         node_cfg = self.node.config.get() if self.node is not None else {}
         seed = node_cfg.get("keypair_seed")
         return db.insert(Instance, {
-            "pub_id": str(uuid.uuid4()),
-            "identity": encode_identity(Identity()),
+            "pub_id": pub_id or str(uuid.uuid4()),
+            "identity": identity or encode_identity(Identity()),
             "node_remote_identity": (Identity.from_seed(seed).to_remote_identity().encode()
                                      if seed else None),
             "node_id": node_cfg.get("id", str(uuid.uuid4())),
             "node_name": node_cfg.get("name", "node"),
-            "node_platform": _PLATFORMS.get(platform.system(), 0),
+            "node_platform": node_cfg.get("platform", PLATFORM),
             "last_seen": utc_now(),
             "date_created": utc_now(),
         })
@@ -214,12 +252,26 @@ class Libraries:
             {"version": 1, "name": name, "description": description,
              "instance_id": instance_id}))
 
-    def create(self, name: str, description: str = "") -> Library:
-        """A new library with its own instance row (made by the open)."""
+    def create(self, name: str, description: str = "", lib_id: str | None = None,
+               instance_pub_id: str | None = None,
+               instance_identity: str | None = None) -> Library:
+        """A new library with its own instance row; ``lib_id``,
+        ``instance_pub_id`` and ``instance_identity`` are the pairing
+        path's (a mirror under the peer's uuid)."""
         name = validate_library_name(name)
-        lib_id = str(uuid.uuid4())
+        lib_id = lib_id or str(uuid.uuid4())
+        with self._lock:
+            if lib_id in self._libraries:
+                raise ValueError(f"library {lib_id} already exists")
         self.dir.mkdir(parents=True, exist_ok=True)
-        self._write_config(lib_id, name, description, 0)
+        instance_id = 0
+        if instance_pub_id is not None or instance_identity is not None:
+            db = Database(self.dir / f"{lib_id}.db", ALL_MODELS)
+            try:
+                instance_id = self._new_instance_row(db, instance_pub_id, instance_identity)
+            finally:
+                db.close()
+        self._write_config(lib_id, name, description, instance_id)
         return self._open(lib_id, name, description)
 
     def edit(self, lib_id: str, name: str | None = None,
@@ -230,6 +282,7 @@ class Libraries:
         if description is not None:
             library.description = description
         self._write_config(lib_id, library.name, library.description, library.instance_id)
+        self._emit(LibraryManagerEvent.EDIT, library)
         return library
 
     def delete(self, lib_id: str) -> None:
@@ -237,6 +290,7 @@ class Libraries:
         actor = getattr(self.node, "locations", None) if self.node is not None else None
         if actor is not None:
             actor.drop_library(lib_id)
+        self._emit(LibraryManagerEvent.DELETE, self.get(lib_id))
         self.unload(lib_id)
         (self.dir / f"{lib_id}.sdlibrary").unlink(missing_ok=True)
         (self.dir / f"{lib_id}.db").unlink(missing_ok=True)

@@ -34,7 +34,7 @@ import re
 import sqlite3
 import threading
 from pathlib import Path
-from typing import Any, ClassVar, Iterable
+from typing import Any, Callable, ClassVar, Iterable
 
 from .. import faults
 
@@ -276,6 +276,8 @@ class Database:
         self._txn_depth = 0
         #: thread that owns the open transaction (its notes are buffered)
         self._txn_thread: int | None = None
+        #: callbacks to run once the open transaction commits
+        self._after_commit: list = []
         #: row-change journal (attached by the search engine; None = the
         #: write path pays nothing)
         self._journal: RowJournal | None = None
@@ -405,6 +407,17 @@ class Database:
     def transaction(self) -> "_Txn":
         """Atomic multi-statement write; nested uses join the outer one."""
         return _Txn(self)
+
+    def after_commit(self, fn: Callable[[], Any]) -> None:
+        """Run ``fn`` once what this thread wrote is visible to every other
+        connection: now outside a transaction, else after the outermost
+        COMMIT (never after a ROLLBACK). A write joined to an outer
+        transaction, as under the pipeline's group commit, is not durable
+        when its own block ends."""
+        if self._txn_depth and self._txn_thread == threading.get_ident():
+            self._after_commit.append(fn)
+        else:
+            fn()
 
     @staticmethod
     def _where_sql(model: type[Model], where: dict[str, Any]) -> tuple[str, list[Any]]:
@@ -537,10 +550,12 @@ class _Txn:
         return self.db
 
     def __exit__(self, exc_type, *_: Any) -> None:
+        committed: list = []
         try:
             self.db._txn_depth -= 1
             if self.db._txn_depth == 0:
                 self.db._txn_thread = None
+                callbacks, self.db._after_commit = self.db._after_commit, []
                 try:
                     if exc_type is None:
                         try:
@@ -549,6 +564,8 @@ class _Txn:
                             self.db._conn.execute("ROLLBACK")
                             raise
                     self.db._conn.execute("COMMIT" if exc_type is None else "ROLLBACK")
+                    if exc_type is None:
+                        committed = callbacks
                 finally:
                     # buffered row-journal notes become drainable only now
                     # (commit OR rollback: the rows are visible or unchanged
@@ -558,3 +575,5 @@ class _Txn:
                         journal.publish_thread(threading.get_ident())
         finally:
             self.db._lock.release()
+        for fn in committed:
+            fn()

@@ -8,15 +8,18 @@ with its sync manager), the node's sync ingest budget (``ingest_budget``,
 router (``node.router``, mounted last, as at :271-273) and the device,
 whose kind and count the node records in its config at boot. The boot order is the reference's (:191-199): every job type is
 registered, the libraries are swept of stale temporaries and opened, the
-locations actor starts, and each library's unfinished jobs cold-resume from
+locations actor starts, each library's unfinished jobs cold-resume from
 their checkpoints (on the node's device: the kernels load from
-``_build``). :meth:`Node.shutdown` checkpoints the running jobs instead of
+``_build``), and p2p starts last (``_start_p2p``, :280-296: ``node.p2p``,
+a :class:`.p2p.P2PManager` listening on an ephemeral TCP port, unless the
+config's ``p2p_enabled`` is false or ``SD_P2P_DISABLED`` is set; a
+bring-up failure leaves the node offline, ``node.p2p`` None). :meth:`Node.shutdown` checkpoints the running jobs instead of
 waiting for them: call ``jobs.wait_idle`` first to let them finish. ``device`` defaults to the CUDA card and raises
 when there is none; ``device="cpu"`` runs the kernels' plain PyTorch
 versions. ``mesh_devices`` is the device list a ``tpu-sharded`` location's
 mesh spans (``objects.hasher.get_hasher``; default every visible card, or
-the node's device on a CPU node). p2p (``node.p2p`` is None), the key
-manager, telemetry, alerts and the reader pool are not ported.
+the node's device on a CPU node). The key manager, telemetry, alerts, the
+replica router and the reader pool are not ported.
 """
 
 from __future__ import annotations
@@ -83,7 +86,22 @@ class Node:
                 logger.info("cold-resumed %d jobs of library %s", revived, library.id[:8])
         self.search_engine = SearchEngine.maybe_start(self)
         self.router = api_mount(self)
+        self._start_p2p()
         logger.info("node %s up on %s", self.config.get()["id"][:8], self.device)
+
+    def _start_p2p(self) -> None:
+        """Start the p2p control plane, last in the boot."""
+        cfg = self.config.get()
+        if not cfg.get("p2p_enabled", True) or os.environ.get("SD_P2P_DISABLED"):
+            return
+        try:
+            from .p2p.manager import P2PManager
+
+            self.p2p = P2PManager(self)
+            self.p2p.start()
+        except Exception:
+            logger.exception("p2p failed to start; the node stays offline")
+            self.p2p = None
 
     def emit(self, kind: str, payload: Any = None, library_id: str | None = None) -> None:
         self.events.emit_kind(kind, payload, library_id)
@@ -91,10 +109,13 @@ class Node:
     def shutdown(self) -> None:
         """Stop the search engine, checkpoint the running jobs (each pauses
         at its last committed step or group; cold resume revives it at the
-        next boot), stop the watchers and the actors, close the databases."""
+        next boot), stop the watchers, p2p and the actors, close the
+        databases."""
         if self.search_engine is not None:
             self.search_engine.stop()
         self.jobs.shutdown()
         self.locations.stop()
+        if self.p2p is not None:
+            self.p2p.stop()
         self.thumbnail_remover.stop()
         self.libraries.close()

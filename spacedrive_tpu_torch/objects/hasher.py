@@ -23,14 +23,30 @@ two paths:
 :class:`ShardedHasher` (reference :849-889) is the same two paths over a
 device mesh (:mod:`..parallel.mesh`): lanes padded to a multiple of the
 data axis, the fused rows through ``sharded_row_hasher``, the buckets
-through ``sharded_hasher``. :func:`get_hasher` picks by a location's
-``hasher``: ``"tpu-sharded"`` gets the node's sharded hasher, every other
-name the node's device hasher (the reference's CPU, hybrid and remote
-backends are not ported: no hybrid router, no CPU re-dispatch).
+through ``sharded_hasher``.
+
+:class:`RemoteHasher` (reference :1020-1124) is the shared hasher service
+of BASELINE config 5: the files are sampled locally, and only their cas
+messages travel, in wire batches of at most ``WIRE_BATCH`` messages and
+``WIRE_BATCH_BYTES`` (16 MiB), over ``H_HASH`` to a connected peer that advertises
+an accelerator and shares a library with this node; the peer hashes them
+with :func:`hash_messages` on its own device hasher. When no such peer is
+connected, or a batch fails (the peer went away, answered BUSY or failed a
+launch), the rest of the batch hashes on this node's own device hasher,
+and :data:`RemoteHasher.FALLBACKS` counts every message hashed so (by
+reason: ``no_peer``, ``busy``, ``failed``).
+
+:func:`get_hasher` picks by a location's ``hasher``: ``"tpu-sharded"``
+gets the node's sharded hasher, ``"remote"`` a :class:`RemoteHasher` of the
+node (one a call, as the reference's is never cached), every other name
+the node's device hasher (the reference's CPU and hybrid backends are not
+ported: no hybrid router, no CPU re-dispatch).
 """
 
 from __future__ import annotations
 
+import collections
+import logging
 import threading
 from pathlib import Path
 from typing import Callable
@@ -42,6 +58,8 @@ from ..ops import _kernels
 from ..ops.blake3 import (_pad_to_tier, blake3_batch_hex, blake3_batch_rows, digests_to_hex,
                           pack_messages)
 from .cas import MINIMUM_FILE_SIZE, SAMPLED_MESSAGE_LEN, read_sampled_batch
+
+logger = logging.getLogger(__name__)
 
 #: chunk capacities of the message buckets (1 chunk = 1024 B); 101 covers the
 #: longest whole-file message (100 KiB + the 8-byte size prefix)
@@ -198,14 +216,130 @@ class ShardedHasher(DeviceHasher):
         return digests_to_hex(digest)[:B]
 
 
+def hash_messages(node, messages: list[bytes]) -> list[str]:
+    """cas_ids of pre-gathered cas messages on ``node``'s device hasher: the
+    compute side of the shared hasher service (``H_HASH``). On the card a
+    failed launch raises; nothing answers from a plain version."""
+    out = node.hasher.hash_gathered(list(messages))
+    bad = next((r for r in out if isinstance(r, Exception)), None)
+    if bad is not None:
+        raise bad
+    return out  # type: ignore[return-value]
+
+
+class RemoteHasher:
+    """Route cas messages to a paired node's device (see the module
+    docstring)."""
+
+    name = "remote"
+
+    #: per-request caps: they bound the peer's memory and sit well under the
+    #: mux's 64 MiB per-substream buffer. The bytes are half the serving
+    #: node's default ingest budget (the reference's 32 MiB is all of it):
+    #: a batch and the sync window this node has in flight on the peer
+    #: must fit at once, or the peer sheds one of them
+    WIRE_BATCH = 1024
+    WIRE_BATCH_BYTES = 16 * 1024 * 1024
+    #: how long one wire batch may take, round trip included
+    WIRE_TIMEOUT_S = 120.0
+
+    #: messages hashed on this node's own device instead, by reason (the
+    #: batches the peers answered are counted in ``p2p.manager.STATS``)
+    FALLBACKS: collections.Counter = collections.Counter()
+
+    def __init__(self, node) -> None:
+        self._node = node
+
+    @classmethod
+    def reset_counts(cls) -> None:
+        cls.FALLBACKS.clear()
+
+    def _pick_peer(self) -> str | None:
+        """A connected peer that advertises an accelerator and shares a
+        library with this node (the server refuses non-members)."""
+        p2p = getattr(self._node, "p2p", None)
+        if p2p is None:
+            return None
+        members: set[str] = set()
+        for library in self._node.libraries.list():
+            members |= p2p.nlm.member_nodes(library)
+        for peer in p2p.peer_list():
+            accel = peer.get("accelerator") or {}
+            if peer.get("connected") and accel.get("devices") and peer["identity"] in members:
+                return peer["identity"]
+        return None
+
+    def _wire_batches(self, todo: list[int], messages) -> list[list[int]]:
+        """Split by count and by cumulative bytes."""
+        batches: list[list[int]] = []
+        cur: list[int] = []
+        cur_bytes = 0
+        for i in todo:
+            n = len(messages[i])
+            if cur and (len(cur) >= self.WIRE_BATCH or cur_bytes + n > self.WIRE_BATCH_BYTES):
+                batches.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(i)
+            cur_bytes += n
+        if cur:
+            batches.append(cur)
+        return batches
+
+    def hash_batch(self, paths: list[str | Path], sizes: list[int]) -> list[str | Exception]:
+        return self.hash_gathered(read_sampled_batch(paths, sizes))
+
+    def hash_gathered(self, messages: list[bytes | Exception]) -> list[str | Exception]:
+        """Pre-gathered cas messages → cas_ids; Exception entries pass through."""
+        from ..faults import PeerBusyError
+
+        out: list[str | Exception | None] = [None] * len(messages)
+        todo: list[int] = []
+        for i, msg in enumerate(messages):
+            if isinstance(msg, Exception):
+                out[i] = msg
+            else:
+                todo.append(i)
+        peer_id = self._pick_peer() if todo else None
+        failed: list[int] = []
+        reason = "no_peer"
+        if peer_id is None:
+            failed = todo
+        else:
+            p2p = self._node.p2p
+            batches = self._wire_batches(todo, messages)
+            for bi, idxs in enumerate(batches):
+                batch = [messages[i] for i in idxs]
+                try:
+                    ids = p2p.run_coro(p2p.request_hash_batch(peer_id, batch),
+                                       timeout=self.WIRE_TIMEOUT_S)
+                except Exception as e:  # noqa: BLE001 — the rest hashes here
+                    reason = "busy" if isinstance(e, PeerBusyError) else "failed"
+                    logger.warning("remote hash batch via %s failed (%s); hashing on "
+                                   "this node's device", peer_id[:8], e)
+                    for rest in batches[bi:]:
+                        failed.extend(rest)
+                    break
+                for i, cid in zip(idxs, ids):
+                    out[i] = cid
+        if failed:
+            _kernels.count(self.FALLBACKS, reason, len(failed))
+            local = self._node.hasher.hash_gathered([messages[i] for i in failed])
+            for i, r in zip(failed, local):
+                out[i] = r
+        return out  # type: ignore[return-value]
+
+
 _SHARDED_LOCK = threading.Lock()
 
 
-def get_hasher(name: str | None, node) -> DeviceHasher:
+def get_hasher(name: str | None, node) -> DeviceHasher | RemoteHasher:
     """A location's hasher by its ``hasher`` column: the node's
     :class:`ShardedHasher` for ``"tpu-sharded"`` (one a node, over
     ``node.mesh_devices``, by default every visible card, or the node's own
-    device on a CPU node), the node's device hasher for every other name."""
+    device on a CPU node), a :class:`RemoteHasher` for ``"remote"``, the
+    node's device hasher for every other name."""
+    if name == "remote":
+        return RemoteHasher(node)
     if name != "tpu-sharded":
         return node.hasher
     with _SHARDED_LOCK:

@@ -1,12 +1,12 @@
-"""Pure-Python Ed25519 key derivation (RFC 8032), for machines without
-``cryptography``.
+"""Pure-Python Ed25519 (RFC 8032), for machines without ``cryptography``.
 
-A trimmed copy of ``spacedrive_tpu/p2p/ed25519_ref.py``: the RFC 8032
-reference algorithm on the twisted Edwards curve in extended homogeneous
-coordinates, cut to what a library's instance identity needs (a random
-seed and its public key). Byte-compatible with any RFC 8032
-implementation: the same seed gives the same public key as
-``cryptography``'s. Signing and verification come with the p2p handshakes.
+A copy of ``spacedrive_tpu/p2p/ed25519_ref.py``: the RFC 8032 reference
+algorithm on the twisted Edwards curve in extended homogeneous
+coordinates: seeds, public keys, signatures and their verification (a few
+ms each, which identity creation and the p2p handshakes tolerate).
+Byte-compatible with any RFC 8032 implementation: the same seed gives the
+same public key and the same signatures as ``cryptography``'s, so a node on
+this route pairs with one on the other.
 """
 
 from __future__ import annotations
@@ -66,6 +66,25 @@ def _compress(p) -> bytes:
     return int.to_bytes(y | ((x & 1) << 255), 32, "little")
 
 
+def _decompress(b: bytes):
+    n = int.from_bytes(b, "little")
+    sign = n >> 255
+    y = n & ((1 << 255) - 1)
+    if y >= _P:
+        raise ValueError("invalid point encoding")
+    x_sq = (y * y - 1) * pow(_D * y * y + 1, _P - 2, _P) % _P
+    x = _sqrt_mod(x_sq)
+    if x == 0 and sign:
+        raise ValueError("invalid point encoding")
+    if x & 1 != sign:
+        x = _P - x
+    return (x, y, 1, x * y % _P)
+
+
+def _h512(*parts: bytes) -> int:
+    return int.from_bytes(hashlib.sha512(b"".join(parts)).digest(), "little")
+
+
 def _expand(seed: bytes) -> tuple[int, bytes]:
     h = hashlib.sha512(seed).digest()
     a = int.from_bytes(h[:32], "little")
@@ -81,3 +100,32 @@ def generate_seed() -> bytes:
 def public_key(seed: bytes) -> bytes:
     a, _prefix = _expand(seed)
     return _compress(_mul(a, _G))
+
+
+def sign(seed: bytes, message: bytes) -> bytes:
+    a, prefix = _expand(seed)
+    pub = _compress(_mul(a, _G))
+    r = _h512(prefix, message) % _L
+    r_enc = _compress(_mul(r, _G))
+    s = (r + _h512(r_enc, pub, message) * a) % _L
+    return r_enc + int.to_bytes(s, 32, "little")
+
+
+def verify(pub: bytes, signature: bytes, message: bytes) -> bool:
+    if len(signature) != 64 or len(pub) != 32:
+        return False
+    try:
+        point_a = _decompress(pub)
+        point_r = _decompress(signature[:32])
+    except ValueError:
+        return False
+    s = int.from_bytes(signature[32:], "little")
+    if s >= _L:
+        return False
+    k = _h512(signature[:32], pub, message) % _L
+    left = _mul(8, _mul(s, _G))
+    right = _mul(8, _add(point_r, _mul(k, point_a)))
+    lz, rz = left[2], right[2]
+    # compare projective points cross-multiplied (no inversions)
+    return (left[0] * rz - right[0] * lz) % _P == 0 \
+        and (left[1] * rz - right[1] * lz) % _P == 0

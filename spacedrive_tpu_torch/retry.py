@@ -19,7 +19,8 @@ last committed group instead.
 
 Two classes of the reference are left out. The relay-flap class
 (``ConnectionError`` / ``TimeoutError`` of a flapping device relay or peer
-link) has nothing to classify: the port has no relay and no p2p. And
+link) is not in :func:`is_transient`: the port has no relay, and the p2p
+sync sessions classify a dropped link themselves (``p2p.nlm``). And
 ``is_device_wedge`` is not ported on purpose: it turns a device failure into
 a pause, and the port lets a CUDA error fail the job instead.
 """

@@ -25,9 +25,13 @@ websocket JSON-RPC (the rspc wire shape):
 Library-scoped procedures take input = {"library_id":.., "arg":..}.
 
 An error a handler raises (a kernel's included) answers 500, an
-:class:`~..api.router.ApiError` 400. A file or thumbnail owned by another
-instance answers 404, as the reference does with p2p offline: the port has
-no p2p. Not ported: ``/`` (the web explorer), ``/metrics``, the SSE event
+:class:`~..api.router.ApiError` 400. A file in a location another
+instance owns is fetched from that instance's node over p2p
+(``_serve_remote``, reference :527-560: the ``H_FILE`` header, the range
+forwarded, at most ``MAX_REMOTE_SPOOL`` bytes a request), and a thumbnail
+missing here from the node that owns the content (reference :394-471,
+cached locally, a miss remembered for 30 s); with p2p off, or the owning
+node not connected, both answer 404. Not ported: ``/`` (the web explorer), ``/metrics``, the SSE event
 tail ``/telemetry/stream``, ``/client/*``, the HTTP telemetry and the
 reader pool the reference starts with the shell.
 """
@@ -36,10 +40,12 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import io
 import json
 import logging
 import secrets
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import TYPE_CHECKING, Any
@@ -51,6 +57,11 @@ if TYPE_CHECKING:
     from ..node import Node
 
 logger = logging.getLogger(__name__)
+
+#: the most bytes one remote file request spools before it answers
+MAX_REMOTE_SPOOL = 64 * 1024 * 1024
+#: how long a remote thumbnail miss is remembered
+THUMB_MISS_S = 30.0
 
 
 class Server:
@@ -71,6 +82,8 @@ class Server:
         #: stop() closes and joins them
         self._pumps: set[tuple[Any, threading.Thread]] = set()
         self._pumps_lock = threading.Lock()
+        #: cas_id -> when a remote thumbnail miss may be asked again
+        self._thumb_miss: dict[str, float] = {}
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> None:
@@ -228,8 +241,12 @@ class Server:
             if "/" in name or ".." in name or ".." in shard:
                 raise HttpError(400)
             path = Path(thumbnail_dir(self.node.data_dir)) / shard / name
-            # a preview a paired node owns would be fetched over p2p: with
-            # none, a missing thumbnail is a 404
+            if not path.is_file() and name.endswith(".webp"):
+                cas_id = name[:-len(".webp")]
+                if shard != cas_id[:2]:
+                    raise HttpError(404, "no such thumbnail")
+                # a preview a paired node owns: fetched once into the cache
+                await self._fetch_remote_thumbnail(cas_id, path)
             if not path.is_file():
                 raise HttpError(404, "no such thumbnail")
             rng = parse_range(req.header("range"), path.stat().st_size)
@@ -238,6 +255,94 @@ class Server:
         if len(parts) == 4 and parts[0] == "file":
             return await self._serve_file(req, parts[1], parts[2], parts[3])
         raise HttpError(404)
+
+    async def _fetch_remote_thumbnail(self, cas_id: str, dest: Path) -> None:
+        """Pull a preview from a connected node that owns content with this
+        cas_id (best effort: a miss stays a 404)."""
+        from ..models import FilePath, Instance, Location
+
+        p2p = self.node.p2p
+        if p2p is None:
+            return
+        now = time.monotonic()
+        if self._thumb_miss.get(cas_id, 0.0) > now:
+            return
+        loop = asyncio.get_running_loop()
+
+        def _owners() -> list:
+            out = []
+            for library in self.node.libraries.list():
+                row = library.db.find_one(FilePath, {"cas_id": cas_id})
+                if row is None:
+                    continue
+                location = library.db.find_one(Location, {"id": row["location_id"]})
+                if location is None or location.get("instance_id") in (None, library.instance_id):
+                    continue  # local content: nothing to fetch
+                instance = library.db.find_one(Instance, {"id": location["instance_id"]})
+                peer_id = instance and instance.get("node_remote_identity")
+                if peer_id and peer_id in p2p.peers:
+                    out.append((library, peer_id))
+            return out
+
+        for library, peer_id in await loop.run_in_executor(self._pool, _owners):
+            future = asyncio.run_coroutine_threadsafe(
+                p2p.request_thumbnail(peer_id, library.id, cas_id), p2p._loop)
+            try:
+                body = await asyncio.wait_for(asyncio.wrap_future(future), 15)
+            except Exception as e:  # noqa: BLE001 — try the next owner
+                logger.debug("remote thumbnail %s: %s", cas_id[:8], e)
+                continue
+
+            def _persist() -> None:
+                from ..atomic import atomic_write_bytes
+
+                dest.parent.mkdir(parents=True, exist_ok=True)
+                atomic_write_bytes(dest, body)
+
+            await loop.run_in_executor(self._pool, _persist)
+            self._thumb_miss.pop(cas_id, None)
+            return
+        self._thumb_miss[cas_id] = time.monotonic() + THUMB_MISS_S
+
+    async def _serve_remote(self, req: Request, library, location, row) -> Response:
+        """A file of a location another instance owns: its ranged bytes over
+        the p2p ``H_FILE`` header from the owning node."""
+        from ..models import Instance
+        from ..p2p.proto import Range
+
+        p2p = self.node.p2p
+        if p2p is None:
+            raise HttpError(404, "remote file and p2p is offline")
+        instance = library.db.find_one(Instance, {"id": location["instance_id"]})
+        if instance is None:
+            raise HttpError(404, "unknown owning instance")
+        peer_id = instance.get("node_remote_identity")
+        if not peer_id:
+            raise HttpError(404, "instance has no p2p identity")
+        if peer_id not in p2p.peers:
+            raise HttpError(404, "owning node is not connected")
+        size = int(row.get("size_in_bytes") or 0)
+        rng = parse_range(req.header("range"), size) if size else None
+        start, end = rng if rng else (0, size)
+        if end - start > MAX_REMOTE_SPOOL:
+            raise HttpError(416, f"remote serve is capped at {MAX_REMOTE_SPOOL} bytes "
+                                 f"per request; use Range")
+        sink = io.BytesIO()
+        future = asyncio.run_coroutine_threadsafe(
+            p2p.request_file(peer_id, library.id, row["pub_id"],
+                             Range(start, end if rng else None), sink), p2p._loop)
+        try:
+            await asyncio.wait_for(asyncio.wrap_future(future), 60)
+        except Exception as e:  # noqa: BLE001 — the owner refused or went away
+            raise HttpError(404, f"remote fetch failed: {e}")
+        headers = {"content-type": _MIME.get((row.get("extension") or "").lower(),
+                                             "application/octet-stream"),
+                   "accept-ranges": "bytes"}
+        status = 200
+        if rng:
+            headers["content-range"] = f"bytes {start}-{end - 1}/{size}"
+            status = 206
+        return Response(status, headers, sink.getvalue())
 
     async def _serve_file(self, req: Request, library_id: str,
                           location_id: str, file_path_id: str) -> Response:
@@ -259,9 +364,8 @@ class Server:
         if location is None:
             raise HttpError(404, "no such location")
         if location.get("instance_id") not in (None, library.instance_id):
-            # another instance's location: its bytes come over p2p, which
-            # the port does not have (the reference's answer with p2p off)
-            raise HttpError(404, "remote file and p2p is offline")
+            # another instance's location: its bytes come over p2p
+            return await self._serve_remote(req, library, location, row)
         name = row["name"] + (f".{row['extension']}" if row["extension"] else "")
         path = Path(location["path"]) / (row["materialized_path"] or "/").lstrip("/") / name
         try:

@@ -5,9 +5,11 @@ operation factories and their atomic emission into the op log
 (:mod:`.manager`), the annotation-driven applier (:mod:`.apply`), the
 ingester with stale-op rejection and the pull :class:`Actor`
 (:mod:`.ingest`), the partitioned ingest lanes (:mod:`.lanes`) and the
-node's ingest budget's bounds (:mod:`.admission`). The transport is a seam: a direct
-call to the peer library's ``sync.get_ops``, as in the JAX package's
-two-instance tests; the network comes with p2p.
+node's ingest budget (:mod:`.admission`). The transport is a seam: a
+direct call to the peer library's ``sync.get_ops``, as in the JAX
+package's two-instance tests, or the network, where the p2p sync sessions
+(:mod:`..p2p.nlm`) pull the same windows over the wire and admit each
+through the budget.
 """
 
 from .admission import IngestBudget

@@ -1,39 +1,158 @@
-"""Ingest admission budget, as ``sync.fleetStatus`` reports it.
+"""Admission control for sync ingest: shed, don't buffer.
 
-A trimmed copy of ``spacedrive_tpu/sync/admission.py``, cut to the
-:class:`IngestBudget`'s bounds and its status (``node.ingest_budget``).
-The reference's ``try_admit`` with its ``Admission`` and ``Busy`` verdicts
-is called by the p2p sessions and the replica tier only, neither of which
-is ported, so nothing here admits or sheds a window: the in-flight and
-shed counters stay at zero. ``DispatchBudget`` is not ported either.
+A trimmed copy of ``spacedrive_tpu/sync/admission.py``'s
+:class:`IngestBudget`. It tracks the ops and bytes admitted but not yet
+durable across every ingest source of one node (``node.ingest_budget``):
+the p2p sync responder's windows, the ``H_HASH`` batches a peer sends the
+hash service and the delta transfer's chunk windows. ``try_admit`` returns
+an :class:`Admission` token (``release()`` it when the window is durable)
+or a :class:`Busy` verdict carrying ``retry_after_ms``; the responder then
+answers the peer BUSY instead of buffering, and the peer backs off and
+resumes from its acknowledged watermark (:mod:`..p2p.nlm`).
+
+Fairness: a peer with nothing in flight that asks for no more than its
+fair share (budget ÷ peers in flight) is never shed; only the hard global
+bound sheds a peer that already holds work in flight. A node with nothing
+in flight admits a window larger than the whole budget, so a peer can
+always make progress.
+
+The bounds come from ``SD_SYNC_INGEST_BUDGET_OPS`` (4,000) and
+``SD_SYNC_INGEST_BUDGET_BYTES`` (32 MiB), the advised backoff from
+``SD_SYNC_RETRY_AFTER_MS`` (200, scaled by how far over budget the node
+is), all read when the budget is made. The ``sync_ingest`` fault seam
+(:mod:`..faults`) sits at the check: an armed ``sync_ingest:overload``
+sheds the window as a real over-budget node would. ``status()`` is what
+``sync.fleetStatus`` reports. The reference's ``DispatchBudget`` (the rspc
+dispatch budget) waits for the reader pool.
 """
 
 from __future__ import annotations
 
-#: the reference's default bounds: ops admitted but not yet durable across
-#: all peers (about four production pull windows), and bytes sized for
-#: JSON-framed windows
+import os
+import threading
+from dataclasses import dataclass
+
+from .. import faults
+
 DEFAULT_BUDGET_OPS = 4000
 DEFAULT_BUDGET_BYTES = 32 * 1024 * 1024
+BASE_RETRY_AFTER_MS = 200
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, str(default)))
+    except ValueError:
+        return default
+
+
+@dataclass(frozen=True)
+class Busy:
+    """The shed verdict: when the peer should come back."""
+
+    retry_after_ms: int
+    reason: str = "over budget"
+
+
+class Admission:
+    """Token for one admitted window; ``release()`` once, when the window's
+    ops are durable (or abandoned)."""
+
+    __slots__ = ("_budget", "_peer", "_ops", "_bytes", "_released")
+
+    def __init__(self, budget: "IngestBudget", peer: str, ops: int, nbytes: int) -> None:
+        self._budget = budget
+        self._peer = peer
+        self._ops = ops
+        self._bytes = nbytes
+        self._released = False
+
+    def release(self) -> None:
+        if self._released:
+            return
+        self._released = True
+        self._budget._release(self._peer, self._ops, self._bytes)
 
 
 class IngestBudget:
     """The node-wide bound on (ops, bytes) in flight across every ingest
-    source."""
+    source. Thread-safe."""
 
-    def __init__(self, max_ops: int = DEFAULT_BUDGET_OPS,
-                 max_bytes: int = DEFAULT_BUDGET_BYTES) -> None:
+    def __init__(self, max_ops: int | None = None, max_bytes: int | None = None) -> None:
+        if max_ops is None:
+            max_ops = _env_int("SD_SYNC_INGEST_BUDGET_OPS", DEFAULT_BUDGET_OPS)
+        if max_bytes is None:
+            max_bytes = _env_int("SD_SYNC_INGEST_BUDGET_BYTES", DEFAULT_BUDGET_BYTES)
         self.max_ops = max(1, int(max_ops))
         self.max_bytes = max(1, int(max_bytes))
+        self.base_retry_after_ms = _env_int("SD_SYNC_RETRY_AFTER_MS", BASE_RETRY_AFTER_MS)
+        self._lock = threading.Lock()
+        self._ops = 0
+        self._bytes = 0
+        #: peer label -> (ops, bytes) in flight
+        self._per_peer: dict[str, tuple[int, int]] = {}
+        self._shed_windows = 0
+        self._shed_ops = 0
+
+    def try_admit(self, peer: str, ops: int, nbytes: int = 0) -> Admission | Busy:
+        """Admit ``ops`` / ``nbytes`` for ``peer`` or say when to come back."""
+        try:
+            faults.inject("sync_ingest", key=peer)
+        except Exception:
+            with self._lock:
+                pressure = self._shed_locked(ops)
+            return Busy(int(self.base_retry_after_ms * pressure), "injected overload")
+        with self._lock:
+            p_ops, p_bytes = self._per_peer.get(peer, (0, 0))
+            active = len(self._per_peer) + (0 if peer in self._per_peer else 1)
+            over_global = (self._ops + ops > self.max_ops
+                           or self._bytes + nbytes > self.max_bytes)
+            if over_global and self._ops == 0 and self._bytes == 0:
+                over_global = False  # idle node: an oversized window admits
+            # fairness floor: a peer under its fair share (ops and bytes) is
+            # shed by the global bound only when it already holds work
+            fair_ops = self.max_ops // max(1, active)
+            fair_bytes = self.max_bytes // max(1, active)
+            under_share = (p_ops + ops <= max(fair_ops, 1)
+                           and p_bytes + nbytes <= max(fair_bytes, 1))
+            if over_global and (not under_share or p_ops > 0):
+                pressure = self._shed_locked(ops)
+            else:
+                self._ops += ops
+                self._bytes += nbytes
+                self._per_peer[peer] = (p_ops + ops, p_bytes + nbytes)
+                pressure = None
+        if pressure is not None:
+            return Busy(int(self.base_retry_after_ms * pressure), "over budget")
+        return Admission(self, peer, ops, nbytes)
+
+    def _shed_locked(self, ops: int) -> float:
+        """Count a shed window; returns the pressure that scales the advised
+        backoff, so a storm of shed peers does not re-dial in lockstep."""
+        self._shed_windows += 1
+        self._shed_ops += ops
+        return max(1.0, self._ops / self.max_ops)
+
+    def _release(self, peer: str, ops: int, nbytes: int) -> None:
+        with self._lock:
+            self._ops = max(0, self._ops - ops)
+            self._bytes = max(0, self._bytes - nbytes)
+            p_ops, p_bytes = self._per_peer.get(peer, (0, 0))
+            p_ops, p_bytes = max(0, p_ops - ops), max(0, p_bytes - nbytes)
+            if p_ops == 0 and p_bytes == 0:
+                self._per_peer.pop(peer, None)
+            else:
+                self._per_peer[peer] = (p_ops, p_bytes)
 
     def status(self) -> dict:
         """The budget as ``sync.fleetStatus`` reports it."""
-        return {
-            "budget_ops": self.max_ops,
-            "budget_bytes": self.max_bytes,
-            "ops_in_flight": 0,
-            "bytes_in_flight": 0,
-            "peers_in_flight": 0,
-            "shed_windows": 0,
-            "shed_ops": 0,
-        }
+        with self._lock:
+            return {
+                "budget_ops": self.max_ops,
+                "budget_bytes": self.max_bytes,
+                "ops_in_flight": self._ops,
+                "bytes_in_flight": self._bytes,
+                "peers_in_flight": len(self._per_peer),
+                "shed_windows": self._shed_windows,
+                "shed_ops": self._shed_ops,
+            }

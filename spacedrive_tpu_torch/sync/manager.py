@@ -152,8 +152,13 @@ class SyncManager:
 
     def created(self) -> None:
         """Post-commit notification hook for call sites that logged ops inside
-        their own transaction (the broadcast must happen after commit)."""
-        self._broadcast(SyncMessage.CREATED)
+        their own transaction: the broadcast waits for the outermost COMMIT
+        (``Database.after_commit``). A block joined to an outer transaction,
+        as identify's page is to its commit group, is not durable when it
+        ends, and a peer's pull on a CREATED sent then would miss its ops
+        (the reference broadcasts at once: the last group of a scan is then
+        never pushed until the library's next commit)."""
+        self.library.db.after_commit(lambda: self._broadcast(SyncMessage.CREATED))
 
     def shared_create_many(self, model: Any, rows: list[dict[str, Any]],
                            log: bool = True) -> list[CRDTOperation]:
@@ -216,7 +221,7 @@ class SyncManager:
             if self.emit_messages and ops:
                 self.log_ops(ops)
         if self.emit_messages and ops:
-            self._broadcast(SyncMessage.CREATED)
+            self.created()
         return result
 
     def log_ops(self, ops: list[CRDTOperation]) -> None:

@@ -932,3 +932,59 @@ def test_two_card_nodes_scan_sync_and_search_each_other(card, tmp_path, monkeypa
     finally:
         for node in nodes:
             node.shutdown()
+
+
+def test_two_processes_pair_sync_and_hash_over_the_card(card, tmp_path, monkeypatch):
+    """p2p on the card between this process and a child
+    (``tests/torch_p2p_peer.py``): pair over the encrypted wire, hash this
+    node's cas messages on the child's card through ``H_HASH`` (both BLAKE3
+    kernels launched there, none here, no fallback), scan both sides and
+    converge over the sync sessions."""
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects.cas import generate_cas_id
+    from spacedrive_tpu_torch.objects.hasher import RemoteHasher
+    from spacedrive_tpu_torch.p2p import manager
+    from tests.torch_p2p_cases import PeerProcess, rows_digest, small_tree, wait_for
+
+    monkeypatch.delenv("SD_P2P_DISABLED", raising=False)
+    trees = {side: small_tree(tmp_path / f"tree-{side}", seed, side)
+             for seed, side in enumerate(("a", "b"))}
+    peer = PeerProcess(tmp_path / "b", trees["b"], "cuda", tmp_path / "peer.log")
+    node = None
+    try:
+        peer.wait_ready()
+        node = Node(tmp_path / "a", watch_locations=False)
+        node.router.resolve("toggleFeatureFlag", "syncEmitMessages")
+        ident = peer.ready["identity"]
+        node.router.resolve("p2p.pair", {"peer_id": f"127.0.0.1:{peer.ready['port']}"})
+        lib = wait_for(lambda: next((x for x in node.libraries.list()
+                                     if x.id == peer.ready["library_id"]), None),
+                       msg="the mirrored library")
+        wait_for(lambda: RemoteHasher(node)._pick_peer() == ident, msg="the peer's card")
+        RemoteHasher.reset_counts()
+        manager.reset_counts()
+        _kernels.reset_counts()
+        loc = create_location(lib, str(trees["a"]), hasher="remote")
+        scan_location(lib, loc["id"])
+        assert node.jobs.wait_idle(120)
+        rows = lib.db.query("SELECT * FROM file_path WHERE is_dir = 0 AND location_id = ?",
+                            [loc["id"]])
+        assert len(rows) == 17
+        for r in rows:
+            path = trees["a"] / r["materialized_path"].strip("/") / f"{r['name']}.bin"
+            assert r["cas_id"] == (generate_cas_id(path) if r["size_in_bytes"] else None)
+        assert not RemoteHasher.FALLBACKS and manager.STATS["hash_requests"] >= 1
+        assert not any(n for (_k, tag, _s), n in _kernels.LAUNCHES_BY_SHAPE.items()
+                       if tag == "cas")
+        served = peer.ask("counts")["by_origin"].get("hash-serve", {})
+        assert served.get("blake3_chunk_cvs") and served.get("blake3_merge"), served
+        peer.ask("scan")
+        assert peer.ask("wait_scan")["idle"]
+        wait_for(lambda: rows_digest(lib.db)[0] == peer.ask("rows")["digest"], timeout=60,
+                 interval=0.5, msg="equal rows in both processes")
+        assert peer.quit() == 0
+    finally:
+        if node is not None:
+            node.shutdown()
+        peer.close()

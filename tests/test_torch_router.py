@@ -49,6 +49,7 @@ from spacedrive_tpu.api.routers import libraries as jax_libraries
 from spacedrive_tpu.api.routers import locations as jax_locations
 from spacedrive_tpu.api.routers import nodes as jax_nodes
 from spacedrive_tpu.api.routers import notifications as jax_notifications
+from spacedrive_tpu.api.routers import p2p as jax_p2p
 from spacedrive_tpu.api.routers import preferences as jax_preferences
 from spacedrive_tpu.api.routers import root as jax_root
 from spacedrive_tpu.api.routers import search as jax_search
@@ -336,7 +337,7 @@ def test_schema_matches_the_jax_routers(scanned):
     ref = jax_router.Router(scanned.jax)
     for module in (jax_root, jax_libraries, jax_locations, jax_search, jax_files, jax_jobs,
                    jax_tags, jax_volumes, jax_nodes, jax_notifications, jax_preferences,
-                   jax_backups, jax_categories, jax_sync_router):
+                   jax_backups, jax_categories, jax_sync_router, jax_p2p):
         module.mount(ref)
 
     def procs(router):

@@ -177,7 +177,8 @@ def _imports(path: Path) -> set[str]:
 PORT_FILES = sorted((REPO / "spacedrive_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tests" / "torch_multihost_worker.py",
     REPO / "tests" / "torch_kill_child.py", REPO / "tests" / "torch_serve_client.py",
-    REPO / "tests" / "torch_sync_cases.py"]
+    REPO / "tests" / "torch_sync_cases.py", REPO / "tests" / "torch_p2p_cases.py",
+    REPO / "tests" / "torch_p2p_peer.py"]
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
@@ -217,13 +218,21 @@ SCAN_MODULES = ("spacedrive_tpu_torch.faults", "spacedrive_tpu_torch.native",
                 "spacedrive_tpu_torch.sync.crdt", "spacedrive_tpu_torch.sync.hlc",
                 "spacedrive_tpu_torch.sync.apply", "spacedrive_tpu_torch.sync.ingest",
                 "spacedrive_tpu_torch.sync.lanes", "spacedrive_tpu_torch.sync.admission",
-                "spacedrive_tpu_torch.p2p.identity", "spacedrive_tpu_torch.api.routers.sync")
+                "spacedrive_tpu_torch.p2p.identity", "spacedrive_tpu_torch.api.routers.sync",
+                # p2p: the node's manager and every module it runs, the router
+                "spacedrive_tpu_torch.p2p", "spacedrive_tpu_torch.p2p.proto",
+                "spacedrive_tpu_torch.p2p.ed25519_ref", "spacedrive_tpu_torch.p2p.secure",
+                "spacedrive_tpu_torch.p2p.mux", "spacedrive_tpu_torch.p2p.spaceblock",
+                "spacedrive_tpu_torch.p2p.discovery", "spacedrive_tpu_torch.p2p.manager",
+                "spacedrive_tpu_torch.p2p.pairing", "spacedrive_tpu_torch.p2p.nlm",
+                "spacedrive_tpu_torch.p2p.delta", "spacedrive_tpu_torch.api.routers.p2p")
 
 
 def test_port_scan_loads_no_jax(tmp_path):
     """A whole port scan in a fresh interpreter (its native gather, its
     media processor on a PNG and its near-duplicate job on two copies over
-    100 KiB included, the location watched, sync logging its operations),
+    100 KiB included, the location watched, sync logging its operations,
+    the node's p2p manager listening),
     then a search served by the server shell over HTTP, leaves jax
     unimported."""
     from PIL import Image
@@ -247,6 +256,7 @@ def test_port_scan_loads_no_jax(tmp_path):
         f"loc = create_location(lib, {str(tmp_path / 't')!r})\n"
         "scan_location(lib, loc['id'])\n"
         "assert node.jobs.wait_idle(60)\n"
+        "assert node.p2p is not None and node.p2p.port\n"
         "ops = lib.sync.get_ops({}, 1000)[0]\n"
         "assert {o['typ']['kind'] for o in ops} >= {'c', 'u:cas_id', 'u:object_id'}, ops\n"
         "n = lib.db.query('SELECT COUNT(*) AS n FROM chunk_manifest')[0]['n']\n"

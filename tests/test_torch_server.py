@@ -174,7 +174,12 @@ def served(tmp_path_factory):
     (tree / "doc.txt").write_bytes(blob(1, 5000))
     pixels = np.frombuffer(blob(2, 600 * 800 * 3), np.uint8).reshape(600, 800, 3)
     Image.fromarray(pixels).save(tree / "photo.png")
+    # p2p off: the 404 of another instance's file is the offline answer
+    # (tests/test_torch_p2p.py serves such files over p2p)
+    mp = pytest.MonkeyPatch()
+    mp.setenv("SD_P2P_DISABLED", "1")
     node = Node(base / "data", device="cpu", watch_locations=False)
+    mp.undo()
     server = Server(node, "127.0.0.1", 0)
     server.start()
     url = f"http://127.0.0.1:{server.port}"

@@ -111,3 +111,10 @@ def pair_libraries(lib_a, lib_b) -> None:
     two-instance tests do by hand."""
     lib_a.add_remote_instance(lib_b.instance())
     lib_b.add_remote_instance(lib_a.instance())
+
+
+def sync_ops(lib) -> int:
+    """Operations this library's own instance logged."""
+    return sum(lib.db.query(f"SELECT COUNT(*) AS n FROM {t} WHERE instance_id = ?",
+                            [lib.instance_id])[0]["n"]
+               for t in ("shared_operation", "relation_operation"))
