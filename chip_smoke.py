@@ -209,20 +209,45 @@ no result line):
    spacedrop; B's server answers a ranged GET of one of A's files over
    ``H_FILE``; Gear is timed on the delta plane; it prints a ``{"p2p":
    ...}`` line and fails past 120 s;
-13. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
+13. crypto, after phase 12, on a new node on the card (it fails without a
+   key manager and logs the ``cryptography`` and OpenSSL versions): a
+   location of 22 of phase 4's files (8 under 100 KiB, 8 from 100 KiB to 1
+   MiB, its 6 smallest large files) and 3 of random bytes (2 MiB, 2 MiB +
+   17 B, 64 MiB), manifests on, preview media off, is scanned and
+   validated; ``keys.setup``, ``add``, ``mount``, ``setDefault`` and the
+   automount flag through the router; ``files.encryptFiles`` seals 13 files
+   with the stored key (XChaCha20-Poly1305, the sealed metadata) and 12
+   with a password (AES-256-GCM), erasing the originals; a rescan gives
+   every ``.bytes`` file a cas_id on the card, none a plaintext's, and each
+   header's metadata opens to its source's first cas_id; a wrong password
+   and a copy with its last byte flipped each end in a job error with no
+   plaintext left; ``keys.lockKeyManager`` then ``unlockKeyManager``
+   mounts the automount key again; ``keys.enableAutoUnlock`` reports the
+   keyring store taken (then disabled); ``files.decryptFiles`` with the
+   same keys and a rescan give every file its first cas_id, and the
+   validator gives each its first full-file checksum (the 64 MiB file in
+   windows). The phase's identify batches and validator steps launch under
+   the origin ``crypto``: both BLAKE3 kernels and Gear must have launched
+   there, and no plain version on the card. It prints a ``{"crypto":
+   ...}`` line (seconds of each step, MB/s of the 64 MiB file's encrypt
+   and decrypt streams, Argon2id ms a hash) and fails past 90 s;
+14. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
    the resize's times, calls on the path, CUDA kernels a call, and bounds),
-   the ``{"p2p": ...}`` line, the card, the ``{"kernels": [...]}`` line
-   (each kernel's ``launches_serving`` counted in phase 9, the BLAKE3 and
-   Gear kernels' ``launches_watcher`` from the watcher thread in phase 10,
-   every kernel's ``launches_sync`` in phase 11 and ``launches_p2p`` in
-   phase 12, by origin), then the ``{"ok": true, ...}`` line.
+   the ``{"p2p": ...}`` and ``{"crypto": ...}`` lines, the card, the
+   ``{"kernels": [...]}`` line (each kernel's ``launches_serving`` counted
+   in phase 9, the BLAKE3 and Gear kernels' ``launches_watcher`` from the
+   watcher thread in phase 10, every kernel's ``launches_sync`` in phase
+   11, ``launches_p2p`` in phase 12, by origin, and ``launches_crypto`` in
+   phase 13), then the ``{"ok": true, ...}`` line.
 
 ``--live`` builds the kernels and runs phase 10 alone: it prints the card
 and a ``{"live_library": {...}}`` line, never the ``{"ok": true, ...}``
 line. ``--sync`` builds them, writes phase 4's tree, scans it once for its
 cas_ids and runs phase 11 alone: it prints the card and a ``{"sync":
 {...}}`` line, never the ok line. ``--p2p`` does the same for phase 12 and
-prints a ``{"p2p": {...}}`` line.
+prints a ``{"p2p": {...}}`` line. ``--crypto`` builds them, writes phase
+4's tree (no scan) and runs phase 13 alone: it prints the card and a
+``{"crypto": {...}}`` line, never the ok line.
 """
 
 from __future__ import annotations
@@ -5383,6 +5408,324 @@ def p2p_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str,
             "gear_delta_plane": gear_plane}
 
 
+# --------------------------------------------------------------------------
+# phase 13: crypto on the card's node
+# --------------------------------------------------------------------------
+
+#: phase 13's files: 8 of phase 4's under 100 KiB, 8 from 100 KiB to 1 MiB,
+#: its 6 smallest large files (16 MiB and up, copied whole), and 3 of random
+#: bytes: 2 MiB and 2 MiB + 17 B (one block, and two blocks with a 17-byte
+#: last one) and 64 MiB
+CRYPTO_PICK = 8
+CRYPTO_LARGE = 6
+CRYPTO_MADE = {"block-2MiB.bin": 2 << 20, "block-2MiB-17.bin": (2 << 20) + 17,
+               "stream-64MiB.bin": 64 << 20}
+#: the phase fails past this many seconds
+CRYPTO_BUDGET_S = 90
+
+
+def crypto_files(tree_dir: Path, root: Path, seed: int) -> list[str]:
+    """Copy phase 4's picks into ``root`` (one directory for each size
+    class) and write the three made files; returns their paths relative to
+    ``root``."""
+    small, medium, large = [], [], []
+    # the tree's dNN directories only: a location over it leaves its
+    # .spacedrive sidecar in the root
+    for d in sorted(tree_dir.glob("d[0-9][0-9]")):
+        for p in sorted(d.iterdir()):
+            if not p.is_file() or p.name.startswith("."):
+                continue
+            size = p.stat().st_size
+            if 0 < size < 100 << 10:
+                small.append(p)
+            elif (100 << 10) < size <= 1 << 20:
+                medium.append(p)
+            elif size > 1 << 20:
+                large.append((size, p))
+    picks = {"small": small[:CRYPTO_PICK], "medium": medium[:CRYPTO_PICK],
+             "large": [p for _s, p in sorted(large)[:CRYPTO_LARGE]]}
+    rels = []
+    for cls, paths in picks.items():
+        if len(paths) < (CRYPTO_LARGE if cls == "large" else CRYPTO_PICK):
+            fail(f"crypto: phase 4's tree has only {len(paths)} {cls} files")
+        (root / cls).mkdir(parents=True)
+        for p in paths:
+            shutil.copyfile(p, root / cls / p.name)
+            rels.append(f"{cls}/{p.name}")
+    data = RandomBytes(seed + 13)
+    (root / "made").mkdir()
+    for name, size in CRYPTO_MADE.items():
+        (root / "made" / name).write_bytes(data.take(size))
+        rels.append(f"made/{name}")
+    return rels
+
+
+def crypto_rows(db) -> dict:
+    """path relative to the location -> the file_path row's id, cas_id and
+    integrity checksum."""
+    return {f"{r['materialized_path'].strip('/')}/{r['name']}.{r['extension']}".lstrip("/"): r
+            for r in (dict(x) for x in db.query(
+                "SELECT id, materialized_path, name, extension, cas_id, integrity_checksum "
+                "FROM file_path WHERE is_dir = 0"))}
+
+
+def crypto_job(db, name: str) -> dict:
+    row = dict(db.query("SELECT * FROM job WHERE name = ? ORDER BY rowid DESC LIMIT 1",
+                        [name])[0])
+    row["metadata"] = json.loads(row["metadata"]) if row["metadata"] else {}
+    return row
+
+
+def crypto_phase(tree_dir: Path, seed: int, card: str) -> dict:
+    """Phase 13: a node on the card scans a location of phase 4's files and
+    three made ones, encrypts them through ``files.encryptFiles`` (13 with a
+    stored key, XChaCha20-Poly1305 and the sealed metadata; 12 with a
+    password and AES-256-GCM; the originals erased), rescans, decrypts them
+    with the same keys, rescans and validates; the wrong password, a
+    tampered file and a lock and unlock on the way."""
+    import cryptography
+    import torch
+    from cryptography.hazmat.backends.openssl.backend import backend as openssl
+
+    from spacedrive_tpu_torch.crypto import hashing, header, primitives
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.models import Location
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.objects import crypto_jobs
+    from spacedrive_tpu_torch.objects.file_identifier import FileIdentifierJob
+    from spacedrive_tpu_torch.objects.validator import ObjectValidatorJob
+    from spacedrive_tpu_torch.ops import _kernels
+
+    t_phase = time.perf_counter()
+    versions = {"cryptography": cryptography.__version__,
+                "openssl": openssl.openssl_version_text()}
+    log(f"crypto (phase 13): cryptography {versions['cryptography']}, {versions['openssl']}")
+    root, data_dir = WORK / "crypto" / "vault", WORK / "crypto" / "data"
+    rels = crypto_files(tree_dir, root, seed)
+    sizes = {p: (root / p).stat().st_size for p in rels}
+    seconds = {"files_s": time.perf_counter() - t_phase}
+    os.environ["SD_CHUNK_MANIFESTS"] = "1"
+    for knob in ("SD_PIPELINE", "SD_PIPELINE_DEPTH", "SD_SCAN_SHARDS", "SD_COMMIT_GROUP",
+                 "SD_SCAN_BATCH", "SD_SCAN_ADAPT"):
+        os.environ.pop(knob, None)
+
+    # the phase's launches counted under one origin: every identify batch
+    # and every validator step; the streams and the password hashes timed
+    process, validate = FileIdentifierJob.pipeline_process, ObjectValidatorJob.execute_step
+    enc_streams = crypto_jobs.Encryptor.encrypt_streams.__func__
+    dec_streams = crypto_jobs.Decryptor.decrypt_streams.__func__
+    argon2id = hashing._argon2id
+    streams: dict = {"encrypt": [], "decrypt": []}
+    hashes: list = []
+
+    def counted_process(self, ctx, data, batch):
+        with _kernels.origin("crypto"):
+            return process(self, ctx, data, batch)
+
+    def counted_validate(self, ctx, *a):
+        with _kernels.origin("crypto"):
+            return validate(self, ctx, *a)
+
+    def timed(fn, what):
+        def run(cls, key, nonce, algorithm, reader, writer, aad=b""):
+            t0 = time.perf_counter()
+            n = fn(cls, key, nonce, algorithm, reader, writer, aad)
+            streams[what].append((n, time.perf_counter() - t0))
+            return n
+        return classmethod(run)
+
+    def timed_argon2id(*a):
+        t0 = time.perf_counter()
+        out = argon2id(*a)
+        hashes.append(time.perf_counter() - t0)
+        return out
+
+    FileIdentifierJob.pipeline_process = counted_process
+    ObjectValidatorJob.execute_step = counted_validate
+    crypto_jobs.Encryptor.encrypt_streams = timed(enc_streams, "encrypt")
+    crypto_jobs.Decryptor.decrypt_streams = timed(dec_streams, "decrypt")
+    hashing._argon2id = timed_argon2id
+    node = None
+    try:
+        torch.cuda.synchronize()
+        _kernels.reset_counts()
+        node = Node(data_dir, watch_locations=False)
+        if node.key_manager is None:
+            fail("crypto: the node has no key manager (is cryptography importable?)")
+        lib = node.libraries.create("crypto")
+        loc = create_location(lib, root)
+        lib.db.update(Location, {"id": loc["id"]}, {"generate_preview_media": False})
+        r = node.router.resolve
+
+        def rescan(what: str) -> dict:
+            t0 = time.perf_counter()
+            scan_location(lib, loc["id"])
+            if not node.jobs.wait_idle(300):
+                fail(f"crypto: the {what} did not finish")
+            seconds[f"{what}_s"] = time.perf_counter() - t0
+            return crypto_rows(lib.db)
+
+        def validate_all(what: str) -> dict:
+            t0 = time.perf_counter()
+            r("jobs.objectValidator", {"location_id": loc["id"]}, lib.id)
+            if not node.jobs.wait_idle(300):
+                fail(f"crypto: the {what} did not finish")
+            job = crypto_job(lib.db, "object_validator")
+            if job["status"] != 2:
+                fail(f"crypto: the {what} ended {job['status']}: {job['errors_text']}")
+            seconds[f"{what}_s"] = time.perf_counter() - t0
+            return crypto_rows(lib.db)
+
+        def run_job(what: str, key: str, arg: dict) -> dict:
+            t0 = time.perf_counter()
+            r(key, arg, lib.id)
+            if not node.jobs.wait_idle(300):
+                fail(f"crypto: {what} did not finish")
+            seconds[f"{what}_s"] = time.perf_counter() - t0
+            return crypto_job(lib.db, "file_encryptor" if "encrypt" in key else "file_decryptor")
+
+        # 1. the location, scanned and validated on the card
+        first = rescan("scan")
+        if sorted(first) != sorted(rels) or not all(first[p]["cas_id"] for p in rels):
+            fail(f"crypto: the first scan has {len(first)} rows, not the {len(rels)} files "
+                 "each with a cas_id")
+        first = validate_all("validate")
+        if not all(first[p]["integrity_checksum"] for p in rels):
+            fail("crypto: the validator left a file without its checksum")
+
+        # 2. the key manager through the router
+        t0 = time.perf_counter()
+        if r("keys.setup", "chip-smoke master password") is not True:
+            fail("crypto: keys.setup")
+        kid = r("keys.add", {"name": "chip-smoke"})
+        if r("keys.mount", kid) is not True or r("keys.setDefault", kid) is not True:
+            fail("crypto: keys.mount / keys.setDefault")
+        r("keys.updateAutomountStatus", {"uuid": kid, "status": True})
+        if r("keys.getDefault") != kid or r("keys.listMounted") != [kid]:
+            fail("crypto: the default key is not the mounted one")
+        seconds["keys_s"] = time.perf_counter() - t0
+
+        # 3. encrypt: 13 with the key (the 64 MiB file among them), 12 with a password
+        by_key = rels[0::2]  # every size class, the 2 MiB and 64 MiB files
+        by_password = [p for p in rels if p not in by_key]
+        password = "chip-smoke: correct horse battery staple"
+        groups = {"key": (by_key, {"key_uuid": kid}),
+                  "password": (by_password, {"password": password})}
+        for name, (paths, secret) in groups.items():
+            job = run_job(f"encrypt_{name}", "files.encryptFiles", {
+                "sources": [first[p]["id"] for p in paths], **secret,
+                "algorithm": "XChaCha20Poly1305" if name == "key" else "Aes256Gcm",
+                "metadata": name == "key", "erase_original": True})
+            if job["status"] != 2 or job["metadata"].get("encrypted") != len(paths):
+                fail(f"crypto: encrypt ({name}) ended {job['status']} "
+                     f"{job['metadata']}: {job['errors_text']}")
+        left = sorted(str(p.relative_to(root)) for p in root.rglob("*") if p.is_file()
+                      and p.name != ".spacedrive")
+        if left != sorted(f"{p}.bytes" for p in rels):
+            fail(f"crypto: after encrypting, the location holds {left[:4]}...")
+        # a copy of a sealed file with its last byte flipped: its second
+        # block's tag, so block 0 is written before the failure
+        tampered = root / "made" / "tampered.bin.bytes"
+        raw = bytearray((root / "made" / "block-2MiB.bin.bytes").read_bytes())
+        raw[-1] ^= 1
+        tampered.write_bytes(bytes(raw))
+
+        sealed = rescan("rescan_sealed")
+        plain_ids = {first[p]["cas_id"] for p in rels}
+        for p in rels:
+            row = sealed.get(f"{p}.bytes")
+            if row is None or not row["cas_id"]:
+                fail(f"crypto: {p}.bytes has no cas_id after the rescan")
+            if row["cas_id"] in plain_ids:
+                fail(f"crypto: {p}.bytes has a plaintext's cas_id")
+        km = node.key_manager
+        for p in by_key:
+            with open(root / f"{p}.bytes", "rb") as fh:
+                h = header.FileHeader.from_reader(fh)
+            meta = h.decrypt_metadata(h.decrypt_master_key(
+                primitives.Protected(km.get_key(kid).expose())))
+            want = {"name": Path(p).name, "size": sizes[p], "cas_id": first[p]["cas_id"]}
+            if {k: meta.get(k) for k in want} != want or not meta.get("object_pub_id"):
+                fail(f"crypto: {p}.bytes's metadata {meta}, not {want}")
+
+        # 4. the failure cases: a wrong password, the tampered copy
+        wrong = run_job("wrong_password", "files.decryptFiles", {
+            "sources": [sealed[f"{by_password[0]}.bytes"]["id"]], "password": "wrong"})
+        bad = run_job("tampered", "files.decryptFiles", {
+            "sources": [sealed["made/tampered.bin.bytes"]["id"]], "key_uuid": kid})
+        for what, job, text, out in (
+                ("wrong password", wrong, "incorrect password", root / by_password[0]),
+                ("tampered file", bad, "decryption failed", root / "made" / "tampered.bin")):
+            if job["status"] != 6 or text not in (job["errors_text"] or ""):
+                fail(f"crypto: the {what} ended {job['status']}: {job['errors_text']}")
+            if out.exists():
+                fail(f"crypto: the {what} left plaintext at {out}")
+        tampered.unlink()
+        # lock and unlock: the automount key comes back
+        r("keys.lockKeyManager")
+        if r("keys.isUnlocked") or r("keys.listMounted"):
+            fail("crypto: keys.lockKeyManager left the manager unlocked or a key mounted")
+        r("keys.unlockKeyManager", "chip-smoke master password")
+        if r("keys.listMounted") != [kid]:
+            fail("crypto: unlocking did not mount the automount key again")
+        keyring_store = r("keys.enableAutoUnlock")
+        r("keys.disableAutoUnlock")
+
+        # 5. decrypt with the same keys, rescan, validate
+        for name, (paths, secret) in groups.items():
+            job = run_job(f"decrypt_{name}", "files.decryptFiles", {
+                "sources": [sealed[f"{p}.bytes"]["id"] for p in paths], **secret,
+                "erase_original": True})
+            if job["status"] != 2 or job["metadata"].get("decrypted") != len(paths):
+                fail(f"crypto: decrypt ({name}) ended {job['status']} "
+                     f"{job['metadata']}: {job['errors_text']}")
+        back = rescan("rescan_plain")
+        if sorted(back) != sorted(rels):
+            fail(f"crypto: after decrypting, the rows are {sorted(back)[:4]}...")
+        for p in rels:
+            if back[p]["cas_id"] != first[p]["cas_id"]:
+                fail(f"crypto: {p} came back with cas_id {back[p]['cas_id']}, "
+                     f"not {first[p]['cas_id']}")
+        back = validate_all("revalidate")
+        for p in rels:
+            if back[p]["integrity_checksum"] != first[p]["integrity_checksum"]:
+                fail(f"crypto: {p}'s checksum {back[p]['integrity_checksum']} is not "
+                     f"its original's {first[p]['integrity_checksum']}")
+        torch.cuda.synchronize()
+        launches = {k: _kernels.LAUNCHES_BY_ORIGIN.get((k, "crypto"), 0)
+                    for k in (*SCAN_KERNELS, *SEARCH_KERNELS)}
+        for k in SCAN_KERNELS:
+            if not launches[k]:
+                fail(f"crypto: {k} never launched for the phase's scans and validations")
+        plain = sum(_kernels.PLAIN_ON_CUDA.values())
+        if plain:
+            fail(f"crypto: plain versions ran on the card: {dict(_kernels.PLAIN_ON_CUDA)}")
+    finally:
+        FileIdentifierJob.pipeline_process, ObjectValidatorJob.execute_step = process, validate
+        crypto_jobs.Encryptor.encrypt_streams = classmethod(enc_streams)
+        crypto_jobs.Decryptor.decrypt_streams = classmethod(dec_streams)
+        hashing._argon2id = argon2id
+        if node is not None:
+            node.shutdown()
+        shutil.rmtree(WORK / "crypto", ignore_errors=True)
+    big = CRYPTO_MADE["stream-64MiB.bin"]
+    rates = {}
+    for what in ("encrypt", "decrypt"):
+        n_s = [(n, s) for n, s in streams[what] if n >= big]
+        if len(n_s) != 1:
+            fail(f"crypto: {len(n_s)} {what} streams of the 64 MiB file")
+        rates[f"{what}_64MiB_mb_s"] = big / n_s[0][1] / 1e6
+    total = time.perf_counter() - t_phase
+    out = {"seconds": total, "steps_s": seconds, **rates,
+           "argon2id_ms": 1e3 * sum(hashes) / len(hashes), "argon2id_hashes": len(hashes),
+           "files": len(rels), "bytes": sum(sizes.values()),
+           "keyring_store": keyring_store, "launches": launches, **versions, "card": card}
+    log(f"phase 13 (crypto): {total:.1f} s; {json.dumps(out)}")
+    if total > CRYPTO_BUDGET_S:
+        fail(f"phase 13 took {total:.1f} s, over its {CRYPTO_BUDGET_S} s budget")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of all generated data")
@@ -5396,6 +5739,9 @@ def main() -> int:
     parser.add_argument("--p2p", action="store_true",
                         help="build, write and scan phase 4's tree, then phase 12 (p2p) "
                              "only; no ok line")
+    parser.add_argument("--crypto", action="store_true",
+                        help="build, write phase 4's tree, then phase 13 (crypto) only; "
+                             "no ok line")
     parser.add_argument("--kill-child", nargs=2, metavar=("DATA_DIR", "TREE"),
                         help="phase 8's child process: scan TREE into a Node on DATA_DIR "
                              "until the armed commit seam kills it")
@@ -5476,6 +5822,15 @@ def main() -> int:
         print(card, flush=True)
         print(json.dumps({"p2p": paired}), flush=True)
         return 0
+    if args.crypto:
+        try:
+            write_tree(WORK / "tree", args.seed)
+            crypted = crypto_phase(WORK / "tree", args.seed, card)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        print(card, flush=True)
+        print(json.dumps({"crypto": crypted}), flush=True)
+        return 0
     try:
         t0 = time.perf_counter()
         corpus = search_corpus()
@@ -5499,6 +5854,7 @@ def main() -> int:
         paired = (None if args.kernels else
                   p2p_phase(WORK / "tree", main["rows"], main["tampered_dir"], card,
                             args.seed, int32_ops_per_s))
+        crypted = None if args.kernels else crypto_phase(WORK / "tree", args.seed, card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -5569,6 +5925,8 @@ def main() -> int:
             kernels[-1]["launches_p2p_by_origin"] = {
                 side: {o: c[name] for o, c in by.items() if c.get(name)}
                 for side, by in paired["launches_by_origin"].items()}
+            # phase 13: the crypto node's scans and validations
+            kernels[-1]["launches_crypto"] = crypted["launches"][name]
         if "sass" in t:
             sass = t["sass"] or {}
             kernels[-1]["sass_instructions_per_block"] = sass.get("per_block")
@@ -5620,6 +5978,7 @@ def main() -> int:
                 "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None})
         print(json.dumps({"device_programs": programs}), flush=True)
         print(json.dumps({"p2p": paired}), flush=True)
+        print(json.dumps({"crypto": crypted}), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

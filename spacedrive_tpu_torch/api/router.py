@@ -139,12 +139,12 @@ def mount(node: "Node") -> Router:
     """Build the router from the ported sub-routers and validate the
     invalidation-key contract."""
     from . import invalidate
-    from .routers import (backups, categories, files, jobs, libraries, locations, nodes,
+    from .routers import (backups, categories, files, jobs, keys, libraries, locations, nodes,
                           notifications, p2p, preferences, root, search, sync, tags, volumes)
 
     router = Router(node)
     for module in (root, libraries, locations, search, files, jobs, tags, volumes, nodes,
-                   notifications, preferences, backups, categories, sync, p2p):
+                   notifications, preferences, backups, categories, sync, p2p, keys):
         module.mount(router)
     invalidate.validate(router)
     return router

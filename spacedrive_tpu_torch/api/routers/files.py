@@ -1,17 +1,17 @@
 """files.* procedures (``spacedrive_tpu/api/routers/files.py``): the object
 and file_path getters, the note, favorite and access-time mutations, rename,
 create, and the launchers of the fs jobs (copy, cut, duplicate, delete,
-erase). With sync emitting, ``setNote`` and ``setFavorite`` log the
+erase) and of the crypto jobs (``encryptFiles``, ``decryptFiles``). With
+sync emitting, ``setNote`` and ``setFavorite`` log the
 object's field update and ``renameFile`` the row's name and extension (and
-each descendant's materialized_path), in the transaction of the write.
-``encryptFiles`` and ``decryptFiles`` are not ported: their jobs come with
-the crypto slice."""
+each descendant's materialized_path), in the transaction of the write."""
 
 from __future__ import annotations
 
 from pathlib import Path
 
 from ...models import FilePath, MediaData, Object, utc_now
+from ...objects.crypto_jobs import FileDecryptorJob, FileEncryptorJob
 from ...objects.fs import (FileCopierJob, FileCutterJob, FileDeleterJob, FileEraserJob,
                            create_directory, create_file, file_path_abs, location_path_of)
 from ...objects.media.metadata import extract_media_data
@@ -190,3 +190,23 @@ def mount(router) -> None:
     def erase_files(node, library, arg):
         return node.jobs.spawn(library, [FileEraserJob({
             "sources": arg["sources"], "passes": arg.get("passes", 2)})])
+
+    @router.library_mutation("files.encryptFiles")
+    def encrypt_files(node, library, arg):
+        """FileEncryptorJob over the sources, with a password or a key_uuid."""
+        return node.jobs.spawn(library, [FileEncryptorJob({
+            "sources": arg["sources"],
+            "password": arg.get("password"),
+            "key_uuid": arg.get("key_uuid"),
+            "algorithm": arg.get("algorithm", "XChaCha20Poly1305"),
+            "metadata": arg.get("metadata", False),
+            "erase_original": arg.get("erase_original", False)})])
+
+    @router.library_mutation("files.decryptFiles")
+    def decrypt_files(node, library, arg):
+        """FileDecryptorJob over the sources' ``.bytes`` files."""
+        return node.jobs.spawn(library, [FileDecryptorJob({
+            "sources": arg["sources"],
+            "password": arg.get("password"),
+            "key_uuid": arg.get("key_uuid"),
+            "erase_original": arg.get("erase_original", False)})])

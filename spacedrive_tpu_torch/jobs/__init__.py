@@ -31,5 +31,5 @@ def register_builtin_jobs() -> None:
     """Import every module that defines a job, so that :data:`JOB_REGISTRY`
     holds every job type before a cold resume looks one up by name."""
     from ..locations import indexer_job  # noqa: F401
-    from ..objects import dedup, file_identifier, fs, validator  # noqa: F401
+    from ..objects import crypto_jobs, dedup, file_identifier, fs, validator  # noqa: F401
     from ..objects.media import processor  # noqa: F401

@@ -154,6 +154,9 @@ def light_scan_location(library: "Library", location_id: int,
         if entry.content_changed:
             values["cas_id"] = None
             values["object_id"] = None
+            if entry.renamed:
+                # another file took the inode (indexer_job's docstring)
+                values["integrity_checksum"] = None
         db.update(FilePath, {"id": entry.row_id}, values)
     for gone in result.to_remove:
         db.delete(FilePath, {"id": gone["id"]})

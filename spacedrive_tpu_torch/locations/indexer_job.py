@@ -8,6 +8,14 @@ operations in the transaction of its writes (reference :106-168): a save
 the rows' creates, an update the changed fields of each row, a remove its
 deletes. An update's operations name the row's own pub_id; the reference
 names the fresh pub_id its walker made for the entry, which no row has.
+
+An update whose row was matched by inode under another name and whose
+content changed is another file that took a freed inode (a job that writes
+one file and unlinks another, as the crypto jobs do, makes this common):
+the port clears its ``integrity_checksum`` with its cas_id and object, so
+the validator hashes the new file. The reference keeps the other file's
+checksum, which the validator then never replaces; a file changed in place
+under its own name keeps its checksum in both, so a revalidation reports it.
 """
 
 from __future__ import annotations
@@ -68,7 +76,8 @@ class IndexerJob(StatefulJob):
         for batch in _batches([_entry_to_row(e) for e in result.walked], BATCH_SIZE):
             steps.append({"kind": "save", "rows": batch})
         updates = [
-            {**_entry_to_row(e), "row_id": e.row_id, "content_changed": e.content_changed}
+            {**_entry_to_row(e), "row_id": e.row_id, "content_changed": e.content_changed,
+             "renamed": e.renamed}
             for e in result.to_update
         ]
         for batch in _batches(updates, BATCH_SIZE):
@@ -140,6 +149,9 @@ class IndexerJob(StatefulJob):
                         # a pure rename keeps its cas_id/object link
                         values["cas_id"] = None
                         values["object_id"] = None
+                        if row.get("renamed"):
+                            # another file took the inode (module docstring)
+                            values["integrity_checksum"] = None
                     db.update(FilePath, {"id": row["row_id"]}, values)
                     if sync is not None:
                         pub_id = db.find_one(FilePath, {"id": row["row_id"]})["pub_id"]

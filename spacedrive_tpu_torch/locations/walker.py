@@ -33,6 +33,8 @@ class WalkedEntry:
     #: name — renames keep their cas_id/object) changed
     row_id: int | None = None
     content_changed: bool = True
+    #: the row was matched by inode under another name
+    renamed: bool = False
 
     @property
     def rel_path(self) -> str:
@@ -157,7 +159,8 @@ def walk(
                 )
                 if renamed or content_changed or row.get("inode") != meta.inode:
                     result.to_update.append(WalkedEntry(
-                        iso, meta, row_id=row["id"], content_changed=content_changed))
+                        iso, meta, row_id=row["id"], content_changed=content_changed,
+                        renamed=renamed))
             else:
                 result.walked.append(WalkedEntry(iso, meta))
                 produced += 1

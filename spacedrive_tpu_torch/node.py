@@ -18,8 +18,12 @@ waiting for them: call ``jobs.wait_idle`` first to let them finish. ``device`` d
 when there is none; ``device="cpu"`` runs the kernels' plain PyTorch
 versions. ``mesh_devices`` is the device list a ``tpu-sharded`` location's
 mesh spans (``objects.hasher.get_hasher``; default every visible card, or
-the node's device on a CPU node). The key manager, telemetry, alerts, the
-replica router and the reader pool are not ported.
+the node's device on a CPU node). ``key_manager`` (:122-141) is a
+:class:`.crypto.KeyManager` on ``<data_dir>/keystore.json``, made before
+the jobs cold-resume (a crypto job with a ``key_uuid`` resolves its key
+there) and auto-unlocked from the keyring when the keystore asks for it;
+without ``cryptography`` it is None, as in the reference. Telemetry,
+alerts, the replica router and the reader pool are not ported.
 """
 
 from __future__ import annotations
@@ -77,6 +81,7 @@ class Node:
         self.libraries = Libraries(self.data_dir, node=self)
         self.thumbnail_remover = ThumbnailRemoverActor(self)
         self.search_engine = None
+        self.key_manager = self._start_key_manager()
         register_builtin_jobs()  # every job type, before a cold resume looks one up
         self.libraries.init()
         self.locations = LocationsActor(self)
@@ -88,6 +93,23 @@ class Node:
         self.router = api_mount(self)
         self._start_p2p()
         logger.info("node %s up on %s", self.config.get()["id"][:8], self.device)
+
+    def _start_key_manager(self):
+        """The keystore's manager, auto-unlocked where the keystore enabled
+        it; None without the crypto dependencies."""
+        try:
+            from .crypto.keymanager import KeyManager
+
+            km = KeyManager(self.data_dir / "keystore.json")
+        except ImportError as e:
+            logger.warning("crypto stack unavailable (%s); key manager disabled", e)
+            return None
+        try:
+            if km.try_auto_unlock():
+                logger.info("key manager auto-unlocked from the keyring")
+        except Exception:
+            logger.exception("keyring auto-unlock failed; password unlock still available")
+        return km
 
     def _start_p2p(self) -> None:
         """Start the p2p control plane, last in the boot."""

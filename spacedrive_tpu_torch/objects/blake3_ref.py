@@ -1,7 +1,7 @@
 """Pure-Python BLAKE3 — the port's correctness oracle.
 
 A copy of the spec constants and the incremental chunk-stack hasher from the
-public BLAKE3 specification (the same construction as
+public BLAKE3 specification, with its keyed_hash and derive_key modes (the same construction as
 ``spacedrive_tpu/objects/blake3_ref.py``, kept here so the port imports
 nothing of that package). Throughput is irrelevant: the hot path runs in
 ``csrc/blake3.cu``; this module defines the bytes it must produce.
@@ -19,6 +19,9 @@ CHUNK_START = 1 << 0
 CHUNK_END = 1 << 1
 PARENT = 1 << 2
 ROOT = 1 << 3
+KEYED_HASH = 1 << 4
+DERIVE_KEY_CONTEXT = 1 << 5
+DERIVE_KEY_MATERIAL = 1 << 6
 
 IV = (
     0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
@@ -83,21 +86,23 @@ def _words_from_block(block: bytes) -> list[int]:
     return list(struct.unpack("<16I", block))
 
 
-def _chunk_output(chunk: bytes, chunk_counter: int):
+def _chunk_output(chunk: bytes, chunk_counter: int, key_words=IV, base_flags: int = 0):
     """Process a whole chunk except its final compression; returns
-    (input_cv, final_block_words, counter, final_block_len, final_flags)."""
-    cv: list[int] = list(IV)
+    (input_cv, final_block_words, counter, final_block_len, final_flags).
+    ``key_words`` and ``base_flags`` select the mode (hash, keyed_hash or
+    derive_key)."""
+    cv: list[int] = list(key_words)
     blocks = [chunk[i : i + BLOCK_LEN] for i in range(0, len(chunk), BLOCK_LEN)] or [b""]
     for i, block in enumerate(blocks[:-1]):
-        flags = CHUNK_START if i == 0 else 0
+        flags = base_flags | (CHUNK_START if i == 0 else 0)
         cv = compress(cv, _words_from_block(block), chunk_counter, BLOCK_LEN, flags)[:8]
     last = blocks[-1]
-    flags = CHUNK_END | (CHUNK_START if len(blocks) == 1 else 0)
+    flags = base_flags | CHUNK_END | (CHUNK_START if len(blocks) == 1 else 0)
     return cv, _words_from_block(last), chunk_counter, len(last), flags
 
 
-def _parent_args(left_cv: list[int], right_cv: list[int]):
-    return list(IV), left_cv + right_cv, 0, BLOCK_LEN, PARENT
+def _parent_args(left_cv: list[int], right_cv: list[int], key_words=IV, base_flags: int = 0):
+    return list(key_words), left_cv + right_cv, 0, BLOCK_LEN, PARENT | base_flags
 
 
 def _root_bytes(args, out_len: int) -> bytes:
@@ -112,30 +117,52 @@ def _root_bytes(args, out_len: int) -> bytes:
     return bytes(out[:out_len])
 
 
-def blake3(data: bytes, out_len: int = OUT_LEN) -> bytes:
-    """One-shot BLAKE3 via the incremental chunk-stack construction."""
+def blake3(data: bytes, out_len: int = OUT_LEN, key_words=IV, base_flags: int = 0) -> bytes:
+    """One-shot BLAKE3 via the incremental chunk-stack construction; the
+    plain hash unless ``key_words`` and ``base_flags`` select another mode."""
+    mode = (key_words, base_flags)
     chunks = [data[i : i + CHUNK_LEN] for i in range(0, len(data), CHUNK_LEN)] or [b""]
     if len(chunks) == 1:
-        return _root_bytes(_chunk_output(chunks[0], 0), out_len)
+        return _root_bytes(_chunk_output(chunks[0], 0, *mode), out_len)
 
     # chunk stack: push each chunk CV, merging completed subtrees whose size
     # is a power of two (count-trailing-zeros rule from the spec)
     stack: list[list[int]] = []
     total = 0
     for i, chunk in enumerate(chunks[:-1]):
-        new_cv = compress(*_chunk_output(chunk, i))[:8]
+        new_cv = compress(*_chunk_output(chunk, i, *mode))[:8]
         total += 1
         t = total
         while t & 1 == 0:
-            new_cv = compress(*_parent_args(stack.pop(), new_cv))[:8]
+            new_cv = compress(*_parent_args(stack.pop(), new_cv, *mode))[:8]
             t >>= 1
         stack.append(new_cv)
 
     # final chunk stays un-finalized; fold the stack right-to-left
-    right_cv = compress(*_chunk_output(chunks[-1], len(chunks) - 1))[:8]
+    right_cv = compress(*_chunk_output(chunks[-1], len(chunks) - 1, *mode))[:8]
     while len(stack) > 1:
-        right_cv = compress(*_parent_args(stack.pop(), right_cv))[:8]
-    return _root_bytes(_parent_args(stack[0], right_cv), out_len)
+        right_cv = compress(*_parent_args(stack.pop(), right_cv, *mode))[:8]
+    return _root_bytes(_parent_args(stack[0], right_cv, *mode), out_len)
+
+
+def _key_words(key: bytes) -> tuple[int, ...]:
+    if len(key) != 32:
+        raise ValueError("BLAKE3 key must be exactly 32 bytes")
+    return struct.unpack("<8I", key)
+
+
+def blake3_keyed(key: bytes, data: bytes, out_len: int = OUT_LEN) -> bytes:
+    """keyed_hash mode: the 32-byte key replaces the IV (spec section 2.6)."""
+    return blake3(data, out_len, _key_words(key), KEYED_HASH)
+
+
+def derive_key(context: str | bytes, key_material: bytes, out_len: int = OUT_LEN) -> bytes:
+    """derive_key mode (spec section 2.6): the context string hashed in
+    DERIVE_KEY_CONTEXT mode keys the material, hashed in
+    DERIVE_KEY_MATERIAL mode. The key derivation of :mod:`..crypto`."""
+    ctx = context.encode() if isinstance(context, str) else context
+    context_key = blake3(ctx, 32, IV, DERIVE_KEY_CONTEXT)
+    return blake3(key_material, out_len, _key_words(context_key), DERIVE_KEY_MATERIAL)
 
 
 def blake3_hex(data: bytes, out_len: int = OUT_LEN) -> str:

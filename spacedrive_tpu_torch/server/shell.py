@@ -25,7 +25,9 @@ websocket JSON-RPC (the rspc wire shape):
 Library-scoped procedures take input = {"library_id":.., "arg":..}.
 
 An error a handler raises (a kernel's included) answers 500, an
-:class:`~..api.router.ApiError` 400. A file in a location another
+:class:`~..api.router.ApiError` 400. Without ``auth`` the shell refuses the
+key procedures that hand out or move secrets
+(``api.routers.keys.SECRET_PROCEDURES``) on every transport, with a 400. A file in a location another
 instance owns is fetched from that instance's node over p2p
 (``_serve_remote``, reference :527-560: the ``H_FILE`` header, the range
 forwarded, at most ``MAX_REMOTE_SPOOL`` bytes a request), and a thumbnail
@@ -226,6 +228,17 @@ class Server:
         return Response.json({"result": result})
 
     async def _resolve(self, key: str, arg: Any, library_id: str | None) -> Any:
+        """Resolve on the worker pool; every transport (GET, POST, the
+        websocket) comes through here, so without auth the secret key
+        procedures are refused for all of them."""
+        if self.auth is None:
+            from ..api.routers.keys import SECRET_PROCEDURES
+
+            if key in SECRET_PROCEDURES:
+                raise ApiError(
+                    f"{key} returns secret material and is disabled while "
+                    "the server runs without auth — start the shell with "
+                    "credentials (--auth / SD_AUTH) to enable it")
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(
             self._pool, lambda: self.node.router.resolve(key, arg, library_id))

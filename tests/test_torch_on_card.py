@@ -988,3 +988,61 @@ def test_two_processes_pair_sync_and_hash_over_the_card(card, tmp_path, monkeypa
         if node is not None:
             node.shutdown()
         peer.close()
+
+
+def test_encrypt_rescan_decrypt_rescan_on_the_card(card, tmp_path, monkeypatch):
+    """A node on the card scans a seeded tree with manifests on, encrypts
+    its files through ``files.encryptFiles`` with a stored key (the
+    originals erased), rescans: every ``.bytes`` file gets a cas_id through
+    the BLAKE3 kernels, none equal to a plaintext's; then decrypts them with
+    the same key and rescans: every file is back with its first cas_id and
+    its bytes, and the BLAKE3 and Gear kernels launched for both rescans."""
+    from spacedrive_tpu_torch.locations import create_location, scan_location
+    from spacedrive_tpu_torch.models import Location
+    from spacedrive_tpu_torch.node import Node
+
+    monkeypatch.setenv("SD_CHUNK_MANIFESTS", "1")
+    monkeypatch.setenv("SD_P2P_DISABLED", "1")
+    root = tmp_path / "vault"
+    root.mkdir()
+    sizes = (1, 700, 90 << 10, 150 << 10, 2 << 20, (2 << 20) + 17)
+    files = {f"f{i}.bin": blob(500 + i, n) for i, n in enumerate(sizes)}
+    for name, data in files.items():
+        (root / name).write_bytes(data)
+    node = Node(tmp_path / "data", watch_locations=False)
+    try:
+        lib = node.libraries.create("vault")
+        loc = create_location(lib, root)
+        lib.db.update(Location, {"id": loc["id"]}, {"generate_preview_media": False})
+
+        def rescan() -> dict:
+            before = dict(_kernels.LAUNCHES)
+            scan_location(lib, loc["id"])
+            assert node.jobs.wait_idle(300)
+            for kernel in ("blake3_chunk_cvs", "blake3_merge", "gear_candidates"):
+                assert _kernels.LAUNCHES[kernel] > before.get(kernel, 0), kernel
+            return {f"{r['name']}.{r['extension']}": r for r in lib.db.query(
+                "SELECT id, name, extension, cas_id FROM file_path WHERE is_dir = 0")}
+
+        first = rescan()
+        r = node.router.resolve
+        r("keys.setup", "master-pw")
+        kid = r("keys.add", {"name": "vault"})
+        r("files.encryptFiles", {"sources": [first[n]["id"] for n in files], "key_uuid": kid,
+                                 "metadata": True, "erase_original": True}, lib.id)
+        assert node.jobs.wait_idle(300)
+        sealed = rescan()
+        assert set(sealed) == {f"{n}.bytes" for n in files}
+        plain_ids = {first[n]["cas_id"] for n in files}
+        assert all(row["cas_id"] for row in sealed.values())
+        assert not {row["cas_id"] for row in sealed.values()} & plain_ids
+        r("files.decryptFiles", {"sources": [row["id"] for row in sealed.values()],
+                                 "key_uuid": kid, "erase_original": True}, lib.id)
+        assert node.jobs.wait_idle(300)
+        back = rescan()
+        assert {n: row["cas_id"] for n, row in back.items()} == \
+            {n: first[n]["cas_id"] for n in files}
+        for name, data in files.items():
+            assert (root / name).read_bytes() == data
+    finally:
+        node.shutdown()

@@ -49,6 +49,7 @@ from spacedrive_tpu.api.routers import libraries as jax_libraries
 from spacedrive_tpu.api.routers import locations as jax_locations
 from spacedrive_tpu.api.routers import nodes as jax_nodes
 from spacedrive_tpu.api.routers import notifications as jax_notifications
+from spacedrive_tpu.api.routers import keys as jax_keys
 from spacedrive_tpu.api.routers import p2p as jax_p2p
 from spacedrive_tpu.api.routers import preferences as jax_preferences
 from spacedrive_tpu.api.routers import root as jax_root
@@ -66,10 +67,6 @@ from tests.torch_scan_cases import one_torch_thread  # noqa: F401
 from tests.torch_sync_cases import op_log, pub_keys
 
 UUID = re.compile(r"^[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}$")
-
-#: procedures of the mounted JAX routers that the port leaves out (the two
-#: crypto launchers come with the crypto slice)
-NOT_PORTED = {"files.encryptFiles", "files.decryptFiles"}
 
 
 def norm(value, data_dir: str):
@@ -337,16 +334,15 @@ def test_schema_matches_the_jax_routers(scanned):
     ref = jax_router.Router(scanned.jax)
     for module in (jax_root, jax_libraries, jax_locations, jax_search, jax_files, jax_jobs,
                    jax_tags, jax_volumes, jax_nodes, jax_notifications, jax_preferences,
-                   jax_backups, jax_categories, jax_sync_router, jax_p2p):
+                   jax_backups, jax_categories, jax_sync_router, jax_p2p, jax_keys):
         module.mount(ref)
 
     def procs(router):
-        return sorted((p["key"], p["kind"], p["scope"]) for p in router.schema()["procedures"]
-                      if p["key"] not in NOT_PORTED)
+        return sorted((p["key"], p["kind"], p["scope"]) for p in router.schema()["procedures"])
 
     assert procs(scanned.port.router) == procs(ref)
     pools = {k for k, p in scanned.port.router.procedures.items() if p.pool}
-    assert pools == {k for k, p in ref.procedures.items() if p.pool and k not in NOT_PORTED}
+    assert pools == {k for k, p in ref.procedures.items() if p.pool}
 
 
 def test_subscriptions_deliver_what_jax_delivers(scanned):
