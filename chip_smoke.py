@@ -141,12 +141,22 @@ no result line):
    4's cas_ids. Phase 6's photo scan runs warm-start media-lane jobs beside
    identify; it logs how many started before identify ended;
 9. the serving path, through the rspc router and the server shell: (a) on
-   phase 5's node after phase 8, a ``Server`` in process serves phase 5's
-   queries on the 1,000,000-row library over HTTP GET, HTTP POST and the
-   websocket, each answer byte-identical to the in-process
-   ``router.resolve`` answer and to the engine-off SQL answer, each call
-   growing the three search kernels' launches by what the in-process call
-   launched, with the p50 of each transport beside the in-process p50; (b)
+   phase 5's node after phase 8, a ``Server`` in process, whose start forks
+   the default reader pool (4 workers, from a forkserver) beside the node,
+   serves phase 5's queries on the 1,000,000-row library over HTTP GET,
+   HTTP POST and the websocket, each answer byte-identical to the in-process
+   ``router.resolve`` answer and to the engine-off SQL answer (which the
+   pool now serves), each call growing the three search kernels' launches
+   by what the in-process call launched, with the p50 of each transport
+   beside the in-process p50 and the rung that served each query (engine in
+   process, pool or in process); the workers serve pool-marked queries the
+   engine does not (``search.objects``, ``objectsCount``, ``duplicates``,
+   ``tags.list``, ``files.get``, ``locations.get``, a wildcard
+   ``search.paths``) byte-identical to the in-process answer, the pool's
+   p50 beside the in-process p50; a worker SIGKILLed during a dispatch: the
+   request answers right in process and the supervisor respawns the slot;
+   nvidia-smi lists one compute app (this process) and no worker holds a
+   ``/dev/nvidia*`` file; (b)
    after phase 6, a new node on the card behind a ``Server``:
    ``libraries.create``, ``locations.create`` over 4 of phase 4's
    directories and 8 of phase 6's photos (hard links), then
@@ -231,14 +241,37 @@ no result line):
    there, and no plain version on the card. It prints a ``{"crypto":
    ...}`` line (seconds of each step, MB/s of the 64 MiB file's encrypt
    and decrypt streams, Argon2id ms a hash) and fails past 90 s;
-14. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
+14. the serving tier across two nodes, run right after phase 12: (b) on
+   phase 12's converged pair before B quits, B's child running the search
+   engine (``SD_SEARCH_ENGINE=device``) beside its server's default reader
+   pool (the desktop with the card) and A none (a laptop): A's
+   ``router.resolve`` of ``search.pathsCount`` by a name substring, a
+   directory, an extension and a date range is served by B over
+   ``H_QUERY`` (the replica rung) from B's device index, not its pool, each
+   answer byte-identical to B's local answer and to A's in-process SQL
+   answer; B's launches under origin ``replica-serve`` grow for all three
+   search kernels; ``search.objectsCount`` is served by B's pool (pages
+   naming row ids never go to a replica); A marks an object favorite with
+   its push held back: the favorite count is served in A's process (B not
+   eligible), then by B once it has pulled; a fault armed on B fails its
+   next serve, then B quits (exit 0, phase 12's check), and both times
+   the query answers right in A's process within
+   ``SD_REPLICA_TIMEOUT_S``; (a) after
+   it, a node on the card behind the shell with ``SD_RSPC_BUDGET=4`` takes
+   64 concurrent GETs of one search over 50,000 rows: each the page or a
+   429 with ``Retry-After``, at least one 429, the budget back at 0
+   in flight, the same GET then 200; the phase fails past 90 s;
+15. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
    the resize's times, calls on the path, CUDA kernels a call, and bounds),
-   the ``{"p2p": ...}`` and ``{"crypto": ...}`` lines, the card, the
+   the ``{"p2p": ...}``, ``{"crypto": ...}`` and ``{"serving": ...}`` lines
+   (every query's rung, the pool's and the in-process p50s, the 429s, A's
+   replica p50 beside B's local p50, the seconds, the card), the card, the
    ``{"kernels": [...]}`` line (each kernel's ``launches_serving`` counted
    in phase 9, the BLAKE3 and Gear kernels' ``launches_watcher`` from the
    watcher thread in phase 10, every kernel's ``launches_sync`` in phase
-   11, ``launches_p2p`` in phase 12, by origin, and ``launches_crypto`` in
-   phase 13), then the ``{"ok": true, ...}`` line.
+   11, ``launches_p2p`` in phase 12, by origin, ``launches_crypto`` in
+   phase 13, and each search kernel's ``launches_replica`` in phase 14 (b)),
+   then the ``{"ok": true, ...}`` line.
 
 ``--live`` builds the kernels and runs phase 10 alone: it prints the card
 and a ``{"live_library": {...}}`` line, never the ``{"ok": true, ...}``
@@ -247,7 +280,10 @@ cas_ids and runs phase 11 alone: it prints the card and a ``{"sync":
 {...}}`` line, never the ok line. ``--p2p`` does the same for phase 12 and
 prints a ``{"p2p": {...}}`` line. ``--crypto`` builds them, writes phase
 4's tree (no scan) and runs phase 13 alone: it prints the card and a
-``{"crypto": {...}}`` line, never the ok line.
+``{"crypto": {...}}`` line, never the ok line. ``--serving`` writes and
+scans phase 4's tree, then runs phase 12 (whose pair phase 14 (b) reuses)
+and phase 14: it prints the card, the ``{"p2p": ...}`` and the
+``{"serving": {...}}`` lines, never the ok line.
 """
 
 from __future__ import annotations
@@ -2995,25 +3031,38 @@ def serve_search_phase(node, lib, card: str) -> dict:
     from spacedrive_tpu_torch.server import Server
     from tests.torch_serve_client import WsClient, rspc_get, rspc_post
 
+    from spacedrive_tpu_torch.api.router import last_rung
+
     t_phase = time.perf_counter()
     engine = node.search_engine
     engine.refresh_now(lib)
+    t0 = time.perf_counter()
     server = Server(node, "127.0.0.1", 0)
     server.start()
+    bind_s = time.perf_counter() - t0
     url = f"http://127.0.0.1:{server.port}"
     ws = WsClient("127.0.0.1", server.port)
     try:
+        # the pool comes up after the bind
+        if server.wait_pool() is None or node.reader_pool is None:
+            fail("serve: Server.start brought up no reader pool")
+        pool_start_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         _kernels.reset_counts()
         served0 = engine.status()["served"]
         p50: dict = {t: {} for t in ("in_process", "get", "post", "ws")}
         expected: dict = {}
+        rungs: dict = {}
         for label, key, arg in SEARCH_MATRIX:
             engine.set_enabled(False)
             sql = json.dumps(node.router.resolve(key, arg, lib.id), default=str)
             engine.set_enabled(True)
+            # once first: a candidate set past MAX_HYDRATE is scored here the
+            # first time only, then goes to the pool (prefers_inprocess)
+            node.router.resolve(key, arg, lib.id)
             before = kernel_counts(SEARCH_KERNELS)
             value = node.router.resolve(key, arg, lib.id)
+            rungs[label] = last_rung()
             want = json.dumps(value, default=str)
             expected[label] = {k: v - before[k] for k, v in kernel_counts(SEARCH_KERNELS).items()}
             if want != sql:
@@ -3047,15 +3096,23 @@ def serve_search_phase(node, lib, card: str) -> dict:
                         fail(f"serve: {label} over {transport} launched {grew}, the in-process "
                              f"call {expected[label]}")
                 p50[transport][label] = statistics.median(lat)
-            log(f"serve: {label} ({key}): p50 in-process {p50['in_process'][label]:.3f} ms, GET "
+            log(f"serve: {label} ({key}, rung {rungs[label]}): p50 in-process "
+                f"{p50['in_process'][label]:.3f} ms, GET "
                 f"{p50['get'][label]:.3f} ms, POST {p50['post'][label]:.3f} ms, websocket "
                 f"{p50['ws'][label]:.3f} ms; launches a call {expected[label]}")
         launches = kernel_counts(SEARCH_KERNELS)
         plain = {k: v for k, v in _kernels.PLAIN_ON_CUDA.items() if v}
         served = engine.status()["served"] - served0
+        pooled = serve_pool_checks(node, lib, card)
+        pooled["start_s"] = pool_start_s
+        pooled["bind_s"] = bind_s
     finally:
         ws.close()
         server.stop()
+    if node.reader_pool is not None:
+        fail("serve: Server.stop left the reader pool it started attached")
+    if not any(r == "engine" for r in rungs.values()):
+        fail(f"serve: no query of phase 5 took the engine's rung: {rungs}")
     for kernel in SEARCH_KERNELS:
         if launches[kernel] <= 0:
             fail(f"serve: the queries over the server never launched {kernel}")
@@ -3071,7 +3128,191 @@ def serve_search_phase(node, lib, card: str) -> dict:
         + ", ".join(f"{t} {v:.3f} ms" for t, v in median.items())
         + "; added over in-process (median of the per-query differences): "
         + ", ".join(f"{t} {v:.3f} ms" for t, v in added.items()) + f"; {seconds:.1f} s")
-    return {"launches": launches, "p50": median, "added_ms": added, "seconds": seconds}
+    return {"launches": launches, "p50": median, "added_ms": added, "seconds": seconds,
+            "rungs": rungs, "pool": pooled}
+
+
+#: pool-marked queries the engine does not serve, so the reader pool's
+#: workers answer them from the 1,000,000-row library (``file`` and
+#: ``location`` take the library's ids at run time; ``wildcard``'s ``_``
+#: is a LIKE wildcard, which the engine leaves to SQL)
+POOL_MATRIX = [
+    ("objects", "search.objects", {"take": 200}),
+    ("objects_count", "search.objectsCount", None),
+    ("duplicates", "search.duplicates", {"take": 100}),
+    ("tags", "tags.list", None),
+    ("file", "files.get", None),
+    ("location", "locations.get", None),
+    ("wildcard", "search.paths", {"search": "report_", "take": 100}),
+]
+#: the dispatch a worker is killed in: every row sorted by size (seconds
+#: of SQL in the worker)
+KILL_QUERY = {"search": "_", "order_by": "size_in_bytes", "order_desc": True, "take": 100}
+
+
+def cuda_handles(pid: int) -> dict:
+    """What of CUDA a process holds, read from /proc: its open
+    ``/dev/nvidia*`` files and whether ``libcuda`` is mapped."""
+    devices = set()
+    try:
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia"):
+                devices.add(target)
+        with open(f"/proc/{pid}/maps") as fh:
+            libcuda = any("libcuda.so" in line for line in fh)
+    except OSError as e:
+        return {"error": str(e)}
+    return {"devices": sorted(devices), "libcuda": libcuda}
+
+
+def compute_apps() -> list[str]:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def bump_pool(pool, lib_id: str) -> None:
+    """A new watermark for the pool alone, as its bus hook takes a commit:
+    a ``db.commit`` on the bus would stale the engine too, and its refresh
+    of the 1,000,000-row index holds the library's reader (a COUNT(*)),
+    which every pool dispatch waits on for the replica rung's member rows,
+    during the timed calls."""
+    import types
+
+    pool._on_event(types.SimpleNamespace(kind="db.commit", library_id=lib_id))
+
+
+def serve_pool_checks(node, lib, card: str) -> dict:
+    """Phase 9 (a), the reader pool the shell forked beside the node on the
+    card: the pool-marked queries the engine does not serve, answered by
+    the workers from the 1,000,000-row library, each byte-identical to the
+    in-process answer (a fresh pool watermark before each, so the workers'
+    page cache misses; the replay of the same page timed apart as a hit); a
+    worker SIGKILLed during a dispatch, whose request fails over to the
+    process and answers right while the supervisor respawns the slot; and
+    no worker holding anything of CUDA while the node does."""
+    import signal
+    import statistics
+
+    from spacedrive_tpu_torch.api.router import RawJson, last_rung
+    from spacedrive_tpu_torch.server.pool import configured_workers
+
+    pool = node.reader_pool
+    status = pool.status()
+    if pool.workers != configured_workers() or status["alive"] != pool.workers:
+        fail(f"serve: the shell's pool runs {status['alive']} of {pool.workers} workers, "
+             f"{configured_workers()} configured")
+    ids = {"file": {"file_path_id": lib.db.query(
+               "SELECT id FROM file_path ORDER BY id LIMIT 1 OFFSET ?",
+               [N_SEARCH_ROWS // 2])[0]["id"]},
+           "location": lib.db.query("SELECT id FROM location ORDER BY id")[0]["id"]}
+    rungs, lat = {}, {"pool": {}, "pool_hit": {}, "in_process": {}}
+    for label, key, arg in POOL_MATRIX:
+        arg = ids.get(label, arg)
+        times: dict = {k: [] for k in lat}
+        for _ in range(SERVE_REPEATS):
+            bump_pool(pool, lib.id)
+            t0 = time.perf_counter()
+            got = node.router.resolve(key, arg, lib.id, raw=True)
+            times["pool"].append((time.perf_counter() - t0) * 1e3)
+            rungs[label] = last_rung()
+            t0 = time.perf_counter()
+            again = node.router.resolve(key, arg, lib.id, raw=True)
+            times["pool_hit"].append((time.perf_counter() - t0) * 1e3)
+            pool.set_enabled(False)
+            t0 = time.perf_counter()
+            want = json.dumps(node.router.resolve(key, arg, lib.id), default=str).encode()
+            times["in_process"].append((time.perf_counter() - t0) * 1e3)
+            pool.set_enabled(True)
+            if rungs[label] != "pool" or not isinstance(got, RawJson):
+                fail(f"serve: {label} ({key}) took the {rungs[label]} rung, not the pool")
+            if got.data != want or again.data != want:
+                fail(f"serve: the pool's {label} ({key}) page is not the in-process page "
+                     f"({len(got.data)} / {len(again.data)} vs {len(want)} bytes)")
+        for k in lat:
+            lat[k][label] = statistics.median(times[k])
+        log(f"serve (pool): {label} ({key}) byte-identical through {pool.workers} workers; "
+            f"p50 pool {lat['pool'][label]:.3f} ms (a cached replay "
+            f"{lat['pool_hit'][label]:.3f} ms), in-process {lat['in_process'][label]:.3f} ms")
+
+    # a worker SIGKILLed in the middle of a dispatch; the supervisor's pings
+    # are held off meanwhile, so the one worker out of the idle list is the
+    # one serving
+    bump_pool(pool, lib.id)
+    pool.set_enabled(False)
+    want = json.dumps(node.router.resolve("search.paths", KILL_QUERY, lib.id), default=str)
+    pool.set_enabled(True)
+    health_s, pool.health_s = pool.health_s, 3600.0
+    time.sleep(health_s + 0.3)
+    restarts0 = pool.status()["restarts"]
+    result: dict = {}
+
+    def call() -> None:
+        t0 = time.perf_counter()
+        result["page"] = json.dumps(node.router.resolve("search.paths", KILL_QUERY, lib.id),
+                                    default=str)
+        result["rung"], result["ms"] = last_rung(), (time.perf_counter() - t0) * 1e3
+
+    thread = threading.Thread(target=call)
+    thread.start()
+    victim = None
+    deadline = time.monotonic() + 10
+    while victim is None and time.monotonic() < deadline:
+        with pool._cv:
+            busy = [w for w in pool._slots if w is not None and w not in pool._idle]
+        victim = busy[0] if busy else None
+        time.sleep(0.001)
+    if victim is None:
+        fail("serve: no worker took the dispatch to be killed")
+    os.kill(victim.proc.pid, signal.SIGKILL)
+    t_kill = time.perf_counter()
+    thread.join(120)
+    pool.health_s = health_s
+    pool._respawn_wake.set()  # the supervisor waits out the old interval otherwise
+    respawn_s = None
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline:
+        st = pool.status()
+        if st["alive"] == pool.workers and st["restarts"] > restarts0:
+            respawn_s = time.perf_counter() - t_kill
+            break
+        time.sleep(0.01)
+    if result.get("rung") != "in_process" or result.get("page") != want:
+        fail(f"serve: the dispatch whose worker was killed answered through "
+             f"{result.get('rung')}, {'the right' if result.get('page') == want else 'a wrong'} "
+             f"page")
+    if respawn_s is None or victim.proc.pid in pool.worker_pids():
+        fail(f"serve: the killed worker's slot was not respawned: {pool.status()}")
+
+    # the node holds the card; no worker holds anything of CUDA
+    apps = compute_apps()
+    held = {pid: cuda_handles(pid) for pid in pool.worker_pids()}
+    mine = cuda_handles(os.getpid())
+    if len(apps) != 1 or not mine.get("devices"):
+        fail(f"serve: nvidia-smi lists compute apps {apps}; this process holds {mine}")
+    # a context needs the device files open; a worker may map
+    # libcuda without them (not a context), so that is reported, not judged
+    if any(h.get("devices") or h.get("error") for h in held.values()):
+        fail(f"serve: a pool worker holds a /dev/nvidia* file: {held}")
+    out = {"workers": pool.workers, "rungs": rungs,
+           "p50_ms": {k: statistics.median(v.values()) for k, v in lat.items()},
+           "by_query_ms": lat, "killed_dispatch_ms": result["ms"], "respawn_s": respawn_s,
+           "restarts": pool.status()["restarts"], "compute_apps": apps,
+           "worker_cuda_handles": sum(len(h.get("devices", [])) for h in held.values()),
+           "workers_mapping_libcuda": sum(bool(h.get("libcuda")) for h in held.values())}
+    log(f"serve (pool) on {card}: {pool.workers} workers (forkserver); {len(POOL_MATRIX)} "
+        f"queries byte-identical to in-process; median p50 pool "
+        f"{out['p50_ms']['pool']:.3f} ms (cached replay {out['p50_ms']['pool_hit']:.3f} ms), "
+        f"in-process {out['p50_ms']['in_process']:.3f} ms; a worker SIGKILLed mid-dispatch: "
+        f"the request answered in process in {result['ms']:.1f} ms, right, and the slot "
+        f"respawned {respawn_s:.2f} s after the kill; nvidia-smi compute apps {apps} (this "
+        f"process holds {len(mine['devices'])} /dev/nvidia* files, the {len(held)} workers "
+        f"none; {out['workers_mapping_libcuda']} map libcuda without a device file)")
+    return out
 
 
 def follow_jobs(ws, sub_id: int, url: str, lib_id: str, what: str,
@@ -5120,11 +5361,16 @@ def delta_plane_timing(fresh: bytes, int32_ops_per_s: float) -> dict:
 
 
 def p2p_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str,
-              seed: int, int32_ops_per_s: float) -> dict:
+              seed: int, int32_ops_per_s: float, serving: bool = False) -> dict:
     """Phase 12: node A here and node B in a child process on the same
     card pair over the encrypted wire, scan their halves at once (A's cas
     messages hashed on B's card over ``H_HASH``), converge over the network,
-    send a file by delta and serve a ranged remote GET."""
+    send a file by delta and serve a ranged remote GET; B exits 0 on
+    ``quit``. With ``serving``, B runs the search engine
+    (``SD_SEARCH_ENGINE=device``) beside its server's default reader pool,
+    and phase 14 (b) runs on the converged pair before B quits (it asks B
+    to); its result is the ``replica`` key, its seconds outside phase
+    12's."""
     import hashlib
     import urllib.request
 
@@ -5160,7 +5406,9 @@ def p2p_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str,
     p2p_debug_log(work / "A-debug.log")
     t0 = time.perf_counter()
     child = PeerProcess(work / "data-B", roots["B"], "cuda", work / "child-B.log",
-                        work / "B-debug.log", timeout=P2P_ANSWER_S)
+                        work / "B-debug.log", timeout=P2P_ANSWER_S,
+                        env={"SD_SEARCH_ENGINE": "device"} if serving else None)
+    replicated = None
     undo = count_scans("A")
     node = None
     try:
@@ -5371,9 +5619,12 @@ def p2p_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str,
 
         b_end = child.ask("counts")
         a_end = p2p_counts()
-        rc = child.quit()
-        if rc != 0:
-            child.fail(f"the p2p child exited {rc}")
+        if serving:
+            replicated = replica_phase(node, lib, child, peer_b, card)
+        else:
+            rc = child.quit()
+            if rc != 0:
+                child.fail(f"the p2p child exited {rc}")
         gear_plane = delta_plane_timing(fresh, int32_ops_per_s)
         del fresh
     except PeerError as exc:
@@ -5386,7 +5637,7 @@ def p2p_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str,
             node.shutdown()
         child.close()
         shutil.rmtree(work, ignore_errors=True)
-    seconds = time.perf_counter() - t_phase
+    seconds = time.perf_counter() - t_phase - (replicated["seconds"] if replicated else 0.0)
     log(f"phase 12 (p2p): {seconds:.1f} s")
     if seconds > P2P_BUDGET_S:
         fail(f"phase 12 took {seconds:.1f} s, over its {P2P_BUDGET_S:.0f} s budget")
@@ -5405,7 +5656,338 @@ def p2p_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str,
             "launches": launches,
             "launches_by_origin": {"A": a_end["by_origin"], "B": b_end["by_origin"]},
             "launches_by_tag": {"A": a_end["by_tag"], "B": b_end["by_tag"]},
-            "gear_delta_plane": gear_plane}
+            "gear_delta_plane": gear_plane, "replica": replicated}
+
+
+# --------------------------------------------------------------------------
+# phase 14: the serving tier across two nodes
+# --------------------------------------------------------------------------
+
+#: phase 14 (a): the served node's dispatch budget, its rows, the burst
+ADMISSION_BUDGET = 4
+ADMISSION_ROWS = 50_000
+ADMISSION_BURST = 64
+#: phase 14 (b): each replica query's repeats
+REPLICA_REPEATS = 5
+#: phase 14 fails past this: (a) and (b) together
+SERVING_BUDGET_S = 90.0
+
+
+def admission_phase(card: str) -> dict:
+    """Phase 14 (a): a node on the card served by the shell with
+    ``SD_RSPC_BUDGET=4`` (no pool: admission alone) takes a burst of 64
+    concurrent GETs of one search over 50,000 rows. Every answer is the
+    right page or a 429 with ``Retry-After``; at least one is a 429; the
+    budget's in-flight count comes back to 0; the same GET then answers
+    200."""
+    import urllib.parse
+
+    from spacedrive_tpu_torch.models import FilePath, Location
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.server import Server
+    from tests.torch_serve_client import get
+
+    t_phase = time.perf_counter()
+    knobs = {"SD_RSPC_BUDGET": str(ADMISSION_BUDGET), "SD_SERVE_WORKERS": "0",
+             "SD_P2P_DISABLED": "1"}
+    saved = {k: os.environ.get(k) for k in (*knobs, "SD_SEARCH_ENGINE")}
+    os.environ.update(knobs)
+    os.environ.pop("SD_SEARCH_ENGINE", None)
+    try:
+        node = Node(WORK / "admission", watch_locations=False)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    server = None
+    try:
+        if node.dispatch_budget is None or node.dispatch_budget.max_inflight != ADMISSION_BUDGET:
+            fail(f"serving (14a): the node's dispatch budget is {node.dispatch_budget}")
+        lib = node.libraries.create("admission")
+        loc = lib.db.insert(Location, {"pub_id": "loc-admission", "name": "admission",
+                                       "path": "/admission"})
+        words = SEARCH_WORDS
+        lib.db.insert_many(FilePath, [
+            {"pub_id": f"adm-{i:06d}", "location_id": loc, "is_dir": 0,
+             "materialized_path": f"/{words[i % len(words)]}/",
+             "name": f"{words[(i * 7) % len(words)]}-{i:06d}", "extension": "bin",
+             "size_in_bytes": i} for i in range(ADMISSION_ROWS)])
+        server = Server(node, "127.0.0.1", 0)
+        server.start()
+        url = f"http://127.0.0.1:{server.port}"
+        arg = {"search": "photo", "take": 100}
+        path = "/rspc/search.paths?" + urllib.parse.urlencode(
+            {"arg": json.dumps(arg), "library_id": lib.id})
+        want = json.dumps({"result": node.router.resolve("search.paths", arg, lib.id)},
+                          default=str).encode()
+        barrier = threading.Barrier(ADMISSION_BURST)
+        answers: list = []
+
+        def one() -> None:
+            barrier.wait()
+            t0 = time.perf_counter()
+            status, headers, body = get(url, path)
+            answers.append((status, headers, body, (time.perf_counter() - t0) * 1e3))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one) for _ in range(ADMISSION_BURST)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        burst_s = time.perf_counter() - t0
+        ok = [a for a in answers if a[0] == 200]
+        shed = [a for a in answers if a[0] == 429]
+        if len(answers) != ADMISSION_BURST or len(ok) + len(shed) != len(answers):
+            fail(f"serving (14a): the burst answered {sorted(a[0] for a in answers)}")
+        if any(a[2] != want for a in ok):
+            fail("serving (14a): a 200 of the burst is not the page")
+        for status, headers, body, _ms in shed:
+            retry = headers.get("retry-after", "")
+            if not retry.isdigit() or int(retry) < 1 or \
+                    json.loads(body).get("retry_after_ms", 0) <= 0:
+                fail(f"serving (14a): a 429 without its retry-after: {headers} {body[:200]!r}")
+        if not shed:
+            fail(f"serving (14a): {ADMISSION_BURST} concurrent GETs against a budget of "
+                 f"{ADMISSION_BUDGET} were all admitted")
+        budget = node.dispatch_budget.status()
+        status, _headers, body = get(url, path)
+        if budget["in_flight"] != 0 or status != 200 or body != want:
+            fail(f"serving (14a): after the burst the budget is {budget} and the GET "
+                 f"answered {status}")
+    finally:
+        if server is not None:
+            server.stop()
+        node.shutdown()
+    seconds = time.perf_counter() - t_phase
+    out = {"budget": ADMISSION_BUDGET, "burst": ADMISSION_BURST, "ok": len(ok),
+           "shed_429": len(shed), "budget_status": budget, "burst_s": burst_s,
+           "retry_after_s": sorted({int(a[1]["retry-after"]) for a in shed}),
+           "p50_ok_ms": _median([a[3] for a in ok]), "p50_429_ms": _median([a[3] for a in shed]),
+           "seconds": seconds}
+    log(f"serving (phase 14a) on {card}: {ADMISSION_BURST} concurrent GETs of search.paths "
+        f"over {ADMISSION_ROWS} rows against a budget of {ADMISSION_BUDGET}: {len(ok)} pages, "
+        f"{len(shed)} answered 429 (Retry-After {out['retry_after_s']} s), in {burst_s:.3f} s; "
+        f"p50 {out['p50_ok_ms']:.2f} ms a page, {out['p50_429_ms']:.2f} ms a 429; the budget "
+        f"after: {json.dumps(budget)}; {seconds:.1f} s")
+    return out
+
+
+def _median(values: list) -> float | None:
+    import statistics
+
+    return statistics.median(values) if values else None
+
+
+def replica_phase(node, lib, child, peer_b: str, card: str) -> dict:
+    """Phase 14 (b), on phase 12's converged pair: A here (a laptop: the
+    search engine off) and B in its child process on the card (the engine
+    armed beside its default reader pool). A's ``router.resolve`` of
+    ``search.pathsCount`` by a name substring, a directory, an extension
+    and a date range is served by B over ``H_QUERY`` from B's device index,
+    not B's pool: each answer byte-identical to B's local answer and to A's
+    in-process SQL answer; B's launches under origin ``replica-serve`` grow
+    for all three search kernels. ``search.objectsCount``, which the index
+    does not answer, is served by B's pool. Then A marks an object favorite
+    with its push to B held back: B is not eligible, the ladder serves A's
+    in-process count with the favorite; once B has pulled it, B serves it.
+    Then a fault armed on B fails its next serve: the query falls back to
+    A's process within ``SD_REPLICA_TIMEOUT_S``; B quits (exit 0, phase
+    12's check) and the query again answers in A's process. Pages naming
+    row ids (``search.paths``, ``tags.list``) never go to a replica, whose
+    ids are its own."""
+    import collections
+    import statistics
+
+    from spacedrive_tpu_torch.api.router import RawJson, last_rung
+    from spacedrive_tpu_torch.server import replica
+    from spacedrive_tpu_torch.server.replica import encode_reply, replica_timeout_s
+
+    t_phase = time.perf_counter()
+    if node.replica_router is None or node.search_engine is not None:
+        child.fail(f"A's replica router {node.replica_router}, search engine "
+                   f"{node.search_engine}: phase 14 wants A on SQLite with the replica rung")
+    if peer_b not in node.p2p.query_peers(lib.id):
+        child.fail(f"B is not among A's replica candidates {node.p2p.query_peers(lib.id)}")
+    if not child.ask("refresh")["fresh"]:
+        child.fail("B's search index is not fresh after refresh_now")
+    b_pool = child.ask("pool")
+    if not b_pool["status"] or b_pool["status"]["alive"] < 1:
+        child.fail(f"B runs no reader pool: {b_pool}")
+    files = lib.db.query("SELECT name, materialized_path, extension, date_created AS d "
+                         "FROM file_path WHERE is_dir = 0 ORDER BY name")
+    sub = files[len(files) // 3]["name"][:4]
+    dirs = sorted({r["materialized_path"] for r in files})
+    dates = sorted(r["d"] for r in files)
+    exts = collections.Counter(r["extension"] for r in files)
+    matrix = [
+        ("substring", {"search": sub}),
+        ("directory", {"materialized_path": dirs[len(dirs) // 2]}),
+        ("extension", {"extensions": [exts.most_common(1)[0][0]]}),
+        ("dates", {"date_range": [dates[len(dates) // 8], dates[len(dates) // 2]]}),
+    ]
+    count = node.router.procedures["search.pathsCount"].fn
+    before = child.ask("counts")["by_origin"].get("replica-serve", {})
+    replica.reset_counts()
+    rungs: dict = {}
+    lat: dict = {"replica": {}, "b_local": {}, "a_in_process": {}}
+
+    def one(label: str, key: str, arg) -> bytes:
+        """A's dispatch of one query, held to B's local and A's in-process
+        answers; records the three times."""
+        t0 = time.perf_counter()
+        got = node.router.resolve(key, arg, lib.id, raw=True)
+        ms = (time.perf_counter() - t0) * 1e3
+        rungs[label] = last_rung()
+        theirs = child.ask("local", key=key, arg=arg)
+        t0 = time.perf_counter()
+        mine = encode_reply(node.router.procedures[key].fn(node, lib, arg))
+        mine_ms = (time.perf_counter() - t0) * 1e3
+        if rungs[label] != "replica" or not isinstance(got, RawJson):
+            child.fail(f"serving (14b): {label} took the {rungs[label]} rung; replica "
+                       f"{dict(replica.STATS)}")
+        if not got.data == theirs["raw"].encode() == mine:
+            child.fail(f"serving (14b): {label}: A's replica answer {got.data[:160]!r}, B's "
+                       f"local {theirs['raw'][:160]!r}, A's in-process {mine[:160]!r}")
+        for k, v in (("replica", ms), ("b_local", theirs["ms"]), ("a_in_process", mine_ms)):
+            lat[k].setdefault(label, []).append(v)
+        return got.data
+
+    for label, arg in matrix:
+        for _ in range(REPLICA_REPEATS):
+            one(label, "search.pathsCount", arg)
+    after = child.ask("counts")["by_origin"].get("replica-serve", {})
+    launches = {k: after.get(k, 0) - before.get(k, 0) for k in SEARCH_KERNELS}
+    if any(n <= 0 for n in launches.values()):
+        child.fail(f"serving (14b): B's card launched {launches} for A's queries")
+    pool_ok = child.ask("pool")["stats"].get("requests_ok", 0)
+    if pool_ok != b_pool["stats"].get("requests_ok", 0):
+        child.fail(f"serving (14b): B's pool served {pool_ok} queries its index answers")
+    objects = one("objects_count", "search.objectsCount", None)
+    if child.ask("pool")["stats"].get("requests_ok", 0) != pool_ok + 1:
+        child.fail("serving (14b): B's pool did not serve search.objectsCount")
+    if replica.STATS["dispatches_ok"] != len(matrix) * REPLICA_REPEATS + 1:
+        child.fail(f"serving (14b): A's replica counts {dict(replica.STATS)}")
+    p50 = {k: {label: statistics.median(v) for label, v in d.items()} for k, d in lat.items()}
+    log(f"serving (phase 14b) on {card}: {len(matrix)} counts x {REPLICA_REPEATS} served by "
+        f"B's index over H_QUERY, each B's local answer and A's in-process answer; B's "
+        f"launches under 'replica-serve' {json.dumps(launches)}; search.objectsCount "
+        f"({objects.decode()}) by B's pool of {b_pool['status']['workers']}; p50 "
+        + "; ".join(f"{label} A {p50['replica'][label]:.2f} ms / B local "
+                    f"{p50['b_local'][label]:.2f} ms / A SQL {p50['a_in_process'][label]:.2f} ms"
+                    for label in p50["replica"]))
+
+    # A marks an object favorite with its push held back: B is not
+    # eligible until it pulls
+    favorite = {"favorite": True}
+    object_id = lib.db.query("SELECT object_id FROM file_path WHERE object_id IS NOT NULL "
+                             "ORDER BY id LIMIT 1")[0]["object_id"]
+    nlm = node.p2p.nlm
+    push = nlm._on_sync_message
+    nlm._on_sync_message = lambda library, msg: None
+    try:
+        node.router.resolve("files.setFavorite", {"object_id": object_id, "favorite": True},
+                            lib.id)
+        lagging = node.router.resolve("search.pathsCount", favorite, lib.id)
+        stale_rung = last_rung()
+    finally:
+        nlm._on_sync_message = push
+    want = count(node, lib, favorite)
+    if lagging != want or want < 1 or stale_rung != "in_process" or \
+            not replica.STATS["dispatches_not_eligible"]:
+        child.fail(f"serving (14b): after A's favorite, pathsCount took {stale_rung} with "
+                   f"{lagging} (A's SQL {want}); replica {dict(replica.STATS)}")
+    t0 = time.perf_counter()
+    node.p2p.schedule(nlm.originate(lib))
+    served = None
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline:
+        time.sleep(0.3)  # past the not-eligible cooldown
+        served = node.router.resolve("search.pathsCount", favorite, lib.id, raw=True)
+        if last_rung() == "replica":
+            break
+    eligible_s = time.perf_counter() - t0
+    if last_rung() != "replica" or served.data != json.dumps(want).encode() or \
+            served.data != child.ask("local", key="search.pathsCount", arg=favorite)[
+                "raw"].encode():
+        child.fail(f"serving (14b): B did not serve the favorite count within 30 s of the "
+                   f"push ({last_rung()})")
+    log(f"serving (phase 14b): A's favorite: pathsCount served in process while B lagged, "
+        f"by B {eligible_s:.2f} s after the push")
+
+    # a failed serve on B, then B gone: A's process answers within the timeout
+    label, arg = matrix[0]
+    want = encode_reply(count(node, lib, arg))
+    fallback: dict = {}
+    child.ask("faults", spec="replica_serve:eio:once")
+    b_last = child.ask("counts")
+    for case in ("b_failed", "b_quit"):
+        if case == "b_quit":
+            rc = child.quit()
+            if rc != 0:
+                child.fail(f"the p2p child exited {rc}")
+        t0 = time.perf_counter()
+        page = json.dumps(node.router.resolve("search.pathsCount", arg, lib.id)).encode()
+        ms = (time.perf_counter() - t0) * 1e3
+        fallback[case] = {"rung": last_rung(), "ms": ms}
+        if last_rung() != "in_process" or page != want or ms > replica_timeout_s() * 1e3:
+            child.fail(f"serving (14b): with {case} {label} took {last_rung()} in {ms:.0f} ms")
+    if not replica.STATS["dispatches_error"]:
+        child.fail(f"serving (14b): B's failed serve reached A as {dict(replica.STATS)}")
+    seconds = time.perf_counter() - t_phase
+    log(f"serving (phase 14b): B's serve failed (replica_serve:eio), then B quit (exit 0); "
+        f"{label} answered in A's process in {fallback['b_failed']['ms']:.1f} / "
+        f"{fallback['b_quit']['ms']:.1f} ms (SD_REPLICA_TIMEOUT_S {replica_timeout_s():.0f} s); "
+        f"replica counts {json.dumps(dict(replica.STATS))}; {seconds:.1f} s")
+    return {"seconds": seconds, "rungs": {**rungs, "favorite_while_lagging": stale_rung,
+                                          "favorite_after_pull": "replica",
+                                          "after_b_failed": fallback["b_failed"]["rung"],
+                                          "after_b_quit": fallback["b_quit"]["rung"]},
+            "p50_ms": {k: statistics.median(v.values()) for k, v in p50.items()},
+            "by_query_ms": p50, "launches": launches, "b_pool_workers":
+                b_pool["status"]["workers"],
+            "launches_by_origin_b": b_last["by_origin"].get("replica-serve", {}),
+            "eligible_after_push_s": eligible_s,
+            "fallback_ms": {k: v["ms"] for k, v in fallback.items()},
+            "stats": dict(replica.STATS)}
+
+
+def serving_summary(card: str, phase9: dict | None, replicated: dict, admitted: dict) -> dict:
+    """The ``{"serving": ...}`` line: the rung of every query of phases 9
+    and 14, the pool's and the in-process p50s, the 429s, A's p50 for a
+    replica dispatch beside B's local p50, the seconds; fails when phase 14
+    took more than its budget."""
+    seconds = replicated["seconds"] + admitted["seconds"]
+    log(f"phase 14 (serving tier): {seconds:.1f} s (a {admitted['seconds']:.1f} s, b "
+        f"{replicated['seconds']:.1f} s)")
+    if seconds > SERVING_BUDGET_S:
+        fail(f"phase 14 took {seconds:.1f} s, over its {SERVING_BUDGET_S:.0f} s budget")
+    out = {"card": card, "seconds": seconds,
+           "rungs": {"phase14_replica": replicated["rungs"]},
+           "replica_p50_ms": replicated["p50_ms"]["replica"],
+           "replica_b_local_p50_ms": replicated["p50_ms"]["b_local"],
+           "replica_a_in_process_p50_ms": replicated["p50_ms"]["a_in_process"],
+           "replica_fallback_ms": replicated["fallback_ms"],
+           "replica_b_pool_workers": replicated["b_pool_workers"],
+           "admission": {k: admitted[k] for k in ("budget", "burst", "ok", "shed_429",
+                                                 "retry_after_s", "p50_ok_ms", "p50_429_ms",
+                                                 "seconds")},
+           "shed_429": admitted["shed_429"], "replica_seconds": replicated["seconds"]}
+    if phase9 is not None:
+        pooled = phase9["pool"]
+        out["rungs"].update({"phase9_engine_matrix": phase9["rungs"],
+                             "phase9_pool_matrix": pooled["rungs"],
+                             "phase9_killed_worker_dispatch": "in_process"})
+        out.update({"pool_workers": pooled["workers"], "pool_start_s": pooled["start_s"],
+                    "server_bind_s": pooled["bind_s"],
+                    "pool_p50_ms": pooled["p50_ms"]["pool"],
+                    "pool_cached_p50_ms": pooled["p50_ms"]["pool_hit"],
+                    "in_process_p50_ms": pooled["p50_ms"]["in_process"],
+                    "pool_respawn_s": pooled["respawn_s"],
+                    "compute_apps": pooled["compute_apps"], "phase9_seconds": phase9["seconds"]})
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -5742,6 +6324,9 @@ def main() -> int:
     parser.add_argument("--crypto", action="store_true",
                         help="build, write phase 4's tree, then phase 13 (crypto) only; "
                              "no ok line")
+    parser.add_argument("--serving", action="store_true",
+                        help="build, write and scan phase 4's tree, then phase 12's pair and "
+                             "phase 14 (the serving tier) only; no ok line")
     parser.add_argument("--kill-child", nargs=2, metavar=("DATA_DIR", "TREE"),
                         help="phase 8's child process: scan TREE into a Node on DATA_DIR "
                              "until the armed commit seam kills it")
@@ -5822,6 +6407,18 @@ def main() -> int:
         print(card, flush=True)
         print(json.dumps({"p2p": paired}), flush=True)
         return 0
+    if args.serving:
+        try:
+            paired = p2p_phase(WORK / "tree", *sync_reference(args.seed), card, args.seed,
+                               int32_ops_per_s, serving=True)
+            admitted = admission_phase(card)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        serving = serving_summary(card, None, paired.pop("replica"), admitted)
+        print(card, flush=True)
+        print(json.dumps({"p2p": paired}), flush=True)
+        print(json.dumps({"serving": serving}), flush=True)
+        return 0
     if args.crypto:
         try:
             write_tree(WORK / "tree", args.seed)
@@ -5853,7 +6450,8 @@ def main() -> int:
                   sync_phase(WORK / "tree", main["rows"], main["tampered_dir"], card))
         paired = (None if args.kernels else
                   p2p_phase(WORK / "tree", main["rows"], main["tampered_dir"], card,
-                            args.seed, int32_ops_per_s))
+                            args.seed, int32_ops_per_s, serving=True))
+        admitted = None if args.kernels else admission_phase(card)
         crypted = None if args.kernels else crypto_phase(WORK / "tree", args.seed, card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
@@ -5874,7 +6472,11 @@ def main() -> int:
                "search_substring": "spacedrive_tpu_torch/csrc/search.cu",
                "search_exact": "spacedrive_tpu_torch/csrc/search.cu",
                "search_lex": "spacedrive_tpu_torch/csrc/search.cu"}
+    serving = serving_launches = None
     if main is not None:
+        replicated = paired.pop("replica")
+        serving_launches = replicated["launches"]
+        serving = serving_summary(card, main["serving"], replicated, admitted)
         times.update(main["validator"]["times"])
         # phase 12: Gear over the one 64 MiB file of the delta spacedrop
         times["gear_candidates@delta64MiB"] = paired["gear_delta_plane"]
@@ -5927,6 +6529,9 @@ def main() -> int:
                 for side, by in paired["launches_by_origin"].items()}
             # phase 13: the crypto node's scans and validations
             kernels[-1]["launches_crypto"] = crypted["launches"][name]
+        if main is not None and search:
+            # phase 14 (b): B's launches for A's queries over H_QUERY
+            kernels[-1]["launches_replica"] = serving_launches[name]
         if "sass" in t:
             sass = t["sass"] or {}
             kernels[-1]["sass_instructions_per_block"] = sass.get("per_block")
@@ -5979,6 +6584,7 @@ def main() -> int:
         print(json.dumps({"device_programs": programs}), flush=True)
         print(json.dumps({"p2p": paired}), flush=True)
         print(json.dumps({"crypto": crypted}), flush=True)
+        print(json.dumps({"serving": serving}), flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

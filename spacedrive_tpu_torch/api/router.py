@@ -9,18 +9,34 @@ key the domain code emits against the registered queries.
 Transports (the server shell, in-process callers, the tests) call
 :meth:`Router.resolve` / :meth:`Router.subscribe` with plain JSON-safe
 values; :meth:`Router.schema` exports the procedure inventory. ``pool=``
-keeps the reference's mark of a pure library reader. Every procedure
-resolves in this process, the reference's own path when it runs no reader
-pool (``router.py`` :239-250), and where the device search engine serves.
-The ``rspc`` fault seam is kept. Not ported: request telemetry, admission
-(``dispatch_budget``), the reader-pool and replica rungs, and with them the
-``replica=`` mark.
+marks a pure library reader, which a reader-pool worker may serve, and
+``replica=False`` keeps such a reader off the replica tier: its answer is
+node-specific on converged peers (disk figures, tables sync does not copy)
+or its argument or answer names this node's row ids, which a replica
+numbers otherwise. The reference marks only ``libraries.statistics`` and
+lets a replica answer id-bearing pages (ROADMAP Queue 3); here the replica
+tier serves the counts, the categories and the preferences, and a count
+filtered by a row id (:data:`LOCAL_ID_ARGS`) stays local.
+:meth:`Router.resolve` follows the reference's ladder
+(:187-260): the ``rspc`` fault seam, admission through
+``node.dispatch_budget`` (``telemetry.*`` exempt; a shed dispatch raises
+:class:`BusyError`, 429), then for a pool-marked query the device search
+engine in process when it will serve it (``prefers_inprocess`` skips both
+remote rungs), else a watermark-eligible peer (``node.replica_router``),
+else the local reader pool (``node.reader_pool``; ``PoolUnavailable``
+falls through), else the handler in this process. A worker or a peer
+answers with encoded bytes (:class:`RawJson`), which ``raw=True`` passes
+through for the shell to splice. :func:`last_rung` names the rung that
+served this thread's last dispatch. Not ported: request telemetry
+(``sd_rspc_*``, the slow-request ring).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import json
+import threading
 from typing import TYPE_CHECKING, Any, Callable
 
 from .. import faults
@@ -34,6 +50,15 @@ QUERY = "query"
 MUTATION = "mutation"
 SUBSCRIPTION = "subscription"
 
+_last = threading.local()
+
+
+def last_rung() -> str | None:
+    """The rung that served this thread's last dispatch: ``engine`` (the
+    handler in process, the device index armed for it), ``replica``,
+    ``pool`` or ``in_process``."""
+    return getattr(_last, "rung", None)
+
 
 class ApiError(Exception):
     """A request the procedure refuses; ``code`` is the HTTP-like status."""
@@ -43,6 +68,30 @@ class ApiError(Exception):
         self.code = code
 
 
+class BusyError(ApiError):
+    """429: admission shed this dispatch. ``retry_after_ms`` is the
+    pressure-scaled backoff the client should wait."""
+
+    def __init__(self, message: str, retry_after_ms: int = 0) -> None:
+        super().__init__(message, code=429)
+        self.retry_after_ms = int(retry_after_ms)
+
+
+class RawJson:
+    """A query result already encoded as wire JSON: a pool worker or a
+    replica encodes a page once (``json.dumps(result, default=str)``, the
+    shell's own encoder), and the shell splices the bytes into its
+    envelope. ``Router.resolve(raw=False)`` decodes it."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data: bytes) -> None:
+        self.data = data
+
+    def decode(self) -> Any:
+        return json.loads(self.data)
+
+
 @dataclasses.dataclass
 class Procedure:
     key: str
@@ -50,8 +99,23 @@ class Procedure:
     scope: str           # node | library
     fn: Callable
     doc: str = ""
-    #: a pure library reader (the reference's serve-pool mark)
+    #: a pure library reader: a reader-pool worker may serve it
     pool: bool = False
+    #: a pool reader a peer's replica may serve; False for a read whose
+    #: answer is node-specific even on converged peers (disk figures,
+    #: unsynced tables) or whose argument or answer names row ids
+    replica: bool = True
+
+
+#: argument keys of the replica-served queries whose values are row ids of
+#: the asking node (``search.pathsCount``'s filters)
+LOCAL_ID_ARGS = ("location_id", "tags")
+
+
+def names_local_ids(arg: Any) -> bool:
+    """True when ``arg`` filters by a node-local row id: a replica would
+    read the id in its own numbering."""
+    return isinstance(arg, dict) and any(arg.get(k) not in (None, [], ()) for k in LOCAL_ID_ARGS)
 
 
 class Router:
@@ -61,17 +125,24 @@ class Router:
 
     # -- registration -------------------------------------------------------
     def _register(self, key: str, kind: str, scope: str, fn: Callable,
-                  pool: bool = False) -> Callable:
+                  pool: bool = False, replica: bool = True) -> Callable:
         if key in self.procedures:
             raise ValueError(f"duplicate procedure key {key!r}")
         if pool and (kind != QUERY or scope != "library"):
+            # a worker's page cache is keyed by library: a node-scoped page
+            # could never be invalidated
             raise ValueError(f"{key}: only library-scoped queries may be pool-dispatched")
+        if not pool and not replica:
+            raise ValueError(f"{key}: replica=False is only meaningful on "
+                             f"pool-dispatched queries")
         self.procedures[key] = Procedure(key, kind, scope, fn, inspect.getdoc(fn) or "",
-                                         pool=pool)
+                                         pool=pool, replica=replica)
         return fn
 
-    def query(self, key: str, scope: str = "node", pool: bool = False):
-        return lambda fn: self._register(key, QUERY, scope, fn, pool=pool)
+    def query(self, key: str, scope: str = "node", pool: bool = False,
+              replica: bool = True):
+        return lambda fn: self._register(key, QUERY, scope, fn, pool=pool,
+                                         replica=replica)
 
     def mutation(self, key: str, scope: str = "node"):
         return lambda fn: self._register(key, MUTATION, scope, fn)
@@ -79,8 +150,8 @@ class Router:
     def subscription(self, key: str, scope: str = "node"):
         return lambda fn: self._register(key, SUBSCRIPTION, scope, fn)
 
-    def library_query(self, key: str, pool: bool = False):
-        return self.query(key, scope="library", pool=pool)
+    def library_query(self, key: str, pool: bool = False, replica: bool = True):
+        return self.query(key, scope="library", pool=pool, replica=replica)
 
     def library_mutation(self, key: str):
         return self.mutation(key, scope="library")
@@ -103,17 +174,69 @@ class Router:
         except KeyError:
             raise ApiError(f"library {library_id!r} not loaded", code=404) from None
 
-    def resolve(self, key: str, arg: Any = None, library_id: str | None = None) -> Any:
-        """Run a query or mutation: library-scoped procedures receive
-        ``(node, library, arg)``, node-scoped ``(node, arg)``. An error of
-        the handler (a kernel's included) propagates."""
+    def resolve(self, key: str, arg: Any = None, library_id: str | None = None,
+                *, raw: bool = False) -> Any:
+        """Run a query or mutation down the ladder of the module docstring:
+        library-scoped handlers receive ``(node, library, arg)``, node-scoped
+        ``(node, arg)``. An error of the handler (a kernel's included)
+        propagates. A page a worker or a peer encoded comes back as
+        :class:`RawJson` when ``raw`` is set, else decoded."""
         proc = self._proc(key)
         if proc.kind == SUBSCRIPTION:
             raise ApiError(f"{key} is a subscription; use subscribe()")
         faults.inject("rspc", key=key)
-        if proc.scope == "library":
-            return proc.fn(self.node, self._library(library_id), arg)
-        return proc.fn(self.node, arg)
+        admission = None
+        budget = getattr(self.node, "dispatch_budget", None)
+        if budget is not None and not key.startswith("telemetry."):
+            from ..sync.admission import Busy, tenant_label
+
+            verdict = budget.try_admit(tenant_label(library_id))
+            if isinstance(verdict, Busy):
+                raise BusyError(f"{key}: {verdict.reason}; retry after "
+                                f"{verdict.retry_after_ms} ms",
+                                retry_after_ms=verdict.retry_after_ms)
+            admission = verdict
+        try:
+            result = self._dispatch(proc, arg, library_id)
+        finally:
+            if admission is not None:
+                admission.release()
+        if isinstance(result, RawJson) and not raw:
+            return result.decode()
+        return result
+
+    def _dispatch(self, proc: Procedure, arg: Any, library_id: str | None) -> Any:
+        library = self._library(library_id) if proc.scope == "library" else None
+        engine_local = False
+        if proc.pool:
+            # the device index answers this query in process: workers and
+            # peers have no index, so both remote rungs are skipped
+            engine = getattr(self.node, "search_engine", None)
+            engine_local = (engine is not None
+                            and engine.prefers_inprocess(proc.key, library_id, arg))
+        replicas = getattr(self.node, "replica_router", None)
+        if proc.pool and proc.replica and not engine_local and replicas is not None \
+                and not names_local_ids(arg):
+            served = replicas.dispatch(proc.key, arg, library_id)
+            if served is not None:
+                return self._served("replica", served)
+        pool = getattr(self.node, "reader_pool", None)
+        if proc.pool and not engine_local and pool is not None:
+            from ..server.pool import PoolUnavailable
+
+            try:
+                return self._served("pool", pool.dispatch(proc.key, arg, library_id))
+            except PoolUnavailable:
+                pass  # counted by the pool; served in process below
+        rung = "engine" if engine_local else "in_process"
+        if library is not None:
+            return self._served(rung, proc.fn(self.node, library, arg))
+        return self._served(rung, proc.fn(self.node, arg))
+
+    @staticmethod
+    def _served(rung: str, result: Any) -> Any:
+        _last.rung = rung
+        return result
 
     def subscribe(self, key: str, arg: Any = None,
                   library_id: str | None = None) -> "Subscription":

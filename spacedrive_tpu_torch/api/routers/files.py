@@ -36,7 +36,7 @@ def _object_of(library, object_id: int) -> dict:
 
 
 def mount(router) -> None:
-    @router.library_query("files.get", pool=True)
+    @router.library_query("files.get", pool=True, replica=False)
     def get(node, library, arg):
         """Object + its file_paths by object id or file_path id."""
         db = library.db
@@ -51,12 +51,12 @@ def mount(router) -> None:
         paths = db.find(FilePath, {"object_id": obj["id"]}) if obj else ([fp] if fp else [])
         return {"object": obj, "file_paths": paths}
 
-    @router.library_query("files.getPath", pool=True)
+    @router.library_query("files.getPath", pool=True, replica=False)
     def get_path(node, library, file_path_id: int):
         _row, path = file_path_abs(library.db, file_path_id)
         return str(path)
 
-    @router.library_query("files.getMediaData", pool=True)
+    @router.library_query("files.getMediaData", pool=True, replica=False)
     def get_media_data(node, library, object_id: int):
         return library.db.find_one(MediaData, {"object_id": object_id})
 

@@ -16,10 +16,11 @@ def mount(router) -> None:
                  "instance_pub_id": (lib.instance() or {}).get("pub_id")}
                 for lib in node.libraries.list()]
 
-    @router.library_query("libraries.statistics", pool=True)
+    @router.library_query("libraries.statistics", pool=True, replica=False)
     def statistics(node, library, _arg):
         """Recomputed on query; a pure read over the library database and
-        the node's data dir (whose disk figures are node-specific)."""
+        the node's data dir. ``replica=False``: the disk figures are this
+        node's, so a peer's replica never answers it."""
         row = dict(compute_statistics(library.db, node.data_dir))
         row.pop("date_captured", None)
         return row

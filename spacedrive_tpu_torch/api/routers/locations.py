@@ -30,14 +30,14 @@ def mount(router) -> None:
             r["online"] = r["id"] in online
         return rows
 
-    @router.library_query("locations.get", pool=True)
+    @router.library_query("locations.get", pool=True, replica=False)
     def get(node, library, location_id: int):
         row = library.db.find_one(Location, {"id": location_id})
         if row is None:
             raise ApiError("location not found", code=404)
         return row
 
-    @router.library_query("locations.getWithRules", pool=True)
+    @router.library_query("locations.getWithRules", pool=True, replica=False)
     def get_with_rules(node, library, location_id: int):
         row = library.db.find_one(Location, {"id": location_id})
         if row is None:
@@ -130,14 +130,14 @@ def mount(router) -> None:
         seed_rules(library.db)
         return library.db.find(IndexerRule, order_by="name")
 
-    @router.library_query("locations.indexer_rules.get", pool=True)
+    @router.library_query("locations.indexer_rules.get", pool=True, replica=False)
     def rules_get(node, library, rule_id: int):
         row = library.db.find_one(IndexerRule, {"id": rule_id})
         if row is None:
             raise ApiError("rule not found", code=404)
         return row
 
-    @router.library_query("locations.indexer_rules.listForLocation", pool=True)
+    @router.library_query("locations.indexer_rules.listForLocation", pool=True, replica=False)
     def rules_for_loc(node, library, location_id: int):
         return _rule_specs(library.db, location_id)
 

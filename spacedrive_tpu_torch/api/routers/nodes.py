@@ -13,6 +13,6 @@ def mount(router) -> None:
             node.config.write(name=arg["name"])
         return None
 
-    @router.library_query("nodes.listLocations", pool=True)
+    @router.library_query("nodes.listLocations", pool=True, replica=False)
     def list_locations(node, library, _arg):
         return library.db.find(Location, order_by="name")

@@ -11,8 +11,13 @@ Counterpart of ``spacedrive_tpu/api/routers/search.py`` (``_path_filters``
 ``paths`` :129, ``paths_count`` :191, ``objects`` :216, ``objects_count``
 :243, ``ephemeral_paths`` :247, ``duplicates`` :262, ``chunk_duplicates``
 :288, ``near_duplicates`` :305), with the SQL verbatim and the reference's
-``pool=`` marks. Each handler is a plain function ``(node, library, arg)``
-(``ephemeral_paths``: ``(node, arg)``) that :func:`mount` registers. With
+``pool=`` marks. Only the two counts may go to a replica: the other pages
+name this node's row ids (an item's ``id``, ``location_id``,
+``object_id``, the keyset cursor) or read tables sync does not copy
+(``near_duplicate``, ``chunk_manifest``), so they are ``replica=False``,
+where the reference lets a replica answer them. Each handler is a plain
+function ``(node, library, arg)`` (``ephemeral_paths``: ``(node, arg)``)
+that :func:`mount` registers. With
 the search engine armed (``node.search_engine``), the device index scores
 the filter predicates of ``paths`` and ``pathsCount`` and the SQL below
 hydrates the matching ids, so the answer is byte-identical to the SQL path;
@@ -288,11 +293,11 @@ def near_duplicates(node, library, arg) -> dict[str, Any]:
 
 
 def mount(router) -> None:
-    router.library_query("search.paths", pool=True)(paths)
+    router.library_query("search.paths", pool=True, replica=False)(paths)
     router.library_query("search.pathsCount", pool=True)(paths_count)
-    router.library_query("search.objects", pool=True)(objects)
+    router.library_query("search.objects", pool=True, replica=False)(objects)
     router.library_query("search.objectsCount", pool=True)(objects_count)
     router.query("search.ephemeralPaths")(ephemeral_paths)
-    router.library_query("search.duplicates", pool=True)(duplicates)
-    router.library_query("search.chunkDuplicates", pool=True)(chunk_duplicates)
-    router.library_query("search.nearDuplicates", pool=True)(near_duplicates)
+    router.library_query("search.duplicates", pool=True, replica=False)(duplicates)
+    router.library_query("search.chunkDuplicates", pool=True, replica=False)(chunk_duplicates)
+    router.library_query("search.nearDuplicates", pool=True, replica=False)(near_duplicates)

@@ -10,22 +10,22 @@ from ..router import ApiError
 
 
 def mount(router) -> None:
-    @router.library_query("tags.list", pool=True)
+    @router.library_query("tags.list", pool=True, replica=False)
     def list_tags(node, library, _arg):
         return library.db.find(Tag, order_by="name")
 
-    @router.library_query("tags.get", pool=True)
+    @router.library_query("tags.get", pool=True, replica=False)
     def get(node, library, tag_id: int):
         row = library.db.find_one(Tag, {"id": tag_id})
         if row is None:
             raise ApiError("tag not found", code=404)
         return row
 
-    @router.library_query("tags.getForObject", pool=True)
+    @router.library_query("tags.getForObject", pool=True, replica=False)
     def get_for_object(node, library, object_id: int):
         return tags_for_object(library, object_id)
 
-    @router.library_query("tags.getWithObjects", pool=True)
+    @router.library_query("tags.getWithObjects", pool=True, replica=False)
     def get_with_objects(node, library, tag_id: int):
         return {"tag": library.db.find_one(Tag, {"id": tag_id}),
                 "objects": objects_for_tag(library, tag_id)}

@@ -15,16 +15,23 @@ COMMIT of every outermost database transaction, :mod:`.models.base`);
 written) and ``restore`` (before a restore renames the extracted files
 over the live ones), :mod:`.backups`; ``sync_ingest`` (the ingest
 budget's admission check, :mod:`.sync.admission`: any kind sheds the
-window, ``overload`` is the canonical one) and ``p2p_send`` (before each
-outbound sync session, hash batch and delta transfer, :mod:`.p2p`).
+window, ``overload`` is the canonical one), ``rspc_admission`` (the
+dispatch budget's admission check, the same way), ``p2p_send`` (before
+each outbound sync session, hash batch, delta transfer and replica query,
+:mod:`.p2p`), ``serve_worker`` (inside a reader-pool worker, before it
+serves a dispatch, :mod:`.server.pool`) and ``replica_serve`` (where a
+replica serves a peer's query: inside the pool worker that serves it when
+the node runs a pool, else in the node's process, :mod:`.server.replica`).
 
 A plan is a ``;``-separated list of ``seam:kind[:trigger]`` rules, armed by
 :func:`install`, never from the environment: a child process that a test or
 ``chip_smoke.py`` starts to be killed reads its plan from its arguments and
-installs it. The kinds are ``eio`` (``OSError(EIO)``), ``enospc``
-(``OSError(ENOSPC)``), ``overload`` (:class:`IngestOverloadError`) and
-``kill``, which SIGKILLs the process at the seam (no atexit, no flush: what
-the OOM killer or a power cut does). The trigger
+installs it; a reader pool hands the plan armed when it spawns a worker
+to that worker (:func:`current_spec`). The kinds are ``eio``
+(``OSError(EIO)``), ``enospc`` (``OSError(ENOSPC)``), ``overload``
+(:class:`IngestOverloadError`), ``busy`` (:class:`PeerBusyError`, a shed
+answer) and ``kill``, which SIGKILLs the process at the seam (no atexit, no
+flush: what the OOM killer or a power cut does). The trigger
 is absent (every hit), ``once`` (the first hit) or ``skipN`` (every hit
 after the first N: ``commit:kill:skip3`` dies at the fourth transaction
 seam hit). At most one rule fires per hit, the first in spec order.
@@ -103,6 +110,7 @@ def _raise(cls, msg: str):
 KINDS = {"eio": _oserror(errno.EIO, "I/O error"),
          "enospc": _oserror(errno.ENOSPC, "no space left on device"),
          "overload": _raise(IngestOverloadError, "ingest overload"),
+         "busy": _raise(PeerBusyError, "peer busy"),
          "kill": _kill}
 
 
@@ -110,6 +118,7 @@ class FaultPlan:
     """Parsed, armed rules; ``check()`` is the seam entry point."""
 
     def __init__(self, spec: str) -> None:
+        self.spec = spec
         self._lock = threading.Lock()
         self._rules: dict[str, list[FaultRule]] = {}
         for raw in (p.strip() for p in spec.split(";")):
@@ -170,6 +179,13 @@ def install(spec: str) -> FaultPlan:
 def clear() -> None:
     global _PLAN
     _PLAN = None
+
+
+def current_spec() -> str | None:
+    """The armed plan's spec, or None: what a process this one starts
+    installs to share its seams."""
+    plan = _PLAN
+    return plan.spec if plan is not None else None
 
 
 def seam_armed(seam: str) -> bool:

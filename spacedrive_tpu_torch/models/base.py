@@ -23,6 +23,12 @@ through. The applier writes through :meth:`Database.insert_ignore` and the
 rowcount of :meth:`Database.update`, both of which note their rows in the
 journal, so the search engine sees ingested rows. The transaction's busy
 retry is not ported; the ``commit`` fault seam is (:class:`_Txn`).
+
+``Database(path, models, readonly=True)`` is the reader pool's per-process
+bootstrap (reference :316-330): one connection opened ``mode=ro`` with
+``PRAGMA query_only=ON``, no writer, no DDL (the node's process owns the
+schema), every SELECT a fresh WAL snapshot; ``execute``, ``executemany``
+and ``transaction`` raise on it (reference :442, :467, :550).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import json
 import re
 import sqlite3
 import threading
+import urllib.parse
 from pathlib import Path
 from typing import Any, Callable, ClassVar, Iterable
 
@@ -267,8 +274,27 @@ class Database:
     lazily opened read-only connection for the threads that do not own the
     open transaction."""
 
-    def __init__(self, path: str | Path, models: Iterable[type[Model]]) -> None:
+    def __init__(self, path: str | Path, models: Iterable[type[Model]],
+                 readonly: bool = False) -> None:
         self.path = str(path)
+        self.readonly = readonly
+        if readonly:
+            self.models = list(models)
+            self._lock = threading.RLock()
+            self._txn_depth = 0
+            self._txn_thread = None
+            self._after_commit = []
+            self._journal = None
+            self._conn = sqlite3.connect(
+                f"file:{urllib.parse.quote(self.path)}?mode=ro", uri=True,
+                check_same_thread=False)
+            self._conn.row_factory = sqlite3.Row
+            # a write attempt raises instead of contending the node's writer
+            self._conn.execute("PRAGMA query_only=ON")
+            self._read_conn = self._conn
+            self._read_lock = threading.Lock()
+            self._closed = False
+            return
         if self.path != ":memory:":
             Path(self.path).parent.mkdir(parents=True, exist_ok=True)
         self.models = list(models)
@@ -302,9 +328,9 @@ class Database:
     def close(self) -> None:
         with self._read_lock:
             self._closed = True
-            if self._read_conn is not None:
+            if self._read_conn is not None and self._read_conn is not self._conn:
                 self._read_conn.close()
-                self._read_conn = None
+            self._read_conn = None
         with self._lock:
             self._conn.close()
 
@@ -349,8 +375,13 @@ class Database:
         else:
             self._journal_note(table, "flood", None)
 
+    def _refuse_write(self) -> None:
+        if self.readonly:
+            raise sqlite3.ProgrammingError("read-only database handle (reader pool)")
+
     def execute(self, sql: str, params: tuple | list = (), *,
                 _noted: bool = False) -> sqlite3.Cursor:
+        self._refuse_write()
         with self._lock:
             cur = self._conn.execute(sql, params)
             if not _noted:
@@ -406,6 +437,7 @@ class Database:
 
     def transaction(self) -> "_Txn":
         """Atomic multi-statement write; nested uses join the outer one."""
+        self._refuse_write()
         return _Txn(self)
 
     def after_commit(self, fn: Callable[[], Any]) -> None:

@@ -22,8 +22,15 @@ the node's device on a CPU node). ``key_manager`` (:122-141) is a
 :class:`.crypto.KeyManager` on ``<data_dir>/keystore.json``, made before
 the jobs cold-resume (a crypto job with a ``key_uuid`` resolves its key
 there) and auto-unlocked from the keyring when the keystore asks for it;
-without ``cryptography`` it is None, as in the reference. Telemetry,
-alerts, the replica router and the reader pool are not ported.
+without ``cryptography`` it is None, as in the reference.
+``dispatch_budget`` (:106-121) is the router's admission at dispatch, a
+:class:`.sync.admission.DispatchBudget`, unless ``SD_RSPC_ADMISSION`` is
+``0`` or ``off``. ``reader_pool`` (:146-155) is None until the server shell
+(or a caller) attaches a :class:`.server.pool.ReaderPool`; shutdown stops
+one still attached. ``replica_router`` is a
+:class:`.server.replica.ReplicaRouter` over p2p, made after
+``_start_p2p`` (:200-204) unless p2p is off or ``SD_REPLICAS=0``.
+Telemetry and alerts are not ported.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ from .locations.manager import LocationsActor
 from .objects.gc import ThumbnailRemoverActor
 from .objects.hasher import DeviceHasher
 from .search.engine import SearchEngine
-from .sync.admission import IngestBudget
+from .sync.admission import DispatchBudget, IngestBudget
 
 logger = logging.getLogger(__name__)
 
@@ -76,6 +83,14 @@ class Node:
         self.events = EventBus()
         # every ingest source of the node admits through it
         self.ingest_budget = IngestBudget()
+        # admission at rspc dispatch: over-budget dispatches shed with 429
+        self.dispatch_budget = (
+            DispatchBudget() if os.environ.get("SD_RSPC_ADMISSION", "1") not in ("0", "off")
+            else None)
+        # the serving tier's remote rungs: a reader pool is attached by the
+        # server shell, the replica router once p2p is up
+        self.reader_pool = None
+        self.replica_router = None
         self.hasher = DeviceHasher(self.device)
         self.jobs = Jobs()
         self.libraries = Libraries(self.data_dir, node=self)
@@ -92,6 +107,10 @@ class Node:
         self.search_engine = SearchEngine.maybe_start(self)
         self.router = api_mount(self)
         self._start_p2p()
+        if self.p2p is not None:
+            from .server.replica import ReplicaRouter
+
+            self.replica_router = ReplicaRouter.maybe_start(self)
         logger.info("node %s up on %s", self.config.get()["id"][:8], self.device)
 
     def _start_key_manager(self):
@@ -132,7 +151,10 @@ class Node:
         """Stop the search engine, checkpoint the running jobs (each pauses
         at its last committed step or group; cold resume revives it at the
         next boot), stop the watchers, p2p and the actors, close the
-        databases."""
+        databases. A reader pool still attached is stopped first."""
+        if self.reader_pool is not None:
+            self.reader_pool.stop()
+            self.reader_pool = None
         if self.search_engine is not None:
             self.search_engine.stop()
         self.jobs.shutdown()

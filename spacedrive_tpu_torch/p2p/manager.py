@@ -21,11 +21,19 @@ the wire with it:
   cas messages hashed on this node's device hasher, each batch admitted
   through the node's ingest budget (BUSY with the advised backoff when it
   is over). A failed kernel launch fails the exchange; nothing answers
-  from a plain version.
+  from a plain version;
+- ``H_QUERY`` (reference :1002-1089): a member peer's pool-marked query
+  answered from this node's replica of the library by
+  :func:`..server.replica.serve_query` (eligibility, admission, the
+  ``replica_serve`` seam; on a node with the card the search handlers score
+  there, their launches under origin ``replica-serve``), in an executor;
+  the reply is one JSON head, and an ``ok`` head's ``size`` page bytes
+  follow it. :meth:`P2PManager.query_peers` and
+  :meth:`P2PManager.request_query` are the client side
+  (:class:`..server.replica.ReplicaRouter`).
 
 Not ported: the accept layer's session throttle and auto-ban
-(``throttle.py``), the network fault model (``faults/net.py``) and
-``H_QUERY`` serving (the replica tier), which answers a fixed error. The
+(``throttle.py``) and the network fault model (``faults/net.py``). The
 reference's telemetry counters and trace propagation are plain counters
 here (:data:`STATS`).
 """
@@ -506,10 +514,7 @@ class P2PManager:
             elif header.kind == H_DELTA:
                 await delta_proto.serve_delta(self, sub, sub, header.payload, peer)
             elif header.kind == H_QUERY:
-                # the replica tier is not ported: a fixed answer, never a row
-                sub.write(json_frame({"ok": False, "kind": "error",
-                                      "error": "queries are not served by this node"}))
-                await sub.drain()
+                await self._serve_query(sub, sub, header.payload, peer)
             else:
                 logger.warning("unhandled header kind %s", header.kind)
             failed = False
@@ -810,6 +815,75 @@ class P2PManager:
             _count("hash_request_messages", len(messages))
             _count("hash_request_bytes", sum(len(m) for m in messages))
             return [str(i) for i in ids]
+        finally:
+            writer.close()
+
+    # -- replica queries (H_QUERY) -------------------------------------------
+    #: the largest page a replica's answer may declare
+    QUERY_MAX_BYTES = 64 << 20
+
+    async def _serve_query(self, reader, writer, payload: dict, peer: Peer) -> None:
+        """Answer a member peer's pool-marked query from this node's
+        replica: the membership gate, then ``serve_query`` in an executor
+        so the read never parks the p2p loop."""
+        from ..server.replica import serve_query
+
+        def _serve() -> dict:
+            try:
+                library = self.node.libraries.get(payload.get("library_id"))
+            except KeyError:
+                return {"ok": False, "kind": "not_eligible", "watermark": {}}
+            if peer.identity not in self.nlm.member_nodes(library):
+                return {"ok": False, "kind": "error", "error": "not a member"}
+            return serve_query(self.node, payload, peer=peer.identity)
+
+        reply = await asyncio.get_running_loop().run_in_executor(None, _serve)
+        raw = reply.pop("raw", None)
+        if reply.get("ok") and isinstance(raw, (bytes, bytearray)):
+            writer.write(json_frame({"ok": True, "size": len(raw)}))
+            writer.write(bytes(raw))
+        else:
+            writer.write(json_frame(reply))
+        await writer.drain()
+
+    def query_peers(self, library_id: str) -> list[str]:
+        """The connected peers paired into ``library_id``: the replica
+        router's candidates (the membership gate of every other service)."""
+        try:
+            library = self.node.libraries.get(library_id)
+        except KeyError:
+            return []
+        members = self.nlm.member_nodes(library)
+        return [ident for ident in members
+                if (p := self.peers.get(ident)) is not None and p.connected]
+
+    async def request_query(self, peer_id: str, payload: dict) -> dict:
+        """Send one pool-marked query to a replica peer: its reply in
+        ``serve_query``'s shape; a BUSY answer raises
+        :class:`~..faults.PeerBusyError` (``retry_after_ms``, 250 when
+        absent), a link failure a ``ConnectionError``-family error."""
+        from .. import faults
+        from ..faults import PeerBusyError
+        from ..server.replica import replica_timeout_s
+
+        faults.inject("p2p_send", key=peer_id)
+        timeout = replica_timeout_s()
+        reader, writer, _meta = await asyncio.wait_for(self.open_stream(peer_id), timeout)
+        try:
+            writer.write(Header.query(payload["library_id"], payload["key"], payload.get("arg"),
+                                      payload.get("require") or {}).to_bytes())
+            await writer.drain()
+            head = await asyncio.wait_for(read_json(reader), timeout)
+            if head.get("ok"):
+                size = int(head.get("size") or 0)
+                if size < 0 or size > self.QUERY_MAX_BYTES:
+                    raise ProtocolError(f"absurd query reply size {size}")
+                raw = await asyncio.wait_for(read_exact(reader, size), timeout)
+                return {"ok": True, "raw": raw}
+            if head.get("kind") == "busy":
+                raise PeerBusyError("replica busy",
+                                    retry_after_ms=int(head.get("retry_after_ms") or 250))
+            return head
         finally:
             writer.close()
 

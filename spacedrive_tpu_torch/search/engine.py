@@ -40,10 +40,19 @@ brings the device mirror up to date, so queries never pay the upload.
 
 ``SD_SEARCH_ENGINE=device`` arms the engine (default ``sqlite`` keeps every
 query on the SQL path), as in the JAX package.
+
+:meth:`SearchEngine.prefers_inprocess` is the router's question at dispatch
+(reference :236-262): True when the handler in this process will serve the
+query from the device index (an engine procedure, the library registered
+and fresh, the predicate eligible, and for ``search.paths`` a filter whose
+candidate set has not overflowed ``MAX_HYDRATE``), so the pool and the
+replica tier, which have no index, are skipped. The first sighting of a
+library registers it and answers False while the index builds.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import threading
@@ -66,6 +75,9 @@ logger = logging.getLogger(__name__)
 #: would serve stale rows
 BUMP_KINDS = frozenset({"db.commit", "invalidate_query", "sync.newMessage",
                         "job_progress"})
+
+#: procedures the engine can serve
+ENGINE_PROCS = frozenset({"search.paths", "search.pathsCount"})
 
 
 class _LibState:
@@ -111,6 +123,11 @@ class SearchEngine:
         self.enabled = True
         self._states: dict[str, _LibState] = {}
         self._states_lock = threading.Lock()
+        #: filter signatures whose candidate set overflowed MAX_HYDRATE:
+        #: those dispatches keep going to the pool (or a peer) instead of
+        #: being scored here only to run their SQL scan in this process.
+        #: Bounded, evicted in insertion order.
+        self._toolarge: dict[str, None] = {}
         self._served = 0
         self._refreshes = {"full": 0, "incremental": 0}
         self._wake = threading.Event()
@@ -165,6 +182,46 @@ class SearchEngine:
                 self._wake.set()  # kick the initial build
         return state
 
+    # -- dispatch-time routing (the router's pool and replica bypass) ----------
+    def prefers_inprocess(self, key: str, library_id: str | None, arg: Any) -> bool:
+        """True when this dispatch should skip the reader pool and the
+        replica tier because the handler here will serve it from the
+        device index. One dict lookup and a predicate parse, no scoring."""
+        if key not in ENGINE_PROCS or not self.enabled or not library_id:
+            return False
+        state = self._states.get(library_id)
+        if state is None:
+            # first sighting: register the library (it builds in the
+            # background) and let the other rungs serve meanwhile
+            try:
+                self._ensure(self.node.libraries.get(library_id))
+            except KeyError:
+                pass
+            return False
+        if not state.fresh():
+            return False
+        pred, _why = parse_predicate(arg or {})
+        if pred is None:
+            return False
+        if key == "search.paths":  # a count never hydrates: no size limit
+            with self._states_lock:
+                if self._filter_sig(library_id, arg) in self._toolarge:
+                    return False
+        return True
+
+    _FILTER_KEYS = ("location_id", "search", "extensions", "kinds", "favorite",
+                    "include_hidden", "materialized_path", "tags", "date_range",
+                    "size_range")
+
+    @classmethod
+    def _filter_sig(cls, lib_id: str | None, arg: Any) -> str:
+        arg = arg if isinstance(arg, dict) else {}
+        try:
+            return f"{lib_id}|" + json.dumps({k: arg.get(k) for k in cls._FILTER_KEYS},
+                                             sort_keys=True, default=str)
+        except (TypeError, ValueError):
+            return f"{lib_id}|?"
+
     # -- the query surface -----------------------------------------------------
     def count(self, library: "Library", arg: Any) -> int | None:
         """search.pathsCount: the full answer (a mask sum), or None → serve
@@ -184,6 +241,10 @@ class SearchEngine:
             return None
         _mask, ids = got
         if len(ids) > self.MAX_HYDRATE:
+            with self._states_lock:
+                self._toolarge[self._filter_sig(library.id, arg)] = None
+                while len(self._toolarge) > 256:
+                    self._toolarge.pop(next(iter(self._toolarge)))
             return None
         return ids
 

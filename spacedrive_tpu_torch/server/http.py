@@ -31,7 +31,7 @@ STATUS_TEXT = {
     200: "OK", 101: "Switching Protocols", 204: "No Content",
     206: "Partial Content", 400: "Bad Request", 401: "Unauthorized",
     404: "Not Found", 405: "Method Not Allowed",
-    416: "Range Not Satisfiable", 500: "Internal Server Error",
+    416: "Range Not Satisfiable", 429: "Too Many Requests", 500: "Internal Server Error",
 }
 
 

@@ -25,7 +25,15 @@ websocket JSON-RPC (the rspc wire shape):
 Library-scoped procedures take input = {"library_id":.., "arg":..}.
 
 An error a handler raises (a kernel's included) answers 500, an
-:class:`~..api.router.ApiError` 400. Without ``auth`` the shell refuses the
+:class:`~..api.router.ApiError` 400, and a :class:`~..api.router.BusyError`
+(admission shed the dispatch) 429 with a ``Retry-After`` header (seconds,
+rounded up) and ``retry_after_ms`` in the JSON error; over the websocket its
+error code is 429 (the reference answers it 400, ROADMAP Queue 3).
+:meth:`Server.start` binds, then brings up the reader pool
+(:class:`~.pool.ReaderPool`, ``SD_SERVE_WORKERS``, reference :124-138,
+which starts it before the bind) on a thread of its own unless the node
+already has one, and :meth:`Server.stop` stops the pool it started. A page a worker or a replica encoded (:class:`~..api.router.RawJson`)
+is spliced into the ``{"result": ...}`` envelope byte for byte. Without ``auth`` the shell refuses the
 key procedures that hand out or move secrets
 (``api.routers.keys.SECRET_PROCEDURES``) on every transport, with a 400. A file in a location another
 instance owns is fetched from that instance's node over p2p
@@ -34,8 +42,7 @@ forwarded, at most ``MAX_REMOTE_SPOOL`` bytes a request), and a thumbnail
 missing here from the node that owns the content (reference :394-471,
 cached locally, a miss remembered for 30 s); with p2p off, or the owning
 node not connected, both answer 404. Not ported: ``/`` (the web explorer), ``/metrics``, the SSE event
-tail ``/telemetry/stream``, ``/client/*``, the HTTP telemetry and the
-reader pool the reference starts with the shell.
+tail ``/telemetry/stream``, ``/client/*`` and the HTTP telemetry.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ import base64
 import io
 import json
 import logging
+import math
 import secrets
 import threading
 import time
@@ -52,7 +60,7 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import TYPE_CHECKING, Any
 
-from ..api.router import ApiError
+from ..api.router import ApiError, BusyError, RawJson
 from .http import HttpError, Request, Response, WebSocket, parse_range, read_request, write_response
 
 if TYPE_CHECKING:
@@ -86,14 +94,63 @@ class Server:
         self._pumps_lock = threading.Lock()
         #: cas_id -> when a remote thumbnail miss may be asked again
         self._thumb_miss: dict[str, float] = {}
+        #: True when start() brought the node's reader pool up
+        self._owns_pool = False
+        #: the thread that starts the pool after the bind, and what stopped it
+        self._pool_thread: threading.Thread | None = None
+        self._pool_lock = threading.Lock()
+        self._stopping = False
+        self.pool_error: BaseException | None = None
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> None:
-        """Run the accept loop on its own thread; returns once bound."""
+        """Run the accept loop on its own thread and return once bound; then
+        bring up the reader pool on a thread of its own unless the node has
+        one (or ``SD_SERVE_WORKERS=0``). The reference starts the pool
+        before it binds; here the pool's forkserver (a fresh interpreter
+        that imports torch) takes seconds, which the bind need not wait
+        for. Until the pool is attached the ladder serves in process;
+        :meth:`wait_pool` waits for it and raises what kept it from
+        starting."""
         self._thread = threading.Thread(target=self._run, name="sd-server", daemon=True)
         self._thread.start()
         if not self._ready.wait(10):
             raise RuntimeError("server failed to bind")
+        from .pool import configured_workers
+
+        if getattr(self.node, "reader_pool", None) is None and configured_workers() > 0:
+            self._pool_thread = threading.Thread(target=self._start_pool,
+                                                 name="sd-serve-pool-start", daemon=True)
+            self._pool_thread.start()
+
+    def _start_pool(self) -> None:
+        from .pool import ReaderPool
+
+        try:
+            pool = ReaderPool.maybe_start(self.node)
+        except BaseException as exc:  # noqa: BLE001 — kept for wait_pool, logged as an error
+            self.pool_error = exc
+            logger.exception("the reader pool did not start; queries are served in process")
+            return
+        with self._pool_lock:
+            if pool is not None and not self._stopping:
+                self.node.reader_pool = pool
+                self._owns_pool = True
+                return
+        if pool is not None:
+            pool.stop()  # the server stopped while the pool started
+
+    def wait_pool(self, timeout: float = 120.0):
+        """The node's reader pool once the start that :meth:`start` began
+        has ended (None with ``SD_SERVE_WORKERS=0``); raises the error
+        that kept the pool from starting, or ``TimeoutError``."""
+        if self._pool_thread is not None:
+            self._pool_thread.join(timeout)
+            if self._pool_thread.is_alive():
+                raise TimeoutError(f"the reader pool did not start in {timeout:.0f} s")
+        if self.pool_error is not None:
+            raise self.pool_error
+        return getattr(self.node, "reader_pool", None)
 
     def _run(self) -> None:
         asyncio.run(self._serve())
@@ -132,6 +189,14 @@ class Server:
             if thread.is_alive():
                 thread.join(timeout=5)
         self._pool.shutdown(wait=False, cancel_futures=True)
+        with self._pool_lock:
+            self._stopping = True
+        if self._pool_thread is not None:
+            self._pool_thread.join(timeout=120)
+        if self._owns_pool and self.node.reader_pool is not None:
+            self.node.reader_pool.stop()
+            self.node.reader_pool = None
+            self._owns_pool = False
 
     # -- connection handling -------------------------------------------------
     async def _client(self, reader: asyncio.StreamReader,
@@ -158,6 +223,8 @@ class Server:
                     resp = Response.error(e.status, str(e))
                     if e.status == 401:
                         resp.headers["www-authenticate"] = 'Basic realm="spacedrive"'
+                except BusyError as e:
+                    resp = _busy_response(e)
                 except ApiError as e:
                     resp = Response.error(400, str(e))
                 except Exception:
@@ -222,12 +289,21 @@ class Server:
         except (json.JSONDecodeError, UnicodeDecodeError) as e:
             raise HttpError(400, f"malformed request payload: {e}")
         try:
-            result = await self._resolve(key, arg, library_id)
+            result = await self._resolve(key, arg, library_id, raw=True)
+        except BusyError as e:
+            return _busy_response(e)
         except ApiError as e:
             return Response.json({"error": str(e)}, 400)
+        if isinstance(result, RawJson):
+            # a worker's or a replica's bytes, encoded by Response.json's own
+            # call: the prefix matches json.dumps' ': ' separator, so the
+            # body equals the in-process encoding byte for byte
+            return Response(200, {"content-type": "application/json"},
+                            b'{"result": ' + result.data + b"}")
         return Response.json({"result": result})
 
-    async def _resolve(self, key: str, arg: Any, library_id: str | None) -> Any:
+    async def _resolve(self, key: str, arg: Any, library_id: str | None,
+                       raw: bool = False) -> Any:
         """Resolve on the worker pool; every transport (GET, POST, the
         websocket) comes through here, so without auth the secret key
         procedures are refused for all of them."""
@@ -241,7 +317,7 @@ class Server:
                     "credentials (--auth / SD_AUTH) to enable it")
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(
-            self._pool, lambda: self.node.router.resolve(key, arg, library_id))
+            self._pool, lambda: self.node.router.resolve(key, arg, library_id, raw=raw))
 
     # -- custom_uri ------------------------------------------------------------
     async def _custom_uri(self, req: Request, parts: list[str]) -> Response:
@@ -452,13 +528,17 @@ class Server:
         path = params.get("path", "")
         library_id, arg = _split_library_args(params.get("input"))
 
-        async def reply_error(code: int, message: str) -> None:
+        async def reply_error(code: int, message: str, **extra) -> None:
             await send({"jsonrpc": "2.0", "id": msg_id,
-                        "result": {"type": "error", "data": {"code": code, "message": message}}})
+                        "result": {"type": "error",
+                                   "data": {"code": code, "message": message, **extra}}})
 
         if method in ("query", "mutation"):
             try:
                 data = await self._resolve(path, arg, library_id)
+            except BusyError as e:
+                await reply_error(429, str(e), retry_after_ms=e.retry_after_ms)
+                return
             except ApiError as e:
                 await reply_error(400, str(e))
                 return
@@ -494,6 +574,14 @@ class Server:
             await send({"jsonrpc": "2.0", "id": msg_id, "result": {"type": "stopped"}})
         else:
             await reply_error(400, f"unknown method {method!r}")
+
+
+def _busy_response(e: BusyError) -> Response:
+    """429 with ``Retry-After`` in whole seconds, rounded up, and the
+    milliseconds in the JSON error."""
+    resp = Response.json({"error": str(e), "retry_after_ms": e.retry_after_ms}, 429)
+    resp.headers["retry-after"] = str(max(1, math.ceil(e.retry_after_ms / 1000)))
+    return resp
 
 
 def _split_library_args(input_: Any) -> tuple[str | None, Any]:

@@ -22,12 +22,25 @@ The bounds come from ``SD_SYNC_INGEST_BUDGET_OPS`` (4,000) and
 is), all read when the budget is made. The ``sync_ingest`` fault seam
 (:mod:`..faults`) sits at the check: an armed ``sync_ingest:overload``
 sheds the window as a real over-budget node would. ``status()`` is what
-``sync.fleetStatus`` reports. The reference's ``DispatchBudget`` (the rspc
-dispatch budget) waits for the reader pool.
+``sync.fleetStatus`` reports.
+
+:class:`DispatchBudget` (reference :246-330) is the same shape at the rspc
+dispatch seam (``node.dispatch_budget``): one unit a dispatch in flight,
+keyed by tenant (:func:`tenant_label`, the bounded library-id hash of
+``spacedrive_tpu/telemetry/slo.py:88-113``) instead of peer, with the same
+fair-share rule word for word and the same pressure-scaled
+``retry_after_ms``. The router turns its :class:`Busy` into a ``BusyError``
+(429). ``SD_RSPC_BUDGET`` (64) and ``SD_RSPC_RETRY_AFTER_MS`` (50) are read
+when the budget is made; the ``rspc_admission`` seam sheds a dispatch as
+``sync_ingest`` sheds a window. ``status()`` gives the in-flight and shed
+counts as plain numbers (the reference's ``sd_rspc_*`` families come with
+telemetry).
 """
 
 from __future__ import annotations
 
+import collections
+import hashlib
 import os
 import threading
 from dataclasses import dataclass
@@ -37,6 +50,11 @@ from .. import faults
 DEFAULT_BUDGET_OPS = 4000
 DEFAULT_BUDGET_BYTES = 32 * 1024 * 1024
 BASE_RETRY_AFTER_MS = 200
+#: the rspc dispatches admitted at once (DispatchBudget); generous, the
+#: bound is against queue collapse under overload, not healthy traffic
+DEFAULT_DISPATCH_INFLIGHT = 64
+#: what a shed rspc client is told to wait (ms), scaled by pressure
+BASE_DISPATCH_RETRY_AFTER_MS = 50
 
 
 def _env_int(name: str, default: int) -> int:
@@ -60,7 +78,8 @@ class Admission:
 
     __slots__ = ("_budget", "_peer", "_ops", "_bytes", "_released")
 
-    def __init__(self, budget: "IngestBudget", peer: str, ops: int, nbytes: int) -> None:
+    def __init__(self, budget: "IngestBudget | DispatchBudget", peer: str, ops: int,
+                 nbytes: int) -> None:
         self._budget = budget
         self._peer = peer
         self._ops = ops
@@ -155,4 +174,109 @@ class IngestBudget:
                 "peers_in_flight": len(self._per_peer),
                 "shed_windows": self._shed_windows,
                 "shed_ops": self._shed_ops,
+            }
+
+
+# -- bounded tenant labels (reference telemetry/slo.py:60-113) -----------------
+
+#: distinct tenant labels ever assigned; past the cap a library is ``other``
+TENANT_CAP_DEFAULT = 64
+OTHER_TENANT = "other"
+LOCAL_TENANT = "local"
+
+_TENANT_LOCK = threading.Lock()
+#: library id -> 8-hex label, most recently used last; an assigned library
+#: keeps its label, so at most cap + 2 labels exist
+_TENANT_LRU: collections.OrderedDict = collections.OrderedDict()
+
+
+def tenant_label(library_id: str | None) -> str:
+    """A bounded tenant label for a library id: 8 hex characters of
+    blake2s, ``local`` for a node-scoped dispatch, ``other`` once
+    ``SD_TENANT_LABEL_CAP`` (64) libraries hold a label."""
+    if not library_id:
+        return LOCAL_TENANT
+    with _TENANT_LOCK:
+        label = _TENANT_LRU.get(library_id)
+        if label is not None:
+            _TENANT_LRU.move_to_end(library_id)
+            return label
+        if len(_TENANT_LRU) >= max(1, _env_int("SD_TENANT_LABEL_CAP", TENANT_CAP_DEFAULT)):
+            return OTHER_TENANT
+        label = hashlib.blake2s(library_id.encode("utf-8", "replace"),
+                                digest_size=4).hexdigest()
+        _TENANT_LRU[library_id] = label
+        return label
+
+
+def reset_tenant_labels() -> None:
+    """Forget every assigned label (tests)."""
+    with _TENANT_LOCK:
+        _TENANT_LRU.clear()
+
+
+class DispatchBudget:
+    """The node-wide bound on rspc dispatches in flight, keyed by tenant.
+    Thread-safe; the router admits every dispatch but ``telemetry.*``
+    through ``node.dispatch_budget``."""
+
+    def __init__(self, max_inflight: int | None = None) -> None:
+        if max_inflight is None:
+            max_inflight = _env_int("SD_RSPC_BUDGET", DEFAULT_DISPATCH_INFLIGHT)
+        self.max_inflight = max(1, int(max_inflight))
+        self.base_retry_after_ms = _env_int("SD_RSPC_RETRY_AFTER_MS",
+                                            BASE_DISPATCH_RETRY_AFTER_MS)
+        self._lock = threading.Lock()
+        self._inflight = 0
+        #: tenant label -> dispatches in flight
+        self._per_tenant: dict[str, int] = {}
+        self._shed = 0
+
+    def try_admit(self, tenant: str) -> Admission | Busy:
+        """Admit one dispatch for ``tenant`` or say when to come back."""
+        try:
+            faults.inject("rspc_admission", key=tenant)
+        except Exception:
+            with self._lock:
+                pressure = self._shed_locked()
+            return Busy(int(self.base_retry_after_ms * pressure), "injected overload")
+        with self._lock:
+            t_inflight = self._per_tenant.get(tenant, 0)
+            active = len(self._per_tenant) + (0 if tenant in self._per_tenant else 1)
+            over_global = self._inflight + 1 > self.max_inflight
+            # fairness floor: a tenant under its fair share with nothing in
+            # flight is never shed
+            fair = self.max_inflight // max(1, active)
+            under_share = t_inflight + 1 <= max(fair, 1)
+            if over_global and (not under_share or t_inflight > 0):
+                pressure = self._shed_locked()
+            else:
+                self._inflight += 1
+                self._per_tenant[tenant] = t_inflight + 1
+                pressure = None
+        if pressure is not None:
+            return Busy(int(self.base_retry_after_ms * pressure), "over budget")
+        return Admission(self, tenant, 1, 0)
+
+    def _shed_locked(self) -> float:
+        self._shed += 1
+        return max(1.0, self._inflight / self.max_inflight)
+
+    def _release(self, tenant: str, ops: int, nbytes: int) -> None:
+        # the shared Admission token's callback (it passes ops=1)
+        with self._lock:
+            self._inflight = max(0, self._inflight - 1)
+            t_inflight = max(0, self._per_tenant.get(tenant, 0) - 1)
+            if t_inflight == 0:
+                self._per_tenant.pop(tenant, None)
+            else:
+                self._per_tenant[tenant] = t_inflight
+
+    def status(self) -> dict:
+        with self._lock:
+            return {
+                "budget_inflight": self.max_inflight,
+                "in_flight": self._inflight,
+                "tenants_in_flight": len(self._per_tenant),
+                "shed": self._shed,
             }

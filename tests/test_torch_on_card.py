@@ -990,6 +990,110 @@ def test_two_processes_pair_sync_and_hash_over_the_card(card, tmp_path, monkeypa
         peer.close()
 
 
+def cuda_handles(pid: int) -> tuple[set, bool]:
+    """A process's open ``/dev/nvidia*`` files and whether it maps libcuda."""
+    import os
+
+    devices = set()
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            devices.add(target)
+    with open(f"/proc/{pid}/maps") as fh:
+        return devices, any("libcuda.so" in line for line in fh)
+
+
+def test_a_replica_query_on_the_card_and_pool_workers_without_cuda(card, tmp_path, monkeypatch):
+    """A child node on the card (``tests/torch_p2p_peer.py``, the search
+    engine armed beside a reader pool of 2) serves this node's
+    ``search.pathsCount`` over ``H_QUERY`` from its device index, not its
+    pool: every answer is its local answer and this node's in-process one,
+    and its launches under origin ``replica-serve`` grow for the three
+    search kernels; ``search.objectsCount``, which the index does not
+    answer, is served by its pool. Then a reader pool started beside this
+    process's CUDA context answers a page, and its workers hold no
+    ``/dev/nvidia*`` file."""
+    import json
+    import os
+
+    from spacedrive_tpu_torch.api.router import last_rung
+    from spacedrive_tpu_torch.node import Node
+    from spacedrive_tpu_torch.server.pool import ReaderPool
+    from tests.torch_p2p_cases import PeerProcess, rows_digest, small_tree, wait_for
+
+    monkeypatch.delenv("SD_P2P_DISABLED", raising=False)
+    monkeypatch.delenv("SD_SEARCH_ENGINE", raising=False)
+    tree = small_tree(tmp_path / "tree-b", 1, "b")
+    peer = PeerProcess(tmp_path / "b", tree, "cuda", tmp_path / "peer.log",
+                       env={"SD_SEARCH_ENGINE": "device", "SD_SERVE_WORKERS": "2"})
+    node = pool = None
+    try:
+        peer.wait_ready()
+        node = Node(tmp_path / "a", watch_locations=False)
+        node.router.resolve("toggleFeatureFlag", "syncEmitMessages")
+        node.router.resolve("p2p.pair", {"peer_id": f"127.0.0.1:{peer.ready['port']}"})
+        lib = wait_for(lambda: next((x for x in node.libraries.list()
+                                     if x.id == peer.ready["library_id"]), None),
+                       msg="the mirrored library")
+        peer.ask("scan")
+        assert peer.ask("wait_scan")["idle"]
+        wait_for(lambda: rows_digest(lib.db)[0] == peer.ask("rows")["digest"], timeout=60,
+                 interval=0.5, msg="equal rows in both processes")
+        assert peer.ask("refresh")["fresh"]
+        dates = sorted(r["d"] for r in lib.db.query(
+            "SELECT date_created AS d FROM file_path WHERE is_dir = 0"))
+        pooled = peer.ask("pool")
+        assert pooled["status"]["alive"] == 2, pooled
+        before = peer.ask("counts")["by_origin"].get("replica-serve", {})
+        count = node.router.procedures["search.pathsCount"].fn
+        for arg in ({"search": "b0"}, {"materialized_path": "/d1/"},
+                    {"date_range": [dates[2], dates[-3]]}):
+            wait_for(lambda: node.router.resolve("search.pathsCount", arg, lib.id) is not None
+                     and last_rung() == "replica", timeout=10, msg="the replica rung")
+            got = node.router.resolve("search.pathsCount", arg, lib.id, raw=True)
+            assert last_rung() == "replica"
+            assert got.data == peer.ask("local", key="search.pathsCount", arg=arg)[
+                "raw"].encode() == json.dumps(count(node, lib, arg)).encode()
+        after = peer.ask("counts")["by_origin"].get("replica-serve", {})
+        for kernel in ("search_substring", "search_exact", "search_lex"):
+            assert after.get(kernel, 0) > before.get(kernel, 0), (kernel, after)
+        assert peer.ask("pool")["stats"].get("requests_ok", 0) == \
+            pooled["stats"].get("requests_ok", 0)
+        n_objects = node.router.resolve("search.objectsCount", None, lib.id, raw=True)
+        assert last_rung() == "replica"
+        assert json.loads(n_objects.data) == lib.db.query("SELECT COUNT(*) n FROM object")[0]["n"]
+        assert peer.ask("pool")["stats"]["requests_ok"] == \
+            pooled["stats"].get("requests_ok", 0) + 1
+        assert peer.quit() == 0
+        # a pool beside this process's CUDA context
+        torch.ones(1, device=card)
+        torch.cuda.synchronize()
+        node.replica_router = None
+        pool = node.reader_pool = ReaderPool(node, workers=2).start()
+        got = node.router.resolve("search.paths", {"take": 100}, lib.id, raw=True)
+        assert last_rung() == "pool"
+        pool.set_enabled(False)
+        want = node.router.resolve("search.paths", {"take": 100}, lib.id)
+        assert got.data == json.dumps(want, default=str).encode()
+        pool.set_enabled(True)
+        devices, _libcuda = cuda_handles(os.getpid())
+        assert devices
+        for pid in pool.worker_pids():
+            # a context needs the device files; a worker may map libcuda
+            # without them, which is not a context
+            assert cuda_handles(pid)[0] == set(), pid
+    finally:
+        if pool is not None:
+            pool.stop()
+            node.reader_pool = None
+        if node is not None:
+            node.shutdown()
+        peer.close()
+
+
 def test_encrypt_rescan_decrypt_rescan_on_the_card(card, tmp_path, monkeypatch):
     """A node on the card scans a seeded tree with manifests on, encrypts
     its files through ``files.encryptFiles`` with a stored key (the

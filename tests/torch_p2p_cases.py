@@ -209,14 +209,17 @@ class PeerProcess:
     SCRIPT = Path(__file__).with_name("torch_p2p_peer.py")
 
     def __init__(self, data_dir: Path, tree: Path, device: str, log: Path,
-                 debug_log: Path | None = None, timeout: float = 120.0) -> None:
+                 debug_log: Path | None = None, timeout: float = 120.0,
+                 env: dict | None = None) -> None:
+        """``env``: variables set for the child beside this process's."""
         self.log_path, self.debug_log, self.timeout = log, debug_log, timeout
         self._log = open(log, "w")
         argv = [sys.executable, str(self.SCRIPT), str(data_dir), str(tree), device]
         self.proc = subprocess.Popen(
             argv + ([str(debug_log)] if debug_log else []), stdin=subprocess.PIPE,
             stdout=subprocess.PIPE, stderr=self._log, text=True, bufsize=1,
-            env={k: v for k, v in os.environ.items() if k != "SD_P2P_DISABLED"})
+            env={**{k: v for k, v in os.environ.items() if k != "SD_P2P_DISABLED"},
+                 **(env or {})})
         self._lines: "queue.Queue[str | None]" = queue.Queue()
         threading.Thread(target=self._pump, daemon=True).start()
         self.ready: dict = {}

@@ -23,6 +23,13 @@ each:
   {"op": "counts"}     -> ``p2p_counts()`` and ``fleet`` (sync.fleetStatus)
   {"op": "done"}       -> {"events"}: the spacedrops ended so far
   {"op": "ids", "pub_id": ...}  -> the file_path's id and its location's
+  {"op": "refresh"}    bring the search index up to date -> {"fresh"}
+  {"op": "local", "key": ..., "arg": ...}  the handler's page here, in
+                       this process -> {"raw", "ms"} (``raw``: the encoded
+                       page as text; ``ms``: the handler's milliseconds)
+  {"op": "faults", "spec": ...}  arm a fault plan here (null clears it)
+  {"op": "pool"}       wait for the server's reader pool -> {"status",
+                       "stats", "pids"} (``status`` null without a pool)
   {"op": "quit"}       shut the node down and exit 0
 """
 
@@ -38,10 +45,12 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     out, sys.stdout = sys.stdout, sys.stderr  # answers on stdout, logs on stderr
 
+    from spacedrive_tpu_torch import faults
     from spacedrive_tpu_torch.locations import scan_location
     from spacedrive_tpu_torch.models import FilePath, Location
     from spacedrive_tpu_torch.node import Node
     from spacedrive_tpu_torch.server import Server
+    from spacedrive_tpu_torch.server.replica import encode_reply
     from tests.torch_p2p_cases import (count_scans, p2p_counts, p2p_debug_log, p2p_location,
                                        p2p_reset, rows_digest, synchronize)
     from tests.torch_sync_cases import sync_ops
@@ -112,6 +121,26 @@ def main() -> int:
             answer({"file_path_id": fp and fp["id"], "location_id": fp and fp["location_id"],
                     "location_pub_id": fp and lib.db.find_one(
                         Location, {"id": fp["location_id"]})["pub_id"]})
+        elif op == "refresh":
+            node.search_engine.refresh_now(lib)
+            answer({"fresh": node.search_engine.status()["libraries"][lib.id]["fresh"]})
+        elif op == "local":
+            t0 = time.perf_counter()
+            page = node.router.procedures[cmd["key"]].fn(node, lib, cmd.get("arg"))
+            ms = (time.perf_counter() - t0) * 1e3
+            answer({"raw": encode_reply(page).decode(), "ms": ms})
+        elif op == "pool":
+            from spacedrive_tpu_torch.server import pool as pool_mod
+
+            pool = server.wait_pool(120)
+            answer({"status": pool and pool.status(), "stats": dict(pool_mod.STATS),
+                    "pids": pool.worker_pids() if pool else []})
+        elif op == "faults":
+            if cmd.get("spec"):
+                faults.install(cmd["spec"])
+            else:
+                faults.clear()
+            answer({"ok": True})
         else:
             answer({"error": f"unknown op {op}"})
     server.stop()
