@@ -261,7 +261,16 @@ no result line):
    64 concurrent GETs of one search over 50,000 rows: each the page or a
    429 with ``Retry-After``, at least one 429, the budget back at 0
    in flight, the same GET then 200; the phase fails past 90 s;
-15. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
+15. telemetry's cost on the card (budget 60 s): four pipelined rescans of
+   phase 4's first 16 directories (4,096 files, fixed 1,024-file pages) in
+   the order off, on, on, off, each timed (seconds, files/s); the kernel
+   launches and the synchronizing CUDA calls counted under
+   ``torch.cuda.set_sync_debug_mode("warn")`` must be equal off and on
+   (the instrumentation adds no device synchronization); one more rescan
+   of 4 directories with ``SD_PROFILE_HZ`` set must attribute profiler
+   samples to the ``pipeline.*`` spans, and the ``sd_proc_*`` gauges must
+   be set;
+16. print the ``{"device_programs": [...]}`` line (the MinHash programs' and
    the resize's times, calls on the path, CUDA kernels a call, and bounds),
    the ``{"p2p": ...}``, ``{"crypto": ...}`` and ``{"serving": ...}`` lines
    (every query's rung, the pool's and the in-process p50s, the 429s, A's
@@ -283,7 +292,24 @@ prints a ``{"p2p": {...}}`` line. ``--crypto`` builds them, writes phase
 ``{"crypto": {...}}`` line, never the ok line. ``--serving`` writes and
 scans phase 4's tree, then runs phase 12 (whose pair phase 14 (b) reuses)
 and phase 14: it prints the card, the ``{"p2p": ...}`` and the
-``{"serving": {...}}`` lines, never the ok line.
+``{"serving": {...}}`` lines, never the ok line. ``--telemetry`` builds
+the kernels, writes phase 4's tree (no scan) and runs phase 15 alone: it
+prints the card and the ``{"telemetry": {...}}`` line, never the ok line.
+
+Telemetry is on in every phase, as it is by default. Phase 4 also reads the
+identify job's span tree through ``telemetry.jobTrace`` (one
+``pipeline.run``; pages = hashes = ``pipeline_batches``; commits =
+``commit_txns``; every page holds its gather; each stage's span sum within
+5% of the report's) and checks ``sd_hash_files_total`` and ``sd_hash_mfu``
+against the card's roofline (:mod:`spacedrive_tpu_torch.ops.roofline`).
+Phase 9 holds ``sd_rspc_requests_total`` to its own count of requests by
+outcome, parses ``GET /metrics``, finds a slow ``search.paths`` in the
+ring with its ``db.query`` spans, tails ``/telemetry/stream`` through 9b's
+scan (its ``job.status`` events) and reads the pool's dispatches in the
+``sd_serve_*`` families of the node's process. Phase 12 stitches A's and
+B's exported traces of one sync session by ``trace_id``, waits for
+``sd_sync_peer_lag_ops`` to return to 0 on both sides, and holds
+``sd_p2p_hash_*`` to the remote hasher's batches on both sides.
 """
 
 from __future__ import annotations
@@ -444,6 +470,63 @@ def bound_ms(nbytes: float, ops: float, int32_ops_per_s: float) -> tuple[float, 
 
 def canon(value) -> str:
     return json.dumps(value, sort_keys=True, default=str)
+
+
+def spans_named(node: dict, name: str, out: list | None = None) -> list[dict]:
+    """Every span called ``name`` in a ``telemetry.jobTrace`` tree."""
+    out = [] if out is None else out
+    if node["name"] == name:
+        out.append(node)
+    for child in node.get("children", []):
+        spans_named(child, name, out)
+    return out
+
+
+def series(name: str) -> dict:
+    """{label values: value} of a port counter or gauge family."""
+    from spacedrive_tpu_torch import telemetry
+
+    return {tuple(sorted(lbl.items())): v for lbl, v in telemetry.series_values(name)}
+
+
+def series_delta(name: str, before: dict, key: str) -> dict:
+    """Growth of a family since ``before`` (a :func:`series` read), summed
+    by one label."""
+    out: dict = {}
+    for lbls, v in series(name).items():
+        d = v - before.get(lbls, 0.0)
+        if d:
+            label = dict(lbls)[key]
+            out[label] = out.get(label, 0.0) + d
+    return out
+
+
+#: one sample line of the Prometheus text exposition
+PROM_SAMPLE = (r'^sd_[a-z0-9_]+(\{[a-z_]+="(?:[^"\\]|\\.)*"(,[a-z_]+="(?:[^"\\]|\\.)*")*\})?'
+               r' (-?[0-9.e+-]+|\+Inf|-Inf|NaN)$')
+
+
+def parse_metrics(text: str) -> dict:
+    """``GET /metrics`` read line by line: every line a HELP, a TYPE or a
+    sample of a typed family; {family: type}."""
+    import re
+
+    sample = re.compile(PROM_SAMPLE)
+    typed: dict = {}
+    for line in text.splitlines():
+        if line.startswith("# HELP "):
+            continue
+        if line.startswith("# TYPE "):
+            _h, _t, name, kind = line.split(" ")
+            if kind not in ("counter", "gauge", "histogram"):
+                fail(f"/metrics: {line!r}")
+            typed[name] = kind
+            continue
+        base = line.split("{")[0].split(" ")[0]
+        if not sample.match(line) or (base not in typed and
+                                      re.sub(r"_(bucket|sum|count)$", "", base) not in typed):
+            fail(f"/metrics: an unparsable line {line!r}")
+    return typed
 
 
 def sass_instructions(library: Path, function: str) -> list | None:
@@ -1781,6 +1864,7 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
         cas_native.reset_counts()
         cas.PYTHON_ROUTES.clear()
         minhash.DEVICE_CALLS.clear()
+        hash_files0 = series("sd_hash_files_total")
         t0 = time.perf_counter()
         scan_location(lib, loc["id"])
         if not node.jobs.wait_idle(900):
@@ -1799,9 +1883,12 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
             job = jobs.get(name)
             if job is None or job["status"] != JobStatus.COMPLETED:
                 fail(f"{name} job ended {dict(job) if job else 'missing'}")
-        _ident, meta, ident_s = identify_job(db)
+        ident, meta, ident_s = identify_job(db)
         if not meta.get("pipeline_batches"):
             fail(f"the identify job did not run on the pipeline: {meta}")
+        n_hashed = sum(1 for s in tree["sizes"] if s > 0)
+        traced = scan_trace_checks(node, ident, meta, n_hashed, hash_files0, card,
+                                   int32_ops_per_s)
 
         rows = {(r["materialized_path"], r["name"], r["extension"]): dict(r) for r in db.query(
             "SELECT id, materialized_path, name, extension, size_in_bytes, cas_id, object_id "
@@ -1906,7 +1993,71 @@ def main_path_phase(seed: int, card: str, corpus: list[tuple], int32_ops_per_s: 
     return {"launches": launches, "by_shape": by_shape, "pages": pages, "search": search,
             "programs": programs, "program_calls": program_calls, "dedup": dedup,
             "fused": fused, "validator": validated, "jobs": jobs, "serving": serving,
-            "rows": rows, "tampered_dir": validated["tampered_dir"]}
+            "rows": rows, "tampered_dir": validated["tampered_dir"], "trace": traced}
+
+
+def scan_trace_checks(node, ident: dict, meta: dict, n_hashed: int, hash_files0: dict,
+                      card: str, int32_ops_per_s: float) -> dict:
+    """Phase 4's identify job as telemetry shows it: its span tree through
+    ``telemetry.jobTrace`` on the router, its hash families and its MFU
+    against the card's roofline."""
+    from spacedrive_tpu_torch import telemetry
+    from spacedrive_tpu_torch.ops import roofline
+
+    tree = node.router.resolve("telemetry.jobTrace", ident["id"])
+    if tree is None:
+        fail("phase 4: telemetry.jobTrace has no tree for the identify job")
+    runs = spans_named(tree, "pipeline.run")
+    pages = spans_named(tree, "pipeline.page")
+    full = [p for p in pages if not (p.get("attrs") or {}).get("empty")]
+    hashes = spans_named(tree, "pipeline.hash")
+    commits = spans_named(tree, "pipeline.commit")
+    if len(runs) != 1 or not len(full) == len(hashes) == meta["pipeline_batches"] or \
+            len(commits) != meta["commit_txns"]:
+        fail(f"phase 4: the trace has {len(runs)} pipeline.run, {len(full)} pages "
+             f"({len(pages) - len(full)} out-of-work probes), {len(hashes)} hashes, "
+             f"{len(commits)} commits; the report {meta['pipeline_batches']} batches in "
+             f"{meta['commit_txns']} transactions")
+    for page in full:
+        gathers = [c for c in page["children"] if c["name"] == "identifier.gather"]
+        slices = [c for c in page["children"] if c["name"] == "pipeline.gather"]
+        if len(gathers) != max(1, len(slices)):
+            fail(f"phase 4: a page holds {len(gathers)} identifier.gather spans for "
+                 f"{len(slices)} slices")
+    sums = {}
+    for name, key, spans in (("pipeline.page", "pipeline_page_s", pages),
+                             ("pipeline.hash", "pipeline_hash_s", hashes),
+                             ("pipeline.commit", "pipeline_commit_s", commits)):
+        total = sum(s["duration_s"] for s in spans)
+        sums[name] = total
+        if abs(total - meta[key]) > 0.05 * meta[key] + 1e-4:
+            fail(f"phase 4: the {name} spans sum to {total:.4f} s, the report's {key} "
+                 f"is {meta[key]:.4f} s")
+    grew = series_delta("sd_hash_files_total", hash_files0, "backend")
+    if grew != {"cuda": float(n_hashed)}:
+        fail(f"phase 4: sd_hash_files_total grew by {grew}, the scan hashed {n_hashed} files")
+    mfu = telemetry.value("sd_hash_mfu")
+    if not 0 < mfu <= 1:
+        fail(f"phase 4: sd_hash_mfu is {mfu}, not in (0, 1]")
+    card_line = roofline.card_roofline(node.device)
+    hash_s = sum(s["duration_s"] for s in spans_named(tree, "identifier.hash"))
+    hashed_bytes = telemetry.value("sd_hash_bytes_total", backend="cuda")
+    out = {"pages": len(full), "probes": len(pages) - len(full), "commits": len(commits),
+           "span_sums_s": sums, "hash_span_s": hash_s, "sd_hash_mfu_last_batch": mfu,
+           "mfu_over_the_scan": hashed_bytes / hash_s / card_line["bytes_per_s"],
+           "roofline": card_line,
+           "perf_md_int32_ops_per_s": int32_ops_per_s,
+           "hash_batches": telemetry.value("sd_hash_batches_total", backend="cuda")}
+    log(f"phase 4 telemetry on {card}: telemetry.jobTrace: one pipeline.run, {len(full)} pages "
+        f"(+{out['probes']} out-of-work probe), {len(hashes)} hashes, {len(commits)} commits, "
+        f"each page's gather inside it; span sums {json.dumps(sums)} within 5% of the report; "
+        f"sd_hash_files_total +{n_hashed}; sd_hash_mfu {mfu:.6f} (last batch) and "
+        f"{out['mfu_over_the_scan']:.6f} over the scan's identifier.hash spans, against the "
+        f"roofline {card_line['int32_ops_per_s'] / 1e12:.2f}e12 INT32 ops/s = "
+        f"{card_line['bytes_per_s'] / 1e9:.1f} GB/s of payload at 680 operations a block "
+        f"({card_line['sms']} SMs, {card_line['sm_clock_mhz']:.0f} MHz; PERF.md's bound model "
+        f"{int32_ops_per_s / 1e12:.2f}e12)")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1926,10 +2077,13 @@ def write_sparse(path: Path, size: int, seed: int) -> None:
 
 
 def validator_job(db) -> tuple[dict, dict]:
-    """(job row, metadata) of the last object_validator job."""
+    """(job row, metadata without the job trace's summary) of the last
+    object_validator job."""
     row = dict(db.query("SELECT * FROM job WHERE name = 'object_validator' "
                         "ORDER BY date_created")[-1])
-    return row, json.loads(row["metadata"]) if row["metadata"] else {}
+    meta = json.loads(row["metadata"]) if row["metadata"] else {}
+    meta.pop("trace", None)
+    return row, meta
 
 
 def window_timing(window: tuple, top: tuple, int32_ops_per_s: float, flush) -> dict:
@@ -3050,6 +3204,8 @@ def serve_search_phase(node, lib, card: str) -> dict:
         torch.cuda.synchronize()
         _kernels.reset_counts()
         served0 = engine.status()["served"]
+        rspc0 = series("sd_rspc_requests_total")
+        asked: dict = {}
         p50: dict = {t: {} for t in ("in_process", "get", "post", "ws")}
         expected: dict = {}
         rungs: dict = {}
@@ -3096,6 +3252,8 @@ def serve_search_phase(node, lib, card: str) -> dict:
                         fail(f"serve: {label} over {transport} launched {grew}, the in-process "
                              f"call {expected[label]}")
                 p50[transport][label] = statistics.median(lat)
+            # three resolves above, then each transport's repeats
+            asked[key] = asked.get(key, 0) + 3 + 4 * SERVE_REPEATS
             log(f"serve: {label} ({key}, rung {rungs[label]}): p50 in-process "
                 f"{p50['in_process'][label]:.3f} ms, GET "
                 f"{p50['get'][label]:.3f} ms, POST {p50['post'][label]:.3f} ms, websocket "
@@ -3103,6 +3261,7 @@ def serve_search_phase(node, lib, card: str) -> dict:
         launches = kernel_counts(SEARCH_KERNELS)
         plain = {k: v for k, v in _kernels.PLAIN_ON_CUDA.items() if v}
         served = engine.status()["served"] - served0
+        telemetered = serve_telemetry_checks(node, lib, url, rspc0, asked, card)
         pooled = serve_pool_checks(node, lib, card)
         pooled["start_s"] = pool_start_s
         pooled["bind_s"] = bind_s
@@ -3129,7 +3288,62 @@ def serve_search_phase(node, lib, card: str) -> dict:
         + "; added over in-process (median of the per-query differences): "
         + ", ".join(f"{t} {v:.3f} ms" for t, v in added.items()) + f"; {seconds:.1f} s")
     return {"launches": launches, "p50": median, "added_ms": added, "seconds": seconds,
-            "rungs": rungs, "pool": pooled}
+            "rungs": rungs, "pool": pooled, "telemetry": telemetered}
+
+
+def serve_telemetry_checks(node, lib, url: str, rspc0: dict, asked: dict, card: str) -> dict:
+    """Phase 9 (a): the matrix's requests in ``sd_rspc_requests_total``,
+    one by one, then an ``ApiError`` and a shed over HTTP; ``GET /metrics``
+    read line by line; a slow ``search.paths`` in the ring with its
+    ``db.query`` spans."""
+    from spacedrive_tpu_torch.telemetry import requests as rq
+    from spacedrive_tpu_torch.telemetry.slo import tenant_label
+    from tests.torch_serve_client import get, post
+
+    got = {}
+    for lbls, v in series("sd_rspc_requests_total").items():
+        d = v - rspc0.get(lbls, 0.0)
+        if d:
+            got[(dict(lbls)["proc"], dict(lbls)["outcome"])] = d
+    want = {(k, "ok"): float(n) for k, n in asked.items()}
+    if got != want:
+        fail(f"serve: sd_rspc_requests_total grew by {got}, the phase asked {want}")
+    before = series("sd_rspc_requests_total")
+    status, _body = post(url, "/rspc/search.paths", {"arg": {"take": 1},
+                                                      "library_id": "no-such-library"})
+    budget = node.dispatch_budget
+    held = [budget.try_admit(tenant_label(lib.id)) for _ in range(budget.max_inflight)]
+    try:
+        shed, _body = post(url, "/rspc/search.pathsCount", {"arg": {"search": "x"},
+                                                             "library_id": lib.id})
+    finally:
+        for h in held:
+            h.release()
+    outcomes = series_delta("sd_rspc_requests_total", before, "outcome")
+    if (status, shed) != (400, 429) or outcomes != {"api_error": 1.0, "shed": 1.0}:
+        fail(f"serve: an unknown library answered {status}, a held budget {shed}; "
+             f"outcomes {outcomes}")
+    _s, _h, body = get(url, "/metrics")
+    typed = parse_metrics(body.decode())
+    os.environ["SD_SLOW_REQUEST_MS"] = "0"
+    try:
+        _label, key, arg = SEARCH_MATRIX[0]
+        node.router.resolve(key, arg, lib.id)
+    finally:
+        del os.environ["SD_SLOW_REQUEST_MS"]
+    slow = [e for e in rq.slow_requests(4) if e["proc"] == key]
+    queries = spans_named(slow[0]["tree"], "db.query") if slow else []
+    if not queries:
+        fail(f"serve: the slow {key} is not in the ring with db.query spans: "
+             f"{[e['proc'] for e in rq.slow_requests(4)]}")
+    out = {"requests": sum(want.values()), "families": len(typed),
+           "metrics_bytes": len(body), "slow_db_queries": len(queries),
+           "slow_ms": slow[0]["duration_s"] * 1e3}
+    log(f"serve telemetry on {card}: sd_rspc_requests_total grew by the phase's "
+        f"{int(out['requests'])} ok requests, proc by proc, then one api_error (400) and one "
+        f"shed (429); GET /metrics: {len(typed)} families, {len(body)} B, every line parsed; "
+        f"a slow {key} ({out['slow_ms']:.2f} ms) in the ring with {len(queries)} db.query spans")
+    return out
 
 
 #: pool-marked queries the engine does not serve, so the reader pool's
@@ -3211,6 +3425,8 @@ def serve_pool_checks(node, lib, card: str) -> dict:
                [N_SEARCH_ROWS // 2])[0]["id"]},
            "location": lib.db.query("SELECT id FROM location ORDER BY id")[0]["id"]}
     rungs, lat = {}, {"pool": {}, "pool_hit": {}, "in_process": {}}
+    served0 = series("sd_serve_worker_requests_total")
+    cache0 = series("sd_serve_worker_cache_total")
     for label, key, arg in POOL_MATRIX:
         arg = ids.get(label, arg)
         times: dict = {k: [] for k in lat}
@@ -3239,6 +3455,15 @@ def serve_pool_checks(node, lib, card: str) -> dict:
             f"p50 pool {lat['pool'][label]:.3f} ms (a cached replay "
             f"{lat['pool_hit'][label]:.3f} ms), in-process {lat['in_process'][label]:.3f} ms")
 
+    # the dispatches in the node's process's families, from each reply
+    dispatched = series_delta("sd_serve_worker_requests_total", served0, "outcome")
+    cached = series_delta("sd_serve_worker_cache_total", cache0, "result")
+    n_pool = 2 * len(POOL_MATRIX) * SERVE_REPEATS
+    if dispatched != {"ok": float(n_pool)} or not cached.get("hit") or \
+            sum(cached.values()) > n_pool:
+        fail(f"serve: sd_serve_worker_requests_total grew by {dispatched}, the cache family by "
+             f"{cached}; the phase made {n_pool} pool dispatches")
+    restart_series0 = series("sd_serve_worker_restarts_total")
     # a worker SIGKILLed in the middle of a dispatch; the supervisor's pings
     # are held off meanwhile, so the one worker out of the idle list is the
     # one serving
@@ -3287,6 +3512,9 @@ def serve_pool_checks(node, lib, card: str) -> dict:
              f"page")
     if respawn_s is None or victim.proc.pid in pool.worker_pids():
         fail(f"serve: the killed worker's slot was not respawned: {pool.status()}")
+    crashed = series_delta("sd_serve_worker_restarts_total", restart_series0, "reason")
+    if crashed.get("crash", 0) < 1:
+        fail(f"serve: the killed worker is not in sd_serve_worker_restarts_total: {crashed}")
 
     # the node holds the card; no worker holds anything of CUDA
     apps = compute_apps()
@@ -3303,7 +3531,8 @@ def serve_pool_checks(node, lib, card: str) -> dict:
            "by_query_ms": lat, "killed_dispatch_ms": result["ms"], "respawn_s": respawn_s,
            "restarts": pool.status()["restarts"], "compute_apps": apps,
            "worker_cuda_handles": sum(len(h.get("devices", [])) for h in held.values()),
-           "workers_mapping_libcuda": sum(bool(h.get("libcuda")) for h in held.values())}
+           "workers_mapping_libcuda": sum(bool(h.get("libcuda")) for h in held.values()),
+           "serve_families": {"requests": dispatched, "cache": cached, "restarts": crashed}}
     log(f"serve (pool) on {card}: {pool.workers} workers (forkserver); {len(POOL_MATRIX)} "
         f"queries byte-identical to in-process; median p50 pool "
         f"{out['p50_ms']['pool']:.3f} ms (cached replay {out['p50_ms']['pool_hit']:.3f} ms), "
@@ -3313,6 +3542,55 @@ def serve_pool_checks(node, lib, card: str) -> dict:
         f"process holds {len(mine['devices'])} /dev/nvidia* files, the {len(held)} workers "
         f"none; {out['workers_mapping_libcuda']} map libcuda without a device file)")
     return out
+
+
+class SseTail:
+    """A client of ``GET /telemetry/stream`` on its own thread: keeps every
+    event it reads until :meth:`close`. The ring's replay starts after the
+    newest event already in it, so the tail sees only what comes next."""
+
+    def __init__(self, port: int) -> None:
+        import socket
+
+        from spacedrive_tpu_torch import telemetry
+
+        newest = telemetry.recent_events(1)
+        after = newest[-1]["seq"] if newest else 0
+        self.events: list[dict] = []
+        self.head = b""
+        self._sock = socket.create_connection(("127.0.0.1", port), timeout=30)
+        self._sock.sendall(f"GET /telemetry/stream?after={after} HTTP/1.1\r\n"
+                           f"Host: chip-smoke\r\n\r\n".encode())
+        self._thread = threading.Thread(target=self._read, daemon=True, name="sse-client")
+        self._thread.start()
+
+    def _read(self) -> None:
+        buf = b""
+        while True:
+            try:
+                chunk = self._sock.recv(65536)
+            except OSError:
+                return
+            if not chunk:
+                return
+            buf += chunk
+            if not self.head and b"\r\n\r\n" in buf:
+                self.head, buf = buf.split(b"\r\n\r\n", 1)
+            while self.head and b"\n\n" in buf:
+                frame, buf = buf.split(b"\n\n", 1)
+                for line in frame.split(b"\n"):
+                    if line.startswith(b"data: "):
+                        self.events.append(json.loads(line[6:]))
+
+    def close(self) -> None:
+        import socket
+
+        try:
+            self._sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._sock.close()
+        self._thread.join(10)
 
 
 def follow_jobs(ws, sub_id: int, url: str, lib_id: str, what: str,
@@ -3377,6 +3655,7 @@ def serve_scan_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str
     server.start()
     url = f"http://127.0.0.1:{server.port}"
     ws = WsClient("127.0.0.1", server.port)
+    tail = SseTail(server.port)
     try:
         torch.cuda.synchronize()
         _kernels.reset_counts()
@@ -3395,6 +3674,7 @@ def serve_scan_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str
         rescan_s = time.perf_counter() - t0
         launches = kernel_counts(SCAN_KERNELS)
         plain = {k: v for k, v in _kernels.PLAIN_ON_CUDA.items() if v}
+        tailed = sse_checks(server, tail)
         lib = node.libraries.get(lib_id)
         jobs = [(r["name"], r["status"]) for r in lib.db.query(
             "SELECT name, status FROM job ORDER BY date_created, rowid")]
@@ -3464,13 +3744,51 @@ def serve_scan_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str
         in_process = node.router.resolve("search.paths", needle, same_lib)
         entry = entry_point_check(one, in_process, needle)
     finally:
+        tail.close()
         ws.close()
         server.stop()
         node.shutdown()
     seconds = time.perf_counter() - t_phase
     log(f"serve (phase 9b, 9c): {seconds:.1f} s")
     return {"launches": launches, "create_s": create_s, "rescan_s": rescan_s,
-            "entry": entry, "seconds": seconds}
+            "entry": entry, "seconds": seconds, "sse": tailed}
+
+
+def sse_checks(server, tail: SseTail) -> dict:
+    """Phase 9 (b): the SSE tail opened before the scans saw every job of
+    both chains start and end (``job.status``); a client that hangs up
+    leaves no tail on the server."""
+    from spacedrive_tpu_torch.jobs import JobStatus
+
+    if not tail.head.startswith(b"HTTP/1.1 200") or b"text/event-stream" not in tail.head:
+        fail(f"serve: /telemetry/stream answered {tail.head[:120]!r}")
+    done = JobStatus.NAMES[JobStatus.COMPLETED]
+    want = {"indexer", "file_identifier", "media_processor", "dedup_detector"}
+    deadline = time.monotonic() + 10
+    while True:
+        statuses = [(e.get("job"), e.get("status")) for e in list(tail.events)
+                    if e.get("name") == "job.status"]
+        seen = {j for j, st in statuses if st == done} & {j for j, st in statuses
+                                                          if st == "Running"}
+        if seen >= want or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    if not seen >= want:
+        fail(f"serve: the SSE tail saw job.status {statuses[-8:]}, not every job of the chain "
+             f"start and end")
+    if server.sse_tails() != 1:
+        fail(f"serve: the shell holds {server.sse_tails()} SSE tails, not the one open")
+    n = len(tail.events)
+    tail.close()
+    deadline = time.monotonic() + 10
+    while server.sse_tails() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    if server.sse_tails():
+        fail("serve: a hung-up SSE client's tail is still registered on the shell")
+    log(f"serve telemetry: the SSE tail read {n} events through both scans, "
+        f"{len(statuses)} job.status among them (every job of the chain Running, then "
+        f"{done}); the client hung up and the shell dropped its tail")
+    return {"events": n, "job_status": len(statuses)}
 
 
 def same_tree(answer: dict) -> list:
@@ -5460,6 +5778,7 @@ def p2p_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str,
         # 3. both scans at once, A's cas messages hashed on B's card
         p2p_reset()
         child.ask("reset")
+        tel0 = {"A": p2p_counts()["telemetry"], "B": child.ask("counts")["telemetry"]}
         logged_before = {"A": sync_ops(lib), "B": child.ask("ops")["logged"]}
         t0 = time.perf_counter()
         child.ask("scan")
@@ -5530,6 +5849,7 @@ def p2p_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str,
                 ingested["B"] < logged["A"] - logged_before["A"]:
             child.fail(f"ops logged {logged} ({logged_before} before the scans), ingested "
                        f"over the wire {ingested}")
+        mesh_checked = p2p_telemetry_checks(node, child, work, peer_b, tel0, hashed, served)
         log(f"p2p (phase 12, scans): both scans {scans_s:.2f} s at once (A {a_s:.2f} s, B "
             f"{b_scan['seconds']:.2f} s); A's H_HASH {hashed.get('hash_requests')} batches, "
             f"{hashed.get('hash_request_messages')} messages, "
@@ -5656,7 +5976,81 @@ def p2p_phase(tree_dir: Path, phase4_rows: dict, skip_dir: int, card: str,
             "launches": launches,
             "launches_by_origin": {"A": a_end["by_origin"], "B": b_end["by_origin"]},
             "launches_by_tag": {"A": a_end["by_tag"], "B": b_end["by_tag"]},
-            "gear_delta_plane": gear_plane, "replica": replicated}
+            "gear_delta_plane": gear_plane, "replica": replicated, "telemetry": mesh_checked}
+
+
+def session_records(data_dir: Path) -> dict:
+    """trace_id -> records of every sync session trace exported under
+    ``data_dir``."""
+    out: dict = {}
+    traces = data_dir / "logs" / "traces"
+    for path in traces.glob("sync-*.jsonl") if traces.is_dir() else ():
+        for line in path.read_text().splitlines():
+            rec = json.loads(line)
+            out.setdefault(rec["trace_id"], []).append(rec)
+    return out
+
+
+def p2p_telemetry_checks(node, child, work: Path, peer_b: str, tel0: dict, hashed: dict,
+                         served: dict) -> dict:
+    """Phase 12 after the rows converged: both sides' ``sd_p2p_hash_*`` equal
+    the remote hasher's batches; ``sd_sync_peer_lag_ops`` is back to 0 on
+    both sides; A's and B's exported traces of one session stitch by
+    ``trace_id``, B's apply spans under A's window spans."""
+    from spacedrive_tpu_torch.telemetry.mesh import peer_label
+    from spacedrive_tpu_torch.telemetry.spans import build_tree
+    from tests.torch_p2p_cases import p2p_counts
+
+    labels = {"A": peer_label(node.p2p.remote_identity.encode()), "B": peer_label(peer_b)}
+    deadline = time.monotonic() + 60
+    while True:
+        tel = {"A": p2p_counts()["telemetry"], "B": child.ask("counts")["telemetry"]}
+        # each side's lag for the other
+        lag = {"A": tel["A"]["lag_ops"].get(labels["B"]), "B": tel["B"]["lag_ops"].get(labels["A"])}
+        if lag == {"A": 0.0, "B": 0.0} or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    if lag != {"A": 0.0, "B": 0.0}:
+        child.fail(f"sd_sync_peer_lag_ops after the rows converged: {lag}")
+    grew = {side: {k: tel[side][k] - tel0[side][k] for k in
+                   ("hash_requests", "hash_bytes", "hash_serve", "hash_serve_bytes")}
+            for side in ("A", "B")}
+    if grew["A"]["hash_requests"] != hashed.get("hash_requests") or \
+            grew["A"]["hash_bytes"] != hashed.get("hash_request_bytes") or \
+            grew["B"]["hash_serve"] != served["hash_served"] or \
+            grew["B"]["hash_serve_bytes"] != served["hash_served_bytes"]:
+        child.fail(f"sd_p2p_hash_* grew by {grew}; the remote hasher's batches {hashed}, "
+                   f"B served {served}")
+    deadline = time.monotonic() + 60
+    stitched = []
+    while not stitched and time.monotonic() < deadline:
+        sent, got = session_records(work / "data-A"), session_records(work / "data-B")
+        for trace_id in sorted(set(sent) & set(got)):
+            windows = {r["span_id"] for r in sent[trace_id] if r["name"] == "sync.window"}
+            applies = [r for r in got[trace_id] if r["name"] == "sync.apply"]
+            roots = [r for r in sent[trace_id] + got[trace_id] if r["parent_id"] is None]
+            if applies and len(roots) == 1 and all(a["parent_id"] in windows for a in applies):
+                stitched.append((trace_id, len(windows), len(applies)))
+        if not stitched:
+            time.sleep(0.5)
+    if not stitched:
+        child.fail("no sync session of A's exported traces stitches with B's by trace_id, "
+                   "B's sync.apply spans under A's sync.window spans")
+    trace_id, n_windows, n_applies = stitched[0]
+    tree = build_tree(trace_id, sent[trace_id] + got[trace_id])
+    nested = sum(1 for w in tree["children"] if w["name"] == "sync.window"
+                 for c in w["children"] if c["name"] == "sync.apply")
+    if nested != n_applies:
+        child.fail(f"the stitched session {trace_id}: {nested} of {n_applies} apply spans "
+                   f"under A's windows")
+    out = {"sessions_stitched": len(stitched), "example": {"trace_id": trace_id,
+           "windows": n_windows, "applies": n_applies}, "hash_families": grew,
+           "lag_ops": lag}
+    log(f"p2p telemetry: sd_p2p_hash_* equal the remote hasher's batches on both sides "
+        f"{json.dumps(grew)}; sd_sync_peer_lag_ops back to 0 on both sides; "
+        f"{len(stitched)} sessions of A's exported traces stitch with B's by trace_id (e.g. "
+        f"{trace_id}: {n_applies} of B's sync.apply spans under A's {n_windows} windows)")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -6308,6 +6702,167 @@ def crypto_phase(tree_dir: Path, seed: int, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 15: telemetry's cost on the card
+# --------------------------------------------------------------------------
+
+#: phase 15 fails past this
+TELEMETRY_BUDGET_S = 60.0
+#: directories of phase 4's tree the profiled rescan reads
+PROFILED_DIRS = 4
+#: the profiler's rate in the profiled rescan
+PROFILE_HZ = 200
+
+
+def telemetry_rescan(node, root: Path, name: str, enabled: bool) -> dict:
+    """One pipelined rescan of ``root`` into a new library with telemetry
+    on or off: its seconds, files/s, kernel launches and the synchronizing
+    CUDA calls ``torch.cuda.set_sync_debug_mode("warn")`` reported."""
+    import warnings
+
+    import torch
+
+    from spacedrive_tpu_torch import telemetry
+    from spacedrive_tpu_torch.jobs import JobStatus
+    from spacedrive_tpu_torch.locations import scan_location
+    from spacedrive_tpu_torch.ops import _kernels
+
+    lib = node.libraries.create(name)
+    loc = identify_location(lib, root)
+    torch.cuda.synchronize()
+    _kernels.reset_counts()
+    telemetry.set_enabled(enabled)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                scan_location(lib, loc["id"])
+                if not node.jobs.wait_idle(300):
+                    fail(f"telemetry: the {name} rescan did not finish")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    finally:
+        telemetry.set_enabled(True)
+    torch.cuda.synchronize()
+    job, meta, seconds = identify_job(lib.db)
+    if job["status"] != JobStatus.COMPLETED:
+        fail(f"telemetry: the {name} rescan's identify job ended {job['status']}")
+    # one warning a call that synchronizes (the mode's own notice, given
+    # once when it is first set, is not one)
+    syncs = [str(w.message) for w in caught
+             if str(w.message).startswith("called a synchronizing CUDA operation")]
+    kinds: dict = {}
+    for text in syncs:
+        kinds[text[:80]] = kinds.get(text[:80], 0) + 1
+    files = meta["total_orphan_paths"]
+    return {"telemetry": "on" if enabled else "off", "seconds": seconds,
+            "files": files, "files_per_s": files / seconds,
+            "launches": {k: _kernels.LAUNCHES.get(k, 0) for k in SCAN_KERNELS},
+            "sync_calls": len(syncs), "sync_kinds": kinds,
+            "trace": "trace" in meta, "batches": meta["pipeline_batches"]}
+
+
+def telemetry_phase(tree_dir: Path, card: str) -> dict:
+    """Phase 15: four pipelined rescans of phase 4's first
+    :data:`RESCAN_DIRS` directories (4,096 files) in the order off, on, on,
+    off, with fixed 1,024-file pages, so each rescan launches the same
+    kernels; launches and synchronizing calls equal off and on. Then a
+    rescan of :data:`PROFILED_DIRS` directories on a node with
+    ``SD_PROFILE_HZ`` set: its samples fall in ``pipeline.*`` spans, and
+    the ``sd_proc_*`` gauges are set."""
+    from spacedrive_tpu_torch import telemetry
+    from spacedrive_tpu_torch.node import Node
+
+    t_phase = time.perf_counter()
+    root = WORK / "rescan"
+    if not root.is_dir():
+        rescan_tree(tree_dir)
+    saved = {k: os.environ.pop(k, None) for k in (
+        "SD_PIPELINE", "SD_PIPELINE_DEPTH", "SD_SCAN_SHARDS", "SD_COMMIT_GROUP",
+        "SD_SCAN_BATCH", "SD_SEARCH_ENGINE", "SD_PROFILE_HZ")}
+    os.environ["SD_CHUNK_MANIFESTS"] = "1"
+    # fixed pages: every rescan launches the same kernels on the same pages
+    os.environ["SD_SCAN_ADAPT"] = "0"
+    runs = []
+    node = Node(WORK / "telemetry-data", watch_locations=False)
+    try:
+        for i, enabled in enumerate((False, True, True, False)):
+            runs.append(telemetry_rescan(node, root, f"telemetry-{i}", enabled))
+            log(f"telemetry (phase 15) on {card}: rescan {i + 1} with telemetry "
+                f"{runs[-1]['telemetry']}: {runs[-1]['seconds']:.2f} s, "
+                f"{runs[-1]['files_per_s']:.1f} files/s, {runs[-1]['batches']} pages, launches "
+                f"{json.dumps(runs[-1]['launches'])}, synchronizing calls "
+                f"{runs[-1]['sync_calls']}")
+    finally:
+        node.shutdown()
+    for run in runs[1:]:
+        if run["launches"] != runs[0]["launches"]:
+            fail(f"telemetry: launches with telemetry {run['telemetry']} {run['launches']}, "
+                 f"off {runs[0]['launches']}")
+        if run["sync_calls"] != runs[0]["sync_calls"] or \
+                run["sync_kinds"] != runs[0]["sync_kinds"]:
+            fail(f"telemetry: synchronizing calls with telemetry {run['telemetry']} "
+                 f"{run['sync_kinds']}, off {runs[0]['sync_kinds']}")
+        if run["trace"] != (run["telemetry"] == "on"):
+            fail(f"telemetry: a rescan with telemetry {run['telemetry']} has trace={run['trace']}")
+    if not runs[0]["sync_calls"]:
+        fail("telemetry: the sync debug mode reported no synchronizing call (the digests' "
+             "reads back to the host are some)")
+
+    # the profiled rescan
+    os.environ["SD_PROFILE_HZ"] = str(PROFILE_HZ)
+    small = WORK / "telemetry-profiled"
+    for d in range(PROFILED_DIRS):
+        (small / f"d{d:02d}").mkdir(parents=True)
+        for p in (root / f"d{d:02d}").iterdir():
+            os.link(p, small / f"d{d:02d}" / p.name)
+    node = Node(WORK / "telemetry-profiled-data", watch_locations=False)
+    try:
+        if node.profiler is None:
+            fail(f"telemetry: SD_PROFILE_HZ={PROFILE_HZ} started no profiler")
+        profiled = telemetry_rescan(node, small, "telemetry-profiled", True)
+        by_span = node.profiler.totals_by_span()
+        proc = {name: telemetry.value(name) for name in
+                ("sd_proc_rss_bytes", "sd_proc_open_fds", "sd_proc_threads")}
+    finally:
+        node.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        os.environ.pop("SD_SCAN_ADAPT", None)
+    pipeline_samples = {k: v for k, v in by_span.items() if k.startswith("pipeline.")}
+    if not pipeline_samples:
+        fail(f"telemetry: the profiler attributed no sample to a pipeline.* span: {by_span}")
+    if not all(proc.values()):
+        fail(f"telemetry: sd_proc_* gauges {proc}")
+    exported = sorted(p.name for p in (WORK / "telemetry-profiled-data" / "logs" /
+                                       "profiles").glob("*.folded"))
+    if not exported:
+        fail("telemetry: the profiled node exported no folded profile at shutdown")
+    off = [r["seconds"] for r in runs if r["telemetry"] == "off"]
+    on = [r["seconds"] for r in runs if r["telemetry"] == "on"]
+    seconds = time.perf_counter() - t_phase
+    out = {"card": card, "seconds": seconds, "runs": runs,
+           "off_s": off, "on_s": on,
+           "on_over_off": (sum(on) / len(on)) / (sum(off) / len(off)),
+           "profiled": {"seconds": profiled["seconds"], "files": profiled["files"],
+                        "hz": PROFILE_HZ, "samples_by_span": by_span,
+                        "exported": exported},
+           "proc": proc}
+    log(f"phase 15 (telemetry) on {card}: rescans off {off}, on {on} s (on / off "
+        f"{out['on_over_off']:.3f}); launches and synchronizing calls equal off and on; the "
+        f"profiled rescan ({profiled['files']} files at {PROFILE_HZ} Hz) put "
+        f"{sum(pipeline_samples.values())} samples in {sorted(pipeline_samples)}; "
+        f"sd_proc_* {json.dumps(proc)}; {seconds:.1f} s")
+    if seconds > TELEMETRY_BUDGET_S:
+        fail(f"phase 15 took {seconds:.1f} s, over its {TELEMETRY_BUDGET_S:.0f} s budget")
+    shutil.rmtree(small, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of all generated data")
@@ -6327,6 +6882,9 @@ def main() -> int:
     parser.add_argument("--serving", action="store_true",
                         help="build, write and scan phase 4's tree, then phase 12's pair and "
                              "phase 14 (the serving tier) only; no ok line")
+    parser.add_argument("--telemetry", action="store_true",
+                        help="build, write phase 4's tree, then phase 15 (telemetry's cost) "
+                             "only; no ok line")
     parser.add_argument("--kill-child", nargs=2, metavar=("DATA_DIR", "TREE"),
                         help="phase 8's child process: scan TREE into a Node on DATA_DIR "
                              "until the armed commit seam kills it")
@@ -6419,6 +6977,15 @@ def main() -> int:
         print(json.dumps({"p2p": paired}), flush=True)
         print(json.dumps({"serving": serving}), flush=True)
         return 0
+    if args.telemetry:
+        try:
+            write_tree(WORK / "tree", args.seed)
+            telemetered = telemetry_phase(WORK / "tree", card)
+        finally:
+            shutil.rmtree(WORK, ignore_errors=True)
+        print(card, flush=True)
+        print(json.dumps({"telemetry": telemetered}), flush=True)
+        return 0
     if args.crypto:
         try:
             write_tree(WORK / "tree", args.seed)
@@ -6453,6 +7020,7 @@ def main() -> int:
                             args.seed, int32_ops_per_s, serving=True))
         admitted = None if args.kernels else admission_phase(card)
         crypted = None if args.kernels else crypto_phase(WORK / "tree", args.seed, card)
+        telemetered = None if args.kernels else telemetry_phase(WORK / "tree", card)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
 
@@ -6585,6 +7153,11 @@ def main() -> int:
         print(json.dumps({"p2p": paired}), flush=True)
         print(json.dumps({"crypto": crypted}), flush=True)
         print(json.dumps({"serving": serving}), flush=True)
+        print(json.dumps({"telemetry": {
+            "scan": main["trace"], "serve": main["serving"]["telemetry"],
+            "serve_pool": main["serving"]["pool"]["serve_families"],
+            "sse": served["sse"], "p2p": paired["telemetry"], "cost": telemetered}}),
+            flush=True)
     log(f"chip_smoke: {time.perf_counter() - t_script:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -27,8 +27,13 @@ else the local reader pool (``node.reader_pool``; ``PoolUnavailable``
 falls through), else the handler in this process. A worker or a peer
 answers with encoded bytes (:class:`RawJson`), which ``raw=True`` passes
 through for the shell to splice. :func:`last_rung` names the rung that
-served this thread's last dispatch. Not ported: request telemetry
-(``sd_rspc_*``, the slow-request ring).
+served this thread's last dispatch. Every dispatch, the seam and the
+admission included, runs through :func:`.telemetry.requests.observed`
+(:256): the ``sd_rspc_*`` and ``sd_rspc_tenant_*`` families by ``{proc,
+kind, outcome}`` (``shed`` for a :class:`BusyError`, ``api_error`` for an
+:class:`ApiError`, else ``error``) and the slow-request ring
+(``SD_SLOW_REQUEST_MS``), which keeps a slow request's span tree with its
+``db.query`` spans. A subscription's setup is observed the same way.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ import threading
 from typing import TYPE_CHECKING, Any, Callable
 
 from .. import faults
+from ..telemetry import requests as _requests
+from ..telemetry import slo as _slo
 
 if TYPE_CHECKING:
     from ..events import Subscription
@@ -184,23 +191,30 @@ class Router:
         proc = self._proc(key)
         if proc.kind == SUBSCRIPTION:
             raise ApiError(f"{key} is a subscription; use subscribe()")
-        faults.inject("rspc", key=key)
-        admission = None
-        budget = getattr(self.node, "dispatch_budget", None)
-        if budget is not None and not key.startswith("telemetry."):
-            from ..sync.admission import Busy, tenant_label
+        tenant = _slo.tenant_label(library_id)
 
-            verdict = budget.try_admit(tenant_label(library_id))
-            if isinstance(verdict, Busy):
-                raise BusyError(f"{key}: {verdict.reason}; retry after "
-                                f"{verdict.retry_after_ms} ms",
-                                retry_after_ms=verdict.retry_after_ms)
-            admission = verdict
-        try:
-            result = self._dispatch(proc, arg, library_id)
-        finally:
-            if admission is not None:
-                admission.release()
+        def dispatch() -> Any:
+            # inside the observed scope, so an injected stall lands in the
+            # histograms and the slow ring like real slowness
+            faults.inject("rspc", key=key)
+            admission = None
+            budget = getattr(self.node, "dispatch_budget", None)
+            if budget is not None and not key.startswith("telemetry."):
+                from ..sync.admission import Busy
+
+                verdict = budget.try_admit(tenant)
+                if isinstance(verdict, Busy):
+                    raise BusyError(f"{key}: {verdict.reason}; retry after "
+                                    f"{verdict.retry_after_ms} ms",
+                                    retry_after_ms=verdict.retry_after_ms)
+                admission = verdict
+            try:
+                return self._dispatch(proc, arg, library_id)
+            finally:
+                if admission is not None:
+                    admission.release()
+
+        result = _requests.observed(key, proc.kind, dispatch, tenant=tenant)
         if isinstance(result, RawJson) and not raw:
             return result.decode()
         return result
@@ -243,9 +257,14 @@ class Router:
         proc = self._proc(key)
         if proc.kind != SUBSCRIPTION:
             raise ApiError(f"{key} is not a subscription")
-        if proc.scope == "library":
-            return proc.fn(self.node, self._library(library_id), arg)
-        return proc.fn(self.node, arg)
+
+        def dispatch() -> Any:
+            # counts the subscription's setup; the stream is the transport's
+            if proc.scope == "library":
+                return proc.fn(self.node, self._library(library_id), arg)
+            return proc.fn(self.node, arg)
+
+        return _requests.observed(key, proc.kind, dispatch)
 
     # -- schema export --------------------------------------------------------
     def schema(self) -> dict[str, Any]:
@@ -263,11 +282,13 @@ def mount(node: "Node") -> Router:
     invalidation-key contract."""
     from . import invalidate
     from .routers import (backups, categories, files, jobs, keys, libraries, locations, nodes,
-                          notifications, p2p, preferences, root, search, sync, tags, volumes)
+                          notifications, p2p, preferences, root, search, sync, tags, telemetry,
+                          volumes)
 
     router = Router(node)
     for module in (root, libraries, locations, search, files, jobs, tags, volumes, nodes,
-                   notifications, preferences, backups, categories, sync, p2p, keys):
+                   notifications, preferences, backups, categories, sync, p2p, keys,
+                   telemetry):
         module.mount(router)
     invalidate.validate(router)
     return router

@@ -27,6 +27,7 @@ declines: SQL serves it.
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 from ...locations.non_indexed import walk_ephemeral
@@ -142,6 +143,7 @@ def paths(node, library, arg) -> dict[str, Any]:
     # cursor semantics byte for byte over `fp.id IN (...)`. None = serve SQL
     # (engine off, index stale, ineligible predicate, oversized set).
     engine = node.search_engine
+    t0 = time.perf_counter()
     cand = engine.candidate_ids(library, arg) if engine is not None else None
     if cand is not None:
         where, params = _ids_clause(cand), []
@@ -173,6 +175,8 @@ def paths(node, library, arg) -> dict[str, Any]:
     next_cursor = None
     if len(rows) > take and items:
         next_cursor = [rows[take - 1]["_order_val"], items[-1]["id"]]
+    if engine is not None and cand is None:
+        engine.note_sqlite_serve(time.perf_counter() - t0)
     return {"items": items, "cursor": next_cursor}
 
 
@@ -180,6 +184,7 @@ def paths_count(node, library, arg) -> int:
     """search.pathsCount: a mask sum on the device index when the engine can
     answer, else COUNT(*) over the same filters."""
     engine = node.search_engine
+    t0 = time.perf_counter()
     if engine is not None:
         n = engine.count(library, arg or {})
         if n is not None:
@@ -190,9 +195,12 @@ def paths_count(node, library, arg) -> int:
     # it can never duplicate rows either way
     join = ("LEFT JOIN object o ON fp.object_id = o.id "
             if needs_object else "")
-    return library.db.query(
+    n = library.db.query(
         f"SELECT COUNT(*) n FROM file_path fp {join}WHERE {where}",
         params)[0]["n"]
+    if engine is not None:
+        engine.note_sqlite_serve(time.perf_counter() - t0)
+    return n
 
 
 def objects(node, library, arg) -> dict[str, Any]:

@@ -35,7 +35,10 @@ flush: what the OOM killer or a power cut does). The trigger
 is absent (every hit), ``once`` (the first hit) or ``skipN`` (every hit
 after the first N: ``commit:kill:skip3`` dies at the fourth transaction
 seam hit). At most one rule fires per hit, the first in spec order.
-``inject`` is one module-global read when nothing is armed.
+``inject`` is one module-global read when nothing is armed. A rule that
+fires counts in ``sd_faults_fired_total{seam,kind}`` and emits a
+``fault.fired`` event; ``trace_export`` (before a trace's JSONL is written,
+:mod:`.telemetry.spans`) is a seam too.
 
 An armed ``gather`` seam also routes a batch of the native gather through
 the per-file Python path, where the seam is (:func:`seam_armed`).
@@ -48,6 +51,14 @@ import os
 import signal
 import threading
 from dataclasses import dataclass
+
+from . import telemetry
+
+#: every fired rule is visible to operators: ``sd_faults_fired_total``
+#: with a ``fault.fired`` flight-recorder event
+_FIRED_TOTAL = telemetry.counter(
+    "sd_faults_fired_total", "injected faults fired, per seam:kind",
+    labels=("seam", "kind"))
 
 
 class FaultSpecError(ValueError):
@@ -157,6 +168,9 @@ class FaultPlan:
         with self._lock:
             rule = next((r for r in rules if r.should_fire()), None)
         if rule is not None:
+            _FIRED_TOTAL.inc(seam=rule.seam, kind=rule.kind)
+            telemetry.event("fault.fired", seam=rule.seam, kind=rule.kind,
+                            key=key)
             raise KINDS[rule.kind](key)
 
     def fired(self) -> dict[str, int]:

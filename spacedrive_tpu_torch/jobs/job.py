@@ -20,7 +20,9 @@ plain JSON values.
 Every committed sequential step, and the job's init, emits a post-commit
 ``db.commit`` on the node's bus (the pipeline emits one per group
 transaction, the worker one at the job's exit), which moves the search
-index's watermark. Telemetry spans and the step histogram are not ported.
+index's watermark. Init runs in a ``job.init`` span and each sequential
+step in a ``job.step`` span of the job's trace (``ctx.trace``), observed
+into ``sd_job_step_seconds{job}``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import logging
 import time
 from typing import TYPE_CHECKING, Any, ClassVar
 
+from .. import telemetry
 from .error import EarlyFinish, JobError
 from .report import JobReport
 
@@ -38,6 +41,10 @@ if TYPE_CHECKING:
     from .worker import WorkerContext
 
 logger = logging.getLogger(__name__)
+
+_STEP_SECONDS = telemetry.histogram(
+    "sd_job_step_seconds", "sequential step latency per job",
+    labels=("job",))
 
 JOB_REGISTRY: dict[str, type["StatefulJob"]] = {}
 
@@ -184,9 +191,11 @@ class DynJob:
         # a resumed run re-reads the soft errors its checkpoint persisted
         errors = [e for e in (self.report.errors_text or "").split("\n\n") if e]
         self._soft_errors = errors  # what a pause must carry
+        trace = getattr(self, "trace", None)
         if state.data is None:
             try:
-                data, steps, meta = self.job.init(ctx)
+                with telemetry.span(trace, "job.init"):
+                    data, steps, meta = self.job.init(ctx)
             except EarlyFinish as e:
                 logger.info("job %s early finish: %s", self.job.NAME, e)
                 return self.job.finalize(ctx, {}, {}), errors
@@ -208,8 +217,11 @@ class DynJob:
         while state.step_number < len(state.steps):
             ctx.check_commands(self)
             try:
-                result = self.job.execute_step(ctx, state.data, state.steps[state.step_number],
-                                               state.step_number)
+                with telemetry.span(trace, "job.step", step=state.step_number) as step_sp:
+                    result = self.job.execute_step(ctx, state.data,
+                                                   state.steps[state.step_number],
+                                                   state.step_number)
+                _STEP_SECONDS.observe(step_sp.duration_s, job=self.job.NAME)
             except EarlyFinish:
                 break
             _emit_commit(ctx.library, "job.step", self.job.NAME)

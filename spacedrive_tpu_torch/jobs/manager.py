@@ -19,17 +19,21 @@ checkpoints at boot.
 A checkpoint that cannot be revived is marked Failed and pushes a
 library notification (``job_cold_resume_failed``), as in the reference; the
 jobs a dead process left Running are counted by
-:func:`..recovery.note_cold_resumed`. Left out: the telemetry gauges and
-events.
+:func:`..recovery.note_cold_resumed` and each emits a ``job.cold_resume``
+event. ``sd_jobs_running{lane}`` and ``sd_jobs_queued`` follow every
+dispatch, queueing, completion and cancel; the worker reads the queue-wait
+stamp :meth:`Jobs.ingest` sets.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from collections import deque
 from typing import TYPE_CHECKING
 
+from .. import telemetry
 from ..models import JobRow
 from .error import JobAlreadyRunning
 from .job import DynJob, StatefulJob
@@ -42,6 +46,11 @@ if TYPE_CHECKING:
 logger = logging.getLogger(__name__)
 
 MAX_WORKERS = 1
+
+_RUNNING = telemetry.gauge("sd_jobs_running", "running workers per lane",
+                           labels=("lane",))
+_QUEUED = telemetry.gauge("sd_jobs_queued",
+                          "jobs waiting for lane capacity")
 
 #: statuses cold resume revives
 _UNFINISHED = (JobStatus.PAUSED, JobStatus.RUNNING, JobStatus.QUEUED)
@@ -96,6 +105,13 @@ class Jobs:
         return sum(1 for w in self._running.values()
                    if w.library.id == library_id and w.dyn_job.job.LANE == lane)
 
+    def _update_occupancy(self, lane: str) -> None:
+        """The lane-occupancy and queue-depth gauges (callers hold the lock);
+        a lane sums across libraries, so labels stay the lane vocabulary."""
+        _RUNNING.set(sum(1 for w in self._running.values()
+                         if w.dyn_job.job.LANE == lane), lane=lane)
+        _QUEUED.set(len(self._queue))
+
     def _pop_dispatchable(self) -> tuple["Library", DynJob] | None:
         """The first queued job whose (library, lane) has capacity (callers
         hold the lock)."""
@@ -108,6 +124,8 @@ class Jobs:
     def ingest(self, library: "Library", dyn_job: DynJob) -> None:
         """Dispatch the job, or queue it (its row Queued) while its
         (library, lane) is busy; raises JobAlreadyRunning for a duplicate."""
+        # the worker observes the queue wait from this stamp
+        dyn_job._queued_at_monotonic = time.monotonic()
         with self._lock:
             if self._shutting_down:
                 raise JobAlreadyRunning("job system is shutting down")
@@ -125,6 +143,7 @@ class Jobs:
                 return
             dyn_job.report.status = JobStatus.QUEUED
             self._queue.append((library, dyn_job))
+            self._update_occupancy(dyn_job.job.LANE)
             logger.debug("job %s queued (%d in queue)", dyn_job.job.NAME, len(self._queue))
         dyn_job.report.upsert(library.db)
 
@@ -134,6 +153,7 @@ class Jobs:
         clear until then."""
         with self._lock:
             self._running.pop(worker.report.id, None)
+            self._update_occupancy(worker.dyn_job.job.LANE)
             shutting_down = self._shutting_down
         if next_job is not None and not shutting_down:
             try:
@@ -151,6 +171,7 @@ class Jobs:
         worker = Worker(self, library, dyn_job)
         self._running[dyn_job.id] = worker
         self._idle.clear()
+        self._update_occupancy(dyn_job.job.LANE)
         logger.info("dispatching job %s (%s)", dyn_job.job.NAME, dyn_job.id[:8])
         worker.start()
 
@@ -171,6 +192,7 @@ class Jobs:
                            if q.id == job_id), None) if worker is None else None
             if queued is not None:
                 del self._queue[queued[0]]
+                self._update_occupancy(queued[2].job.LANE)
                 if not self._running and not self._queue:
                     self._idle.set()
         if worker is not None:
@@ -265,6 +287,7 @@ class Jobs:
                 revived += 1
                 if row["status"] == JobStatus.RUNNING:
                     crash_survivors += 1
+                    telemetry.event("job.cold_resume", job=report.name, id=report.id)
                     logger.info("cold-resuming %s (%s) from its checkpoint after a crash",
                                 report.name, report.id[:8])
             except Exception as e:

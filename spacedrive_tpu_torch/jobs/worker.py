@@ -3,8 +3,14 @@
 Counterpart of ``spacedrive_tpu/jobs/worker.py``: it owns the job's bounded
 command queue, persists the report's transitions, computes the ETA from the
 step cadence and emits a throttled ``job_progress`` event on the node's bus,
-and a ``db.commit`` at the job's exit. Telemetry traces, the queue-wait
-histogram and the completion counter are not ported.
+and a ``db.commit`` at the job's exit. Each run is one telemetry trace
+(``trace_id`` = the report id, so ``telemetry.jobTrace(job_id)`` resolves
+it; a paused trace stays open in the ring and the resumed run continues
+it); a finished run exports its JSONL under ``<data_dir>/logs/traces/``
+and adds the span totals to the report's metadata as ``trace``. The
+worker records ``sd_job_queue_wait_seconds{lane}``,
+``sd_jobs_completed_total{job,status}`` and a ``job.status`` event at
+each start and exit.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import threading
 import time
 from typing import TYPE_CHECKING
 
+from .. import telemetry
 from ..models import utc_now
 from .error import JobCanceled, JobPaused
 from .job import DynJob
@@ -28,6 +35,13 @@ if TYPE_CHECKING:
 logger = logging.getLogger(__name__)
 
 PROGRESS_THROTTLE_S = 0.05
+
+_QUEUE_WAIT = telemetry.histogram(
+    "sd_job_queue_wait_seconds", "dispatch-queue wait per job",
+    labels=("lane",))
+_COMPLETED = telemetry.counter(
+    "sd_jobs_completed_total", "finished jobs by name and status",
+    labels=("job", "status"))
 
 
 class WorkerCommand:
@@ -44,6 +58,9 @@ class WorkerContext:
         self._worker = worker
         self.library = worker.library
         self.node = worker.library.node if worker.library else None
+        #: the job's telemetry trace (None with SD_TELEMETRY=off); job code
+        #: opens child spans with ``telemetry.span(ctx.trace, ...)``
+        self.trace = worker.trace
 
     def progress(self, completed_task_count: int | None = None,
                  task_count: int | None = None, message: str | None = None) -> None:
@@ -72,6 +89,7 @@ class Worker:
         self._thread: threading.Thread | None = None
         self._started_at = 0.0
         self._last_progress_emit = 0.0
+        self.trace = None  # opened at _do_work's start
 
     def start(self) -> None:
         self._thread = threading.Thread(
@@ -135,7 +153,18 @@ class Worker:
         r.status = JobStatus.RUNNING
         r.date_started = utc_now()
         r.upsert(self.library.db)
+        telemetry.event("job.status", job=r.name, id=r.id,
+                        status=JobStatus.NAMES[JobStatus.RUNNING])
         self._started_at = time.monotonic()
+        queued_at = getattr(self.dyn_job, "_queued_at_monotonic", None)
+        if queued_at is not None:
+            _QUEUE_WAIT.observe(max(0.0, self._started_at - queued_at),
+                                lane=self.dyn_job.job.LANE)
+        self.trace = telemetry.start_trace(
+            f"job.{r.name}", trace_id=r.id, resume=True,
+            job=r.name, job_id=r.id, lane=self.dyn_job.job.LANE,
+            library_id=self.library.id if self.library else None)
+        self.dyn_job.trace = self.trace
         ctx = WorkerContext(self)
         next_job: DynJob | None = None
         try:
@@ -171,6 +200,9 @@ class Worker:
             self._cancel_children()
         finally:
             try:
+                telemetry.event("job.status", job=r.name, id=r.id,
+                                status=JobStatus.NAMES.get(r.status, str(r.status)))
+                self._finish_telemetry()
                 r.upsert(self.library.db)
                 self._emit_progress()
                 # the job's writes are committed here, so this bump never
@@ -182,6 +214,25 @@ class Worker:
                 logger.exception("job %s: exit bookkeeping failed", r.name)
             finally:
                 self.manager.complete(self.library, self, next_job)
+
+    def _finish_telemetry(self) -> None:
+        """Count a finished run, then close its trace, export the JSONL and
+        add the span totals to the report's metadata. A paused run's trace
+        stays open in the ring for the resumed run."""
+        r = self.report
+        if r.status not in JobStatus.FINISHED:
+            return
+        _COMPLETED.inc(job=r.name, status=JobStatus.NAMES.get(r.status, str(r.status)))
+        if self.trace is None:
+            return
+        try:
+            node = self.library.node if self.library else None
+            summary = telemetry.finish_trace(
+                self.trace, export_dir=node.data_dir if node else None)
+            if summary:
+                r.metadata = {**(r.metadata or {}), "trace": summary}
+        except Exception:
+            logger.exception("trace finalization failed for job %s", r.id)
 
     def _pause_children(self) -> None:
         for child in self.dyn_job.next_jobs:

@@ -22,7 +22,11 @@ path fields (and each descendant's materialized_path), a remove's deletes
 (:func:`..objects.fs._remove_rows`). ``STATS`` counts, over every watcher,
 the events applied, the shallow identify passes (and those that raised:
 the pass is logged and the watcher goes on, as in the reference) and the
-overflow rescans.
+overflow rescans, and it splits the settle in two: ``apply_s`` sums the
+time the debounced updates and renames took to reach the database,
+``identify_s`` the identify passes through the kernels (span timers of
+:mod:`..telemetry`). Each pass is also a ``watcher.identify`` event with
+its duration. The reference's watcher has no telemetry.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import uuid
 from pathlib import Path
 from typing import TYPE_CHECKING, Any, Callable
 
+from .. import telemetry
 from ..models import FilePath, Location, utc_now
 from ..ops import _kernels
 from ..sync.manager import emitter
@@ -59,8 +64,9 @@ ONE_SECOND = 1.0      # dangling-rename eviction
 HUNDRED_MILLIS = 0.1  # update debounce window
 
 #: ``events`` applied, ``identify`` passes, ``identify_failed`` passes,
-#: ``overflow`` rescans (summed over every watcher of the process);
-#: :func:`reset_counts` zeroes them
+#: ``overflow`` rescans, and the seconds of ``apply_s`` and ``identify_s``
+#: (summed over every watcher of the process); :func:`reset_counts` zeroes
+#: them
 STATS: collections.Counter = collections.Counter()
 
 
@@ -585,8 +591,35 @@ class EventHandler:
 
     def tick(self) -> None:
         now = time.monotonic()
-        # flush the debounced updates older than the window
         ready = [p for p, t in self.files_to_update.items() if now - t >= HUNDRED_MILLIS]
+        expired = [c for c, (_p, _d, t) in self.rename_from.items() if now - t >= ONE_SECOND]
+        if ready or expired:
+            with telemetry.span(None, "watcher.apply") as sp:
+                self._apply_ready(ready, expired)
+            STATS["apply_s"] += sp.duration_s
+        if self.need_identify and not self.files_to_update:
+            self.need_identify = False
+            from ..objects.file_identifier import shallow_identify
+
+            STATS["identify"] += 1
+            self.identifying = True
+            sp = telemetry.span(None, "watcher.identify")
+            try:
+                with sp, _kernels.origin("watcher"):
+                    got = shallow_identify(self.library, self.location["id"])
+                telemetry.event("watcher.identify", location=self.location["id"],
+                                files=got.get("identified", 0),
+                                duration_ms=round(sp.duration_s * 1000.0, 3))
+            except Exception:
+                STATS["identify_failed"] += 1
+                logger.exception("watcher re-identify failed")
+            finally:
+                STATS["identify_s"] += sp.duration_s
+                self.identifying = False
+
+    def _apply_ready(self, ready: list[str], expired: list) -> None:
+        """The debounced updates older than the window, then the renames
+        whose other half never came (they moved out of the location)."""
         for path in ready:
             del self.files_to_update[path]
             rel = self._rel(path)
@@ -594,27 +627,11 @@ class EventHandler:
                 continue
             if apply_update(self.library, self.location, rel, False):
                 self.need_identify = True
-        # a rename whose other half never came moved out of the location
-        for cookie, (path, _is_dir, t) in list(self.rename_from.items()):
-            if now - t >= ONE_SECOND:
-                del self.rename_from[cookie]
-                rel = self._rel(path)
-                if rel is not None:
-                    apply_remove(self.library, self.location, rel)
-        if self.need_identify and not self.files_to_update:
-            self.need_identify = False
-            from ..objects.file_identifier import shallow_identify
-
-            STATS["identify"] += 1
-            self.identifying = True
-            try:
-                with _kernels.origin("watcher"):
-                    shallow_identify(self.library, self.location["id"])
-            except Exception:
-                STATS["identify_failed"] += 1
-                logger.exception("watcher re-identify failed")
-            finally:
-                self.identifying = False
+        for cookie in expired:
+            path, _is_dir, _t = self.rename_from.pop(cookie)
+            rel = self._rel(path)
+            if rel is not None:
+                apply_remove(self.library, self.location, rel)
 
 
 # ---------------------------------------------------------------------------

@@ -29,21 +29,40 @@ bootstrap (reference :316-330): one connection opened ``mode=ro`` with
 ``PRAGMA query_only=ON``, no writer, no DDL (the node's process owns the
 schema), every SELECT a fresh WAL snapshot; ``execute``, ``executemany``
 and ``transaction`` raise on it (reference :442, :467, :550).
+
+Telemetry (reference :499-545): a read that finds the reader's lock held
+observes its wait in ``sd_db_reader_wait_seconds``, and under a request
+trace that asks for them (``record_db_spans``, set by
+:func:`..telemetry.requests.observed`) every read off the reader is a
+``db.query`` span, so a slow request's tree shows its SQL.
+:meth:`Database.snapshot` runs several SELECTs in one read transaction,
+one committed snapshot for all of them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime as _dt
 import json
 import re
 import sqlite3
 import threading
+import time
 import urllib.parse
 from pathlib import Path
 from typing import Any, Callable, ClassVar, Iterable
 
-from .. import faults
+from .. import faults, telemetry
+from ..telemetry import spans as _tspans
+
+#: reader contention, observed only for a contended acquisition (the
+#: uncontended path pays one non-blocking try-acquire)
+_READER_WAIT = telemetry.histogram(
+    "sd_db_reader_wait_seconds",
+    "time reads spent waiting for the WAL reader connection lock "
+    "(contended acquisitions only — reader/writer contention under "
+    "serving load)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -426,14 +445,62 @@ class Database:
                 # execute()'s, or the row journal would under-note it
                 self._journal_sniff(sql)
             return rows
-        with self._read_lock:
+        # request traces opt into per-SELECT spans; job traces never do
+        trace = _tspans.current_trace()
+        sp = (trace.span("db.query", sql=sql[:120])
+              if trace is not None and getattr(trace, "record_db_spans", False) else None)
+        try:
+            if sp is not None:
+                sp.__enter__()
+            self._acquire_reader_lock(sp)
+            try:
+                reader = self._reader()
+                if reader is not None:
+                    return reader.execute(sql, params).fetchall()
+            finally:
+                self._read_lock.release()
+            with self._lock:
+                rows = self._conn.execute(sql, params).fetchall()
+                self._journal_sniff(sql)
+            return rows
+        finally:
+            if sp is not None:
+                sp.__exit__(None, None, None)
+
+    def _acquire_reader_lock(self, sp=None) -> None:
+        if self._read_lock.acquire(blocking=False):
+            return
+        t0 = time.perf_counter()
+        self._read_lock.acquire()
+        wait_s = time.perf_counter() - t0
+        _READER_WAIT.observe(wait_s)
+        if sp is not None:
+            sp.set(reader_wait_s=round(wait_s, 6))
+
+    @contextlib.contextmanager
+    def snapshot(self):
+        """Yield a ``query(sql, params)`` whose SELECTs all read one
+        committed snapshot (one read transaction on the reader), so rows
+        and counts read in separate statements agree with each other. The
+        reader's lock is held throughout; the transaction's owner, or a
+        ``:memory:`` database, reads through the writer instead."""
+        if self._txn_depth and self._txn_thread == threading.get_ident():
+            yield self.query
+            return
+        self._acquire_reader_lock()
+        try:
             reader = self._reader()
-            if reader is not None:
-                return reader.execute(sql, params).fetchall()
-        with self._lock:
-            rows = self._conn.execute(sql, params).fetchall()
-            self._journal_sniff(sql)
-        return rows
+            if reader is None:
+                with self._lock:
+                    yield lambda sql, params=(): self._conn.execute(sql, params).fetchall()
+                return
+            reader.execute("BEGIN")
+            try:
+                yield lambda sql, params=(): reader.execute(sql, params).fetchall()
+            finally:
+                reader.execute("COMMIT")
+        finally:
+            self._read_lock.release()
 
     def transaction(self) -> "_Txn":
         """Atomic multi-statement write; nested uses join the outer one."""

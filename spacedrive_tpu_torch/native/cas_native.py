@@ -12,8 +12,8 @@ pipeline read beside each other and beside the dispatch and commit stages.
 ``SD_NO_URING``), ``ring_refused`` (pread threads because the ring was
 refused, as a container's seccomp policy may do; logged once). Runs that must
 prove the gather went native reset it with :func:`reset_counts` and read it
-afterwards. The thread autotune's EWMA is a module value, since the port has
-no telemetry registry.
+afterwards. The thread autotune's EWMA (:func:`gather_us_per_file`) is also
+published as the ``sd_gather_us_per_file`` gauge.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import threading
 import time
 from pathlib import Path
 
+from .. import telemetry
 from . import build_shared
 
 logger = logging.getLogger(__name__)
@@ -48,6 +49,11 @@ _EWMA_ALPHA = 0.3
 _TARGET_US = 25.0
 _EWMA_LOCK = threading.Lock()
 _ewma_us: float | None = None
+
+_GATHER_US = telemetry.gauge(
+    "sd_gather_us_per_file",
+    "EWMA serial-equivalent native gather cost per file (µs); drives the "
+    "gather thread autotune")
 
 
 def library() -> ctypes.CDLL:
@@ -88,6 +94,7 @@ def _observe_gather(wall_s: float, n: int, threads: int) -> None:
             _ewma_us = serial_us
         else:
             _ewma_us = _EWMA_ALPHA * serial_us + (1.0 - _EWMA_ALPHA) * _ewma_us
+        _GATHER_US.set(_ewma_us)
 
 
 def _default_gather_threads(n: int) -> int:

@@ -30,7 +30,20 @@ without ``cryptography`` it is None, as in the reference.
 one still attached. ``replica_router`` is a
 :class:`.server.replica.ReplicaRouter` over p2p, made after
 ``_start_p2p`` (:200-204) unless p2p is off or ``SD_REPLICAS=0``.
-Telemetry and alerts are not ported.
+
+Telemetry is wired as at :213-259, before the search engine and the
+router: the flight recorder's events are bridged onto the node's bus
+(``telemetry.event``, which ``telemetry.watch`` and the shell's SSE tail
+read), ``alerts`` is an :class:`.telemetry.alerts.AlertEvaluator`
+(``SD_ALERT_RULES``, ``SD_ALERT_INTERVAL_S``; a firing edge is a node
+notification), ``slo`` an :class:`.telemetry.slo.SloEngine`
+(``SD_SLO_OBJECTIVES``, ``SD_SLO_INTERVAL_S``), ``resources`` the
+:class:`.telemetry.profiler.ResourceWatcher` (``sd_proc_*`` and the
+request p99 gauges) and ``profiler`` the span-tagged
+:class:`.telemetry.profiler.SamplingProfiler`, None unless
+``SD_PROFILE_HZ`` is set. :meth:`Node.shutdown` stops and joins each of
+them, exports the profile under ``<data_dir>/logs/profiles/`` and removes
+the event hook (the registry is process-wide; a test boots many nodes).
 """
 
 from __future__ import annotations
@@ -104,6 +117,7 @@ class Node:
             revived = self.jobs.cold_resume(library)
             if revived:
                 logger.info("cold-resumed %d jobs of library %s", revived, library.id[:8])
+        self._start_telemetry()
         self.search_engine = SearchEngine.maybe_start(self)
         self.router = api_mount(self)
         self._start_p2p()
@@ -112,6 +126,38 @@ class Node:
 
             self.replica_router = ReplicaRouter.maybe_start(self)
         logger.info("node %s up on %s", self.config.get()["id"][:8], self.device)
+
+    def _start_telemetry(self) -> None:
+        """The event bridge, the alert evaluator, the SLO engine, the
+        resource watcher and the sampling profiler (off unless
+        ``SD_PROFILE_HZ`` is set)."""
+        from . import telemetry
+        from .notifications import emit_node_notification
+        from .telemetry.alerts import AlertEvaluator
+        from .telemetry.profiler import ResourceWatcher, SamplingProfiler
+        from .telemetry.slo import SloEngine
+
+        def _telemetry_event_hook(record: dict, _emit=self.events.emit_kind) -> None:
+            _emit("telemetry.event", record)
+
+        self._telemetry_event_hook = _telemetry_event_hook
+        telemetry.add_event_hook(_telemetry_event_hook)
+
+        def _alert_notify(rule, firing: bool, value) -> None:
+            if not firing:
+                return  # the resolved edge stays in the event ring
+            emit_node_notification(self, {
+                "type": "alert", "rule": rule.name, "series": rule.series,
+                "severity": rule.severity, "value": value,
+                "description": rule.description})
+
+        self.alerts = AlertEvaluator(
+            interval_s=float(os.environ.get("SD_ALERT_INTERVAL_S", "5")),
+            notify=_alert_notify).start()
+        self.slo = SloEngine(
+            interval_s=float(os.environ.get("SD_SLO_INTERVAL_S", "5"))).start()
+        self.resources = ResourceWatcher().start()
+        self.profiler = SamplingProfiler().start()
 
     def _start_key_manager(self):
         """The keystore's manager, auto-unlocked where the keystore enabled
@@ -151,13 +197,23 @@ class Node:
         """Stop the search engine, checkpoint the running jobs (each pauses
         at its last committed step or group; cold resume revives it at the
         next boot), stop the watchers, p2p and the actors, close the
-        databases. A reader pool still attached is stopped first."""
+        databases. A reader pool still attached is stopped first; the
+        telemetry tickers stop and join after the jobs."""
         if self.reader_pool is not None:
             self.reader_pool.stop()
             self.reader_pool = None
         if self.search_engine is not None:
             self.search_engine.stop()
         self.jobs.shutdown()
+        from . import telemetry
+
+        self.alerts.stop()
+        self.slo.stop()
+        self.resources.stop()
+        if self.profiler is not None:
+            self.profiler.stop()
+            self.profiler.export(self.data_dir)
+        telemetry.remove_event_hook(self._telemetry_event_hook)
         self.locations.stop()
         if self.p2p is not None:
             self.p2p.stop()

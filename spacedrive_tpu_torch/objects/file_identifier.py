@@ -30,18 +30,26 @@ the location watcher.
 
 Unlike the JAX job there is no CPU re-dispatch of a failed hash batch
 (reference :378-397): on the card a kernel failure raises in the dispatch
-stage and fails the job.
+stage and fails the job, so ``sd_recovered_batches_total`` stays 0.
+
+Telemetry: the gather runs in an ``identifier.gather`` span pinned to its
+page (:func:`..pipeline.executor.page_span`; on the gather threads the
+reference's opens under the slice's ``pipeline.gather`` instead), the hash
+dispatch in an ``identifier.hash`` span, which closes after the digests
+and the chunk flags reached the host; the report's ``gather_s`` and
+``hash_time`` are their durations. ``sd_quarantined_files_total``,
+``sd_scan_batch_size`` and, after an un-resumed pass, ``sd_scan_files_per_sec``
+(files over the job trace's elapsed time).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-import time
 import uuid
 from typing import Any
 
-from .. import faults
+from .. import faults, telemetry
 from ..jobs import EarlyFinish, JobContext, JobError, StatefulJob, StepResult
 from ..models import FilePath, Location, Object, utc_now
 from ..sync.crdt import ref
@@ -52,6 +60,17 @@ from .hasher import get_hasher
 from .magic import HEADER_LEN, resolve_kind
 
 logger = logging.getLogger(__name__)
+
+_QUARANTINED = telemetry.counter(
+    "sd_quarantined_files_total",
+    "per-item failures quarantined by the identifier")
+_SCAN_RATE = telemetry.gauge(
+    "sd_scan_files_per_sec",
+    "files/s of the most recent completed identify pass")
+_BATCH_GAUGE = telemetry.gauge(
+    "sd_scan_batch_size",
+    "files per scan page after adaptive sizing (the fixed BATCH_SIZE "
+    "when adaptation is pinned off)")
 
 #: files per step = device batch size
 BATCH_SIZE = 1024
@@ -109,6 +128,7 @@ def _page_limit(scratch: dict) -> int:
         else:
             cur += (BATCH_SIZE - cur) // 4
     scratch["batch_size"] = cur
+    _BATCH_GAUGE.set(cur)
     return cur
 
 
@@ -144,6 +164,16 @@ class FileIdentifierJob(StatefulJob):
     def finalize(self, ctx: JobContext, data: dict, run_metadata: dict):
         ctx.library.emit("invalidate_query", {"key": "search.paths"})
         ctx.library.emit("invalidate_query", {"key": "search.objects"})
+        # files over the job trace's elapsed time, for an un-resumed pass
+        # only: a resumed run's trace covers just its own part
+        trace = getattr(ctx, "trace", None)
+        total = run_metadata.get("total_orphan_paths") or 0
+        worker = getattr(ctx, "_worker", None)
+        resumed = worker is not None and getattr(worker.dyn_job, "was_resumed", False)
+        if trace is not None and total and not resumed:
+            elapsed = trace.elapsed_s()
+            if elapsed > 0:
+                _SCAN_RATE.set(round(total / elapsed, 1))
         return super().finalize(ctx, data, run_metadata)
 
     def init(self, ctx: JobContext):
@@ -201,11 +231,12 @@ class FileIdentifierJob(StatefulJob):
         if not rows:
             return None
         scratch["cursor"] = rows[-1]["id"]
-        hashable, empty, messages, gather_s = self._gather_rows(data, rows)
+        hashable, empty, messages, gather_s = self._gather_rows(ctx, data, rows)
         return {"cursor": rows[-1]["id"], "hashable": hashable, "empty": empty,
                 "messages": messages, "gather_s": gather_s}
 
-    def _gather_rows(self, data: dict, rows: list[dict]) -> tuple[list, list, list, float]:
+    def _gather_rows(self, ctx: JobContext, data: dict,
+                     rows: list[dict]) -> tuple[list, list, list, float]:
         """A page's (or a page slice's) rows → ``(hashable, empty, messages,
         gather_s)``: the size split, the cas gather, the manifest payload
         gather and the magic head. The whole-page and the sharded paths
@@ -213,11 +244,16 @@ class FileIdentifierJob(StatefulJob):
         hashable = [r for r in rows if (r["size_in_bytes"] or 0) > 0]
         empty = [r for r in rows if (r["size_in_bytes"] or 0) <= 0]
         paths = [abs_path(data["location_path"], r) for r in hashable]
-        t0 = time.perf_counter()
-        messages = read_sampled_batch(paths, [r["size_in_bytes"] for r in hashable])
-        if chunk_manifest.manifests_enabled():
-            chunk_manifest.pipeline_chunk_gather(paths, hashable, messages)
-        gather_s = time.perf_counter() - t0
+        from ..pipeline.executor import page_span
+
+        with telemetry.span(getattr(ctx, "trace", None), "identifier.gather",
+                            parent=page_span(), files=len(hashable)) as gather_sp:
+            messages = read_sampled_batch(paths, [r["size_in_bytes"] for r in hashable])
+            gather_sp.set(bytes=sum(len(m) for m in messages
+                                    if not isinstance(m, Exception)))
+            if chunk_manifest.manifests_enabled():
+                chunk_manifest.pipeline_chunk_gather(paths, hashable, messages)
+        gather_s = gather_sp.duration_s
         # the cas message is size_le_8 ‖ header ‖ …: its head is the file's
         # first bytes, so magic-byte kind resolution needs no second read
         for row, msg in zip(hashable, messages):
@@ -253,7 +289,7 @@ class FileIdentifierJob(StatefulJob):
         rows = [dict(r) for r in ctx.library.db.query(
             f"{_PAGE_COLUMNS} WHERE {where} AND id >= ? AND id <= ? ORDER BY id",
             params + [part["lo"], part["hi"]])]
-        hashable, empty, messages, gather_s = self._gather_rows(data, rows)
+        hashable, empty, messages, gather_s = self._gather_rows(ctx, data, rows)
         return {"hashable": hashable, "empty": empty, "messages": messages,
                 "gather_s": gather_s}
 
@@ -277,14 +313,19 @@ class FileIdentifierJob(StatefulJob):
         """The cas hash and the manifest chunking on the node's device. On
         the card the kernels launch from this stage's thread, with the
         device passed explicitly; an error raises through."""
-        t0 = time.perf_counter()
         hasher = get_hasher(data.get("hasher"), ctx.node)
-        faults.inject("hash")
-        batch["cas_results"] = hasher.hash_gathered(batch["messages"])
+        trace = getattr(ctx, "trace", None)
+        # the span closes after the digests reached the host (hash_gathered
+        # returns hex strings); the chunk stage has its own span
+        with telemetry.span(trace, "identifier.hash",
+                            files=len(batch["hashable"])) as hash_sp:
+            faults.inject("hash")
+            batch["cas_results"] = hasher.hash_gathered(batch["messages"])
+        batch["hash_s"] = hash_sp.duration_s
         batch["messages"] = None  # the gathered bytes are dead weight now
         if chunk_manifest.manifests_enabled():
-            chunk_manifest.pipeline_chunk_process(batch["hashable"], ctx.node.device)
-        batch["hash_s"] = time.perf_counter() - t0
+            chunk_manifest.pipeline_chunk_process(batch["hashable"], ctx.node.device,
+                                                  trace=trace)
         return batch
 
     # -- stage 3: commit (the only stage that writes) ------------------------
@@ -306,6 +347,8 @@ class FileIdentifierJob(StatefulJob):
             else:
                 identified.append((row, cas))
         quarantined = len(hashable) - len(identified)
+        if quarantined:
+            _QUARANTINED.inc(quarantined)
         chunk_errors: list[str] = []
         if chunk_manifest.manifests_enabled():
             chunk_errors = chunk_manifest.quarantine_errors(hashable, location_path)

@@ -41,18 +41,35 @@ gets the node's sharded hasher, ``"remote"`` a :class:`RemoteHasher` of the
 node (one a call, as the reference's is never cached), every other name
 the node's device hasher (the reference's CPU and hybrid backends are not
 ported: no hybrid router, no CPU re-dispatch).
+
+Telemetry, as the reference's (:54-72, :127-165): each batch a hasher's
+entry point completes counts once, under the entry point's ``name``
+(``cuda`` or ``cpu`` for the device hasher, ``tpu-sharded``, ``remote``),
+in ``sd_hash_batches_total``, ``sd_hash_files_total``,
+``sd_hash_bytes_total`` and ``sd_hash_batch_seconds``, and sets
+``sd_hash_files_per_sec``, ``sd_hash_bytes_per_sec`` and ``sd_hash_mfu``
+(the rate against the card's INT32 roofline, :mod:`..ops.roofline`; not
+set on a CPU device). A batch ends when its digests are on the host (the
+``.cpu()`` of :func:`..ops.blake3.digests_to_hex`), so the batch time is
+the card's work and its copies, and the accounting adds no
+synchronization of its own. :class:`RemoteHasher` sends the calling
+thread's trace context with each wire batch (:mod:`..telemetry.mesh`), so
+the serving peer's spans stitch under the caller's job trace.
 """
 
 from __future__ import annotations
 
 import collections
+import functools
 import logging
 import threading
+import time
 from pathlib import Path
 from typing import Callable
 
 import torch
 
+from .. import telemetry
 from ..native import cas_native
 from ..ops import _kernels
 from ..ops.blake3 import (_pad_to_tier, blake3_batch_hex, blake3_batch_rows, digests_to_hex,
@@ -68,6 +85,102 @@ SMALL_BUCKETS = (1, 4, 16, 32, 64, 101)
 SAMPLED_CHUNKS = (SAMPLED_MESSAGE_LEN + 1023) // 1024  # 57
 #: files per device sub-batch of the fused sampled path
 PIPELINE_BATCH = 2048
+
+_HASH_BATCHES = telemetry.counter(
+    "sd_hash_batches_total", "hash batches dispatched per backend",
+    labels=("backend",))
+_HASH_FILES = telemetry.counter(
+    "sd_hash_files_total", "files hashed per backend", labels=("backend",))
+_HASH_BYTES = telemetry.counter(
+    "sd_hash_bytes_total", "cas-message payload bytes hashed per backend",
+    labels=("backend",))
+_HASH_SECONDS = telemetry.histogram(
+    "sd_hash_batch_seconds", "hash batch latency per backend",
+    labels=("backend",))
+_HASH_RATE = telemetry.gauge(
+    "sd_hash_files_per_sec", "files/s of the last hash batch")
+_HASH_BPS = telemetry.gauge(
+    "sd_hash_bytes_per_sec", "payload bytes/s of the last hash batch")
+_HASH_MFU = telemetry.gauge(
+    "sd_hash_mfu",
+    "u32-VPU model-op-utilization of the last hash batch "
+    "(ops/roofline.py model)")
+
+
+class _OutermostGuard:
+    """Process-wide depth of instrumented hasher calls: a composed call
+    (the remote hasher's local fallback, the small files of a fused batch)
+    counts once, under its entry point."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._depth = 0
+
+    def enter(self) -> bool:
+        with self._lock:
+            self._depth += 1
+            return self._depth == 1
+
+    def leave(self) -> None:
+        with self._lock:
+            self._depth -= 1
+
+
+_HASH_OUTERMOST = _OutermostGuard()
+
+
+def _message_len(size: int) -> int:
+    """Bytes of the cas message hashed for a file of ``size``."""
+    return SAMPLED_MESSAGE_LEN if size > MINIMUM_FILE_SIZE else size + 8
+
+
+def _record_hash(hasher, files: int, nbytes: int, seconds: float) -> None:
+    backend = hasher.name
+    _HASH_BATCHES.inc(backend=backend)
+    _HASH_FILES.inc(files, backend=backend)
+    _HASH_BYTES.inc(nbytes, backend=backend)
+    _HASH_SECONDS.observe(seconds, backend=backend)
+    if seconds > 0:
+        from ..ops import roofline
+
+        bps = nbytes / seconds
+        _HASH_RATE.set(round(files / seconds, 1))
+        _HASH_BPS.set(round(bps, 1))
+        device = getattr(hasher, "device", None)
+        share = roofline.mfu(bps, device) if device is not None else None
+        if share is not None:
+            _HASH_MFU.set(round(share, 6))
+
+
+def _instrumented(bytes_of: Callable[[tuple], int]):
+    """Per-batch accounting of a ``hash_batch`` / ``hash_gathered`` method,
+    outermost call only; ``bytes_of(args)`` is the batch's payload."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(self, *args):
+            if not telemetry.enabled():
+                return fn(self, *args)
+            outermost = _HASH_OUTERMOST.enter()
+            t0 = time.perf_counter()
+            try:
+                result = fn(self, *args)
+            finally:
+                _HASH_OUTERMOST.leave()
+            # completed batches only: an aborted one hashed nothing
+            if outermost:
+                _record_hash(self, len(args[0]), bytes_of(args), time.perf_counter() - t0)
+            return result
+        return wrapper
+    return deco
+
+
+def _paths_bytes(args: tuple) -> int:
+    return sum(_message_len(s) for s in args[1])
+
+
+def _messages_bytes(args: tuple) -> int:
+    return sum(len(m) for m in args[0] if not isinstance(m, Exception))
 
 
 def bucketed_hash(messages: list[bytes],
@@ -93,7 +206,10 @@ class DeviceHasher:
 
     def __init__(self, device: torch.device) -> None:
         self.device = device
+        #: the ``backend`` label of this hasher's batches
+        self.name = device.type
 
+    @_instrumented(_paths_bytes)
     def hash_batch(self, paths: list[str | Path],
                    sizes: list[int]) -> list[str | Exception]:
         """cas_ids of files; a file that cannot be read comes back as its
@@ -160,6 +276,7 @@ class DeviceHasher:
         with _kernels.tagged("cas"):
             return blake3_batch_hex(msgs, max_chunks=cap, device=self.device)
 
+    @_instrumented(_messages_bytes)
     def hash_gathered(self, messages: list[bytes | Exception]) -> list[str | Exception]:
         """Pre-gathered cas messages → cas_ids; Exception entries (gather
         failures) pass through in place."""
@@ -191,6 +308,7 @@ class ShardedHasher(DeviceHasher):
 
         self.mesh = make_mesh(devices=devices)
         super().__init__(self.mesh.first)
+        self.name = "tpu-sharded"
 
     def _pad_lanes(self, n: int) -> int:
         from ..parallel.mesh import pad_batch_for_mesh
@@ -285,12 +403,15 @@ class RemoteHasher:
             batches.append(cur)
         return batches
 
+    @_instrumented(_paths_bytes)
     def hash_batch(self, paths: list[str | Path], sizes: list[int]) -> list[str | Exception]:
         return self.hash_gathered(read_sampled_batch(paths, sizes))
 
+    @_instrumented(_messages_bytes)
     def hash_gathered(self, messages: list[bytes | Exception]) -> list[str | Exception]:
         """Pre-gathered cas messages → cas_ids; Exception entries pass through."""
         from ..faults import PeerBusyError
+        from ..telemetry import mesh
 
         out: list[str | Exception | None] = [None] * len(messages)
         todo: list[int] = []
@@ -306,11 +427,14 @@ class RemoteHasher:
             failed = todo
         else:
             p2p = self._node.p2p
+            # captured here, on the thread that holds the job's open span:
+            # the p2p loop that runs the request has none
+            ctx = mesh.outbound_context(origin=str(self._node.config.get().get("id") or ""))
             batches = self._wire_batches(todo, messages)
             for bi, idxs in enumerate(batches):
                 batch = [messages[i] for i in idxs]
                 try:
-                    ids = p2p.run_coro(p2p.request_hash_batch(peer_id, batch),
+                    ids = p2p.run_coro(p2p.request_hash_batch(peer_id, batch, ctx=ctx),
                                        timeout=self.WIRE_TIMEOUT_S)
                 except Exception as e:  # noqa: BLE001 — the rest hashes here
                     reason = "busy" if isinstance(e, PeerBusyError) else "failed"

@@ -11,15 +11,26 @@ writes ``chunk_manifest`` rows inside the identifier's transaction.
 
 There is no router and no CPU re-dispatch: on the card a kernel failure
 raises and fails the job, so a scan can never hide the device.
+
+Telemetry: the process stage runs in an ``identifier.chunk`` span, which
+closes after the chunk flags and ids reached the host, and counts
+``sd_chunk_{files,chunks,bytes,skipped,quarantined}_total``. The
+reference's chunk-router families are kept with one engine: each batch
+counts in ``sd_chunk_router_batches_total{backend}`` (``device`` on the
+card, ``cpu`` on the plain versions) and moves the EWMA of
+``sd_chunk_router_bytes_per_sec{backend}``; ``sd_chunk_router_flips_total``
+stays 0, since one engine cannot flip.
 """
 
 from __future__ import annotations
 
 import os
+import threading
+import time
 
 import torch
 
-from .. import faults
+from .. import faults, telemetry
 from ..models import ChunkManifest
 from ..ops import cdc
 from ..retry import RetryPolicy, retry_call
@@ -30,6 +41,35 @@ MAX_PAYLOAD_BYTES = 4 * 1024 * 1024
 
 #: transient payload-read retries (the same shape as cas.GATHER_RETRY)
 PAYLOAD_RETRY = RetryPolicy(attempts=3, base_s=0.01, max_s=0.1, budget_s=1.0)
+
+_CHUNK_FILES = telemetry.counter(
+    "sd_chunk_files_total", "files chunked into manifests")
+_CHUNK_CHUNKS = telemetry.counter(
+    "sd_chunk_chunks_total", "content-defined chunks produced")
+_CHUNK_BYTES = telemetry.counter(
+    "sd_chunk_bytes_total", "payload bytes run through the CDC kernel")
+_CHUNK_QUARANTINED = telemetry.counter(
+    "sd_chunk_quarantined_total",
+    "per-item manifest failures quarantined (file still identifies)")
+_CHUNK_SKIPPED = telemetry.counter(
+    "sd_chunk_skipped_total",
+    "files skipped by the manifest stage (payload over SD_CHUNK_MAX_BYTES)")
+_CHUNK_ROUTER_BPS = telemetry.gauge(
+    "sd_chunk_router_bytes_per_sec",
+    "EWMA transfer-inclusive CDC payload bytes/s per engine (router input)",
+    labels=("backend",))
+telemetry.counter(
+    "sd_chunk_router_flips_total",
+    "engine flips by the per-batch chunk router (hysteresis-damped)")
+_CHUNK_ROUTER_BATCHES = telemetry.counter(
+    "sd_chunk_router_batches_total",
+    "chunk (sub-)batches the router dispatched per engine",
+    labels=("backend",))
+
+#: EWMA weight of the newest batch's rate, and the rate per engine
+_EWMA_ALPHA = 0.3
+_EWMA: dict[str, float] = {}
+_EWMA_LOCK = threading.Lock()
 
 #: the cas message is size_le_8 ‖ content for files at or under this
 #: (cas.MINIMUM_FILE_SIZE) — their payload is the message body, free
@@ -74,6 +114,8 @@ def pipeline_chunk_gather(paths: list[str], rows: list[dict], messages: list) ->
         size = row["size_in_bytes"] or 0
         if isinstance(msg, Exception) or size > cap:
             row["_chunk_payload"] = None
+            if not isinstance(msg, Exception):
+                _CHUNK_SKIPPED.inc()
             continue
         try:
             row["_chunk_payload"] = retry_call(
@@ -82,18 +124,42 @@ def pipeline_chunk_gather(paths: list[str], rows: list[dict], messages: list) ->
             row["_chunk_payload"] = e
 
 
-def pipeline_chunk_process(rows: list[dict], device: torch.device) -> None:
+def pipeline_chunk_process(rows: list[dict], device: torch.device, trace=None) -> None:
     """Chunk every gathered payload of the page on ``device``; results land
     as ``row['_chunk_manifest']`` (ordered ``(chunk_id, length)`` pairs)."""
     work = [r for r in rows if isinstance(r.get("_chunk_payload"), bytes)]
     if not work:
         return
     payloads = [r["_chunk_payload"] for r in work]
-    chunks = cdc.chunk_batch(payloads, device=device)
-    ids = cdc.chunk_ids(payloads, chunks, device=device)
+    nbytes = sum(len(p) for p in payloads)
+    backend = "device" if torch.device(device).type == "cuda" else "cpu"
+    # both calls return host lists: the span closes after the flags and
+    # the ids came back from the card
+    with telemetry.span(trace, "identifier.chunk", files=len(work), bytes=nbytes) as sp:
+        t0 = time.perf_counter()
+        chunks = cdc.chunk_batch(payloads, device=device)
+        ids = cdc.chunk_ids(payloads, chunks, device=device)
+        _observe_rate(backend, nbytes, time.perf_counter() - t0)
     for row, fid, fch in zip(work, ids, chunks):
         row["_chunk_manifest"] = [(cid, ln) for cid, (_off, ln) in zip(fid, fch)]
         row["_chunk_payload"] = None  # the payload bytes are dead weight now
+    _CHUNK_FILES.inc(len(work))
+    _CHUNK_CHUNKS.inc(sum(len(c) for c in chunks))
+    _CHUNK_BYTES.inc(nbytes)
+    sp.set(chunks=sum(len(c) for c in chunks))
+
+
+def _observe_rate(backend: str, nbytes: int, wall_s: float) -> None:
+    """Count one chunk batch and fold its bytes/s into the engine's EWMA."""
+    _CHUNK_ROUTER_BATCHES.inc(backend=backend)
+    if wall_s <= 0 or not telemetry.enabled():
+        return
+    rate = nbytes / wall_s
+    with _EWMA_LOCK:
+        prev = _EWMA.get(backend)
+        rate = rate if prev is None else _EWMA_ALPHA * rate + (1 - _EWMA_ALPHA) * prev
+        _EWMA[backend] = rate
+    _CHUNK_ROUTER_BPS.set(rate, backend=backend)
 
 
 def commit_manifest_rows(db, items: list[tuple[int, list[tuple[str, int]]]]) -> int:
@@ -122,4 +188,6 @@ def quarantine_errors(rows: list[dict], location_path: str) -> list[str]:
         if isinstance(p, Exception):
             errs.append(f"chunk manifest quarantined {abs_path(location_path, row)}: {p!r}")
             row["_chunk_payload"] = None
+    if errs:
+        _CHUNK_QUARANTINED.inc(len(errs))
     return errs

@@ -19,10 +19,12 @@ A copy of ``spacedrive_tpu/p2p/delta.py``, on the same wire:
    writes a ``.sdpart`` sibling and renames it into place.
 
 Both ends' Gear and BLAKE3 launches run on the node that does the work;
-:data:`TRANSFERS`, :data:`CHUNKS`, :data:`BYTES` and :data:`BUSY` are the
-reference's ``sd_delta_*`` counters as plain counters with the same labels
-(``role``; ``kind`` = ``sent`` / ``reused``). The reference's network
-fault model is not ported.
+:data:`TRANSFERS`, :data:`CHUNKS`, :data:`BYTES` and :data:`BUSY` keep, as
+plain counters with the same labels (``role``; ``kind`` = ``sent`` /
+``reused``), the counts of the reference's families, which are recorded
+too: ``sd_delta_transfers_total{role}``, ``sd_delta_chunks_total{kind}``,
+``sd_delta_bytes_total{kind}``, ``sd_delta_busy_total``. The reference's
+network fault model is not ported.
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ import uuid
 from pathlib import Path
 from typing import Any
 
-from .. import faults
+from .. import faults, telemetry
 from ..ops import _kernels, cdc
+from ..telemetry import mesh
 from .proto import (Header, ProtocolError, block_msg, json_frame, read_block_msg, read_exact,
                     read_json)
 
@@ -59,6 +62,23 @@ CHUNKS: collections.Counter = collections.Counter()
 BYTES: collections.Counter = collections.Counter()
 #: windows the receiver's budget shed (each a sleep and a re-offer)
 BUSY: collections.Counter = collections.Counter()
+
+
+_TRANSFERS = telemetry.counter(
+    "sd_delta_transfers_total", "delta spacedrop transfers completed",
+    labels=("role",))
+_CHUNKS = telemetry.counter(
+    "sd_delta_chunks_total",
+    "sender-side chunk outcomes: shipped over the wire vs reused from "
+    "the receiver's base copy", labels=("kind",))
+_BYTES = telemetry.counter(
+    "sd_delta_bytes_total",
+    "sender-side payload bytes: shipped over the wire vs avoided because "
+    "the receiver already held the chunk", labels=("kind",))
+_BUSY = telemetry.counter(
+    "sd_delta_busy_total",
+    "delta windows shed by the receiver's admission budget (each one is "
+    "a sleep-and-re-offer, never a restart)")
 
 
 def reset_counts() -> None:
@@ -136,6 +156,7 @@ async def send_delta(mgr: Any, drop_id: str, peer_id: str, path: Path) -> None:
                     if grant.get("busy"):
                         # shed: sleep the advised wait, offer this window again
                         _kernels.count(BUSY, "windows")
+                        _BUSY.inc()
                         await asyncio.sleep(max(0, int(grant.get("retry_after_ms") or 0))
                                             / 1000.0)
                         continue
@@ -163,6 +184,11 @@ async def send_delta(mgr: Any, drop_id: str, peer_id: str, path: Path) -> None:
             _kernels.count(CHUNKS, "reused", reused)
             _kernels.count(BYTES, "sent", sent_bytes)
             _kernels.count(BYTES, "reused", len(data) - sent_bytes)
+            _TRANSFERS.inc(role="sender")
+            _CHUNKS.inc(len(send_idx), kind="sent")
+            _CHUNKS.inc(reused, kind="reused")
+            _BYTES.inc(sent_bytes, kind="sent")
+            _BYTES.inc(len(data) - sent_bytes, kind="reused")
             mgr.emit({"type": "SpacedropDone", "id": drop_id, "bytes": sent_bytes,
                       "delta": True, "chunks_sent": len(send_idx), "chunks_reused": reused,
                       "path": final.get("path")})
@@ -249,8 +275,9 @@ async def serve_delta(mgr: Any, reader, writer, payload: dict, peer) -> None:
         nbytes = int(msg.get("nbytes", 0))
         if count <= 0 or count > WINDOW or nbytes < 0:
             raise ProtocolError("bad delta window offer")
-        verdict = budget.try_admit(peer.identity, count, nbytes)
+        verdict = budget.try_admit(mesh.peer_label(peer.identity), count, nbytes)
         if isinstance(verdict, Busy):
+            mesh.record_busy_sent(mesh.peer_label(peer.identity))
             writer.write(json_frame({"busy": True, "retry_after_ms": verdict.retry_after_ms}))
             await writer.drain()
             continue
@@ -304,5 +331,6 @@ async def serve_delta(mgr: Any, reader, writer, payload: dict, peer) -> None:
     writer.write(json_frame({"ok": True, "path": str(target)}))
     await writer.drain()
     _kernels.count(TRANSFERS, "receiver")
+    _TRANSFERS.inc(role="receiver")
     mgr.emit({"type": "SpacedropDone", "id": drop_id, "path": str(target), "delta": True,
               "chunks_received": len(received), "chunks_reused": len(chunks) - len(received)})

@@ -32,10 +32,19 @@ the wire with it:
   :meth:`P2PManager.request_query` are the client side
   (:class:`..server.replica.ReplicaRouter`).
 
-Not ported: the accept layer's session throttle and auto-ban
-(``throttle.py``) and the network fault model (``faults/net.py``). The
-reference's telemetry counters and trace propagation are plain counters
-here (:data:`STATS`).
+Telemetry, as the reference's: an ``H_HASH`` request carries the
+caller's trace-context envelope (``ctx``), and the serving peer hashes
+under a ``p2p.hash_serve`` span parented under it (a continued trace of
+the same ``trace_id``); an ``H_QUERY`` carries the dispatching thread's
+envelope the same way, served under ``replica.serve``.
+``sd_p2p_hash_requests_total`` and ``sd_p2p_hash_bytes_total`` count the
+batches a peer answered, ``sd_p2p_hash_serve_total{peer}`` and
+``sd_p2p_hash_serve_bytes_total{peer}`` the batches served, and BUSY
+answers count in ``sd_p2p_busy_replies_total`` /
+``sd_p2p_busy_received_total``; :data:`STATS` keeps the same counts as
+plain numbers. Not ported: the accept layer's session throttle and
+auto-ban (``throttle.py``) and the network fault model
+(``faults/net.py``), with their families.
 """
 
 from __future__ import annotations
@@ -49,6 +58,8 @@ import uuid
 from pathlib import Path
 from typing import TYPE_CHECKING, Any
 
+from .. import telemetry
+from ..telemetry import mesh
 from . import delta as delta_proto
 from .discovery import DiscoveredPeer, Discovery
 from .identity import Identity, RemoteIdentity, remote_identity_of
@@ -69,6 +80,12 @@ logger = logging.getLogger(__name__)
 #: shipped and a peer answered; ``hash_served`` / ``_messages`` / ``_bytes``:
 #: batches this node hashed for peers; ``hash_busy_sent``: batches it shed
 STATS: collections.Counter = collections.Counter()
+
+_HASH_REQS = telemetry.counter(
+    "sd_p2p_hash_requests_total", "outbound remote-hasher batches")
+_HASH_REQ_BYTES = telemetry.counter(
+    "sd_p2p_hash_bytes_total",
+    "cas-message bytes shipped to remote hashers")
 
 #: deadline for reading a peer-declared H_HASH payload
 HASH_PAYLOAD_TIMEOUT = 30.0
@@ -750,9 +767,11 @@ class P2PManager:
             return
         from ..sync.admission import Busy
 
-        verdict = self.node.ingest_budget.try_admit(peer.identity, len(sizes), sum(sizes))
+        label = mesh.peer_label(peer.identity)
+        verdict = self.node.ingest_budget.try_admit(label, len(sizes), sum(sizes))
         if isinstance(verdict, Busy):
             _count("hash_busy_sent")
+            mesh.record_busy_sent(label)
             await refuse({"ok": False, "error": "busy", "busy": True,
                           "retry_after_ms": verdict.retry_after_ms})
             return
@@ -766,11 +785,19 @@ class P2PManager:
             except asyncio.TimeoutError:
                 messages = None
             if messages is not None:
+                # the requester's envelope parents this serve under its
+                # job trace (stitched by trace_id)
+                ctx = mesh.TraceContext.from_wire(payload.get("ctx"))
+                trace = mesh.continue_trace(
+                    ctx, origin=str(self.node.config.get().get("id") or ""), name="p2p.hash")
+
                 def _hash() -> list[str]:
                     with _kernels.origin("hash-serve"):
                         return hash_messages(self.node, messages)
 
-                ids = await loop.run_in_executor(None, _hash)
+                with mesh.remote_span(trace, ctx, "p2p.hash_serve", peer=label,
+                                      files=len(messages), bytes=sum(sizes)):
+                    ids = await loop.run_in_executor(None, _hash)
         finally:
             # the payload is hashed (or abandoned): nothing of it stays
             # buffered. Released before the reply, so the peer's next batch,
@@ -786,34 +813,45 @@ class P2PManager:
         _count("hash_served")
         _count("hash_served_messages", len(messages))
         _count("hash_served_bytes", sum(sizes))
+        mesh.record_hash_serve(label, sum(sizes))
         writer.write(json_frame({"ok": True, "ids": ids}))
         await writer.drain()
 
-    async def request_hash_batch(self, peer_id: str, messages: list[bytes]) -> list[str]:
+    async def request_hash_batch(self, peer_id: str, messages: list[bytes],
+                                 ctx: "mesh.TraceContext | None" = None) -> list[str]:
         """Ship cas messages to a peer's hasher; its cas_ids, in order. A
-        BUSY answer raises :class:`~..faults.PeerBusyError`."""
+        BUSY answer raises :class:`~..faults.PeerBusyError`. ``ctx`` is
+        captured on the calling thread (this coroutine runs on the p2p
+        loop, which holds no span)."""
         from .. import faults
         from ..faults import PeerBusyError
 
         faults.inject("p2p_send", key=peer_id)
         reader, writer, _meta = await self.open_stream(peer_id)
         try:
-            writer.write(Header.hash_batch([len(m) for m in messages]).to_bytes())
+            writer.write(Header.hash_batch(
+                [len(m) for m in messages],
+                ctx=ctx.to_wire() if ctx is not None else None).to_bytes())
             for m in messages:
                 writer.write(m)
             await writer.drain()
             reply = await read_json(reader)
             if not reply.get("ok"):
                 if reply.get("busy"):
+                    mesh.record_busy_received(mesh.peer_label(peer_id))
                     raise PeerBusyError("peer hasher busy",
                                         retry_after_ms=int(reply.get("retry_after_ms") or 0))
                 raise ProtocolError(reply.get("error", "hash batch refused"))
             ids = reply["ids"]
             if len(ids) != len(messages):
                 raise ProtocolError("hash batch reply count mismatch")
+            # counted once the peer answered: a batch that fell back to
+            # this node's device was never shipped
             _count("hash_requests")
             _count("hash_request_messages", len(messages))
             _count("hash_request_bytes", sum(len(m) for m in messages))
+            _HASH_REQS.inc()
+            _HASH_REQ_BYTES.inc(sum(len(m) for m in messages))
             return [str(i) for i in ids]
         finally:
             writer.close()
@@ -837,7 +875,14 @@ class P2PManager:
                 return {"ok": False, "kind": "error", "error": "not a member"}
             return serve_query(self.node, payload, peer=peer.identity)
 
-        reply = await asyncio.get_running_loop().run_in_executor(None, _serve)
+        # the client's envelope: the serve stitches under its request
+        ctx = mesh.TraceContext.from_wire(payload.get("ctx"))
+        trace = mesh.continue_trace(ctx, origin=str(self.node.config.get().get("id") or ""),
+                                    name="replica.query")
+        with mesh.remote_span(trace, ctx, "replica.serve", peer=mesh.peer_label(peer.identity),
+                              key=str(payload.get("key") or "")) as sp:
+            reply = await asyncio.get_running_loop().run_in_executor(None, _serve)
+            sp.set(ok=bool(reply.get("ok")), kind=reply.get("kind"))
         raw = reply.pop("raw", None)
         if reply.get("ok") and isinstance(raw, (bytes, bytearray)):
             writer.write(json_frame({"ok": True, "size": len(raw)}))
@@ -871,7 +916,8 @@ class P2PManager:
         reader, writer, _meta = await asyncio.wait_for(self.open_stream(peer_id), timeout)
         try:
             writer.write(Header.query(payload["library_id"], payload["key"], payload.get("arg"),
-                                      payload.get("require") or {}).to_bytes())
+                                      payload.get("require") or {},
+                                      ctx=payload.get("ctx")).to_bytes())
             await writer.drain()
             head = await asyncio.wait_for(read_json(reader), timeout)
             if head.get("ok"):
@@ -881,6 +927,7 @@ class P2PManager:
                 raw = await asyncio.wait_for(read_exact(reader, size), timeout)
                 return {"ok": True, "raw": raw}
             if head.get("kind") == "busy":
+                mesh.record_busy_received(mesh.peer_label(peer_id))
                 raise PeerBusyError("replica busy",
                                     retry_after_ms=int(head.get("retry_after_ms") or 250))
             return head

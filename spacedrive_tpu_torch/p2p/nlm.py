@@ -26,9 +26,19 @@ A trimmed copy of ``spacedrive_tpu/p2p/nlm.py``, on the same wire:
   clocks, and the session ends) and feeds it to the :class:`..sync.Ingester`
   (or the ingest lanes, ``SD_SYNC_INGEST_LANES`` > 1) off the loop.
 
-:data:`STATS` counts sessions, windows and ops on both sides, and the BUSY
-frames sent and received. The reference's network fault model and trace
-propagation are not ported.
+Trace propagation, as the reference's (:315-517): each push session that
+dialled is one mesh trace (:func:`..telemetry.mesh.new_trace`, id
+``sync-<library>-<uuid>``, span ids above this node's base), each served
+window a ``sync.window`` span whose envelope (the trace, the span, this
+node's id, its HLC and the backlog left) rides the operations frame; the
+responder's ``sync.apply`` spans parent under it, and each side exports its
+half under ``<data_dir>/logs/traces/`` (the responder without a root), so
+the two files stitch into one tree by ``trace_id``. ``sync.push`` and
+``sync.session`` events; ``sd_sync_remote_sessions_total``,
+``sd_p2p_busy_replies_total``, ``sd_p2p_busy_received_total`` and
+``sd_p2p_busy_backoff_seconds_total``. :data:`STATS` counts sessions,
+windows and ops on both sides, and the BUSY frames sent and received. The
+reference's network fault model is not ported.
 """
 
 from __future__ import annotations
@@ -36,11 +46,13 @@ from __future__ import annotations
 import asyncio
 import collections
 import logging
+import uuid
 from typing import TYPE_CHECKING, Any
 
-from .. import faults
+from .. import faults, telemetry
 from ..faults import PeerBusyError
 from ..retry import RetryPolicy, is_transient
+from ..telemetry import mesh
 from .identity import remote_identity_of
 from .proto import (SYNC_NEW_OPERATIONS, Header, main_request_busy, main_request_done,
                     main_request_get_operations, operations_frame, read_exact, read_json,
@@ -258,6 +270,7 @@ class NetworkedLibraries:
                     # the peer said when to come back: never earlier
                     delay = max(delay, e.retry_after_ms / 1000.0)
                     _count("busy_received")
+                    mesh.record_busy_received(mesh.peer_label(peer_id))
                 if loop.time() + delay > deadline:
                     logger.warning("sync originate to %s ran out of its retry budget: %s",
                                    peer_id[:12], e)
@@ -269,11 +282,19 @@ class NetworkedLibraries:
                     done = False
                 if done:
                     return
+                if busy:
+                    mesh.record_busy_backoff(delay)
                 await asyncio.sleep(delay)
 
     async def _originate_to(self, library: "Library", peer_id: str) -> None:
         faults.inject("p2p_send", key=peer_id)
+        origin = str(self.node.config.get().get("id") or "")
         reader, writer, _meta = await self.manager.open_stream(peer_id)
+        # one mesh trace a session, made once the dial succeeded (a retry
+        # loop toward an offline peer must not fill the trace ring)
+        trace = mesh.new_trace("sync.push", origin,
+                               f"sync-{library.id[:8]}-{uuid.uuid4().hex[:12]}",
+                               library_id=library.id, peer=mesh.peer_label(peer_id))
         windows = served = 0
         try:
             writer.write(Header.sync(library.id).to_bytes())
@@ -293,17 +314,43 @@ class NetworkedLibraries:
                 clocks = req.get("clocks") or {}
                 self._record_ack(library.id, peer_id, clocks)
                 count = int(req.get("count") or OPS_PER_REQUEST)
-                ops, has_more = await loop.run_in_executor(
-                    None, lambda c=clocks, n=count: library.sync.get_ops(c, n))
-                writer.write(operations_frame(ops, has_more))
-                await writer.drain()
+
+                def _serve(clocks=clocks, count=count):
+                    ops, has_more = library.sync.get_ops(clocks, count)
+                    # the backlog left after this window: the receiver's
+                    # sd_sync_peer_lag_ops
+                    pending = (max(0, library.sync.ops_pending(clocks) - len(ops))
+                               if has_more else 0)
+                    return ops, has_more, pending
+
+                with telemetry.span(trace, "sync.window") as span:
+                    ops, has_more, pending = await loop.run_in_executor(None, _serve)
+                    span.set(ops=len(ops), has_more=has_more, pending=pending)
+                    ctx = None
+                    if trace is not None:
+                        ctx = mesh.TraceContext(trace.trace_id, span.span_id, origin,
+                                                hlc=library.sync.clock.last,
+                                                pending=pending).to_wire()
+                    writer.write(operations_frame(ops, has_more, ctx=ctx))
+                    await writer.drain()
                 windows += 1
                 served += len(ops)
+            _count("pushed_sessions")
+            _count("pushed_windows", windows)
+            _count("pushed_ops", served)
         finally:
             writer.close()
-        _count("pushed_sessions")
-        _count("pushed_windows", windows)
-        _count("pushed_ops", served)
+            if trace is not None:
+                trace.attrs.update(windows=windows, ops=served)
+                node = self.node
+
+                def _export() -> None:
+                    telemetry.finish_trace(trace, export_dir=node.data_dir)
+                    mesh.prune_session_traces(node.data_dir)
+
+                await asyncio.get_running_loop().run_in_executor(None, _export)
+        telemetry.event("sync.push", peer=mesh.peer_label(peer_id), library_id=library.id,
+                        windows=windows, ops=served)
 
     # -- responder -----------------------------------------------------------
     async def responder(self, reader, writer, library_id: str, peer: "Peer") -> None:
@@ -331,32 +378,40 @@ class NetworkedLibraries:
         from ..sync.lanes import get_lane_pool, lane_count
 
         ingester = Ingester(library, peer=peer.identity)
+        label = mesh.peer_label(peer.identity)
         budget = self.node.ingest_budget
         windows = total_ops = 0
         shed = False
+        last_ctx: mesh.TraceContext | None = None
         while True:
             clocks = await loop.run_in_executor(None, library.sync.timestamps)
             writer.write(main_request_get_operations(clocks, OPS_PER_REQUEST))
             await writer.drain()
             batch, nbytes = await read_json_sized(reader)
             ops = batch.get("ops") or []
+            # the sender's envelope: our apply spans stitch under its
+            # window spans, and it carries the lag
+            ctx = mesh.TraceContext.from_wire(batch.get("ctx"))
+            if ctx is not None:
+                last_ctx = ctx
             if ops:
-                verdict = budget.try_admit(peer.identity, len(ops), nbytes)
+                verdict = budget.try_admit(label, len(ops), nbytes)
                 if isinstance(verdict, Busy):
                     # shed, don't buffer: the durable clocks are the ack
                     writer.write(main_request_busy(verdict.retry_after_ms, clocks))
                     await writer.drain()
                     _count("busy_sent")
+                    mesh.record_busy_sent(label)
                     shed = True
                     break
 
-                def _apply(ops=ops) -> None:
+                def _apply(ops=ops, ctx=ctx) -> None:
                     if lane_count() > 1:
                         _applied, advanced = get_lane_pool(library).receive(
-                            ops, peer=peer.identity)
+                            ops, peer=peer.identity, ctx=ctx)
                         ingester.last_floor_advanced = advanced
                     else:
-                        ingester.receive(ops)
+                        ingester.receive(ops, ctx)
 
                 try:
                     await loop.run_in_executor(None, _apply)
@@ -378,5 +433,18 @@ class NetworkedLibraries:
         _count("pulled_sessions")
         _count("pulled_windows", windows)
         _count("pulled_ops", total_ops)
+        if last_ctx is not None:
+            # our half of the stitched trace: the sender's export holds the
+            # root and the window spans, ours the apply spans
+            from ..telemetry import spans as _spans
+
+            trace = _spans.get_trace(last_ctx.trace_id)
+            node = self.node
+            if trace is not None:
+                await loop.run_in_executor(
+                    None, lambda: mesh.export_partial(trace, node.data_dir))
+        mesh.record_session(label)
+        telemetry.event("sync.session", peer=label, library_id=library_id,
+                        windows=windows, ops=total_ops)
         self.manager.emit({"type": "SyncIngested", "library_id": library_id,
                            "from": peer.identity})

@@ -176,9 +176,9 @@ class Header:
                    ctx: dict | None = None) -> "Header":
         """Shared-hasher request (BASELINE config 5): ``sizes[i]`` bytes of
         pre-gathered cas message follow the header for each item; the peer
-        replies with the cas_ids. ``ctx`` is the reference's optional
-        trace-context envelope; the port sends none (trace propagation
-        comes with telemetry) and a served one is ignored."""
+        replies with the cas_ids. ``ctx`` is the caller's trace-context
+        envelope (:class:`..telemetry.mesh.TraceContext` in its wire form),
+        under which the serving peer parents its ``p2p.hash_serve`` span."""
         payload: dict = {"sizes": sizes}
         if ctx is not None:
             payload["ctx"] = ctx
@@ -268,7 +268,8 @@ def main_request_busy(retry_after_ms: int,
 def operations_frame(ops: list[dict], has_more: bool,
                      ctx: dict | None = None) -> bytes:
     """Originator → responder: one batch of wire ops. ``ctx`` is the
-    reference's optional trace-context envelope (the port sends none)."""
+    sender's trace-context envelope (:class:`..telemetry.mesh.TraceContext`
+    in its wire form), or None."""
     payload: dict = {"ops": ops, "has_more": has_more}
     if ctx is not None:
         payload["ctx"] = ctx

@@ -50,8 +50,23 @@ What the port leaves out, on purpose:
   (``spacedrive_tpu/objects/file_identifier.py:378-397``) and its
   ``is_device_wedge`` pause (``utils/retry.py:96``) are not ported: both
   hide the device.
-- No telemetry registry: stage busy times are ``time.perf_counter``
-  intervals (the reference's spans degrade to the same bare timers).
+
+Telemetry, as in the reference (:298-574): the run is a ``pipeline.run``
+span of the job's trace, and every stage call a span pinned under it —
+``pipeline.page`` (on the sharded path a detached span opened by the split
+thread and closed by the merger, with ``pipeline.split``,
+``pipeline.gather`` and ``pipeline.merge`` under it), ``pipeline.hash`` and
+``pipeline.commit``. The report's ``pipeline_*_s`` are the sums of those
+spans' durations, which measure with telemetry off too. The gather threads
+publish the page they work for (:func:`page_span`), so the identifier's
+``identifier.gather`` nests inside its page; the reference's opens under
+the slice's ``pipeline.gather`` instead (ROADMAP Queue 3). Families:
+``sd_pipeline_stage_{busy,blocked,idle}_seconds{stage}``,
+``sd_commit_txns_total``, ``sd_commit_txn_pages_total``,
+``sd_gather_shards``, ``sd_gather_inflight`` and
+``sd_gather_shard_tasks_total{shard}``. An out-of-work probe (the page call
+that returns nothing, only on an adaptive run) is a ``pipeline.page`` span
+marked ``empty``.
 """
 
 from __future__ import annotations
@@ -64,14 +79,59 @@ import threading
 import time
 from typing import TYPE_CHECKING, Any
 
+from .. import telemetry
 from ..jobs import JobError, JobPaused, merge_metadata
-from ..retry import RetryPolicy, is_disk_full, is_transient, retry_call
+from ..retry import RetryPolicy, is_disk_full, is_transient, note_disk_full, retry_call
 
 if TYPE_CHECKING:
     from ..jobs import DynJob, WorkerContext
     from .spec import PipelineSpec
 
 logger = logging.getLogger(__name__)
+
+#: per-stage accounting: busy = executing the stage callable, blocked =
+#: waiting on a full downstream queue, idle = waiting on an empty upstream
+#: queue; busy is read off the stage spans
+_BUSY = telemetry.counter(
+    "sd_pipeline_stage_busy_seconds",
+    "time each pipeline stage spent executing its callable",
+    labels=("stage",))
+_BLOCKED = telemetry.counter(
+    "sd_pipeline_stage_blocked_seconds",
+    "time each stage spent blocked on a full downstream queue "
+    "(backpressure)", labels=("stage",))
+_IDLE = telemetry.counter(
+    "sd_pipeline_stage_idle_seconds",
+    "time each stage spent waiting on an empty upstream queue",
+    labels=("stage",))
+_COMMIT_TXNS = telemetry.counter(
+    "sd_commit_txns_total",
+    "durable transactions opened by the pipeline committer (group commit "
+    "coalesces SD_COMMIT_GROUP pages into each)")
+_COMMIT_PAGES = telemetry.counter(
+    "sd_commit_txn_pages_total",
+    "pipeline pages made durable through group-commit transactions")
+_GATHER_SHARDS = telemetry.gauge(
+    "sd_gather_shards",
+    "parallel gather shards per page in the sharded prefetch stage "
+    "(SD_SCAN_SHARDS; 1 = classic single-thread prefetch)")
+_GATHER_INFLIGHT = telemetry.gauge(
+    "sd_gather_inflight",
+    "gather shard slices currently executing across the shard workers")
+_SHARD_TASKS = telemetry.counter(
+    "sd_gather_shard_tasks_total",
+    "page slices executed per gather shard worker (occupancy skew across "
+    "shards shows up as per-label imbalance)", labels=("shard",))
+
+#: the page span the calling prefetch or gather thread works for
+_PAGE = threading.local()
+
+
+def page_span():
+    """The ``pipeline.page`` span of the page this thread is reading, or
+    None off the page stage: what the identifier's gather span pins as
+    its parent, so it nests in its page on the gather threads too."""
+    return getattr(_PAGE, "span", None)
 
 #: poll quantum of every queue wait: also bounds how long a drain waits on
 #: a stage blocked on a full or empty queue
@@ -149,17 +209,18 @@ class _PageTicket:
     ``results`` and count ``remaining`` down under ``lock``; the last one
     sets ``done``, on which the merger waits."""
 
-    __slots__ = ("header", "parts", "results", "remaining", "done", "lock", "t0")
+    __slots__ = ("header", "parts", "results", "remaining", "done", "lock", "span")
 
-    def __init__(self, header: dict, parts: list, t0: float) -> None:
+    def __init__(self, header: dict, parts: list, span: Any) -> None:
         self.header = header
         self.parts = parts
         self.results: list[Any] = [None] * len(parts)
         self.remaining = len(parts)
         self.done = threading.Event()
         self.lock = threading.Lock()
-        #: when the split started: the page's wall runs to its merge
-        self.t0 = t0
+        #: the page's detached ``pipeline.page`` span: entered by the split
+        #: thread, parent of every slice span, exited by the merger
+        self.span = span
 
 
 class PipelineExecutor:
@@ -184,8 +245,11 @@ class PipelineExecutor:
         self._tickets: queue.Queue[Any] = queue.Queue(maxsize=depth)
         self._shard_q: queue.Queue[Any] = queue.Queue(maxsize=self._shards * (depth + 1))
         self._stop = threading.Event()
-        self._wall_t0: float | None = None
-        # busy seconds by stage, added to by three threads
+        #: the job's trace (None with telemetry off); the stage spans pin
+        #: the ``pipeline.run`` span as their parent
+        self.trace = getattr(dyn_job, "trace", None)
+        self._wall_sp = None
+        # busy seconds by stage (span sums), added to by three threads
         self._stats_lock = threading.Lock()
         self._page_s = 0.0
         self._hash_s = 0.0
@@ -219,9 +283,9 @@ class PipelineExecutor:
         """Publish each stage's busy share of the pipeline wall so far into
         ``scratch["stage_shares"]``, which adaptive page sizing reads before
         it sizes the next page."""
-        if self._wall_t0 is None:
+        if self._wall_sp is None:
             return
-        wall = time.perf_counter() - self._wall_t0
+        wall = self._wall_sp.elapsed_s()
         if wall <= 0.05:
             return
         with self._stats_lock:
@@ -239,14 +303,24 @@ class PipelineExecutor:
         try:
             while (budget > 0 or self.spec.adaptive) and not self._stop.is_set():
                 self._observe_shares(scratch)
-                t0 = time.perf_counter()
-                payload = self.spec.page(self.ctx, self.state.data, scratch)
+                with telemetry.span(self.trace, "pipeline.page", parent=self._wall_sp) as sp:
+                    _PAGE.span = sp
+                    try:
+                        payload = self.spec.page(self.ctx, self.state.data, scratch)
+                    finally:
+                        _PAGE.span = None
+                    if payload is None:
+                        sp.set(empty=True)
                 with self._stats_lock:
-                    self._page_s += time.perf_counter() - t0
+                    self._page_s += sp.duration_s
+                _BUSY.inc(sp.duration_s, stage="page")
                 if payload is None:
                     break
                 budget -= 1
-                if not self._put(self._pages, payload):
+                t0 = time.perf_counter()
+                ok = self._put(self._pages, payload)
+                _BLOCKED.inc(time.perf_counter() - t0, stage="page")
+                if not ok:
                     return  # draining
             self._put(self._pages, _DONE)
         except BaseException as e:  # noqa: BLE001 — forwarded to the committer
@@ -257,46 +331,79 @@ class PipelineExecutor:
         try:
             while (budget > 0 or self.spec.adaptive) and not self._stop.is_set():
                 self._observe_shares(scratch)
-                t0 = time.perf_counter()
-                header = self.spec.split(self.ctx, self.state.data, scratch)
+                # detached: entered here, exited by the merger once the
+                # page reassembles, so its duration is the page's wall
+                sp = telemetry.span(self.trace, "pipeline.page", parent=self._wall_sp,
+                                    detached=True, shards=self._shards)
+                sp.__enter__()
+                try:
+                    with telemetry.span(self.trace, "pipeline.split", parent=sp):
+                        header = self.spec.split(self.ctx, self.state.data, scratch)
+                except BaseException:
+                    sp.__exit__(None, None, None)
+                    raise
                 if header is None:
                     # the out-of-work probe counts as page time, as the
                     # None-returning page call does
+                    sp.set(empty=True)
+                    sp.__exit__(None, None, None)
                     with self._stats_lock:
-                        self._page_s += time.perf_counter() - t0
+                        self._page_s += sp.duration_s
+                    _BUSY.inc(sp.duration_s, stage="page")
                     break
                 budget -= 1
                 parts = header.pop("parts")
-                ticket = _PageTicket(header, parts, t0)
+                ticket = _PageTicket(header, parts, sp)
                 # the ticket goes BEFORE the fan-out: merge order is fixed
                 # here, slice completion order is free
-                if not self._put(self._tickets, ticket):
+                t0 = time.perf_counter()
+                ok = self._put(self._tickets, ticket)
+                if ok:
+                    for idx in range(len(parts)):
+                        if not self._put(self._shard_q, (ticket, idx)):
+                            return  # draining
+                _BLOCKED.inc(time.perf_counter() - t0, stage="page")
+                if not ok:
                     return  # draining
-                for idx in range(len(parts)):
-                    if not self._put(self._shard_q, (ticket, idx)):
-                        return  # draining
             self._put(self._tickets, _DONE)
         except BaseException as e:  # noqa: BLE001 — forwarded to the committer
             self._put(self._tickets, _StageFailure(e))
 
-    def _shard_loop(self) -> None:
+    def _shard_loop(self, shard_idx: int) -> None:
         """One gather thread: takes page slices off the shared queue in
         arrival order (work-stealing across pages: a slow slice of page N
         never idles a thread that could start page N+1)."""
+        label = str(shard_idx)
         while not self._stop.is_set():
+            t0 = time.perf_counter()
             try:
                 ticket, idx = self._shard_q.get(timeout=_POLL_S)
             except queue.Empty:
+                _IDLE.inc(time.perf_counter() - t0, stage="gather")
                 continue
+            _GATHER_INFLIGHT.inc()
             result: Any = None
             try:
-                result = self.spec.shard(self.ctx, self.state.data, ticket.parts[idx])
-            except BaseException as e:  # noqa: BLE001 — fails the page at the merger
-                result = _StageFailure(e)
+                with telemetry.span(self.trace, "pipeline.gather", parent=ticket.span,
+                                    shard=shard_idx, part=idx) as sp:
+                    _PAGE.span = ticket.span
+                    try:
+                        result = self.spec.shard(self.ctx, self.state.data, ticket.parts[idx])
+                    except BaseException as e:  # noqa: BLE001 — fails the page at the merger
+                        result = _StageFailure(e)
+                        sp.set(failed=repr(e))
+                    finally:
+                        _PAGE.span = None
+                _BUSY.inc(sp.duration_s, stage="gather")
+                _SHARD_TASKS.inc(shard=label)
+            except BaseException as e:  # noqa: BLE001 — span plumbing
+                if result is None:
+                    result = _StageFailure(e)
             finally:
                 # unconditional: a slice that dies for any reason must fail
                 # its page at the merger, never leave ``remaining`` stuck
                 # and hang the pipeline
+                _GATHER_INFLIGHT.dec()
                 with ticket.lock:
                     ticket.results[idx] = result
                     ticket.remaining -= 1
@@ -310,29 +417,40 @@ class PipelineExecutor:
         stream whatever the slices' interleaving."""
         try:
             while not self._stop.is_set():
+                t0 = time.perf_counter()
                 try:
                     item = self._tickets.get(timeout=_POLL_S)
                 except queue.Empty:
+                    _IDLE.inc(time.perf_counter() - t0, stage="merge")
                     continue
                 if item is _DONE or isinstance(item, _StageFailure):
                     self._put(self._pages, item)
                     return
                 ticket = item
+                t0 = time.perf_counter()
                 while not ticket.done.wait(timeout=_POLL_S):
                     if self._stop.is_set():
-                        return  # draining
+                        return  # draining; the page span is abandoned
+                _IDLE.inc(time.perf_counter() - t0, stage="merge")
                 failure = next((r for r in ticket.results
                                 if isinstance(r, _StageFailure)), None)
                 if failure is not None:
                     # the first failed slice fails the page, as a raised
                     # page call would; the committer classifies it
+                    ticket.span.__exit__(type(failure.exc), failure.exc, None)
                     self._put(self._pages, failure)
                     return
-                payload = self.spec.merge(self.ctx, self.state.data, ticket.header,
-                                          ticket.results)
+                with telemetry.span(self.trace, "pipeline.merge", parent=ticket.span):
+                    payload = self.spec.merge(self.ctx, self.state.data, ticket.header,
+                                              ticket.results)
+                ticket.span.__exit__(None, None, None)
                 with self._stats_lock:
-                    self._page_s += time.perf_counter() - ticket.t0
-                if not self._put(self._pages, payload):
+                    self._page_s += ticket.span.duration_s
+                _BUSY.inc(ticket.span.duration_s, stage="page")
+                t0 = time.perf_counter()
+                ok = self._put(self._pages, payload)
+                _BLOCKED.inc(time.perf_counter() - t0, stage="page")
+                if not ok:
                     return  # draining
         except BaseException as e:  # noqa: BLE001 — forwarded to the committer
             self._put(self._pages, _StageFailure(e))
@@ -340,18 +458,26 @@ class PipelineExecutor:
     def _dispatch_loop(self) -> None:
         try:
             while not self._stop.is_set():
+                t0 = time.perf_counter()
                 try:
                     item = self._pages.get(timeout=_POLL_S)
                 except queue.Empty:
+                    _IDLE.inc(time.perf_counter() - t0, stage="hash")
                     continue
                 if item is _DONE or isinstance(item, _StageFailure):
                     self._put(self._results, item)
                     return
-                t0 = time.perf_counter()
-                result = self.spec.process(self.ctx, self.state.data, item)
+                # closes after the digests are on the host: the process
+                # call returns hex strings read back from the card
+                with telemetry.span(self.trace, "pipeline.hash", parent=self._wall_sp) as sp:
+                    result = self.spec.process(self.ctx, self.state.data, item)
                 with self._stats_lock:
-                    self._hash_s += time.perf_counter() - t0
-                if not self._put(self._results, result):
+                    self._hash_s += sp.duration_s
+                _BUSY.inc(sp.duration_s, stage="hash")
+                t0 = time.perf_counter()
+                ok = self._put(self._results, result)
+                _BLOCKED.inc(time.perf_counter() - t0, stage="hash")
+                if not ok:
                     return  # draining
         except BaseException as e:  # noqa: BLE001 — forwarded to the committer
             self._put(self._results, _StageFailure(e))
@@ -361,7 +487,7 @@ class PipelineExecutor:
             return [
                 threading.Thread(target=self._split_loop, args=(budget,), daemon=True,
                                  name="pipeline-prefetch"),
-                *[threading.Thread(target=self._shard_loop, daemon=True,
+                *[threading.Thread(target=self._shard_loop, args=(i,), daemon=True,
                                    name=f"pipeline-gather-{i}") for i in range(self._shards)],
                 threading.Thread(target=self._merge_loop, daemon=True, name="pipeline-merge"),
                 threading.Thread(target=self._dispatch_loop, daemon=True,
@@ -396,25 +522,30 @@ class PipelineExecutor:
                 state.data.update(snapshot)
                 raise
 
-        t0 = time.perf_counter()
-        try:
-            # a pause during the backoff serializes the last committed group
-            results = retry_call(attempt, policy=COMMIT_RETRY, classify=is_transient,
-                                 cancel_check=lambda: self.ctx.check_commands(self.dyn_job))
-        except (OSError, sqlite3.OperationalError) as e:
-            if not is_disk_full(e):
-                raise
-            # retrying cannot free space and failing would throw the run
-            # away: end Paused at the last committed group (this group
-            # rolled back and ``data`` was restored above)
-            self.errors.append(f"commit hit a full disk (ENOSPC); paused at "
-                               f"batch {self._batches}: {e!r}")
-            logger.error("pipeline %s: disk full during commit; pausing at committed "
-                         "batch %d", self.job.NAME, self._batches)
-            raise JobPaused(self.dyn_job.serialize_state(), errors=self.errors) from e
+        with telemetry.span(self.trace, "pipeline.commit", parent=self._wall_sp,
+                            pages=len(pending)) as sp:
+            try:
+                # a pause during the backoff serializes the last committed group
+                results = retry_call(attempt, policy=COMMIT_RETRY, classify=is_transient,
+                                     cancel_check=lambda: self.ctx.check_commands(self.dyn_job))
+            except (OSError, sqlite3.OperationalError) as e:
+                if not is_disk_full(e):
+                    raise
+                note_disk_full("commit")
+                # retrying cannot free space and failing would throw the run
+                # away: end Paused at the last committed group (this group
+                # rolled back and ``data`` was restored above)
+                self.errors.append(f"commit hit a full disk (ENOSPC); paused at "
+                                   f"batch {self._batches}: {e!r}")
+                logger.error("pipeline %s: disk full during commit; pausing at committed "
+                             "batch %d", self.job.NAME, self._batches)
+                raise JobPaused(self.dyn_job.serialize_state(), errors=self.errors) from e
         with self._stats_lock:
-            self._commit_s += time.perf_counter() - t0
+            self._commit_s += sp.duration_s
             self._txns += 1
+        _BUSY.inc(sp.duration_s, stage="commit")
+        _COMMIT_TXNS.inc()
+        _COMMIT_PAGES.inc(len(pending))
         pending.clear()
         for result in results:
             self._batches += 1
@@ -442,7 +573,12 @@ class PipelineExecutor:
         # estimate: then the run ends when page() returns None
         if budget <= 0 and not self.spec.adaptive:
             return
-        self._wall_t0 = time.perf_counter()
+        # entered before the stage threads start, so its span id exists
+        # for their parent pins; its duration is ``pipeline_wall_s``
+        wall_sp = telemetry.span(self.trace, "pipeline.run", job=self.job.NAME)
+        wall_sp.__enter__()
+        self._wall_sp = wall_sp
+        _GATHER_SHARDS.set(self._shards)
         threads = self._threads(budget)
         for t in threads:
             t.start()
@@ -454,9 +590,11 @@ class PipelineExecutor:
                 # pause, shutdown and cancel land here, after the last
                 # committed group: the pending pages are dropped
                 self.ctx.check_commands(self.dyn_job)
+                t0 = time.perf_counter()
                 try:
                     item = self._results.get(timeout=_POLL_S)
                 except queue.Empty:
+                    _IDLE.inc(time.perf_counter() - t0, stage="commit")
                     if pending and time.perf_counter() - pending_since > GROUP_LINGER_S:
                         self._flush(pending)
                     continue
@@ -483,8 +621,9 @@ class PipelineExecutor:
                 if len(pending) >= group_n:
                     self._flush(pending)
         finally:
-            wall_s = time.perf_counter() - self._wall_t0
+            wall_sp.__exit__(None, None, None)
             self._drain(threads)
+        wall_s = wall_sp.duration_s
 
         # pages ran dry before init's step estimate (rows vanished since
         # init, as sequential steps whose read comes back empty): jump to

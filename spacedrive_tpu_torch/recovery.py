@@ -14,9 +14,13 @@ before the model layer opens it:
    fresh empty database. Either way the node boots, and a node
    notification (``library_db_repaired``) says what happened.
 
-The port has no telemetry: the reference's counters are the plain counters
-below, and its events are log lines. ``is_disk_full`` and
-``note_disk_full`` live in :mod:`.retry`.
+Telemetry, as the reference's: ``sd_boot_integrity_checks_total{outcome}``,
+``sd_boot_integrity_wal_recovered_total``,
+``sd_boot_integrity_check_seconds``, ``sd_recovery_repairs_total{action}``
+and ``sd_recovery_cold_resumed_jobs_total``, with the events
+``db.quick_check_failed`` and ``db.restored_from_backup``; the plain
+counters below keep the same counts. ``is_disk_full`` and
+``note_disk_full`` (``sd_recovery_disk_full_total``) live in :mod:`.retry`.
 """
 
 from __future__ import annotations
@@ -29,7 +33,27 @@ import time
 from pathlib import Path
 from typing import Any
 
+from . import telemetry
+
 logger = logging.getLogger(__name__)
+
+_BOOT_CHECKS = telemetry.counter(
+    "sd_boot_integrity_checks_total",
+    "boot-time library DB integrity checks by outcome",
+    labels=("outcome",))
+_WAL_RECOVERED = telemetry.counter(
+    "sd_boot_integrity_wal_recovered_total",
+    "boots that found (and replayed) a non-empty WAL sidecar")
+_CHECK_SECONDS = telemetry.histogram(
+    "sd_boot_integrity_check_seconds",
+    "latency of one boot-time quick_check pass")
+_REPAIRS = telemetry.counter(
+    "sd_recovery_repairs_total",
+    "repair-ladder actions taken on a corrupt library DB",
+    labels=("action",))
+_COLD_RESUMED = telemetry.counter(
+    "sd_recovery_cold_resumed_jobs_total",
+    "interrupted jobs revived from their checkpoints at boot")
 
 #: boot checks by outcome (``ok`` | ``corrupt``)
 BOOT_CHECKS: collections.Counter = collections.Counter()
@@ -49,6 +73,7 @@ def note_cold_resumed(count: int = 1) -> None:
     """Jobs that a dead process left running, revived at boot."""
     if count > 0:
         RECOVERED["cold_resumed"] += count
+        _COLD_RESUMED.inc(count)
 
 
 def quick_check_file(db_path: str | Path) -> list[str]:
@@ -101,20 +126,27 @@ def ensure_library_integrity(libraries_dir: str | Path, lib_id: str,
 
     wal = libraries_dir / f"{lib_id}.db-wal"
     wal_pending = wal.exists() and wal.stat().st_size > 0
+    t0 = time.perf_counter()
     problems = quick_check_file(db_path)
+    _CHECK_SECONDS.observe(time.perf_counter() - t0)
     if not problems:
         BOOT_CHECKS["ok"] += 1
+        _BOOT_CHECKS.inc(outcome="ok")
         if wal_pending:
             # quick_check's connection replayed it: the dead process's
             # committed, uncheckpointed work made it
             RECOVERED["wal_recovered"] += 1
+            _WAL_RECOVERED.inc()
         return {"outcome": "ok", "wal_recovered": wal_pending}
 
     BOOT_CHECKS["corrupt"] += 1
+    _BOOT_CHECKS.inc(outcome="corrupt")
+    telemetry.event("db.quick_check_failed", library=lib_id, problems=problems[:4])
     logger.error("library %s failed quick_check (%d problem(s): %s); "
                  "entering the repair ladder", lib_id[:8], len(problems), problems[:2])
     quarantined = _quarantine(libraries_dir, lib_id)
     REPAIRS["quarantine"] += 1
+    _REPAIRS.inc(action="quarantine")
 
     backup: Path | None = None
     if backups_path is not None and Path(backups_path).is_dir():
@@ -128,6 +160,8 @@ def ensure_library_integrity(libraries_dir: str | Path, lib_id: str,
             # find_latest_backup has just validated this file
             restore_files(backup, lib_id, libraries_dir)
             REPAIRS["restore_backup"] += 1
+            _REPAIRS.inc(action="restore_backup")
+            telemetry.event("db.restored_from_backup", library=lib_id, backup=str(backup))
             logger.warning("library %s restored from backup %s (damaged file kept at %s)",
                            lib_id[:8], backup.name, quarantined)
             _notify(node, lib_id, "restored_from_backup", str(backup))
@@ -137,6 +171,7 @@ def ensure_library_integrity(libraries_dir: str | Path, lib_id: str,
             logger.exception("restore from %s failed; library %s starts with a fresh DB",
                              backup, lib_id[:8])
     REPAIRS["fresh_db"] += 1
+    _REPAIRS.inc(action="fresh_db")
     logger.warning("library %s has no restorable backup; starting with a fresh DB "
                    "(damaged file kept at %s)", lib_id[:8], quarantined)
     _notify(node, lib_id, "fresh_db", None)

@@ -5,8 +5,11 @@ Counterpart of ``spacedrive_tpu/utils/retry.py`` (:70-93, :124-130) and of
 (:67-87), cut to what the port needs: the gather stages (the cas message
 read in :mod:`.objects.cas` and the chunk payload read in
 :mod:`.objects.manifest`), the pipeline's committer and stage supervision
-(:mod:`.pipeline.executor`) and the thumbnailer. It keeps no telemetry, only
-the plain :data:`DISK_FULL` counter.
+(:mod:`.pipeline.executor`) and the thumbnailer. Its accounting is the
+reference's families: ``sd_retry_attempts_total``,
+``sd_retry_backoff_seconds_total``, ``sd_retry_gave_up_total`` and
+``sd_recovery_disk_full_total{site}`` with a ``disk.full`` event; the plain
+:data:`DISK_FULL` counter stays beside the last.
 
 Transient means the same call can succeed if repeated: EINTR, EIO, EAGAIN
 and EBUSY reads, SQLite's busy/locked errors, and any exception carrying a
@@ -34,6 +37,8 @@ import sqlite3
 import time
 from collections import Counter
 from typing import Any, Callable
+
+from . import telemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,11 +101,28 @@ POLL_S = 0.05
 #: full disks absorbed by skipping the work, by site (``thumbnail``)
 DISK_FULL: Counter = Counter()
 
+_ATTEMPTS = telemetry.counter(
+    "sd_retry_attempts_total",
+    "re-calls made after a transient failure (utils/retry.py)")
+_BACKOFF_S = telemetry.counter(
+    "sd_retry_backoff_seconds_total",
+    "total wall time spent in retry backoff")
+_GAVE_UP = telemetry.counter(
+    "sd_retry_gave_up_total",
+    "retry budgets exhausted (attempts or wall budget)")
+_DISK_FULL = telemetry.counter(
+    "sd_recovery_disk_full_total",
+    "ENOSPC hits absorbed by graceful degradation, per site",
+    labels=("site",))
+
 
 def note_disk_full(site: str) -> None:
     """Count one ENOSPC that ``site`` absorbed (the thumbnailer skips the
-    file: a thumbnail can be made again later)."""
+    file: a thumbnail can be made again later; a trace export keeps the
+    trace in the ring) — counter + flight-recorder event."""
     DISK_FULL[site] += 1
+    _DISK_FULL.inc(site=site)
+    telemetry.event("disk.full", site=site)
 
 
 def retry_call(fn: Callable[[], Any], *, policy: RetryPolicy,
@@ -122,9 +144,11 @@ def retry_call(fn: Callable[[], Any], *, policy: RetryPolicy,
                 raise
             retries += 1
             if retries >= policy.attempts:
+                _GAVE_UP.inc()
                 raise
             delay = policy.delay(retries - 1)
             if time.monotonic() + delay > deadline:
+                _GAVE_UP.inc()
                 raise
             waited = 0.0
             while waited < delay:
@@ -135,3 +159,5 @@ def retry_call(fn: Callable[[], Any], *, policy: RetryPolicy,
                 waited += quantum
             if cancel_check is not None:
                 cancel_check()
+            _ATTEMPTS.inc()
+            _BACKOFF_S.inc(waited)

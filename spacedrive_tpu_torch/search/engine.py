@@ -24,8 +24,9 @@ Correctness ladder (SQLite stays the oracle):
 3. **Scoring** — on ``node.device``, always. A kernel that fails to build
    or launch raises out of :meth:`SearchEngine.count` /
    :meth:`SearchEngine.candidate_ids`: there is no CPU engine and no
-   deadline to degrade to (the JAX package's hybrid router, its CPU engine
-   and its telemetry are not ported).
+   deadline to degrade to (the JAX package's hybrid router and its CPU
+   engine are not ported, nor the ``sd_search_router_*`` families that
+   describe them).
 4. **Hydration** — the engine returns ROW IDS only; the handler re-runs the
    exact SQL SELECT over ``fp.id IN (...)`` so ORDER BY / LIMIT / cursor
    semantics reproduce the SQL path byte for byte. A candidate set larger
@@ -48,6 +49,21 @@ and fresh, the predicate eligible, and for ``search.paths`` a filter whose
 candidate set has not overflowed ``MAX_HYDRATE``), so the pool and the
 replica tier, which have no index, are skipped. The first sighting of a
 library registers it and answers False while the index builds.
+
+Telemetry (reference :86-103): ``sd_search_queries_total{backend}`` and
+``sd_search_query_seconds{backend}`` (``device`` for the kernels on the
+card, ``cpu`` for their plain versions on a CPU node, ``sqlite`` for a
+handler that served SQL while the engine is armed; an engine query's time
+ends at the mask's one read back to the host, :func:`.columnar.eval_mask_device`),
+``sd_search_fallbacks_total{reason}`` (``ineligible``, ``stale``,
+``toolarge``), ``sd_search_refresh_{seconds,total}`` and, per library (its
+id's first 8 characters), ``sd_search_index_{rows,bytes}`` and
+``sd_search_refresh_lag`` (watermark bumps behind; 0 is fresh).
+
+An incremental refresh reads the changed rows, the appended rows and the
+row count in one read snapshot (:meth:`..models.base.Database.snapshot`),
+so a write committed between those reads cannot make the count disagree
+with the rows and force a needless full rebuild.
 """
 
 from __future__ import annotations
@@ -56,10 +72,12 @@ import json
 import logging
 import os
 import threading
+import time
 from typing import TYPE_CHECKING, Any
 
 import numpy as np
 
+from .. import telemetry
 from . import columnar
 from .columnar import ColumnarIndex, DeviceMirror, parse_predicate
 
@@ -78,6 +96,16 @@ BUMP_KINDS = frozenset({"db.commit", "invalidate_query", "sync.newMessage",
 
 #: procedures the engine can serve
 ENGINE_PROCS = frozenset({"search.paths", "search.pathsCount"})
+
+# help texts live in telemetry._declare_core
+_INDEX_ROWS = telemetry.gauge("sd_search_index_rows", labels=("library",))
+_INDEX_BYTES = telemetry.gauge("sd_search_index_bytes", labels=("library",))
+_REFRESH_SECONDS = telemetry.histogram("sd_search_refresh_seconds")
+_REFRESH_TOTAL = telemetry.counter("sd_search_refresh_total", labels=("kind",))
+_REFRESH_LAG = telemetry.gauge("sd_search_refresh_lag", labels=("library",))
+_QUERIES = telemetry.counter("sd_search_queries_total", labels=("backend",))
+_QUERY_SECONDS = telemetry.histogram("sd_search_query_seconds", labels=("backend",))
+_FALLBACKS = telemetry.counter("sd_search_fallbacks_total", labels=("reason",))
 
 
 class _LibState:
@@ -129,6 +157,8 @@ class SearchEngine:
         #: Bounded, evicted in insertion order.
         self._toolarge: dict[str, None] = {}
         self._served = 0
+        #: the ``backend`` label of the engine's queries
+        self._backend = "device" if node.device.type == "cuda" else "cpu"
         self._refreshes = {"full": 0, "incremental": 0}
         self._wake = threading.Event()
         self._stopped = threading.Event()
@@ -241,6 +271,7 @@ class SearchEngine:
             return None
         _mask, ids = got
         if len(ids) > self.MAX_HYDRATE:
+            _FALLBACKS.inc(reason="toolarge")
             with self._states_lock:
                 self._toolarge[self._filter_sig(library.id, arg)] = None
                 while len(self._toolarge) > 256:
@@ -252,19 +283,31 @@ class SearchEngine:
                arg: Any) -> tuple[np.ndarray, np.ndarray] | None:
         if not self.enabled:
             return None
-        pred, _why = parse_predicate(arg or {})
+        pred, why = parse_predicate(arg or {})
         if pred is None:
+            _FALLBACKS.inc(reason=why or "ineligible")
             return None
         state = self._ensure(library)
         with state.lock:
             if not state.fresh():
+                _FALLBACKS.inc(reason="stale")
                 self._wake.set()
                 return None
+            t0 = time.perf_counter()
+            # a host mask: the time ends at its one read back from the card
             mask = columnar.eval_mask_device(state.index, state.mirror, pred)
+            dt = time.perf_counter() - t0
             ids = state.index.ids[: state.index.n][mask]
+        _QUERIES.inc(backend=self._backend)
+        _QUERY_SECONDS.observe(dt, backend=self._backend)
         with self._states_lock:
             self._served += 1
         return mask, ids
+
+    def note_sqlite_serve(self, seconds: float) -> None:
+        """A handler served SQL while the engine is armed."""
+        _QUERIES.inc(backend="sqlite")
+        _QUERY_SECONDS.observe(seconds, backend="sqlite")
 
     # -- refresh ---------------------------------------------------------------
     def refresh_now(self, library: "Library") -> None:
@@ -309,6 +352,7 @@ class SearchEngine:
                 idx = state.index
                 max_id = idx.max_id if idx is not None else 0
             drained = state.journal.drain()
+            t0 = time.perf_counter()
             if idx is None or drained["flood"]:
                 rows = library.db.query(columnar.LOADER_SQL + " ORDER BY fp.id")
                 new_idx = ColumnarIndex()
@@ -323,18 +367,20 @@ class SearchEngine:
                         done = state.pending == w0
                 with self._states_lock:
                     self._refreshes["full"] += 1
+                _REFRESH_TOTAL.inc(kind="full")
             else:
                 dirty = self._resolve_dirty(library, drained)
                 if dirty is None:
                     # unresolvable note (vanished pub_id): full next pass
                     state.journal.publish_one("file_path", "flood", None)
                     continue
-                fresh_rows = self._load_rows(library, dirty)
-                appends = library.db.query(
-                    columnar.LOADER_SQL + " WHERE fp.id > ? ORDER BY fp.id",
-                    [max_id])
-                total = library.db.query(
-                    "SELECT COUNT(*) n FROM file_path")[0]["n"]
+                # one snapshot: a write committed between these reads
+                # would make the count disagree with the rows
+                with library.db.snapshot() as query:
+                    fresh_rows = self._load_rows(query, dirty)
+                    appends = query(columnar.LOADER_SQL + " WHERE fp.id > ? ORDER BY fp.id",
+                                    [max_id])
+                    total = query("SELECT COUNT(*) n FROM file_path")[0]["n"]
                 with state.lock:
                     if state.index is not idx:
                         continue
@@ -361,8 +407,22 @@ class SearchEngine:
                     continue
                 with self._states_lock:
                     self._refreshes["incremental"] += 1
+                _REFRESH_TOTAL.inc(kind="incremental")
+            _REFRESH_SECONDS.observe(time.perf_counter() - t0)
+            self._publish_gauges(state)
             if done:
                 return
+
+    def _publish_gauges(self, state: _LibState) -> None:
+        label = state.lib_id[:8]
+        with state.lock:
+            idx = state.index
+            if idx is not None:
+                _INDEX_ROWS.set(idx.alive_count, library=label)
+                _INDEX_BYTES.set(idx.nbytes, library=label)
+            with state.wm_lock:
+                lag = max(0, state.pending - state.built_wm)
+        _REFRESH_LAG.set(lag, library=label)
 
     def _resolve_dirty(self, library: "Library",
                        drained: dict[str, Any]) -> set[int] | None:
@@ -402,14 +462,13 @@ class SearchEngine:
         return out
 
     @staticmethod
-    def _load_rows(library: "Library", ids: set[int]) -> list:
+    def _load_rows(query, ids: set[int]) -> list:
         rows: list = []
         ordered = sorted(ids)
         for lo in range(0, len(ordered), 500):
             chunk = ordered[lo: lo + 500]
             marks = ",".join("?" for _ in chunk)
-            rows.extend(library.db.query(
-                columnar.LOADER_SQL + f" WHERE fp.id IN ({marks})", chunk))
+            rows.extend(query(columnar.LOADER_SQL + f" WHERE fp.id IN ({marks})", chunk))
         return rows
 
     # -- introspection ---------------------------------------------------------

@@ -5,8 +5,8 @@ Copy of ``spacedrive_tpu/server/http.py`` (``Request`` :49, ``Response``
 ``WebSocket`` :197), pure transport: request parsing, keep-alive,
 fixed-length responses, byte-range file streaming (the HttpRange behaviour
 of custom_uri.rs), and RFC 6455 websocket upgrade and frames
-(text/close/ping/pong, client-masked). The websocket message counter of the
-reference's telemetry is not ported.
+(text/close/ping/pong, client-masked). Websocket text messages count in
+``sd_http_ws_messages_total{direction}``.
 """
 
 from __future__ import annotations
@@ -20,6 +20,13 @@ import urllib.parse
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
+
+from .. import telemetry
+
+_WS_MESSAGES = telemetry.counter(
+    "sd_http_ws_messages_total",
+    "websocket text messages by direction (in = client frames, out = "
+    "responses/subscription events)", labels=("direction",))
 
 MAX_HEADER_BYTES = 64 * 1024
 MAX_BODY_BYTES = 64 * 1024 * 1024
@@ -202,6 +209,7 @@ class WebSocket:
     async def send_text(self, text: str) -> None:
         if self.closed:
             return
+        _WS_MESSAGES.inc(direction="out")
         await self._send_frame(0x1, text.encode())
 
     async def _send_frame(self, opcode: int, payload: bytes) -> None:
@@ -259,6 +267,7 @@ class WebSocket:
             message.write(bytes(payload))
             if fin:
                 data = message.getvalue()
+                _WS_MESSAGES.inc(direction="in")
                 if opcode_in_progress == 0x1:
                     return data.decode("utf-8", errors="replace")
                 return data.decode("latin-1")  # binary surfaced as text rpc

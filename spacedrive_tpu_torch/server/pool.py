@@ -58,10 +58,20 @@ search handlers serve SQL. Nothing is inherited, so what the worker needs
 travels in its arguments: the page cache's size and the armed fault plan
 (:func:`..faults.current_spec`), installed anew in each worker.
 
-Counters: :data:`STATS` (plain counts where the reference has its
-``sd_serve_*`` families: ``requests_ok`` / ``_api_error`` / ``_error`` /
-``_failover``, ``cache_hits`` / ``_misses``, ``restarts_<reason>``,
-``invalidations``, ``resizes_<direction>``); :meth:`ReaderPool.status`.
+Telemetry: the reference's ``sd_serve_*`` families, recorded in the node's
+process at the dispatch seam from each reply (a worker disables its own
+registry at start: it lives in another process, and no scrape reads it):
+``sd_serve_worker_requests_total{worker,outcome}`` (``ok``, ``api_error``,
+``error``, ``failover``; ``worker`` the slot, or ``pool`` for a dispatch
+no worker took), ``sd_serve_worker_request_seconds{worker}``,
+``sd_serve_worker_cache_total{worker,result}``,
+``sd_serve_worker_restarts_total{worker,reason}``, ``sd_serve_workers``,
+``sd_serve_invalidations_total``, ``sd_serve_queue_wait_seconds`` and
+``sd_serve_pool_resizes_total{direction}`` with a ``pool.resize`` event.
+:data:`STATS` keeps the same counts as plain numbers (``requests_ok`` /
+``_api_error`` / ``_error`` / ``_failover``, ``cache_hits`` / ``_misses``,
+``restarts_<reason>``, ``invalidations``, ``resizes_<direction>``);
+:meth:`ReaderPool.status`.
 """
 
 from __future__ import annotations
@@ -77,7 +87,8 @@ from collections import OrderedDict, deque
 from pathlib import Path
 from typing import TYPE_CHECKING, Any
 
-from .. import faults
+from .. import faults, telemetry
+from ..telemetry.registry import REQUEST_BUCKETS, estimate_quantiles
 
 if TYPE_CHECKING:
     from ..node import Node
@@ -101,12 +112,20 @@ PRELOAD = ("spacedrive_tpu_torch.server.pool", "spacedrive_tpu_torch.api.router"
            *(f"spacedrive_tpu_torch.api.routers.{name}" for name in (
                "backups", "categories", "files", "jobs", "keys", "libraries", "locations",
                "nodes", "notifications", "p2p", "preferences", "root", "search", "sync",
-               "tags", "volumes")))
+               "tags", "telemetry", "volumes")))
 
-#: queue-wait histogram boundaries, seconds (the reference's
-#: ``telemetry/registry.py`` REQUEST_BUCKETS)
-REQUEST_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
-                   0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+# help texts live in telemetry._declare_core
+_REQUESTS = telemetry.counter("sd_serve_worker_requests_total",
+                              labels=("worker", "outcome"))
+_SECONDS = telemetry.histogram("sd_serve_worker_request_seconds",
+                               labels=("worker",), buckets=REQUEST_BUCKETS)
+_CACHE = telemetry.counter("sd_serve_worker_cache_total", labels=("worker", "result"))
+_RESTARTS = telemetry.counter("sd_serve_worker_restarts_total",
+                              labels=("worker", "reason"))
+_LIVE = telemetry.gauge("sd_serve_workers")
+_INVALIDATIONS = telemetry.counter("sd_serve_invalidations_total")
+_QUEUE_WAIT = telemetry.histogram("sd_serve_queue_wait_seconds", buckets=REQUEST_BUCKETS)
+_RESIZES = telemetry.counter("sd_serve_pool_resizes_total", labels=("direction",))
 
 STATS: collections.Counter = collections.Counter()
 
@@ -133,32 +152,6 @@ def _env_float(name: str, default: float) -> float:
         return float(os.environ.get(name, str(default)))
     except ValueError:
         return default
-
-
-def estimate_quantiles(boundaries: tuple[float, ...], bucket_counts: list[int],
-                       qs: tuple[float, ...] = (0.5, 0.95, 0.99)) -> dict[float, float]:
-    """Prometheus-style quantiles from fixed buckets (the reference's
-    ``telemetry/registry.py`` ``estimate_quantiles``): linear interpolation
-    inside the bucket the target rank lands in; the +Inf bucket clamps to
-    the last finite boundary; no observations give zeros."""
-    total = sum(bucket_counts)
-    if total == 0:
-        return {q: 0.0 for q in qs}
-    out: dict[float, float] = {}
-    for q in qs:
-        target = q * total
-        cum = 0
-        lo = 0.0
-        value = boundaries[-1] if boundaries else 0.0
-        for i, count in enumerate(bucket_counts):
-            hi = boundaries[i] if i < len(boundaries) else boundaries[-1]
-            if count and cum + count >= target:
-                value = lo + (hi - lo) * ((target - cum) / count)
-                break
-            cum += count
-            lo = hi
-        out[q] = value
-    return out
 
 
 class PoolUnavailable(Exception):
@@ -352,6 +345,9 @@ def _worker_main(conn, data_dir: str, slot: int, cache_size: int,
     """The worker's loop: requests and control messages over one pipe."""
     from ..api.router import mount as api_mount
 
+    # this process's registry is never scraped: the node records the
+    # serve families from each reply
+    telemetry.set_enabled(False)
     if fault_spec:
         faults.install(fault_spec)
     node = _ReaderNode(Path(data_dir))
@@ -497,6 +493,7 @@ class ReaderPool:
             # dispatcher sees EOF and fails over), not a second writer
             idle = set(self._idle)
             self._slots = [None] * self.workers
+            _LIVE.set(0.0)
             self._idle.clear()
             self._cv.notify_all()
         for w in workers:
@@ -543,12 +540,14 @@ class ReaderPool:
                 self._epochs[lib_id] = self._epochs.get(lib_id, 0) + 1
                 self._watermarks[lib_id] = self._watermarks.get(lib_id, 0) + 1
             _count("invalidations")
+            _INVALIDATIONS.inc()
             return
         if event.kind not in BUMP_KINDS:
             return
         with self._wm_lock:
             self._watermarks[lib_id] = self._watermarks.get(lib_id, 0) + 1
         _count("invalidations")
+        _INVALIDATIONS.inc()
 
     def watermark(self, lib_id: str | None) -> tuple[int, int]:
         """(watermark, epoch): the freshness pair every dispatch carries."""
@@ -557,10 +556,11 @@ class ReaderPool:
         with self._wm_lock:
             return self._watermarks.get(lib_id, 0), self._epochs.get(lib_id, 0)
 
-    def _failover(self, why: str) -> None:
+    def _failover(self, why: str, worker: str = "pool") -> None:
         with self._wm_lock:
             self._failovers += 1
         _count(f"requests_{why}")
+        _REQUESTS.inc(worker=worker, outcome=why)
 
     # -- dispatch ------------------------------------------------------------
     def dispatch(self, key: str, arg: Any, library_id: str | None,
@@ -583,6 +583,8 @@ class ReaderPool:
         req = {"proc": key, "arg": arg, "library_id": library_id, "wm": wm, "epoch": epoch}
         if seam:
             req["seam"] = seam
+        label = str(worker.slot)
+        t0 = time.perf_counter()
         try:
             worker.conn.send(req)
             if not worker.conn.poll(self.request_timeout_s):
@@ -590,21 +592,23 @@ class ReaderPool:
             reply = worker.conn.recv()
         except TimeoutError as e:
             self._retire(worker, reason="timeout")
-            self._failover("failover")
+            self._failover("failover", label)
             raise PoolUnavailable(f"worker {worker.slot} wedged: {e}") from None
         except Exception as e:  # noqa: BLE001
             # EOF (the worker died) or anything else mid-frame: the pipe's
             # state is unknowable, so the worker is retired either way
             self._retire(worker, reason="crash")
-            self._failover("failover")
+            self._failover("failover", label)
             raise PoolUnavailable(f"worker {worker.slot} died: {e}") from None
         if not isinstance(reply, dict):
             self._retire(worker, reason="crash")
-            self._failover("failover")
+            self._failover("failover", label)
             raise PoolUnavailable(f"malformed worker reply: {type(reply)}")
+        _SECONDS.observe(time.perf_counter() - t0, worker=label)
         self._checkin(worker)
         if "hit" in reply:
             _count("cache_hits" if reply["hit"] else "cache_misses")
+            _CACHE.inc(worker=label, result="hit" if reply["hit"] else "miss")
             with self._wm_lock:
                 if reply["hit"]:
                     self._cache_hits += 1
@@ -612,14 +616,16 @@ class ReaderPool:
                     self._cache_misses += 1
         if reply.get("ok"):
             _count("requests_ok")
+            _REQUESTS.inc(worker=label, outcome="ok")
             return RawJson(reply["raw"])
         if reply.get("api"):
             _count("requests_api_error")
+            _REQUESTS.inc(worker=label, outcome="api_error")
             raise ApiError(str(reply.get("error")), code=int(reply.get("code") or 400))
         # a non-Api handler failure: served in process, where a handler
         # that reached past the worker's surface works and a broken one
         # raises its original exception
-        self._failover("error")
+        self._failover("error", label)
         raise PoolUnavailable(f"worker handler error: {reply.get('error')}")
 
     def _observe_wait(self, seconds: float) -> None:
@@ -627,6 +633,7 @@ class ReaderPool:
                  len(REQUEST_BUCKETS))
         with self._wm_lock:
             self._qw_counts[i] += 1
+        _QUEUE_WAIT.observe(seconds)
 
     def _checkout(self) -> _Worker:
         # the queue wait is far shorter than the request timeout: when every
@@ -689,6 +696,7 @@ class ReaderPool:
                 self._slots[slot] = worker
                 self._idle.append(worker)
                 self._cv.notify_all()  # the head ticket must see it
+                _LIVE.set(sum(1 for w in self._slots if w is not None))
         if not installed:
             # stopped (or lost a race) while starting: discard it
             proc.kill()
@@ -706,9 +714,11 @@ class ReaderPool:
                 self._slots[worker.slot] = None
             if worker in self._idle:
                 self._idle.remove(worker)
+            _LIVE.set(sum(1 for w in self._slots if w is not None))
         with self._wm_lock:
             self._restarts += 1
         _count(f"restarts_{reason}")
+        _RESTARTS.inc(worker=str(worker.slot), reason=reason)
         try:
             worker.proc.kill()
         except (OSError, ValueError):
@@ -740,6 +750,8 @@ class ReaderPool:
                         with self._wm_lock:
                             self._restarts += 1
                         _count("restarts_crash")
+                        _RESTARTS.inc(worker=str(slot), reason="crash")
+                        _LIVE.set(sum(1 for x in self._slots if x is not None))
                         w = None
                     if w is None:
                         empty.append(slot)
@@ -806,6 +818,7 @@ class ReaderPool:
                 self._slots.pop()
                 self.workers -= 1
                 w.dead = True
+                _LIVE.set(sum(1 for x in self._slots if x is not None))
             try:
                 w.conn.send({"ctl": "shutdown"})
             except (BrokenPipeError, OSError):
@@ -818,6 +831,10 @@ class ReaderPool:
             self._resizes += 1
         self._last_resize = time.monotonic()
         _count(f"resizes_{direction}")
+        _RESIZES.inc(direction=direction)
+        telemetry.event("pool.resize", direction=direction, workers=self.workers,
+                        queue_wait_p95_ms=round(p95 * 1000.0, 2),
+                        min=self.min_workers, max=self.max_workers)
         logger.info("pool %s -> %d workers (queue-wait p95 %.1f ms)",
                     direction, self.workers, p95 * 1000.0)
 

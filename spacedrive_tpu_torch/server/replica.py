@@ -49,17 +49,19 @@ Peer choice keeps an EWMA of each peer's latency with a hysteresis of
 0.25 s after ``not_eligible``, its own ``retry_after_ms`` after ``busy``,
 and 0.1 s x 2^fails (at most 5 s) after an error; a dispatch tries at most
 2 peers. ``SD_REPLICAS=0`` keeps every query local;
-``SD_REPLICA_TIMEOUT_S`` (5) bounds a peer's answer. The reference's
-``sd_replica_*`` families are plain counts in :data:`STATS`
-(``dispatches_<outcome>``, ``failovers_<reason>``, ``serves_<outcome>``,
-``eligibility_rejections``); its trace context (``ctx``) comes with
-telemetry.
+``SD_REPLICA_TIMEOUT_S`` (5) bounds a peer's answer. Telemetry, as the
+reference's: ``sd_replica_dispatches_total{peer,outcome}``,
+``sd_replica_eligibility_rejections_total{peer}``,
+``sd_replica_failovers_total{reason}``, ``sd_replica_request_seconds{peer}``
+and, on the serving side, ``sd_replica_serves_total{outcome}`` (``peer`` is
+:func:`..telemetry.mesh.peer_label`); :data:`STATS` keeps the same counts
+as plain numbers (``dispatches_<outcome>``, ``failovers_<reason>``,
+``serves_<outcome>``, ``eligibility_rejections``).
 """
 
 from __future__ import annotations
 
 import collections
-import hashlib
 import json
 import logging
 import os
@@ -68,8 +70,11 @@ import threading
 import time
 from typing import TYPE_CHECKING, Any, Callable
 
-from .. import faults
+from .. import faults, telemetry
 from ..faults import PeerBusyError
+from ..telemetry import mesh
+from ..telemetry.mesh import peer_label
+from ..telemetry.registry import REQUEST_BUCKETS
 from ..sync.admission import Busy
 
 if TYPE_CHECKING:
@@ -90,13 +95,28 @@ def _count(key: str, n: int = 1) -> None:
     _kernels.count(STATS, key, n)
 
 
-def peer_label(identity: str | None) -> str:
-    """A short label for a peer: 8 hex characters of blake2s of its
-    identity (the reference's ``telemetry/mesh.py`` ``peer_label``),
-    ``local`` without one."""
-    if not identity:
-        return "local"
-    return hashlib.blake2s(identity.encode("utf-8", "replace"), digest_size=4).hexdigest()
+# help texts live in telemetry._declare_core
+_DISPATCHES = telemetry.counter("sd_replica_dispatches_total", labels=("peer", "outcome"))
+_ELIGIBILITY = telemetry.counter("sd_replica_eligibility_rejections_total", labels=("peer",))
+_FAILOVERS = telemetry.counter("sd_replica_failovers_total", labels=("reason",))
+_SECONDS = telemetry.histogram("sd_replica_request_seconds", labels=("peer",),
+                               buckets=REQUEST_BUCKETS)
+_SERVES = telemetry.counter("sd_replica_serves_total", labels=("outcome",))
+
+
+def _served(outcome: str) -> None:
+    _count(f"serves_{outcome}")
+    _SERVES.inc(outcome=outcome)
+
+
+def _dispatched(peer: str, outcome: str) -> None:
+    _count(f"dispatches_{outcome}")
+    _DISPATCHES.inc(peer=peer_label(peer), outcome=outcome)
+
+
+def _failed_over(reason: str) -> None:
+    _count(f"failovers_{reason}")
+    _FAILOVERS.inc(reason=reason)
 
 
 def encode_reply(result: Any) -> bytes:
@@ -156,24 +176,24 @@ def serve_query(node: "Node", payload: dict, peer: str = "") -> dict:
     require = payload.get("require") or {}
     proc = node.router.procedures.get(key)
     if proc is None or proc.kind != QUERY or not proc.pool or not proc.replica:
-        _count("serves_error")
+        _served("error")
         return {"ok": False, "kind": "error", "error": f"{key!r} is not replica-dispatchable"}
     if names_local_ids(arg):
-        _count("serves_error")
+        _served("error")
         return {"ok": False, "kind": "error", "error": f"{key!r} names the client's row ids"}
     try:
         library = node.libraries.get(library_id)
     except KeyError:
         # a library this node does not hold: as ineligible as a lag
-        _count("serves_not_eligible")
+        _served("not_eligible")
         return {"ok": False, "kind": "not_eligible", "watermark": {}}
     have = library.sync.timestamps()
     if not covers(have, require):
-        _count("serves_not_eligible")
+        _served("not_eligible")
         return {"ok": False, "kind": "not_eligible", "watermark": have}
     verdict = node.ingest_budget.try_admit(f"query:{peer_label(peer)}", 1, 0)
     if isinstance(verdict, Busy):
-        _count("serves_busy")
+        _served("busy")
         return {"ok": False, "kind": "busy", "retry_after_ms": verdict.retry_after_ms}
     try:
         pool = getattr(node, "reader_pool", None)
@@ -185,7 +205,7 @@ def serve_query(node: "Node", payload: dict, peer: str = "") -> dict:
             try:
                 served = pool.dispatch(key, arg, library_id, seam="replica_serve")
             except PoolUnavailable as e:
-                _count("serves_error")
+                _served("error")
                 return {"ok": False, "kind": "error", "error": f"replica pool unavailable: {e}"}
             raw = served.data if isinstance(served, RawJson) else encode_reply(served)
         else:
@@ -194,16 +214,16 @@ def serve_query(node: "Node", payload: dict, peer: str = "") -> dict:
             with _kernels.origin("replica-serve"):
                 result = proc.fn(node, library, arg)
             raw = encode_reply(result)
-        _count("serves_ok")
+        _served("ok")
         return {"ok": True, "raw": raw}
     except PeerBusyError as e:
-        _count("serves_busy")
+        _served("busy")
         return {"ok": False, "kind": "busy", "retry_after_ms": e.retry_after_ms}
     except ApiError as e:
-        _count("serves_error")
+        _served("error")
         return {"ok": False, "kind": "error", "error": str(e)}
     except Exception as e:  # noqa: BLE001 — reported to the client, whose ladder serves it
-        _count("serves_error")
+        _served("error")
         return {"ok": False, "kind": "error", "error": f"{type(e).__name__}: {e}"}
     finally:
         verdict.release()
@@ -341,9 +361,14 @@ class ReplicaRouter:
             return None
         order = self._order(peers)
         if not order:
-            _count("failovers_no_peers")
+            _failed_over("no_peers")
             return None
         payload = {"library_id": library_id, "key": key, "arg": arg, "require": require}
+        # the dispatching thread's span (a request trace): the replica's
+        # serve stitches under it
+        ctx = mesh.outbound_context(origin=str(self.node.config.get().get("id") or ""))
+        if ctx is not None:
+            payload["ctx"] = ctx.to_wire()
         nbytes = len(json.dumps(payload, default=str))
         last_reason = "error"
         for peer in order[:self.max_attempts]:
@@ -354,49 +379,51 @@ class ReplicaRouter:
             except PeerBusyError as e:
                 with self._lock:
                     st.until = self._clock() + e.retry_after_ms / 1000.0
-                _count("dispatches_busy")
+                _dispatched(peer, "busy")
                 last_reason = "busy"
                 continue
             except Exception as e:  # noqa: BLE001 — a link failure: back off, go on
                 self._backoff(st)
-                _count("dispatches_error")
+                _dispatched(peer, "error")
                 logger.debug("replica %s transport failed: %s", peer_label(peer), e)
                 last_reason = "error"
                 continue
             dt = self._clock() - t0
             if not isinstance(reply, dict):
                 self._backoff(st)
-                _count("dispatches_error")
+                _dispatched(peer, "error")
                 last_reason = "error"
                 continue
             if reply.get("ok"):
                 raw = reply.get("raw")
                 if not isinstance(raw, (bytes, bytearray)):
-                    _count("dispatches_error")
+                    _dispatched(peer, "error")
                     last_reason = "error"
                     continue
                 with self._lock:
                     st.fails = 0
                     st.ewma_s = dt if st.ewma_s <= 0 else EWMA_ALPHA * dt + (1 - EWMA_ALPHA) * st.ewma_s
-                _count("dispatches_ok")
+                _dispatched(peer, "ok")
+                _SECONDS.observe(dt, peer=peer_label(peer))
                 return RawJson(bytes(raw))
             kind = reply.get("kind")
             if kind == "not_eligible":
                 with self._lock:
                     st.until = self._clock() + NOT_ELIGIBLE_COOLDOWN_S
-                _count("dispatches_not_eligible")
+                _dispatched(peer, "not_eligible")
                 _count("eligibility_rejections")
+                _ELIGIBILITY.inc(peer=peer_label(peer))
                 last_reason = "not_eligible"
             elif kind == "busy":
                 with self._lock:
                     st.until = self._clock() + int(reply.get("retry_after_ms") or 250) / 1000.0
-                _count("dispatches_busy")
+                _dispatched(peer, "busy")
                 last_reason = "busy"
             else:
                 self._backoff(st)
-                _count("dispatches_error")
+                _dispatched(peer, "error")
                 last_reason = "error"
-        _count(f"failovers_{last_reason}")
+        _failed_over(last_reason)
         return None
 
     def status(self) -> dict[str, Any]:

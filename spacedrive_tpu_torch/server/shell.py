@@ -41,8 +41,21 @@ instance owns is fetched from that instance's node over p2p
 forwarded, at most ``MAX_REMOTE_SPOOL`` bytes a request), and a thumbnail
 missing here from the node that owns the content (reference :394-471,
 cached locally, a miss remembered for 30 s); with p2p off, or the owning
-node not connected, both answer 404. Not ported: ``/`` (the web explorer), ``/metrics``, the SSE event
-tail ``/telemetry/stream``, ``/client/*`` and the HTTP telemetry.
+node not connected, both answer 404.
+
+Telemetry (reference :70-91, :271-279, :573-661, :774-790): ``GET
+/metrics`` is the Prometheus text of the registry (behind auth, like every
+route but ``/health``); ``GET /telemetry/stream`` is the flight recorder as
+server-sent events, each with ``id:`` its ring ``seq``, the ring replayed
+first from ``?after=<seq>`` or ``Last-Event-ID``, then one pump thread a
+tail forwards the node's ``telemetry.event`` bus events, with a ``:
+keepalive`` comment when idle; a client that disconnects ends its tail,
+and :meth:`Server.stop` closes and joins every tail. Each request counts in
+``sd_http_requests_total{route,status}``, ``sd_http_request_seconds{route}``
+and ``sd_http_response_bytes_total{route}`` (the route its first path
+segment from a closed set; a file or range response counts its window),
+and each rspc call's payload sizes in ``sd_rspc_payload_bytes_total``. Not
+ported: ``/`` (the web explorer) and ``/client/*``.
 """
 
 from __future__ import annotations
@@ -60,7 +73,10 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import TYPE_CHECKING, Any
 
+from .. import telemetry
 from ..api.router import ApiError, BusyError, RawJson
+from ..telemetry.registry import REQUEST_BUCKETS
+from ..telemetry.requests import record_payload
 from .http import HttpError, Request, Response, WebSocket, parse_range, read_request, write_response
 
 if TYPE_CHECKING:
@@ -72,6 +88,29 @@ logger = logging.getLogger(__name__)
 MAX_REMOTE_SPOOL = 64 * 1024 * 1024
 #: how long a remote thumbnail miss is remembered
 THUMB_MISS_S = 30.0
+
+#: the route label's closed set (a path's first segment), never the raw path
+_HTTP_ROUTES = {"health", "metrics", "info", "rspc", "schema", "client", "spacedrive"}
+_HTTP_REQUESTS = telemetry.counter(
+    "sd_http_requests_total",
+    "HTTP requests served by the shell, by route class and status",
+    labels=("route", "status"))
+_HTTP_SECONDS = telemetry.histogram(
+    "sd_http_request_seconds", "HTTP request latency per route class",
+    labels=("route",), buckets=REQUEST_BUCKETS)
+_HTTP_BYTES = telemetry.counter(
+    "sd_http_response_bytes_total",
+    "response payload bytes per route class (file/range streams count "
+    "the streamed window)", labels=("route",))
+
+
+def _route_class(path: str) -> str:
+    head = path.split("/", 2)[1] if path.startswith("/") else path
+    if path == "/telemetry/stream":
+        return "stream"
+    if not head:
+        return "root"
+    return head if head in _HTTP_ROUTES else "other"
 
 
 class Server:
@@ -92,6 +131,10 @@ class Server:
         #: stop() closes and joins them
         self._pumps: set[tuple[Any, threading.Thread]] = set()
         self._pumps_lock = threading.Lock()
+        #: open /telemetry/stream tails: (stop event, pump thread, bus
+        #: subscription); stop() closes and joins them
+        self._sse_tails: set[tuple[threading.Event, threading.Thread, Any]] = set()
+        self._sse_lock = threading.Lock()
         #: cas_id -> when a remote thumbnail miss may be asked again
         self._thumb_miss: dict[str, float] = {}
         #: True when start() brought the node's reader pool up
@@ -175,6 +218,11 @@ class Server:
             pumps = list(self._pumps)
         for sub, _thread in pumps:
             sub.close()
+        with self._sse_lock:
+            tails = list(self._sse_tails)
+        for stop_event, _thread, sub in tails:
+            stop_event.set()
+            sub.close()
         loop, server = self._loop, self._server
         if loop is not None and server is not None:
             try:
@@ -186,6 +234,9 @@ class Server:
         if self._thread is not None:
             self._thread.join(timeout=5)
         for _sub, thread in pumps:
+            if thread.is_alive():
+                thread.join(timeout=5)
+        for _stop_event, thread, _sub in tails:
             if thread.is_alive():
                 thread.join(timeout=5)
         self._pool.shutdown(wait=False, cancel_futures=True)
@@ -217,6 +268,15 @@ class Server:
                     except HttpError as e:
                         await write_response(writer, req, Response.error(e.status, str(e)))
                     break
+                if req.method == "GET" and req.path == "/telemetry/stream":
+                    # the connection becomes an event stream, as the
+                    # websocket branch above becomes a socket
+                    try:
+                        await self._sse_stream(req, reader, writer)
+                    except HttpError as e:
+                        await write_response(writer, req, Response.error(e.status, str(e)))
+                    break
+                t0 = time.perf_counter()
                 try:
                     resp = await self._route(req)
                 except HttpError as e:
@@ -230,6 +290,7 @@ class Server:
                 except Exception:
                     logger.exception("request failed: %s %s", req.method, req.path)
                     resp = Response.error(500)
+                _observe_http(req, resp, time.perf_counter() - t0)
                 await write_response(writer, req, resp)
                 if req.header("connection", "").lower() == "close":
                     break
@@ -255,6 +316,11 @@ class Server:
         if req.path == "/health":
             return Response.text("OK")
         self._check_auth(req)
+        if req.path == "/metrics":
+            # in-memory state only: no database, safe on the accept loop
+            return Response(
+                headers={"content-type": "text/plain; version=0.0.4; charset=utf-8"},
+                body=telemetry.render_prometheus().encode())
         if not parts:
             raise HttpError(404)
         if parts[0] == "info":
@@ -290,17 +356,25 @@ class Server:
             raise HttpError(400, f"malformed request payload: {e}")
         try:
             result = await self._resolve(key, arg, library_id, raw=True)
-        except BusyError as e:
-            return _busy_response(e)
-        except ApiError as e:
-            return Response.json({"error": str(e)}, 400)
+        except (BusyError, ApiError) as e:
+            resp = (_busy_response(e) if isinstance(e, BusyError)
+                    else Response.json({"error": str(e)}, 400))
+            if key in self.node.router.procedures:
+                # mounted keys only: a client's made-up key must not mint
+                # label values
+                record_payload(key, len(req.body), len(resp.body))
+            return resp
         if isinstance(result, RawJson):
             # a worker's or a replica's bytes, encoded by Response.json's own
             # call: the prefix matches json.dumps' ': ' separator, so the
             # body equals the in-process encoding byte for byte
-            return Response(200, {"content-type": "application/json"},
+            resp = Response(200, {"content-type": "application/json"},
                             b'{"result": ' + result.data + b"}")
-        return Response.json({"result": result})
+        else:
+            resp = Response.json({"result": result})
+        # the wire sizes: only the transport sees the serialized bytes
+        record_payload(key, len(req.body), len(resp.body))
+        return resp
 
     async def _resolve(self, key: str, arg: Any, library_id: str | None,
                        raw: bool = False) -> Any:
@@ -466,6 +540,76 @@ class Server:
         return Response(headers={"content-type": _MIME.get(ext, "application/octet-stream")},
                         file_path=path, file_range=rng)
 
+    # -- the flight recorder over SSE -------------------------------------------
+    async def _sse_stream(self, req: Request, reader: asyncio.StreamReader,
+                          writer: asyncio.StreamWriter) -> None:
+        """``GET /telemetry/stream``: one SSE message a telemetry event.
+        The tail subscribes to the bus before it replays the ring, so no
+        event falls between the two (one may come twice; ``seq`` tells)."""
+        self._check_auth(req)
+        try:
+            after = int(req.query.get("after") or req.header("last-event-id") or -1)
+        except ValueError:
+            after = -1
+        sub = self.node.events.subscribe()
+        loop = asyncio.get_running_loop()
+        stop = threading.Event()
+
+        async def send(frame: bytes) -> None:
+            writer.write(frame)
+            await writer.drain()
+
+        def pump() -> None:
+            """Its own thread: a tail parked on the bus must not hold a
+            worker of the rspc pool."""
+            while not stop.is_set():
+                event = sub.get(timeout=15.0)
+                if sub.closed or stop.is_set():
+                    return
+                if event is None:
+                    frame = b": keepalive\n\n"
+                elif event.kind != "telemetry.event":
+                    continue
+                else:
+                    frame = _sse_frame(event.payload or {})
+                try:
+                    asyncio.run_coroutine_threadsafe(send(frame), loop).result(10)
+                except Exception:
+                    return  # the client went away: the normal end of a tail
+
+        thread = threading.Thread(target=pump, daemon=True, name="sse-telemetry")
+        tail = (stop, thread, sub)
+        try:
+            writer.write(b"HTTP/1.1 200 OK\r\ncontent-type: text/event-stream\r\n"
+                         b"cache-control: no-cache\r\nconnection: close\r\n\r\n")
+            # counted at accept: the stream never reaches the per-request
+            # accounting of the route loop
+            _HTTP_REQUESTS.inc(route="stream", status="200")
+            for record in telemetry.recent_events(limit=256,
+                                                  after_seq=after if after >= 0 else None):
+                writer.write(_sse_frame(record))
+            await writer.drain()
+            with self._sse_lock:
+                self._sse_tails.add(tail)
+            thread.start()
+            # an SSE client sends nothing: any read that ends is the hang-up
+            while await reader.read(1024):
+                pass
+        except (ConnectionError, OSError, asyncio.CancelledError):
+            pass
+        finally:
+            stop.set()
+            sub.close()  # wakes the pump at once
+            with self._sse_lock:
+                self._sse_tails.discard(tail)
+            # no join on the loop (the pump may wait on a send scheduled
+            # here); stop() joins
+
+    def sse_tails(self) -> int:
+        """Open ``/telemetry/stream`` tails."""
+        with self._sse_lock:
+            return len(self._sse_tails)
+
     # -- rspc over websocket -------------------------------------------------
     async def _websocket(self, req: Request, reader: asyncio.StreamReader,
                          writer: asyncio.StreamWriter) -> None:
@@ -574,6 +718,31 @@ class Server:
             await send({"jsonrpc": "2.0", "id": msg_id, "result": {"type": "stopped"}})
         else:
             await reply_error(400, f"unknown method {method!r}")
+
+
+def _sse_frame(record: dict) -> bytes:
+    data = json.dumps(record, default=str)
+    seq = record.get("seq")
+    head = f"id: {seq}\n" if seq is not None else ""
+    return f"{head}data: {data}\n\n".encode()
+
+
+def _observe_http(req: Request, resp: Response, duration_s: float) -> None:
+    """Per-route accounting; a file or range response counts its window."""
+    if not telemetry.enabled():
+        return
+    route = _route_class(req.path)
+    _HTTP_REQUESTS.inc(route=route, status=str(resp.status))
+    _HTTP_SECONDS.observe(duration_s, route=route)
+    if resp.file_path is not None:
+        try:
+            size = resp.file_path.stat().st_size
+        except OSError:
+            size = 0
+        start, end = resp.file_range or (0, size)
+        _HTTP_BYTES.inc(max(0, end - start), route=route)
+    elif resp.body:
+        _HTTP_BYTES.inc(len(resp.body), route=route)
 
 
 def _busy_response(e: BusyError) -> Response:

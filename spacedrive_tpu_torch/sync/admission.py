@@ -33,19 +33,25 @@ fair-share rule word for word and the same pressure-scaled
 (429). ``SD_RSPC_BUDGET`` (64) and ``SD_RSPC_RETRY_AFTER_MS`` (50) are read
 when the budget is made; the ``rspc_admission`` seam sheds a dispatch as
 ``sync_ingest`` sheds a window. ``status()`` gives the in-flight and shed
-counts as plain numbers (the reference's ``sd_rspc_*`` families come with
-telemetry).
+counts as plain numbers.
+
+Telemetry, as the reference's: ``sd_sync_shed_{windows,ops}_total{peer}``
+with a ``sync.shed`` event, ``sd_sync_admission_{ops,bytes}_in_flight``
+and ``_budget_{ops,bytes}`` for the ingest budget;
+``sd_rspc_shed_total{tenant}`` with an ``rspc.shed`` event,
+``sd_rspc_admission_in_flight`` and ``sd_rspc_admission_budget`` for the
+dispatch budget. :func:`tenant_label` is :mod:`..telemetry.slo`'s.
 """
 
 from __future__ import annotations
 
-import collections
-import hashlib
 import os
 import threading
 from dataclasses import dataclass
 
-from .. import faults
+from .. import faults, telemetry
+from ..telemetry.slo import (LOCAL_TENANT, OTHER_TENANT, reset_tenant_labels,  # noqa: F401
+                             tenant_label)
 
 DEFAULT_BUDGET_OPS = 4000
 DEFAULT_BUDGET_BYTES = 32 * 1024 * 1024
@@ -55,6 +61,28 @@ BASE_RETRY_AFTER_MS = 200
 DEFAULT_DISPATCH_INFLIGHT = 64
 #: what a shed rspc client is told to wait (ms), scaled by pressure
 BASE_DISPATCH_RETRY_AFTER_MS = 50
+
+_SHED_WINDOWS = telemetry.counter(
+    "sd_sync_shed_windows_total",
+    "ingest windows answered BUSY instead of buffered", labels=("peer",))
+_SHED_OPS = telemetry.counter(
+    "sd_sync_shed_ops_total",
+    "CRDT ops shed by admission control (re-served after backoff)",
+    labels=("peer",))
+_ADMIT_OPS = telemetry.gauge(
+    "sd_sync_admission_ops_in_flight",
+    "CRDT ops admitted but not yet durable")
+_ADMIT_BYTES = telemetry.gauge(
+    "sd_sync_admission_bytes_in_flight",
+    "window bytes admitted but not yet durable")
+_BUDGET_OPS = telemetry.gauge(
+    "sd_sync_admission_budget_ops", "configured ingest budget (ops)")
+_BUDGET_BYTES = telemetry.gauge(
+    "sd_sync_admission_budget_bytes", "configured ingest budget (bytes)")
+# dispatch-admission families (help text lives in _declare_core)
+_D_SHED = telemetry.counter("sd_rspc_shed_total", labels=("tenant",))
+_D_INFLIGHT = telemetry.gauge("sd_rspc_admission_in_flight")
+_D_BUDGET = telemetry.gauge("sd_rspc_admission_budget")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -112,6 +140,8 @@ class IngestBudget:
         self._per_peer: dict[str, tuple[int, int]] = {}
         self._shed_windows = 0
         self._shed_ops = 0
+        _BUDGET_OPS.set(self.max_ops)
+        _BUDGET_BYTES.set(self.max_bytes)
 
     def try_admit(self, peer: str, ops: int, nbytes: int = 0) -> Admission | Busy:
         """Admit ``ops`` / ``nbytes`` for ``peer`` or say when to come back."""
@@ -120,7 +150,7 @@ class IngestBudget:
         except Exception:
             with self._lock:
                 pressure = self._shed_locked(ops)
-            return Busy(int(self.base_retry_after_ms * pressure), "injected overload")
+            return self._busy(peer, ops, pressure, "injected overload")
         with self._lock:
             p_ops, p_bytes = self._per_peer.get(peer, (0, 0))
             active = len(self._per_peer) + (0 if peer in self._per_peer else 1)
@@ -142,8 +172,21 @@ class IngestBudget:
                 self._per_peer[peer] = (p_ops + ops, p_bytes + nbytes)
                 pressure = None
         if pressure is not None:
-            return Busy(int(self.base_retry_after_ms * pressure), "over budget")
+            return self._busy(peer, ops, pressure, "over budget")
+        self._publish()
         return Admission(self, peer, ops, nbytes)
+
+    def _busy(self, peer: str, ops: int, pressure: float, reason: str) -> Busy:
+        _SHED_WINDOWS.inc(peer=peer)
+        _SHED_OPS.inc(ops, peer=peer)
+        telemetry.event("sync.shed", peer=peer, ops=ops, reason=reason)
+        return Busy(int(self.base_retry_after_ms * pressure), reason)
+
+    def _publish(self) -> None:
+        with self._lock:
+            ops, nbytes = self._ops, self._bytes
+        _ADMIT_OPS.set(ops)
+        _ADMIT_BYTES.set(nbytes)
 
     def _shed_locked(self, ops: int) -> float:
         """Count a shed window; returns the pressure that scales the advised
@@ -162,6 +205,7 @@ class IngestBudget:
                 self._per_peer.pop(peer, None)
             else:
                 self._per_peer[peer] = (p_ops, p_bytes)
+        self._publish()
 
     def status(self) -> dict:
         """The budget as ``sync.fleetStatus`` reports it."""
@@ -175,44 +219,6 @@ class IngestBudget:
                 "shed_windows": self._shed_windows,
                 "shed_ops": self._shed_ops,
             }
-
-
-# -- bounded tenant labels (reference telemetry/slo.py:60-113) -----------------
-
-#: distinct tenant labels ever assigned; past the cap a library is ``other``
-TENANT_CAP_DEFAULT = 64
-OTHER_TENANT = "other"
-LOCAL_TENANT = "local"
-
-_TENANT_LOCK = threading.Lock()
-#: library id -> 8-hex label, most recently used last; an assigned library
-#: keeps its label, so at most cap + 2 labels exist
-_TENANT_LRU: collections.OrderedDict = collections.OrderedDict()
-
-
-def tenant_label(library_id: str | None) -> str:
-    """A bounded tenant label for a library id: 8 hex characters of
-    blake2s, ``local`` for a node-scoped dispatch, ``other`` once
-    ``SD_TENANT_LABEL_CAP`` (64) libraries hold a label."""
-    if not library_id:
-        return LOCAL_TENANT
-    with _TENANT_LOCK:
-        label = _TENANT_LRU.get(library_id)
-        if label is not None:
-            _TENANT_LRU.move_to_end(library_id)
-            return label
-        if len(_TENANT_LRU) >= max(1, _env_int("SD_TENANT_LABEL_CAP", TENANT_CAP_DEFAULT)):
-            return OTHER_TENANT
-        label = hashlib.blake2s(library_id.encode("utf-8", "replace"),
-                                digest_size=4).hexdigest()
-        _TENANT_LRU[library_id] = label
-        return label
-
-
-def reset_tenant_labels() -> None:
-    """Forget every assigned label (tests)."""
-    with _TENANT_LOCK:
-        _TENANT_LRU.clear()
 
 
 class DispatchBudget:
@@ -231,6 +237,7 @@ class DispatchBudget:
         #: tenant label -> dispatches in flight
         self._per_tenant: dict[str, int] = {}
         self._shed = 0
+        _D_BUDGET.set(self.max_inflight)
 
     def try_admit(self, tenant: str) -> Admission | Busy:
         """Admit one dispatch for ``tenant`` or say when to come back."""
@@ -239,7 +246,7 @@ class DispatchBudget:
         except Exception:
             with self._lock:
                 pressure = self._shed_locked()
-            return Busy(int(self.base_retry_after_ms * pressure), "injected overload")
+            return self._busy(tenant, pressure, "injected overload")
         with self._lock:
             t_inflight = self._per_tenant.get(tenant, 0)
             active = len(self._per_tenant) + (0 if tenant in self._per_tenant else 1)
@@ -254,9 +261,16 @@ class DispatchBudget:
                 self._inflight += 1
                 self._per_tenant[tenant] = t_inflight + 1
                 pressure = None
+            inflight = self._inflight
         if pressure is not None:
-            return Busy(int(self.base_retry_after_ms * pressure), "over budget")
+            return self._busy(tenant, pressure, "over budget")
+        _D_INFLIGHT.set(inflight)
         return Admission(self, tenant, 1, 0)
+
+    def _busy(self, tenant: str, pressure: float, reason: str) -> Busy:
+        _D_SHED.inc(tenant=tenant)
+        telemetry.event("rspc.shed", tenant=tenant, reason=reason)
+        return Busy(int(self.base_retry_after_ms * pressure), reason)
 
     def _shed_locked(self) -> float:
         self._shed += 1
@@ -271,6 +285,8 @@ class DispatchBudget:
                 self._per_tenant.pop(tenant, None)
             else:
                 self._per_tenant[tenant] = t_inflight
+            inflight = self._inflight
+        _D_INFLIGHT.set(inflight)
 
     def status(self) -> dict:
         with self._lock:

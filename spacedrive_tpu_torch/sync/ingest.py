@@ -24,9 +24,17 @@ loop :class:`Actor`). The op log IS the CRDT state:
 An op that fails to apply for a reason in its content is logged without
 effect; one that fails transiently (the ``sync_apply`` fault seam sits
 before each apply) is a poison op: its origin's floor is capped below it
-across windows (:class:`PoisonCaps`) until a later round logs it. The JAX
-package's telemetry and mesh spans are the plain counters of :data:`STATS`
-here. An :class:`Actor` whose pull round raises keeps the exception
+across windows (:class:`PoisonCaps`) until a later round logs it.
+
+Telemetry, as the reference's: per peer (:func:`..telemetry.mesh.peer_label`)
+``sd_sync_ops_ingested_total``, ``sd_sync_ops_applied_total``,
+``sd_sync_window_seconds``, ``sd_sync_shed_replays_total`` and
+``sd_sync_apply_delay_seconds`` (each op durably logged this window, its
+HLC stamp against the wall clock). ``receive`` takes the sender's
+trace-context envelope (``ctx``): the window's ``sync.apply`` span parents
+under the sender's span in the trace it names, and the envelope's
+watermark and backlog move ``sd_sync_peer_lag_{ops,seconds}``. The plain
+:data:`STATS` keep the process's totals. An :class:`Actor` whose pull round raises keeps the exception
 (:attr:`Actor.error`) and stops pulling: its caller reads it, nothing logs
 it away.
 """
@@ -37,13 +45,16 @@ import collections
 import contextlib
 import logging
 import queue
+import sys
 import threading
 import time
 from typing import TYPE_CHECKING, Any, Callable
 
-from .. import faults
+from .. import faults, telemetry
+from ..telemetry import mesh
 from ..models import Instance, RelationOperationRow, SharedOperationRow
 from .apply import ApplyError, apply_relation, apply_shared, model_for
+from .hlc import to_unix
 from .crdt import CREATE, DELETE, UPDATE_PREFIX, CRDTOperation, RelationOp, SharedOp
 from .manager import SyncMessage
 
@@ -64,6 +75,21 @@ PROD_BATCH = 1000
 #: bounds both the WAL commit cadence and how much a mid-round failure
 #: can roll back (everything re-pulls idempotently either way)
 SESSION_FLUSH_OPS = 4000
+
+_OPS_INGESTED = telemetry.counter(
+    "sd_sync_ops_ingested_total", "CRDT ops received for ingest",
+    labels=("peer",))
+_OPS_APPLIED = telemetry.counter(
+    "sd_sync_ops_applied_total",
+    "ingested CRDT ops with materialized effect", labels=("peer",))
+_WINDOW_SECONDS = telemetry.histogram(
+    "sd_sync_window_seconds", "latency of one ingest window",
+    labels=("peer",))
+_SHED_REPLAYS = telemetry.counter(
+    "sd_sync_shed_replays_total",
+    "known-poison replays deferred past the per-round fairness cap",
+    labels=("peer",))
+
 
 #: every ingester's totals: ``ingested`` (ops received), ``applied`` (with
 #: a materialized effect), ``windows``, ``window_s`` (their seconds) and
@@ -164,6 +190,15 @@ class Ingester:
         #: identity of the node whose ops this ingester receives (None for
         #: transport-less/test ingest) — attribution only, never auth
         self.peer = peer
+        self._peer_label = mesh.peer_label(peer)
+        # per-peer series, resolved once
+        self._ops_ingested = _OPS_INGESTED.labels(peer=self._peer_label)
+        self._ops_applied = _OPS_APPLIED.labels(peer=self._peer_label)
+        self._window_seconds = _WINDOW_SECONDS.labels(peer=self._peer_label)
+        self._apply_delay = mesh.apply_delay_series(self._peer_label)
+        self._shed_replays = _SHED_REPLAYS.labels(peer=self._peer_label)
+        #: HLC stamps of the ops durably logged this window
+        self._fresh_ts: list[int] = []
         #: op ids that poisoned in an earlier round (id -> failure count);
         #: replays of these are fairness-capped per round (REPLAY_OPS_PER_
         #: ROUND) and the whole batch skips the optimistic pass (a known
@@ -436,21 +471,35 @@ class Ingester:
             logger.warning("sync ingest created placeholder instance %s", pub_id)
 
     # -- application ---------------------------------------------------------
+    def _own_origin(self) -> str:
+        """This node's id (the span-id base of a continued mesh trace)."""
+        node = getattr(self.library, "node", None)
+        if node is not None:
+            try:
+                return str(node.config.get().get("id") or self.library.id)
+            except Exception:
+                pass
+        return self.library.id
+
     def receive(self, wire_ops: list[dict[str, Any]],
+                ctx: "mesh.TraceContext | None" = None,
                 defer_clocks: bool = False) -> int:
         """Ingest a batch; returns the number of ops with materialized
-        effect (shadowed ops are still logged).
+        effect (shadowed ops are still logged). ``ctx`` is the sender's
+        trace-context envelope (module docstring).
 
         ``defer_clocks`` is the lane-shard mode (sync/lanes.py): the
         instance clock floors are NOT persisted here — the observed
         clocks and poison caps accumulate into ``deferred_clocks`` /
         ``deferred_caps`` for the dispatcher to merge across every lane
         of the window (a poison in one lane must cap the floor even when
-        another lane applied later ops from the same instance)."""
+        another lane applied later ops from the same instance); the
+        window's lag and time are then the dispatcher's to record."""
         db = self.library.db
         sync = self.library.sync
         window_t0 = time.perf_counter()
         STATS["ingested"] += len(wire_ops)
+        self._ops_ingested.inc(len(wire_ops))
 
         # decode first (one malformed wire op — bad '_t', wrong key set —
         # from a buggy or malicious member must not abort the batch and
@@ -463,7 +512,12 @@ class Ingester:
             except Exception as e:
                 logger.warning("sync ingest dropped malformed op: %s", e)
 
+        trace = mesh.continue_trace(ctx, origin=self._own_origin())
+        apply_span = mesh.remote_span(trace, ctx, "sync.apply", peer=self._peer_label,
+                                      ops=len(decoded))
+        apply_span.__enter__()
         applied = 0
+        self._fresh_ts = []
 
         # NOTE on the raw SAVEPOINTs: db.transaction() holds the connection
         # RLock for the whole batch, so no other thread can interleave
@@ -536,7 +590,10 @@ class Ingester:
             # rowids can be recycled — repopulating costs one query per
             # instance per batch
             sync._instance_ids.clear()
+            apply_span.set(applied=applied)
+            apply_span.__exit__(*sys.exc_info())
         STATS["applied"] += applied
+        self._ops_applied.inc(applied)
         # bump the search engine's watermark only once the window is
         # DURABLE. Inside a session() the outer transaction is still open
         # here (txn_depth > 0) — the commit lands at session exit, which
@@ -544,8 +601,18 @@ class Ingester:
         if db._txn_depth == 0:
             self.library.emit("db.commit", {"source": "sync.ingest",
                                             "ops": len(decoded)})
+        window_s = time.perf_counter() - window_t0
         STATS["windows"] += 1
-        STATS["window_s"] += time.perf_counter() - window_t0
+        STATS["window_s"] += window_s
+        if not defer_clocks:
+            self._window_seconds.observe(window_s)
+            mesh.record_ingest_window(self._peer_label, ctx,
+                                      max((op.timestamp for op in decoded), default=0))
+        if telemetry.enabled():
+            now_unix = time.time()
+            for ts in self._fresh_ts:
+                self._apply_delay.observe(max(0.0, now_unix - to_unix(ts)))
+        self._fresh_ts = []
         if applied:
             sync._broadcast(SyncMessage.INGESTED)
         return applied
@@ -560,6 +627,8 @@ class Ingester:
         #: replay fairness budget: re-attempts of KNOWN-poison ops this
         #: pass; fresh ops never count against it
         replay_budget = self.REPLAY_OPS_PER_ROUND
+        # per pass: an aborted optimistic pass rolled its log rows back
+        self._fresh_ts = []
         # Dropped-op floor policy, by failure class (careful pass):
         #
         # - TRANSIENT failures (savepoint rollback: DB error while logging)
@@ -633,6 +702,7 @@ class Ingester:
                 self._ensure_instance(op.instance)
                 pending_log.append(op)
                 self._cache_logged(op)
+                self._fresh_ts.append(op.timestamp)
                 _advance(op.instance, op.timestamp)
                 if effect:
                     applied += 1
@@ -651,6 +721,7 @@ class Ingester:
                     # deferred replay stays floor-protected
                     self._sticky_caps.add(op.id, op.instance, op.timestamp)
                     STATS["shed_replays"] += 1
+                    self._shed_replays.inc()
                     continue
                 replay_budget -= 1
             # per-op savepoint: effect + log commit or roll back as a
@@ -720,6 +791,7 @@ class Ingester:
                 if self._sticky_caps.heal(op.id):
                     sticky = self._sticky_caps.floor_caps()
             self._cache_logged(op)
+            self._fresh_ts.append(op.timestamp)
             # advance the clock floor only once the op is durably logged
             _advance(op.instance, op.timestamp)
             if effect:

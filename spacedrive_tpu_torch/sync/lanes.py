@@ -28,8 +28,13 @@ Why this is convergence-safe (K=1 and K=4 end in the same rows):
 The pool is **per library** (the apply side is single-writer per library
 database; lanes overlap decode, the prefetch SELECTs on the reader
 connection and arbitration while durable writes serialize on the writer
-lock) and closed with it. The JAX package's lane gauges are not ported;
-:meth:`IngestLanes.status` reports the queues.
+lock) and closed with it. :meth:`IngestLanes.status` reports the queues;
+the reference's gauges are kept too: ``sd_sync_ingest_lane_count``,
+``sd_sync_ingest_lane_depth{lane}``, ``sd_sync_ingest_lane_busy{lane}`` and
+``sd_sync_ingest_lane_ops_total{lane}``. Each window may carry its sender's
+trace-context envelope (``ctxs``, one per window): every shard's
+``sync.apply`` span parents under it, and with lanes the merger records
+the window's lag and time once its floors are durable (the lanes skip it).
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ import zlib
 from dataclasses import dataclass, field
 from typing import TYPE_CHECKING, Any
 
+from .. import telemetry
 from ..models import Instance
+from ..telemetry import mesh
 from .crdt import is_ref
 from .ingest import Ingester, shared_poison_caps
 
@@ -58,6 +65,21 @@ LANES_ENV = "SD_SYNC_INGEST_LANES"
 #: lane applies backpressure to the submitter, never unbounded buffering
 LANE_DEPTH = 8
 MAX_LANES = 16
+
+_LANE_COUNT = telemetry.gauge(
+    "sd_sync_ingest_lane_count", "configured sync ingest apply lanes")
+_LANE_DEPTH = telemetry.gauge(
+    "sd_sync_ingest_lane_depth", "queued submissions per ingest lane",
+    labels=("lane",))
+_LANE_BUSY = telemetry.gauge(
+    "sd_sync_ingest_lane_busy", "1 while the lane is applying a shard",
+    labels=("lane",))
+_LANE_OPS = telemetry.counter(
+    "sd_sync_ingest_lane_ops_total", "CRDT ops applied per ingest lane",
+    labels=("lane",))
+_WINDOW_SECONDS = telemetry.histogram(
+    "sd_sync_window_seconds", "latency of one ingest window",
+    labels=("peer",))
 
 
 def lane_count() -> int:
@@ -94,11 +116,12 @@ def lane_key(wire: dict[str, Any], lanes: int) -> int | None:
 
 @dataclass
 class _LaneTask:
-    """One lane's share of a submission: the per-window shards, in window
-    order, applied under one session transaction."""
+    """One lane's share of a submission: the per-window shards with their
+    windows' envelopes, in window order, applied under one session
+    transaction."""
 
     ingester: Ingester
-    parts: list[list[dict[str, Any]]]
+    parts: list[tuple[list[dict[str, Any]], Any]]
     done: threading.Event = field(default_factory=threading.Event)
     applied: int = 0
     clocks: dict[str, int] = field(default_factory=dict)
@@ -117,12 +140,15 @@ class Submission:
     submission's floors persisted (or raises its first error) — exactly
     the old barrier semantics, now opt-out per submission."""
 
-    __slots__ = ("windows", "peer", "tasks", "wave2", "t0",
+    __slots__ = ("windows", "ctxs", "peer", "label", "tasks", "wave2", "t0",
                  "applied", "advanced", "error", "_done", "_fanout_done")
 
-    def __init__(self, windows, peer: str | None) -> None:
+    def __init__(self, windows, peer: str | None, ctxs=None) -> None:
         self.windows = windows
+        #: the sender's trace-context envelope of each window (or None)
+        self.ctxs = list(ctxs) if ctxs is not None else [None] * len(windows)
         self.peer = peer
+        self.label = mesh.peer_label(peer)
         self.tasks: list[tuple[int, _LaneTask]] = []
         self.wave2: list[list[dict[str, Any]]] = []
         self.t0 = time.perf_counter()
@@ -196,26 +222,27 @@ class IngestLanes:
                 target=self._merge_loop, daemon=True,
                 name=f"sync-merge-{library.id[:8]}")
             self._merger.start()
+        _LANE_COUNT.set(self.lanes)
 
     # -- public entry points -------------------------------------------------
-    def receive(self, ops: list[dict[str, Any]],
-                peer: str | None = None) -> tuple[int, bool]:
+    def receive(self, ops: list[dict[str, Any]], peer: str | None = None,
+                ctx=None) -> tuple[int, bool]:
         """One window. Returns (applied, floor_advanced)."""
-        return self.receive_many([ops], peer=peer)
+        return self.receive_many([ops], peer=peer, ctxs=[ctx])
 
     def receive_many(self, windows: list[list[dict[str, Any]]],
-                     peer: str | None = None) -> tuple[int, bool]:
+                     peer: str | None = None, ctxs=None) -> tuple[int, bool]:
         """Apply several buffered windows (the Actor's flush group) as one
         submission and BLOCK until its floors persisted — the pre-pipeline
         barrier semantics, kept for the Actor."""
         if not windows:
             return 0, False
         if self.lanes <= 1:
-            return self._receive_serial(windows, peer)
-        return self.submit(windows, peer=peer).wait()
+            return self._receive_serial(windows, peer, ctxs)
+        return self.submit(windows, peer=peer, ctxs=ctxs).wait()
 
     def submit(self, windows: list[list[dict[str, Any]]],
-               peer: str | None = None) -> Submission:
+               peer: str | None = None, ctxs=None) -> Submission:
         """Enqueue one submission's lane shards and return its handle
         WITHOUT waiting for the apply: lane K starts on window N while the
         submitter decodes window N+1.
@@ -225,21 +252,21 @@ class IngestLanes:
         FIFO) and across submissions (one merger, submission order)."""
         if self.lanes <= 1:
             # serial path has no lanes to overlap: complete synchronously
-            sub = Submission(windows, peer)
+            sub = Submission(windows, peer, ctxs)
             try:
                 sub.applied, sub.advanced = self._receive_serial(
-                    windows, peer)
+                    windows, peer, sub.ctxs)
                 sub._finish()
             except BaseException as e:  # noqa: BLE001 — surfaced by wait()
                 sub._finish(e)
             return sub
-        sub = Submission(windows, peer)
+        sub = Submission(windows, peer, ctxs)
         with self._lock:  # concurrent submitters: += is read-then-write
             self._submissions += 1
         # shard every window; wave-2 ops keep original (window, op) order
-        lane_parts: list[list[list[dict[str, Any]]]] = [
+        lane_parts: list[list[tuple[list[dict[str, Any]], Any]]] = [
             [] for _ in range(self.lanes)]
-        for ops in windows:
+        for ops, ctx in zip(windows, sub.ctxs):
             shards: list[list[dict[str, Any]]] = [
                 [] for _ in range(self.lanes)]
             deferred: list[dict[str, Any]] = []
@@ -251,9 +278,9 @@ class IngestLanes:
                     shards[idx].append(wire)
             for i, shard in enumerate(shards):
                 if shard:
-                    lane_parts[i].append(shard)
+                    lane_parts[i].append((shard, ctx))
             if deferred:
-                sub.wave2.append(deferred)
+                sub.wave2.append((deferred, ctx))
 
         # enqueue the merge ticket FIRST: the merger completes submissions
         # strictly in ticket order, so a later submit can never merge its
@@ -385,8 +412,8 @@ class IngestLanes:
             w2 = self._ingester(sub.peer, -1)
             try:
                 with self._wave2_lock, w2.session():
-                    for ops in sub.wave2:
-                        applied += w2.receive(ops, defer_clocks=True)
+                    for ops, ctx in sub.wave2:
+                        applied += w2.receive(ops, ctx, defer_clocks=True)
                 clocks, caps = self._take_deferred(w2)
                 for pub_id, ts in clocks.items():
                     if ts > merged_clocks.get(pub_id, 0):
@@ -430,21 +457,31 @@ class IngestLanes:
                 merged_clocks[pub_id] = cap
         advanced = self._persist_floors(merged_clocks)
 
+        # the window-level recording the lanes skipped: the lag from each
+        # window's envelope, and the submission's wall time split across
+        # its windows (one observation a window, as on the serial path)
+        elapsed = time.perf_counter() - sub.t0
+        window_seconds = _WINDOW_SECONDS.labels(peer=sub.label)
+        for ops, ctx in zip(sub.windows, sub.ctxs):
+            max_ts = max((w.get("timestamp") for w in ops
+                          if isinstance(w.get("timestamp"), int)), default=0)
+            mesh.record_ingest_window(sub.label, ctx, max_ts)
+            window_seconds.observe(elapsed / len(sub.windows))
         with self._lock:  # merger thread races K=1 submitters
             self._windows += len(sub.windows)
         logger.debug("lane ingest: %d windows, %d applied in %.3fs",
-                     len(sub.windows), applied, time.perf_counter() - sub.t0)
+                     len(sub.windows), applied, elapsed)
         sub.applied = applied
         sub.advanced = advanced
         sub._finish()
 
-    def _receive_serial(self, windows, peer: str | None) -> tuple[int, bool]:
+    def _receive_serial(self, windows, peer: str | None, ctxs=None) -> tuple[int, bool]:
         """K=1: the exact pre-lane path (session-grouped windows)."""
         ing = self._ingester(peer, 0)
         applied = 0
         with ing.session():
-            for ops in windows:
-                applied += ing.receive(ops)
+            for ops, ctx in zip(windows, ctxs or [None] * len(windows)):
+                applied += ing.receive(ops, ctx)
         with self._lock:  # K=1 serial windows arrive from many threads
             self._windows += len(windows)
             self._submissions += 1
@@ -482,17 +519,25 @@ class IngestLanes:
         return advanced
 
     def _worker(self, idx: int, q: "queue.Queue[_LaneTask | None]") -> None:
+        lane = str(idx)
+        busy = _LANE_BUSY.labels(lane=lane)
+        depth = _LANE_DEPTH.labels(lane=lane)
+        ops_total = _LANE_OPS.labels(lane=lane)
         while True:
             task = q.get()
+            depth.set(q.qsize())
             if task is None:
                 return
+            busy.set(1)
             try:
                 ing = task.ingester
                 with ing.session():  # one durable txn per lane task
-                    for ops in task.parts:
-                        task.applied += ing.receive(ops, defer_clocks=True)
+                    for ops, ctx in task.parts:
+                        task.applied += ing.receive(ops, ctx, defer_clocks=True)
                 task.clocks, task.caps = self._take_deferred(ing)
-                self.ops_by_lane[idx] += sum(len(ops) for ops in task.parts)
+                n_ops = sum(len(ops) for ops, _ctx in task.parts)
+                self.ops_by_lane[idx] += n_ops
+                ops_total.inc(n_ops)
             except Exception as e:
                 # session txn rolled back: none of this lane's shards are
                 # durable, so its clocks must not merge (re-pulled intact)
@@ -500,6 +545,7 @@ class IngestLanes:
                 task.error = e
                 logger.exception("ingest lane %d failed", idx)
             finally:
+                busy.set(0)
                 task.done.set()
 
     # -- lifecycle / introspection -------------------------------------------

@@ -1150,3 +1150,27 @@ def test_encrypt_rescan_decrypt_rescan_on_the_card(card, tmp_path, monkeypatch):
             assert (root / name).read_bytes() == data
     finally:
         node.shutdown()
+
+
+def test_a_hash_batch_on_the_card_sets_the_mfu_against_its_roofline(card):
+    """``sd_hash_mfu`` of a batch of sampled messages on the card is in
+    (0, 1] of the roofline ``ops/roofline.py`` reads from the card (its SM
+    count, its maximum SM clock, 680 INT32 operations a block), and the
+    batch counts once under the ``cuda`` backend."""
+    from spacedrive_tpu_torch import telemetry
+    from spacedrive_tpu_torch.objects.hasher import DeviceHasher
+    from spacedrive_tpu_torch.ops import roofline
+
+    roof = roofline.card_roofline(card)
+    props = torch.cuda.get_device_properties(card)
+    assert roof["sms"] == props.multi_processor_count and roof["sm_clock_mhz"] > 0
+    assert roof["int32_ops_per_s"] == pytest.approx(roof["sms"] * 64 * roof["sm_clock_mhz"] * 1e6)
+    assert roofline.card_roofline(torch.device("cpu")) is None
+    telemetry.reset()
+    msgs = [blob(i, 57352) for i in range(256)]
+    assert DeviceHasher(card).hash_gathered(msgs) == \
+        [blake3(m).hex()[:16] for m in msgs]
+    assert telemetry.value("sd_hash_batches_total", backend="cuda") == 1
+    assert telemetry.value("sd_hash_files_total", backend="cuda") == 256
+    assert telemetry.value("sd_hash_bytes_total", backend="cuda") == 256 * 57352
+    assert 0 < telemetry.value("sd_hash_mfu") <= 1

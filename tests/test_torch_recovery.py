@@ -27,11 +27,13 @@ import shutil
 import pytest
 
 from spacedrive_tpu import backups as jax_backups
+from spacedrive_tpu import telemetry as jax_telemetry
 from spacedrive_tpu.locations import create_location as jax_create_location
 from spacedrive_tpu.locations.indexer_job import IndexerJob as JaxIndexerJob
 from spacedrive_tpu.node import Node as JaxNode
 from spacedrive_tpu.objects.file_identifier import FileIdentifierJob as JaxIdentifierJob
 from spacedrive_tpu_torch import backups, recovery
+from spacedrive_tpu_torch import telemetry as port_telemetry
 from spacedrive_tpu_torch.jobs import JobStatus
 from spacedrive_tpu_torch.locations import create_location
 from spacedrive_tpu_torch.locations.indexer_job import IndexerJob
@@ -48,14 +50,14 @@ PKGS = {
 
 
 @pytest.fixture(autouse=True)
-def _env(monkeypatch, tmp_path_factory):
+def _env(monkeypatch):
     monkeypatch.setenv("SD_P2P_DISABLED", "1")
-    # the JAX node's alert rules read the process-wide telemetry registry
-    # (a corrupt boot's counter fires an alert into the node notifications
-    # on the evaluator's next tick); the port has no telemetry
-    no_rules = tmp_path_factory.mktemp("alerts") / "rules.json"
-    no_rules.write_text("[]")
-    monkeypatch.setenv("SD_ALERT_RULES", str(no_rules))
+    # each node's alert rules read its package's process-wide registry (a
+    # corrupt boot's counter fires an alert into the node notifications on
+    # the evaluator's next tick): both start from zero before any node
+    # boots, run their default rules, and their notifications compare
+    jax_telemetry.reset()
+    port_telemetry.reset()
 
 
 @pytest.fixture(scope="module")

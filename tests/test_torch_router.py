@@ -50,6 +50,7 @@ from spacedrive_tpu.api.routers import locations as jax_locations
 from spacedrive_tpu.api.routers import nodes as jax_nodes
 from spacedrive_tpu.api.routers import notifications as jax_notifications
 from spacedrive_tpu.api.routers import keys as jax_keys
+from spacedrive_tpu.api.routers import telemetry as jax_telemetry_router
 from spacedrive_tpu.api.routers import p2p as jax_p2p
 from spacedrive_tpu.api.routers import preferences as jax_preferences
 from spacedrive_tpu.api.routers import root as jax_root
@@ -60,6 +61,8 @@ from spacedrive_tpu.api.routers import volumes as jax_volumes
 from spacedrive_tpu.jobs.report import JobReport as JaxJobReport
 from spacedrive_tpu.jobs.report import JobStatus as JaxJobStatus
 from spacedrive_tpu.node import Node as JaxNode
+from spacedrive_tpu import telemetry as jax_telemetry
+from spacedrive_tpu_torch import telemetry as port_telemetry
 from spacedrive_tpu_torch.api.router import ApiError
 from spacedrive_tpu_torch.jobs import JobReport, JobStatus
 from spacedrive_tpu_torch.node import Node
@@ -161,13 +164,7 @@ def env(tmp_path_factory):
     mp.setenv("SD_CHUNK_MANIFESTS", "1")
     mp.setenv("SD_CDC_KERNEL", "numpy")
     mp.setenv("SD_SEARCH_ENGINE", "device")
-    # the JAX node's alert rules read the process-wide telemetry registry,
-    # which earlier tests in the same process fill (a corrupt boot's
-    # counter fires an alert into the node notifications); the port has no
-    # telemetry, so the JAX node runs with no rules
-    no_rules = tmp_path_factory.mktemp("alerts") / "rules.json"
-    no_rules.write_text("[]")
-    mp.setenv("SD_ALERT_RULES", str(no_rules))
+    reset_telemetry()
     yield
     mp.undo()
 
@@ -334,7 +331,8 @@ def test_schema_matches_the_jax_routers(scanned):
     ref = jax_router.Router(scanned.jax)
     for module in (jax_root, jax_libraries, jax_locations, jax_search, jax_files, jax_jobs,
                    jax_tags, jax_volumes, jax_nodes, jax_notifications, jax_preferences,
-                   jax_backups, jax_categories, jax_sync_router, jax_p2p, jax_keys):
+                   jax_backups, jax_categories, jax_sync_router, jax_p2p, jax_keys,
+                   jax_telemetry_router):
         module.mount(ref)
 
     def procs(router):
@@ -398,8 +396,19 @@ def test_subscriptions_refuse_like_jax(scanned):
 # -- mutations, each scenario on its own pair ---------------------------------
 
 
+def reset_telemetry() -> None:
+    """Zero both packages' registries before nodes boot: each node's alert
+    rules read its package's process-wide registry, which earlier tests
+    fill (a corrupt boot's counter fires an alert into the node
+    notifications). Both nodes then run their default rules from the same
+    empty state, and an alert notification compares like the rest."""
+    jax_telemetry.reset()
+    port_telemetry.reset()
+
+
 @pytest.fixture()
 def pair(env, tmp_path):
+    reset_telemetry()
     tree = make_tree(tmp_path / "tree")
     pair = scanned_pair(tmp_path, tree)
     pair.tree = tree

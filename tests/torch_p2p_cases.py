@@ -117,8 +117,10 @@ def synchronize() -> None:
 
 def p2p_counts() -> dict:
     """This process's kernel launches (all, by origin, by caller's tag),
-    plain versions run on the card, remote-hasher fallbacks and the p2p,
-    nlm and delta counters, JSON-safe."""
+    plain versions run on the card, remote-hasher fallbacks, the p2p, nlm
+    and delta counters and the telemetry families of the mesh (totals of
+    the hash families; the sync lag and sessions by peer label), JSON-safe."""
+    from spacedrive_tpu_torch import telemetry
     from spacedrive_tpu_torch.objects.hasher import RemoteHasher
     from spacedrive_tpu_torch.ops import _kernels
     from spacedrive_tpu_torch.p2p import delta, manager, nlm
@@ -137,7 +139,18 @@ def p2p_counts() -> dict:
             "fallbacks": dict(RemoteHasher.FALLBACKS), "p2p": dict(manager.STATS),
             "nlm": dict(nlm.STATS),
             "delta": {"transfers": dict(delta.TRANSFERS), "chunks": dict(delta.CHUNKS),
-                      "bytes": dict(delta.BYTES), "busy": dict(delta.BUSY)}}
+                      "bytes": dict(delta.BYTES), "busy": dict(delta.BUSY)},
+            "telemetry": {
+                "hash_requests": telemetry.value("sd_p2p_hash_requests_total"),
+                "hash_bytes": telemetry.value("sd_p2p_hash_bytes_total"),
+                "hash_serve": sum(v for _l, v in telemetry.series_values(
+                    "sd_p2p_hash_serve_total")),
+                "hash_serve_bytes": sum(v for _l, v in telemetry.series_values(
+                    "sd_p2p_hash_serve_bytes_total")),
+                "lag_ops": {lbl["peer"]: v for lbl, v in telemetry.series_values(
+                    "sd_sync_peer_lag_ops")},
+                "sessions": {lbl["peer"]: v for lbl, v in telemetry.series_values(
+                    "sd_sync_remote_sessions_total")}}}
 
 
 def p2p_reset() -> None:
